@@ -1,0 +1,47 @@
+"""Carry the JAX package's parameters into the port's.
+
+Input: a nested dict of numpy arrays, the JAX parameter tree with every
+array turned into numpy by the caller.  A quantized leaf arrives as a
+dict with exactly the keys {data, scales, bits, group, axis, orig_shape}
+(the fields of `repro.quant.qarray.QTensor`); its packed bytes and f16
+scales come over byte for byte.  This module imports no JAX: the
+`jax -> numpy` step belongs to the caller (the tests do it).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.quant.qarray import QTensor
+
+QTENSOR_KEYS = frozenset({"data", "scales", "bits", "group", "axis",
+                          "orig_shape"})
+
+
+def to_tensor(a: np.ndarray, device=None) -> torch.Tensor:
+    """numpy -> torch with the same bytes.  bfloat16 arrays (ml_dtypes)
+    cross through their 16-bit pattern."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def from_numpy_tree(tree: Any, device=None) -> Any:
+    """Nested dict of numpy arrays (QTensor leaves as field dicts) ->
+    the port's nested dict of tensors and QTensors on `device`."""
+    if isinstance(tree, dict):
+        if set(tree) == QTENSOR_KEYS:
+            return QTensor(data=to_tensor(tree["data"], device),
+                           scales=to_tensor(tree["scales"], device),
+                           bits=int(tree["bits"]), group=int(tree["group"]),
+                           axis=int(tree["axis"]),
+                           orig_shape=tuple(int(s) for s in
+                                            tree["orig_shape"]))
+        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray):
+        return to_tensor(tree, device)
+    raise TypeError(f"from_numpy_tree: unexpected leaf {type(tree)!r}")

@@ -1,0 +1,73 @@
+"""Public entry points of the serve-path kernels.
+
+Counterpart of `repro.kernels.ops`.  Every packed weight goes through a
+kernel wrapper, which runs the CUDA kernel for CUDA tensors and the
+plain PyTorch version for CPU tensors.  There is no "aligned, else the
+reference" dispatch: on the card every shape the model hands over goes
+to the kernel, and a shape the kernel cannot take raises.  Float
+(unquantized) weights are plain matrix products, as the JAX package
+leaves them to XLA.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.quant.qarray import QTensor
+
+from .cim_gemv import cim_gemv
+from .paged_flash_decode import paged_flash_decode
+from .swiglu_gemv import swiglu_qgemv
+
+KERNELS = {"cim_gemv": cim_gemv, "swiglu_qgemv": swiglu_qgemv,
+           "paged_flash_decode": paged_flash_decode}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset (CPU calls never count)."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x @ W for a float weight, a packed `(K/2, N)` projection, or the
+    packed `(V, K/2)` tied table (then x @ table.T, the logits head).
+    x: (..., K) -> (..., N)."""
+    if not isinstance(w, QTensor):
+        return torch.matmul(x, w.to(x.dtype))
+    lead = x.shape[:-1]
+    out = cim_gemv(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    n = w.data.shape[0] if w.axis == -1 else w.data.shape[-1]
+    return out.reshape(*lead, n).to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: Any, w_up: Any) -> torch.Tensor:
+    """silu(x @ Wg) * (x @ Wu): the fused kernel for packed weights, two
+    matrix products for float ones."""
+    if isinstance(w_gate, QTensor) and isinstance(w_up, QTensor):
+        lead = x.shape[:-1]
+        out = swiglu_qgemv(x.reshape(-1, x.shape[-1]).contiguous(),
+                           w_gate, w_up)
+        return out.reshape(*lead, w_gate.data.shape[-1]).to(x.dtype)
+    g = qmatmul(x, w_gate).to(torch.float32)
+    u = qmatmul(x, w_up).to(torch.float32)
+    return (g * torch.sigmoid(g) * u).to(x.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor, window: int = 0,
+                           attn_cap: float = 0.0,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Paged decode attention: q (b, g, qpk, hd), pools (n_pages, ps, g,
+    hd), tables (b, max_pages), lengths (b,) -> (b, g, qpk, hd)."""
+    return paged_flash_decode(q, k_pages, v_pages, tables, lengths,
+                              window=window, attn_cap=attn_cap,
+                              k_scales=k_scales, v_scales=v_scales)

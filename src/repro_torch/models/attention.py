@@ -1,0 +1,194 @@
+"""GQA attention over a paged KV pool (PyTorch port of the dense serve
+path of `repro.models.attention`).
+
+Differences from the JAX package, all PyTorch idiom:
+  * the KV pools are updated IN PLACE (`index_copy_` into the layer's
+    pool view), where JAX returned new, donated pools;
+  * where a step's new K/V rows land is computed once per forward
+    (`page_rows`), with explicit masking: JAX leaned on out-of-range
+    scatters being dropped (padding lanes aim at page `n_pages`) and on
+    gathers being clamped (right-padded prefill slots of a lane near
+    `max_seq` index past `max_pages`); torch raises on both, so the page
+    index is clamped and the padding rows are left out by index.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.ops import paged_decode_attention
+from repro_torch.kernels.ops import qmatmul as qmm
+
+from .common import ParamSpec, apply_rope, rope_tables
+from .config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+NEG_INF = -1.0e30
+
+
+def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, hd = cfg.d_model, cfg.hd()
+    sp: Dict[str, ParamSpec] = {
+        "wq": ParamSpec((d, cfg.n_heads * hd)),
+        "wk": ParamSpec((d, cfg.n_kv_heads * hd)),
+        "wv": ParamSpec((d, cfg.n_kv_heads * hd)),
+        "wo": ParamSpec((cfg.n_heads * hd, d)),
+    }
+    if cfg.qkv_bias:
+        sp["bq"] = ParamSpec((cfg.n_heads * hd,), init="zeros")
+        sp["bk"] = ParamSpec((cfg.n_kv_heads * hd,), init="zeros")
+        sp["bv"] = ParamSpec((cfg.n_kv_heads * hd,), init="zeros")
+    return sp
+
+
+def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    hd = cfg.hd()
+    q = qmm(x, p["wq"])
+    k = qmm(x, p["wk"])
+    v = qmm(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return (q.reshape(b, s, cfg.n_heads, hd),
+            k.reshape(b, s, cfg.n_kv_heads, hd),
+            v.reshape(b, s, cfg.n_kv_heads, hd))
+
+
+@dataclass
+class PageRows:
+    """Where one step's new K/V rows land in every layer's pool.
+
+    slots: (b, s) absolute positions; dst: (n,) flat row indices into a
+    pool viewed as (n_pages * page_size, ...); src: (n,) flat indices
+    into the step's (b * s) token rows.  Only the n_new[i] real tokens
+    of each lane appear in dst/src."""
+    slots: torch.Tensor
+    dst: torch.Tensor
+    src: torch.Tensor
+
+
+def page_rows(tables: torch.Tensor, lengths: torch.Tensor,
+              n_new: torch.Tensor, s: int, page_size: int) -> PageRows:
+    max_pages = tables.shape[1]
+    pos = torch.arange(s, device=tables.device, dtype=lengths.dtype)
+    slots = lengths[:, None] + pos[None, :]                       # (b, s)
+    idx = (slots // page_size).clamp(max=max_pages - 1).long()
+    page = tables.long().gather(1, idx)
+    flat = page * page_size + (slots % page_size).long()
+    valid = pos[None, :] < n_new[:, None]
+    src = valid.reshape(-1).nonzero().squeeze(1)     # one sync per step
+    return PageRows(slots=slots, dst=flat.reshape(-1)[src], src=src)
+
+
+def _page_scatter(pool: torch.Tensor, vals: torch.Tensor,
+                  rows: PageRows) -> None:
+    """Write per-token rows into a paged pool in place.
+    pool: (n_pages, page_size, ...); vals: (b, s, ...)."""
+    flat = pool.view(-1, *pool.shape[2:])
+    src = vals.reshape(-1, *vals.shape[2:])[rows.src]
+    flat.index_copy_(0, rows.dst, src.to(pool.dtype))
+
+
+def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, kv-head) symmetric INT8: x (b, s, g, hd) -> (values
+    rounded to [-127, 127] still in float, scales (b, s, g) f16).  The
+    stored f16 scale is what divides, so int8 x scale round-trips."""
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax(dim=-1)
+    scale = (absmax.clamp_min(1e-8) / 127.0).to(torch.float16)
+    q = torch.clamp(torch.round(xf / scale[..., None].to(torch.float32)),
+                    -127.0, 127.0)
+    return q, scale
+
+
+def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   cache: Dict[str, torch.Tensor], tables: torch.Tensor,
+                   lengths: torch.Tensor, n_new: torch.Tensor,
+                   rows: PageRows) -> torch.Tensor:
+    """Chunked prefill / decode against this layer's paged KV pools.
+
+    x: (b, s, d) — s == 1 is decode, s > 1 a right-padded prefill chunk
+    (`n_new[i]` of the s tokens are real).  cache {k, v[, k_scale,
+    v_scale]}: (n_pages, page_size, g, hd) pools shared by the batch,
+    written in place; tables: (b, max_pages) int32; lengths: (b,) int32
+    tokens already cached.  Returns the attention output (b, s, d)."""
+    b, s, _ = x.shape
+    hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
+    ps = cache["k"].shape[1]
+    S = tables.shape[1] * ps
+    q, k, v = _qkv(p, cfg, x)
+
+    cos, sin = rope_tables(rows.slots, hd, cfg.rope_theta)       # (b, s, hd/2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    quant_kv = "k_scale" in cache
+    ck, cv = cache["k"], cache["v"]
+    cks = cvs = None
+    if quant_kv:
+        kq, ks = _quantize_kv_rows(k)
+        vq, vs = _quantize_kv_rows(v)
+        cks, cvs = cache["k_scale"], cache["v_scale"]
+        _page_scatter(ck, kq, rows)
+        _page_scatter(cv, vq, rows)
+        _page_scatter(cks, ks, rows)
+        _page_scatter(cvs, vs, rows)
+    else:
+        _page_scatter(ck, k, rows)
+        _page_scatter(cv, v, rows)
+    total = lengths + n_new
+    scale = 1.0 / math.sqrt(hd)
+
+    if s == 1:
+        qg = q.reshape(b, g, qpk, hd).contiguous()
+        out_g = paged_decode_attention(qg, ck, cv, tables, total,
+                                       k_scales=cks, v_scales=cvs)
+        out = out_g.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
+        return qmm(out, p["wo"])
+
+    # chunk path: gather the lane's pages back to a contiguous view
+    tl = tables.long()
+    if quant_kv:
+        kg = (ck[tl].to(torch.float32) * cks[tl][..., None].to(torch.float32)
+              ).reshape(b, S, g, hd)
+        vg = (cv[tl].to(torch.float32) * cvs[tl][..., None].to(torch.float32)
+              ).reshape(b, S, g, hd)
+    else:
+        kg = ck[tl].reshape(b, S, g, hd)
+        vg = cv[tl].reshape(b, S, g, hd)
+    qg = q.reshape(b, s, g, qpk, hd)
+    scores = torch.einsum("bqgph,bkgh->bgpqk", qg.to(torch.float32),
+                          kg.to(qg.dtype).to(torch.float32)) * scale
+    k_pos = torch.arange(S, device=x.device)
+    mask = (k_pos[None, None, :] <= rows.slots[:, :, None]) \
+        & (k_pos[None, None, :] < total[:, None, None])          # (b, s, S)
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(NEG_INF, device=x.device))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgpqk,bkgh->bqgph", w.to(vg.dtype), vg)
+    out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
+    return qmm(out, p["wo"])
+
+
+def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, ParamSpec]:
+    """One layer's paged KV pools.  dtype int8 adds f16 per-(token,
+    kv-head) scale pools "k_scale"/"v_scale"; every leaf keeps the page
+    axis first, so page copies move scales with their pages."""
+    kv = ParamSpec((n_pages, page_size, cfg.n_kv_heads, cfg.hd()), dtype,
+                   init="zeros")
+    spec = {"k": kv, "v": kv}
+    if dtype == torch.int8:
+        sc = ParamSpec((n_pages, page_size, cfg.n_kv_heads), torch.float16,
+                       init="zeros")
+        spec["k_scale"] = sc
+        spec["v_scale"] = sc
+    return spec

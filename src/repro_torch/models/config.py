@@ -1,0 +1,80 @@
+"""Model configuration (PyTorch port of `repro.models.config`).
+
+The same fields and defaults as the JAX `ModelConfig`, with dtypes held
+as strings and resolved to torch dtypes on demand.  The per-family
+sub-configs (`mla`, `moe`, `ssm`, `zamba`) are carried only so that a
+model asking for them is rejected by name: this port serves the dense
+GQA + SwiGLU family.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | xlstm | zamba
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+
+    # attention flavor
+    attn_kind: str = "gqa"        # gqa | mla
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    local_window: int = 0
+    local_pattern: int = 0
+    rope_theta: float = 10000.0
+    rope_theta_local: float = 0.0
+
+    # ffn flavor
+    ffn_act: str = "silu"
+    ffn_gated: bool = True
+
+    # norm flavor
+    norm_kind: str = "rms"
+    post_block_norm: bool = False
+    rms_scale_plus_one: bool = False
+    norm_eps: float = 1e-6
+
+    # embedding / head
+    tie_embeddings: bool = True
+    embed_scale: bool = False
+    embed_inputs: bool = True
+    logit_dtype: str = "float32"
+
+    mla: Optional[Any] = None
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    zamba: Optional[Any] = None
+
+    dtype: str = "bfloat16"
+    remat: bool = True
+    unroll: bool = False
+    unroll_ssm_chunks: bool = False
+
+    # --------------------------------------------------------------
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def activation_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

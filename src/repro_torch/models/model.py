@@ -1,0 +1,159 @@
+"""Decoder-only LM, dense GQA + SwiGLU family (PyTorch port of the serve
+path of `repro.models.model.DecoderLM`).
+
+    model  = DecoderLM(cfg)
+    specs  = model.param_specs()                     # ParamSpec tree
+    params = init_params(specs, generator, device)   # nested dict
+    logits, cache = model.serve_step(params, cache, inputs, tables,
+                                     lengths, n_new)
+
+Parameters keep the JAX package's tree and stacked-layer layout
+(`blocks` leaves carry a leading layer dim), so `repro_torch.convert`
+carries weights across leaf for leaf.  The paged KV pools keep the
+stacked `(L, n_pages, page_size, g, hd)` layout and are updated in
+place.  Other families and attention flavors raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.kernels.ops import qmatmul as qmm
+from repro_torch.quant.qarray import QTensor, dequant_rows
+
+from .attention import page_rows, paged_cache_spec
+from .blocks import apply_norm, norm_specs, transformer_block_paged, \
+    transformer_block_specs
+from .common import ParamSpec, stack_specs
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def _unsupported(cfg: ModelConfig) -> List[str]:
+    out = []
+    if cfg.family != "dense" or cfg.moe is not None:
+        out.append(f"family {cfg.family!r}")
+    if cfg.attn_kind != "gqa" or cfg.mla is not None:
+        out.append(f"attention {cfg.attn_kind!r}")
+    if cfg.local_window or cfg.attn_softcap or cfg.final_softcap:
+        out.append("sliding-window / softcap attention")
+    if cfg.qk_norm or cfg.post_block_norm or cfg.norm_kind != "rms":
+        out.append("qk_norm / post-block norms / layer norm")
+    if not (cfg.ffn_gated and cfg.ffn_act == "silu"):
+        out.append(f"ffn {cfg.ffn_act!r} (gated={cfg.ffn_gated})")
+    if not cfg.embed_inputs:
+        out.append("frontend-stub embeddings")
+    return out
+
+
+class DecoderLM:
+    def __init__(self, cfg: ModelConfig):
+        bad = _unsupported(cfg)
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: the PyTorch port serves dense GQA + SwiGLU "
+                f"decoders only; not yet ported: {', '.join(bad)}")
+        self.cfg = cfg
+        self._layers_of = None      # (blocks dict, per-layer views)
+        self._layers: List[Params] = []
+
+    # ------------------------------------------------------------------
+    def param_specs(self) -> Params:
+        cfg = self.cfg
+        sp: Params = {"embed": ParamSpec((cfg.vocab, cfg.d_model),
+                                         init="embed",
+                                         scale=cfg.d_model ** -0.5)}
+        if not cfg.tie_embeddings:
+            sp["head"] = ParamSpec((cfg.d_model, cfg.vocab))
+        sp["ln_final"] = norm_specs(cfg)
+        sp["blocks"] = stack_specs(transformer_block_specs(cfg),
+                                   cfg.n_layers)
+        return sp
+
+    # ------------------------------------------------------------------
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        emb = params["embed"]
+        tokens = tokens.long()
+        if isinstance(emb, QTensor):
+            h = dequant_rows(emb, tokens, cfg.activation_dtype())
+        else:
+            h = emb[tokens]
+        if cfg.embed_scale:
+            h = h * math.sqrt(cfg.d_model)
+        return h.to(cfg.activation_dtype())
+
+    def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(params["ln_final"], cfg, h)
+        if cfg.tie_embeddings or "head" not in params:
+            w = params["embed"]
+            if isinstance(w, QTensor):
+                # packed (V, d) table: the kernel contracts over d rows
+                return qmm(h, w).to(torch.float32)
+            return torch.matmul(h.to(torch.float32),
+                                w.to(torch.float32).t())
+        return qmm(h, params["head"]).to(torch.float32)
+
+    def _layer_params(self, blocks: Params) -> List[Params]:
+        """Per-layer views of the stacked `blocks` tree, built once per
+        parameter tree (views share storage; no copy)."""
+        if self._layers_of is not blocks:
+            def take(tree, i):
+                if isinstance(tree, dict):
+                    return {k: take(v, i) for k, v in tree.items()}
+                return tree[i]
+            self._layers = [take(blocks, i)
+                            for i in range(self.cfg.n_layers)]
+            self._layers_of = blocks
+        return self._layers
+
+    # ------------------------------------------------------------------
+    def serve_step(self, params: Params, cache: Dict[str, Any],
+                   inputs: Dict[str, torch.Tensor], tables: torch.Tensor,
+                   lengths: torch.Tensor, n_new: torch.Tensor):
+        """Advance a dynamic batch against the paged KV pool.
+
+        inputs: {tokens: (b, s)} — s == 1 decodes one token per lane;
+        s > 1 is a chunked batch prefill where lane i consumes n_new[i]
+        <= s tokens (lanes with n_new == 0 are padding).  tables: (b,
+        max_pages) int32; lengths: (b,) int32 tokens already cached.
+        `cache` ({"attn": {k, v[, k_scale, v_scale]}} stacked over
+        layers) is written in place and returned.  Returns (logits (b, s,
+        vocab) f32, cache); lane i samples from logits[i, n_new[i] - 1].
+        """
+        return self._paged_forward(params, cache, inputs, tables, lengths,
+                                   n_new)
+
+    def _paged_forward(self, params, cache, inputs, tables, lengths, n_new):
+        cfg = self.cfg
+        h = self._embed(params, inputs["tokens"])
+        s = h.shape[1]
+        pools = cache["attn"]
+        rows = page_rows(tables, lengths, n_new, s, pools["k"].shape[2])
+        for i, layer_p in enumerate(self._layer_params(params["blocks"])):
+            layer_cache = {k: v[i] for k, v in pools.items()}
+            h = transformer_block_paged(layer_p, cfg, h, layer_cache, tables,
+                                        lengths, n_new, rows)
+        return self._logits(params, h), cache
+
+    # ------------------------------------------------------------------
+    def paged_cache_specs(self, n_pages: int, page_size: int,
+                          kv_dtype: torch.dtype = torch.bfloat16) -> Any:
+        """Per-layer page pools stacked over layers, shared by every
+        sequence via block tables."""
+        one = paged_cache_spec(self.cfg, n_pages, page_size, kv_dtype)
+        return {"attn": {k: v.stacked(self.cfg.n_layers)
+                         for k, v in one.items()}}
+
+    def decode_state_specs(self, max_batch: int, n_pages: int,
+                           page_size: int,
+                           kv_dtype: torch.dtype = torch.bfloat16) -> Any:
+        """{"paged": KV page pools, "arena": {}} — the dense family keeps
+        no per-lane recurrent state."""
+        return {"paged": self.paged_cache_specs(n_pages, page_size,
+                                                kv_dtype),
+                "arena": {}}

@@ -1,0 +1,380 @@
+"""Paged-KV continuous-batching serve engine (PyTorch port of
+`repro.serve.engine.PagedServeEngine`).
+
+  allocator  (paged_cache.BlockAllocator) — refcounted free-list over KV
+                                            pages (prefix cache / fork,
+                                            copy-on-write)
+  prefix     (prefix.PrefixIndex)         — radix trie over committed
+                                            prompt pages
+  scheduler  (scheduler.Scheduler)        — admission, priority,
+                                            deadlines, chunked prefill
+  engine     (this file)                  — dynamic batch against the
+                                            paged pool, preemption,
+                                            cancel, fork
+  telemetry  (telemetry.Telemetry)        — TTFT/TPOT/queue percentiles
+
+Every step runs at most one chunked batch-prefill call (b = max_batch,
+s = prefill_chunk) and one decode call (b = max_batch, s = 1) through
+`DecoderLM.serve_step`, which writes the KV pools in place.  Greedy
+lanes take an argmax on the device; only (b,) tokens cross to the host.
+
+Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
+versions of the kernels).  Not in this port yet, and refused when asked
+for: speculative decoding (`spec`), tensor parallelism and replicas
+(`ServeConfig`), recurrent families and their StateArena (`DecoderLM`).
+The JAX engine's energy meter, flight recorder and tracer are not
+ported either.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.common import tree_to
+from repro_torch.quant.ptq import quantize_params
+from repro_torch.quant.qarray import QTensor, dequant_counters
+
+from .config import ServeConfig
+from .paged_cache import PagedKVCache
+from .prefix import PrefixIndex
+from .sampling import SamplingParams, processed_probs, sample_tokens
+from .scheduler import Scheduler, ServeRequest
+from .telemetry import Telemetry
+
+
+def _has_qtensor(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_qtensor(v) for v in tree.values())
+    return isinstance(tree, QTensor)
+
+
+class PagedServeEngine:
+    def __init__(self, model, params: Any,
+                 config: Optional[ServeConfig] = None, *,
+                 spec: Optional[Any] = None, device=None,
+                 clock=time.monotonic):
+        if spec is not None:
+            raise NotImplementedError(
+                "speculative decoding is not in the PyTorch port yet")
+        config = config if config is not None else ServeConfig()
+        self.config = config
+        self.device = resolve_device(device)
+        max_batch, max_seq = config.max_batch, config.max_seq
+        page_size, n_pages = config.page_size, config.n_pages
+        if max_seq % page_size:
+            raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                             f"page_size {page_size}")
+        params = tree_to(params, self.device)
+        if config.quantized() and not _has_qtensor(params):
+            # the precision field is authoritative: quantize float params
+            params = quantize_params(params, bits=config.weight_bits(),
+                                     group=config.quant_group)
+        prefix_cache = config.prefix_cache is not False   # default on
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.eos_id = config.eos_id
+        self._clock = clock
+        if n_pages is None:      # dense-equivalent worst case: never OOM
+            n_pages = max_batch * (max_seq // page_size)
+        kv_dtype = config.resolved_kv_dtype()
+        state_specs = model.decode_state_specs(max_batch, n_pages,
+                                               page_size, kv_dtype)
+        self.cache = PagedKVCache(model, n_pages, page_size, max_seq,
+                                  kv_dtype, specs=state_specs["paged"],
+                                  device=self.device)
+        self.prefix: Optional[PrefixIndex] = None
+        if prefix_cache:
+            self.prefix = PrefixIndex(self.cache.allocator, page_size)
+            self.cache.prefix_index = self.prefix
+        self.scheduler = Scheduler(
+            max_batch, prefill_chunk=min(config.prefill_chunk, max_seq))
+        self.telemetry = Telemetry()
+        self.lanes: List[Optional[ServeRequest]] = [None] * max_batch
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(config.seed)
+        self.prefill_calls = 0      # serve_step calls, by phase
+        self.decode_calls = 0
+        self._next_eid = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def n_running(self) -> int:
+        return sum(r is not None for r in self.lanes)
+
+    @property
+    def busy(self) -> bool:
+        return self.n_running > 0 or self.scheduler.n_queued > 0
+
+    def submit(self, req: ServeRequest) -> None:
+        now = self._clock()
+        req.eid = self._next_eid      # rid is the caller's label and may
+        self._next_eid += 1           # collide; eid keys cache/telemetry
+        self.telemetry.enqueue(req.eid, now)
+        self.scheduler.submit(req, now)
+
+    def cancel(self, eid: int) -> bool:
+        """Abort a submitted request wherever it is — queued,
+        mid-prefill, mid-decode, or preempted.  Frees its KV pages
+        (decref: pages shared with the prefix trie or a fork survive)
+        and its lane.  False when `eid` is unknown or already done."""
+        now = self._clock()
+        queued = self.scheduler.cancel(eid)
+        if queued is not None:
+            queued.done = True
+            self.telemetry.cancel(eid, now)
+            return True
+        for lane, req in enumerate(self.lanes):
+            if req is not None and req.eid == eid:
+                req.done = True
+                req.cancelled = True
+                self.cache.release(eid)
+                self.lanes[lane] = None
+                self.telemetry.cancel(eid, now)
+                return True
+        return False
+
+    def run(self, requests: List[ServeRequest]) -> List[ServeRequest]:
+        for r in requests:
+            self.submit(r)
+        while self.busy:
+            self.step()
+        return requests
+
+    # ------------------------------------------------------------------
+    def _dispatch(self, tokens: np.ndarray, tables: np.ndarray,
+                  lengths: np.ndarray, n_new: np.ndarray) -> torch.Tensor:
+        """One `serve_step` call; the pools are updated in place."""
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+        logits, _ = self.model.serve_step(
+            self.params, self.cache.pools, {"tokens": dev(tokens)},
+            dev(tables), dev(lengths), dev(n_new))
+        return logits
+
+    def _tables(self) -> np.ndarray:
+        tab = np.zeros((self.max_batch, self.cache.max_pages), np.int32)
+        for i, req in enumerate(self.lanes):
+            if req is not None:
+                tab[i] = self.cache.table_for(req.eid)
+        return tab
+
+    def _lengths(self) -> np.ndarray:
+        ln = np.zeros(self.max_batch, np.int32)
+        for i, req in enumerate(self.lanes):
+            if req is not None:
+                ln[i] = self.cache.seqs[req.eid].length
+        return ln
+
+    def _sample_rows(self, rows: torch.Tensor) -> np.ndarray:
+        """rows: (max_batch, vocab) on the device -> (max_batch,) host
+        tokens under each lane's sampling params."""
+        temp = np.zeros(self.max_batch, np.float32)
+        topk = np.zeros(self.max_batch, np.int32)
+        topp = np.ones(self.max_batch, np.float32)
+        for i, req in enumerate(self.lanes):
+            if req is not None:
+                temp[i] = req.sampling.temperature
+                topk[i] = req.sampling.top_k
+                topp[i] = req.sampling.top_p
+        return sample_tokens(self.generator, rows, temp, topk,
+                             topp).cpu().numpy()
+
+    def _emit(self, req: ServeRequest, token: int, now: float,
+              decode: bool = True, row=None) -> None:
+        req.out_tokens.append(token)
+        if req.logprobs and row is not None:
+            req.out_logprobs.append(
+                self._logprob_entropy(row, token, req.sampling))
+        self.telemetry.token(req.eid, now, decode=decode)
+        if req.on_token is not None:
+            req.on_token(req.rid, token)
+
+    @staticmethod
+    def _logprob_entropy(row: torch.Tensor, token: int,
+                         sampling: SamplingParams):
+        """(logprob, entropy) of `token` under the processed sampling
+        distribution the token was drawn from (host-side, O(vocab))."""
+        p = processed_probs(row.float().cpu().numpy(), sampling.temperature,
+                            sampling.top_k, sampling.top_p)
+        pt = float(p[token])
+        nz = p[p > 0.0]
+        ent = float(-np.sum(nz * np.log(nz)) + 0.0) if nz.size else 0.0
+        return (float(np.log(max(pt, 1e-12))), ent)
+
+    def _maybe_finish(self, lane: int, now: float) -> None:
+        req = self.lanes[lane]
+        seq = self.cache.seqs[req.eid]
+        hit_eos = (self.eos_id is not None and req.out_tokens
+                   and req.out_tokens[-1] == self.eos_id)
+        if (len(req.out_tokens) >= req.max_new_tokens or hit_eos
+                or seq.length >= self.max_seq):
+            req.done = True
+            self.telemetry.done(req.eid, now)
+            if self.prefix is not None and seq.length > req.prompt_len:
+                # generated-suffix caching: commit the full pages past the
+                # prompt too (materialized tokens run to seq.length; the
+                # final emitted token was never fed back)
+                full = np.concatenate(
+                    [np.asarray(req.prompt, np.int32),
+                     np.asarray(req.out_tokens[req.prompt_folded:],
+                                np.int32)])[:seq.length]
+                self.prefix.insert(full, seq.pages)
+            self.cache.release(req.eid)
+            self.lanes[lane] = None
+
+    def _preempt(self, lane: int) -> None:
+        """Pool exhausted: evict this lane and requeue it with (prompt +
+        generated since the last fold) as its new prompt; its pages are
+        rebuilt by prefill when they free up."""
+        req = self.lanes[lane]
+        req.prompt = np.concatenate(
+            [np.asarray(req.prompt, np.int32),
+             np.asarray(req.out_tokens[req.prompt_folded:], np.int32)])
+        req.prompt_folded = len(req.out_tokens)
+        req.prefill_done = 0
+        req.fork_from = None
+        req.forked_tokens = 0
+        self.cache.release(req.eid)
+        self.lanes[lane] = None
+        self.scheduler.submit(req, self._clock(), resubmit=True)
+
+    # ------------------------------------------------------------------
+    def step(self) -> None:
+        now = self._clock()
+
+        def _reject(r: ServeRequest) -> None:
+            self.telemetry.done(r.eid, now)
+
+        for req in self.scheduler.admit(
+                now, self.n_running, self.cache, on_reject=_reject):
+            lane = self.lanes.index(None)
+            self.lanes[lane] = req
+            self.telemetry.admit(req.eid, now)
+            if req.fork_from is not None:
+                self.telemetry.fork(req.forked_tokens)
+            elif self.prefix is not None:
+                self.telemetry.prefix(req.prefix_cached)
+
+        prefill_s = self._prefill_phase()
+        decode_s, decode_lanes = self._decode_phase()
+        self.telemetry.step(self.cache.occupancy(), self.n_running,
+                            decode_s=decode_s, prefill_s=prefill_s,
+                            decode_lanes=decode_lanes,
+                            family=self.model.cfg.family)
+
+    def _prefill_phase(self) -> float:
+        """One chunked batch prefill call for every lane with prompt
+        tokens left; lanes finishing their prompt sample their first
+        output token from this call's logits.  Returns the call's
+        seconds, sampling included."""
+        pre = [i for i, r in enumerate(self.lanes)
+               if r is not None and r.prefill_remaining > 0]
+        if not pre:
+            return 0.0
+        s = self.scheduler.prefill_chunk
+        tokens = np.zeros((self.max_batch, s), np.int32)
+        n_new = np.zeros(self.max_batch, np.int32)
+        finishing = False
+        for i in list(pre):
+            req = self.lanes[i]
+            q = self.scheduler.prefill_quota(req)
+            # a forked / resubmitted lane may start mid-page on a shared
+            # page: copy-on-write it before the chunk lands
+            if not self.cache.prepare_write(req.eid, q):
+                self._preempt(i)
+                pre.remove(i)
+                continue
+            tokens[i, :q] = req.prompt[req.prefill_done:req.prefill_done + q]
+            n_new[i] = q
+            finishing |= q == req.prefill_remaining
+        if not pre:
+            return 0.0
+        t0 = time.perf_counter()
+        logits = self._dispatch(tokens, self._tables(), self._lengths(),
+                                n_new)
+        self.prefill_calls += 1
+        if finishing:       # only sample when some lane ends its prompt
+            idx = torch.from_numpy(np.maximum(n_new - 1, 0).astype(np.int64))
+            last = logits[torch.arange(self.max_batch), idx.to(logits.device)]
+            nxt = self._sample_rows(last)
+        elif logits.is_cuda:
+            torch.cuda.synchronize(logits.device)
+        dt = time.perf_counter() - t0
+        now = self._clock()
+        for i in pre:
+            req = self.lanes[i]
+            q = int(n_new[i])
+            req.prefill_done += q
+            self.cache.seqs[req.eid].length += q
+            self.telemetry.prefill_tokens += q
+            if req.prefill_remaining == 0:
+                if self.prefix is not None:
+                    self.prefix.insert(np.asarray(req.prompt, np.int32),
+                                       self.cache.seqs[req.eid].pages)
+                self._emit(req, int(nxt[i]), now, decode=False,
+                           row=last[i] if req.logprobs else None)
+                self._maybe_finish(i, now)
+        return dt
+
+    def _decode_ready(self) -> List[int]:
+        return [i for i, r in enumerate(self.lanes)
+                if r is not None and r.prefill_remaining == 0
+                and r.out_tokens]
+
+    def _decode_phase(self) -> tuple:
+        """One token for every decode-ready lane.  Returns (seconds of
+        the call with sampling, lanes advanced)."""
+        ready = []
+        for i in self._decode_ready():
+            req = self.lanes[i]
+            # this call writes the lane's KV row at position seq.length
+            # (prepare_write also copy-on-writes a shared tail page)
+            if not self.cache.prepare_write(req.eid, 1):
+                self._preempt(i)
+                continue
+            ready.append(i)
+        if not ready:
+            return 0.0, 0
+        tokens = np.zeros((self.max_batch, 1), np.int32)
+        n_new = np.zeros(self.max_batch, np.int32)
+        for i in ready:
+            tokens[i, 0] = self.lanes[i].out_tokens[-1]
+            n_new[i] = 1
+        t0 = time.perf_counter()
+        logits = self._dispatch(tokens, self._tables(), self._lengths(),
+                                n_new)
+        self.decode_calls += 1
+        nxt = self._sample_rows(logits[:, 0, :])
+        dt = time.perf_counter() - t0
+        now = self._clock()
+        for i in ready:
+            req = self.lanes[i]
+            self.cache.seqs[req.eid].length += 1
+            self._emit(req, int(nxt[i]), now,
+                       row=logits[i, 0] if req.logprobs else None)
+            self._maybe_finish(i, now)
+        return dt, len(ready)
+
+    # ------------------------------------------------------------------
+    def summary(self) -> Dict[str, float]:
+        s = self.telemetry.summary()
+        dq = dequant_counters()
+        s["weight_full_dequants"] = float(dq["full_dequant"])
+        s["weight_fused_dequants"] = float(dq["fused_dequant"])
+        s["cow_copies"] = float(self.cache.cow_copies)
+        s["kv_pages_shared"] = float(self.cache.pages_shared)
+        if self.prefix is not None:
+            s["prefix_pages_resident"] = float(self.prefix.n_pages)
+            s["prefix_pages_evicted"] = float(self.prefix.pages_evicted)
+        return s
+
+    def throughput(self) -> float:
+        """Decode token rate (decode tokens over decode-call seconds)."""
+        s = self.telemetry
+        return s.decode_tokens / s.decode_s if s.decode_s else 0.0
