@@ -23,28 +23,17 @@
 // masked rows there.  The engine drops those rows either way.
 // Simple first: with few lanes the card is mostly idle (b * g blocks);
 // splitting a lane's pages across blocks is later work.
-#include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr float NEG_INF = -1.0e30f;
+using attn::NEG_INF;
+using attn::to_f;
 
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float to_f<int8_t>(int8_t v) {
-  return static_cast<float>(v);
-}
+constexpr int THREADS = 128;
 
 // Grid: (b, g).  q, out: (b, g, qpk, hd) f32; pools (n_pages, ps, g, hd);
 // scales (n_pages, ps, g) f16 when QUANT; tables (b, max_pages) int32;
@@ -101,43 +90,12 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
       v_s[t * HD + d] = vv;
     }
     __syncthreads();
-    for (int i = tid; i < QPK * PS; i += THREADS) {
-      const int r = i / PS;
-      const int t = i - r * PS;
-      float s = 0.f;
-      for (int d = 0; d < HD; ++d) s = fmaf(q_s[r * HD + d], k_s[t * (HD + 1) + d], s);
-      s *= scale;
-      if (cap > 0.f) s = cap * tanhf(s / cap);
-      const int kpos = pg * PS + t;
-      const bool valid = kpos < len && (window <= 0 || (len - 1) - kpos < window);
-      p_s[i] = valid ? s : NEG_INF;
-    }
-    __syncthreads();
-    for (int r = tid; r < QPK; r += THREADS) {
-      const float m_prev = m_s[r];
-      float mx = m_prev;
-      for (int t = 0; t < PS; ++t) mx = fmaxf(mx, p_s[r * PS + t]);
-      float sum = 0.f;
-      for (int t = 0; t < PS; ++t) {
-        const float sv = p_s[r * PS + t];
-        const float e = sv <= 0.5f * NEG_INF ? 0.f : expf(sv - mx);
-        p_s[r * PS + t] = e;
-        sum += e;
-      }
-      const float alpha = m_prev <= 0.5f * NEG_INF ? 0.f : expf(m_prev - mx);
-      m_s[r] = mx;
-      l_s[r] = l_s[r] * alpha + sum;
-      a_s[r] = alpha;
-    }
-    __syncthreads();
-    for (int i = tid; i < QPK * HD; i += THREADS) {
-      const int r = i / HD;
-      const int d = i - r * HD;
-      float o = acc[i] * a_s[r];
-      for (int t = 0; t < PS; ++t) o = fmaf(p_s[r * PS + t], v_s[t * HD + d], o);
-      acc[i] = o;
-    }
-    __syncthreads();
+    attn::tile_step<THREADS>(
+        q_s, k_s, v_s, p_s, acc, m_s, l_s, a_s, QPK, PS, HD, scale, cap,
+        [=](int, int t) {
+          const int kpos = pg * PS + t;
+          return kpos < len && (window <= 0 || (len - 1) - kpos < window);
+        });
   }
   for (int i = tid; i < QPK * HD; i += THREADS) {
     out[head + i] = acc[i] / fmaxf(l_s[i / HD], 1e-30f);

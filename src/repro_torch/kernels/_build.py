@@ -26,7 +26,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-SOURCES = ("cim_gemv", "swiglu_gemv", "paged_flash_decode")
+SOURCES = ("cim_gemv", "swiglu_gemv", "paged_flash_decode",
+           "paged_flash_verify", "flash_decode")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

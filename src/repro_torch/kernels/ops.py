@@ -17,11 +17,15 @@ import torch
 from repro_torch.quant.qarray import QTensor
 
 from .cim_gemv import cim_gemv
-from .paged_flash_decode import paged_flash_decode
+from .flash_decode import flash_decode
+from .paged_flash_decode import paged_flash_decode, paged_flash_verify
+from .ref import ref_flash_decode
 from .swiglu_gemv import swiglu_qgemv
 
 KERNELS = {"cim_gemv": cim_gemv, "swiglu_qgemv": swiglu_qgemv,
-           "paged_flash_decode": paged_flash_decode}
+           "paged_flash_decode": paged_flash_decode,
+           "paged_flash_verify": paged_flash_verify,
+           "flash_decode": flash_decode}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -71,3 +75,35 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     return paged_flash_decode(q, k_pages, v_pages, tables, lengths,
                               window=window, attn_cap=attn_cap,
                               k_scales=k_scales, v_scales=v_scales)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor, window: int = 0,
+                           attn_cap: float = 0.0,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Multi-query paged attention for speculative verify windows: q (b,
+    s, g, qpk, hd), query j of lane i at position lengths[i] + j;
+    lengths EXCLUDE the window.  Returns (b, s, g, qpk, hd)."""
+    return paged_flash_verify(q, k_pages, v_pages, tables, lengths,
+                              window=window, attn_cap=attn_cap,
+                              k_scales=k_scales, v_scales=v_scales)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos, window: int = 0, attn_cap: float = 0.0,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """q (b, g, qpk, hd); k/v (b, S, g, hd) -> (b, g, qpk, hd).  Any S
+    goes to the kernel (it masks its own ragged edge); `use_kernel=False`
+    asks for the plain version."""
+    if not use_kernel:
+        return ref_flash_decode(q, k, v, pos, window, attn_cap)
+    b, g, qpk, hd = q.shape
+    S = k.shape[1]
+    kf = k.transpose(1, 2).reshape(b * g, S, hd)
+    vf = v.transpose(1, 2).reshape(b * g, S, hd)
+    out = flash_decode(q.reshape(b * g, qpk, hd), kf, vf, pos,
+                       window=window, attn_cap=attn_cap)
+    return out.reshape(b, g, qpk, hd)

@@ -108,3 +108,69 @@ def ref_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype),
                         v.to(q.dtype))
+
+
+def ref_paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, tables: torch.Tensor,
+                     lengths: torch.Tensor, window: int = 0,
+                     attn_cap: float = 0.0,
+                     k_scales: Optional[torch.Tensor] = None,
+                     v_scales: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Multi-query paged verify attention (speculative-decode windows).
+
+    q: (b, s, g, qpk, hd) — query j of lane i sits at absolute position
+    lengths[i] + j (its K/V rows are already in the pool); lengths: (b,)
+    tokens cached BEFORE the window (EXCLUSIVE, unlike
+    `ref_paged_decode`).  Query j sees k_pos <= lengths[i] + j, within
+    `window` of it when one is set; there is no upper bound from the
+    lane's real token count, so a padded query row reads stale pool
+    rows (its output is discarded).  Returns (b, s, g, qpk, hd).
+    """
+    b, s, hd = q.shape[0], q.shape[1], q.shape[-1]
+    ps = k_pages.shape[1]
+    S = tables.shape[1] * ps
+    tables = tables.long()
+    k = _gather_pages(k_pages, tables, b, S, k_scales)
+    v = _gather_pages(v_pages, tables, b, S, v_scales)
+    scores = torch.einsum("bqgph,bkgh->bgpqk", q.to(torch.float32),
+                          k.to(q.dtype).to(torch.float32))
+    scores = scores / math.sqrt(hd)
+    if attn_cap:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    k_pos = torch.arange(S, device=q.device)
+    q_pos = (lengths.to(q.device).long()[:, None]
+             + torch.arange(s, device=q.device)[None, :])          # (b, s)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]               # (b, s, S)
+    if window:
+        mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+    scores = torch.where(mask[:, None, None, :, :], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgpqk,bkgh->bqgph", w.to(q.dtype), v.to(q.dtype))
+
+
+def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos, window: int = 0,
+                     attn_cap: float = 0.0) -> torch.Tensor:
+    """Single-token decode attention over a contiguous cache.
+
+    q: (b, g, qpk, hd); k, v: (b, S, g, hd); pos: scalar (an int or a
+    0-d tensor), keys k_pos <= pos are visible (within `window` of pos
+    when one is set).  A bf16 cache is read as f32, as the kernel reads
+    it.  Returns (b, g, qpk, hd) in q.dtype.
+    """
+    hd, S = q.shape[-1], k.shape[1]
+    scores = torch.einsum("bgph,bkgh->bgpk", q.to(torch.float32),
+                          k.to(q.dtype).to(torch.float32)) / math.sqrt(hd)
+    if attn_cap:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    k_pos = torch.arange(S, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device)
+    mask = k_pos <= pos
+    if window:
+        mask = mask & (pos - k_pos < window)
+    scores = torch.where(mask[None, None, None, :], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype), v.to(q.dtype))

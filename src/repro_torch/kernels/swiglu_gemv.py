@@ -23,9 +23,6 @@ from . import _build
 from .cim_gemv import _check_packed, split_plan
 from .ref import ref_swiglu_qgemv
 
-REPLACES = "src/repro/kernels/swiglu_gemv.py:47"
-SOURCE = "src/repro_torch/csrc/swiglu_gemv.cu"
-
 BM = 4                      # x rows per block, as in the source
 
 
@@ -100,3 +97,5 @@ def swiglu_qgemv(x: torch.Tensor, w_gate: QTensor, w_up: QTensor
 
 
 swiglu_qgemv.launches = 0
+swiglu_qgemv.SOURCE = "src/repro_torch/csrc/swiglu_gemv.cu"
+swiglu_qgemv.REPLACES = "src/repro/kernels/swiglu_gemv.py:47"

@@ -4,6 +4,7 @@
       --tokens 16                                   # on the card
   python -m repro_torch.launch.serve --arch qwen2.5-3b --smoke \
       --device cpu --requests 3 --tokens 6          # plain versions, CPU
+  python -m repro_torch.launch.serve --spec ngram --spec-k 4   # speculative
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -40,6 +41,23 @@ def build_model(cfg, precision: str, group: int, device, seed: int = 0):
     return model, params
 
 
+def build_draft(cfg, device):
+    """The `--spec model` drafter: one layer of the target's shape at
+    half width, float weights drawn on `device` from seed 7."""
+    import torch
+
+    from repro_torch.models import DecoderLM, init_params
+
+    dcfg = cfg.replace(name=cfg.name + "-draft", n_layers=1,
+                       d_model=max(cfg.d_model // 2, 32),
+                       d_ff=max(cfg.d_ff // 2, 64))
+    draft = DecoderLM(dcfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    return draft, init_params(draft.param_specs(), gen, device,
+                              dtype_override=torch.float32)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -62,6 +80,15 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--spec", default="off",
+                    choices=["off", "ngram", "model"],
+                    help="speculative decoding drafter (model: a 1-layer "
+                         "half-width draft of the same arch)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft window (tokens per verify step)")
+    ap.add_argument("--spec-autok", action="store_true",
+                    help="autotune the per-step draft length 1..k from "
+                         "an EMA of the measured acceptance rate")
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -90,7 +117,20 @@ def main(argv=None):
         max_batch=args.batch, max_seq=args.max_seq,
         page_size=args.page_size, n_pages=args.pages or None,
         prefix_cache=not args.no_prefix_cache, seed=args.seed)
-    eng = PagedServeEngine(model, params, serve_cfg, device=device)
+    spec_cfg = None
+    if args.spec != "off":
+        from repro_torch.spec import SpecConfig
+        if args.spec == "model":
+            draft, dparams = build_draft(cfg, device)
+            spec_cfg = SpecConfig(k=args.spec_k, drafter="model",
+                                  draft_model=draft, draft_params=dparams,
+                                  draft_page_size=args.page_size,
+                                  autok=args.spec_autok)
+        else:
+            spec_cfg = SpecConfig(k=args.spec_k, drafter="ngram",
+                                  autok=args.spec_autok)
+    eng = PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
+                           device=device)
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     reqs = [ServeRequest(prompt=p, max_new_tokens=args.tokens, rid=i,
@@ -105,6 +145,14 @@ def main(argv=None):
           f"ttft p50 {m['ttft_p50_s'] * 1e3:.1f} ms, "
           f"kv occupancy peak {m['kv_occupancy_peak'] * 100:.0f}% "
           f"({device})")
+    if spec_cfg is not None:
+        acc = m["spec_acceptance_rate"]
+        acc_txt = (f"{acc * 100:.0f}%" if np.isfinite(acc)
+                   else "n/a (0 drafted)")
+        print(f"[serve] spec[{args.spec} k={args.spec_k}] acceptance "
+              f"{acc_txt}, {m['tokens_per_decode_step']:.2f} tokens per "
+              f"lane per decode step, {eng.verify_calls} verify + "
+              f"{eng.decode_calls} plain decode calls")
     return eng, reqs
 
 

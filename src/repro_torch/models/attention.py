@@ -19,7 +19,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import paged_decode_attention
+from repro_torch.kernels.ops import (paged_decode_attention,
+                                     paged_verify_attention)
 from repro_torch.kernels.ops import qmatmul as qmm
 
 from .common import ParamSpec, apply_rope, rope_tables
@@ -111,14 +112,19 @@ def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                    cache: Dict[str, torch.Tensor], tables: torch.Tensor,
                    lengths: torch.Tensor, n_new: torch.Tensor,
-                   rows: PageRows) -> torch.Tensor:
+                   rows: PageRows, verify: bool = False) -> torch.Tensor:
     """Chunked prefill / decode against this layer's paged KV pools.
 
     x: (b, s, d) — s == 1 is decode, s > 1 a right-padded prefill chunk
     (`n_new[i]` of the s tokens are real).  cache {k, v[, k_scale,
     v_scale]}: (n_pages, page_size, g, hd) pools shared by the batch,
     written in place; tables: (b, max_pages) int32; lengths: (b,) int32
-    tokens already cached.  Returns the attention output (b, s, d)."""
+    tokens already cached.  Returns the attention output (b, s, d).
+
+    verify=True (speculative decode) sends an s > 1 window through the
+    multi-query verify kernel — one pass over the lane's pages scores
+    all s positions — instead of the chunk path's page gather.  Same
+    math: the intra-window causal mask is identical."""
     b, s, _ = x.shape
     hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
     ps = cache["k"].shape[1]
@@ -151,6 +157,13 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out_g = paged_decode_attention(qg, ck, cv, tables, total,
                                        k_scales=cks, v_scales=cvs)
         out = out_g.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
+        return qmm(out, p["wo"])
+
+    if verify:
+        qg = q.reshape(b, s, g, qpk, hd).contiguous()
+        out_g = paged_verify_attention(qg, ck, cv, tables, lengths,
+                                       k_scales=cks, v_scales=cvs)
+        out = out_g.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
         return qmm(out, p["wo"])
 
     # chunk path: gather the lane's pages back to a contiguous view

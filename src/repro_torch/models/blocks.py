@@ -32,12 +32,12 @@ def transformer_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             cache: Dict[str, torch.Tensor],
                             tables: torch.Tensor, lengths: torch.Tensor,
-                            n_new: torch.Tensor, rows: PageRows
-                            ) -> torch.Tensor:
-    """Decode / chunked-prefill block (x: (b, s, d)); writes this
-    layer's new K/V rows into `cache` in place."""
+                            n_new: torch.Tensor, rows: PageRows,
+                            verify: bool = False) -> torch.Tensor:
+    """Decode / chunked-prefill / verify block (x: (b, s, d)); writes
+    this layer's new K/V rows into `cache` in place."""
     h = apply_norm(p["ln_attn"], cfg, x)
     x = x + gqa_paged_step(p["attn"], cfg, h, cache, tables, lengths,
-                           n_new, rows)
+                           n_new, rows, verify=verify)
     h = apply_norm(p["ln_ffn"], cfg, x)
     return x + dense_ffn(p["ffn"], cfg, h)

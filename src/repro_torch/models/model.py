@@ -6,6 +6,7 @@ path of `repro.models.model.DecoderLM`).
     params = init_params(specs, generator, device)   # nested dict
     logits, cache = model.serve_step(params, cache, inputs, tables,
                                      lengths, n_new)
+    logits, cache = model.paged_verify_step(...)     # speculative verify
 
 Parameters keep the JAX package's tree and stacked-layer layout
 (`blocks` leaves carry a leading layer dim), so `repro_torch.convert`
@@ -126,9 +127,34 @@ class DecoderLM:
         vocab) f32, cache); lane i samples from logits[i, n_new[i] - 1].
         """
         return self._paged_forward(params, cache, inputs, tables, lengths,
-                                   n_new)
+                                   n_new, verify=False)
 
-    def _paged_forward(self, params, cache, inputs, tables, lengths, n_new):
+    # the attention-only name the speculative drafter calls; every family
+    # this port serves is paged, so it is `serve_step` itself
+    paged_step = serve_step
+
+    def paged_verify_step(self, params: Params, cache: Dict[str, Any],
+                          inputs: Dict[str, torch.Tensor],
+                          tables: torch.Tensor, lengths: torch.Tensor,
+                          n_new: torch.Tensor):
+        """Speculative-decode verify: score a draft window in one pass.
+
+        inputs: {tokens: (b, s)} — lane i's row is [last emitted, d_1,
+        ..., d_{n_new[i]-1}, pad...]; `lengths` counts tokens already
+        cached (this call writes the window's K/V rows, like a prefill
+        chunk).  logits[i, j] is the target distribution for the token
+        after window position j.  The same math as `serve_step`; the
+        attention runs the multi-query verify kernel."""
+        return self._paged_forward(params, cache, inputs, tables, lengths,
+                                   n_new, verify=True)
+
+    def supports_paged(self) -> bool:
+        """Every layer keeps paged KV (no recurrent state), so prefix
+        sharing and speculative rollback apply."""
+        return self.cfg.family == "dense"
+
+    def _paged_forward(self, params, cache, inputs, tables, lengths, n_new,
+                       verify: bool):
         cfg = self.cfg
         h = self._embed(params, inputs["tokens"])
         s = h.shape[1]
@@ -137,7 +163,7 @@ class DecoderLM:
         for i, layer_p in enumerate(self._layer_params(params["blocks"])):
             layer_cache = {k: v[i] for k, v in pools.items()}
             h = transformer_block_paged(layer_p, cfg, h, layer_cache, tables,
-                                        lengths, n_new, rows)
+                                        lengths, n_new, rows, verify)
         return self._logits(params, h), cache
 
     # ------------------------------------------------------------------

@@ -17,11 +17,16 @@ Every step runs at most one chunked batch-prefill call (b = max_batch,
 s = prefill_chunk) and one decode call (b = max_batch, s = 1) through
 `DecoderLM.serve_step`, which writes the KV pools in place.  Greedy
 lanes take an argmax on the device; only (b,) tokens cross to the host.
+Built with a `repro_torch.spec.SpecConfig`, the decode call becomes one
+`paged_verify_step` (b = max_batch, s = k + 1) that verifies a drafted
+window and emits a variable number of tokens per lane (speculative
+decoding, see repro_torch/spec/); a step where nothing was drafted
+takes the plain (b, 1) decode call.
 
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
 versions of the kernels).  Not in this port yet, and refused when asked
-for: speculative decoding (`spec`), tensor parallelism and replicas
-(`ServeConfig`), recurrent families and their StateArena (`DecoderLM`).
+for: tensor parallelism and replicas (`ServeConfig`), recurrent families
+and their StateArena, sliding-window and softcap models (`DecoderLM`).
 The JAX engine's energy meter, flight recorder and tracer are not
 ported either.
 """
@@ -57,9 +62,6 @@ class PagedServeEngine:
                  config: Optional[ServeConfig] = None, *,
                  spec: Optional[Any] = None, device=None,
                  clock=time.monotonic):
-        if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding is not in the PyTorch port yet")
         config = config if config is not None else ServeConfig()
         self.config = config
         self.device = resolve_device(device)
@@ -68,6 +70,10 @@ class PagedServeEngine:
         if max_seq % page_size:
             raise ValueError(f"max_seq {max_seq} must be a multiple of "
                              f"page_size {page_size}")
+        if spec is not None and not model.supports_paged():
+            raise ValueError(
+                f"{model.cfg.name}: speculative decoding needs a model "
+                "whose every layer keeps paged KV (rollback trims pages)")
         params = tree_to(params, self.device)
         if config.quantized() and not _has_qtensor(params):
             # the precision field is authoritative: quantize float params
@@ -98,9 +104,16 @@ class PagedServeEngine:
         self.lanes: List[Optional[ServeRequest]] = [None] * max_batch
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
-        self.prefill_calls = 0      # serve_step calls, by phase
+        self.prefill_calls = 0      # model step calls, by phase
         self.decode_calls = 0
+        self.verify_calls = 0
         self._next_eid = 0
+        self.spec = None
+        if spec is not None:        # SpecConfig -> speculative decode
+            from repro_torch.spec import SpecDecoder
+            self.spec = SpecDecoder(model, spec, max_batch=max_batch,
+                                    max_seq=max_seq, kv_dtype=kv_dtype,
+                                    device=self.device)
 
     # ------------------------------------------------------------------
     @property
@@ -133,8 +146,7 @@ class PagedServeEngine:
             if req is not None and req.eid == eid:
                 req.done = True
                 req.cancelled = True
-                self.cache.release(eid)
-                self.lanes[lane] = None
+                self._free_lane(lane, eid)
                 self.telemetry.cancel(eid, now)
                 return True
         return False
@@ -147,12 +159,23 @@ class PagedServeEngine:
         return requests
 
     # ------------------------------------------------------------------
+    def _free_lane(self, lane: int, eid: int) -> None:
+        """Release a request's pages, its lane and the drafter's state
+        for that lane."""
+        self.cache.release(eid)
+        self.lanes[lane] = None
+        if self.spec is not None:
+            self.spec.drafter.release(lane)
+
     def _dispatch(self, tokens: np.ndarray, tables: np.ndarray,
-                  lengths: np.ndarray, n_new: np.ndarray) -> torch.Tensor:
-        """One `serve_step` call; the pools are updated in place."""
+                  lengths: np.ndarray, n_new: np.ndarray,
+                  step_fn=None) -> torch.Tensor:
+        """One model step call (`serve_step` unless `step_fn` is given);
+        the pools are updated in place."""
         def dev(a):
             return torch.from_numpy(a).to(self.device)
-        logits, _ = self.model.serve_step(
+        step_fn = step_fn or self.model.serve_step
+        logits, _ = step_fn(
             self.params, self.cache.pools, {"tokens": dev(tokens)},
             dev(tables), dev(lengths), dev(n_new))
         return logits
@@ -225,8 +248,7 @@ class PagedServeEngine:
                      np.asarray(req.out_tokens[req.prompt_folded:],
                                 np.int32)])[:seq.length]
                 self.prefix.insert(full, seq.pages)
-            self.cache.release(req.eid)
-            self.lanes[lane] = None
+            self._free_lane(lane, req.eid)
 
     def _preempt(self, lane: int) -> None:
         """Pool exhausted: evict this lane and requeue it with (prompt +
@@ -240,8 +262,7 @@ class PagedServeEngine:
         req.prefill_done = 0
         req.fork_from = None
         req.forked_tokens = 0
-        self.cache.release(req.eid)
-        self.lanes[lane] = None
+        self._free_lane(lane, req.eid)
         self.scheduler.submit(req, self._clock(), resubmit=True)
 
     # ------------------------------------------------------------------
@@ -262,7 +283,10 @@ class PagedServeEngine:
                 self.telemetry.prefix(req.prefix_cached)
 
         prefill_s = self._prefill_phase()
-        decode_s, decode_lanes = self._decode_phase()
+        if self.spec is not None:
+            decode_s, decode_lanes = self._decode_phase_spec()
+        else:
+            decode_s, decode_lanes = self._decode_phase()
         self.telemetry.step(self.cache.occupancy(), self.n_running,
                             decode_s=decode_s, prefill_s=prefill_s,
                             decode_lanes=decode_lanes,
@@ -361,6 +385,105 @@ class PagedServeEngine:
             self._maybe_finish(i, now)
         return dt, len(ready)
 
+    def _decode_phase_spec(self) -> tuple:
+        """Speculative decode: draft up to k tokens per lane, verify the
+        whole window in ONE `paged_verify_step` call (always (max_batch,
+        k + 1) wide), emit the accepted prefix plus the bonus token, and
+        trim the rejected rows' pages.
+
+        Lanes with `req.spec == False`, or whose drafter found nothing,
+        ride the same call with an empty window: for them it IS a plain
+        decode step, so greedy output equals the non-speculative
+        engine's.  Returns (seconds of drafting + the call with
+        acceptance, lanes advanced)."""
+        spec = self.spec
+        k = spec.cfg.k              # verify width: always k + 1; autok
+        k_draft = spec.current_k()  # narrows only what is drafted
+        dec = self._decode_ready()
+        if not dec:
+            return 0.0, 0
+
+        histories: List[Optional[np.ndarray]] = [None] * self.max_batch
+        smp: List[Optional[SamplingParams]] = [None] * self.max_batch
+        for i in dec:
+            req = self.lanes[i]
+            if req.spec:
+                # out_tokens past the preemption fold cursor: a resumed
+                # request's prompt already holds the earlier ones
+                histories[i] = np.concatenate(
+                    [np.asarray(req.prompt, np.int32),
+                     np.asarray(req.out_tokens[req.prompt_folded:],
+                                np.int32)])
+                smp[i] = req.sampling
+        # drafting counts toward the decode time speculation spends
+        t0 = time.perf_counter()
+        prop = spec.drafter.propose(histories, k_draft, smp)
+
+        tokens = np.zeros((self.max_batch, k + 1), np.int32)
+        n_new = np.zeros(self.max_batch, np.int32)
+        ready: List[tuple] = []                 # (lane, n_draft)
+        for i in dec:
+            req = self.lanes[i]
+            nd = int(prop.n[i]) if histories[i] is not None else 0
+            # the window writes 1 + nd KV rows and may emit 1 + nd
+            # tokens: cap at the sequence and the request's token
+            # budgets, then shrink until the pool holds it (a shrunk
+            # window beats a preemption)
+            nd = max(0, min(nd,
+                            self.max_seq
+                            - self.cache.seqs[req.eid].length - 1,
+                            req.max_new_tokens - len(req.out_tokens) - 1))
+            while nd > 0 and not self.cache.prepare_write(req.eid, 1 + nd):
+                nd -= 1
+            if nd == 0 and not self.cache.prepare_write(req.eid, 1):
+                self._preempt(i)
+                continue
+            tokens[i, 0] = req.out_tokens[-1]
+            tokens[i, 1:1 + nd] = prop.tokens[i, :nd]
+            n_new[i] = 1 + nd
+            ready.append((i, nd))
+        if not ready:
+            return time.perf_counter() - t0, 0
+        lengths = self._lengths()
+
+        # nothing drafted anywhere: the (b, k + 1) window would spend
+        # (k + 1)x the decode compute on a plain step, so take (b, 1)
+        plain = all(nd == 0 for _, nd in ready)
+        if plain:
+            logits = self._dispatch(tokens[:, :1], self._tables(), lengths,
+                                    n_new)
+            self.decode_calls += 1
+        else:
+            logits = self._dispatch(tokens, self._tables(), lengths, n_new,
+                                    step_fn=spec.verify_fn)
+            self.verify_calls += 1
+        logits_np = logits.float().cpu().numpy()
+        dt = time.perf_counter() - t0
+        now = self._clock()
+        drafted = accepted = 0
+        for i, nd in ready:
+            req = self.lanes[i]
+            q_rows = prop.probs[i, :nd] if prop.probs is not None else None
+            n_acc, emitted = spec.accept(
+                logits_np[i, :nd + 1], tokens[i, 1:1 + nd], q_rows,
+                req.sampling)
+            drafted += nd
+            accepted += n_acc
+            seq = self.cache.seqs[req.eid]
+            seq.length += n_acc + 1             # keep input + accepted rows
+            self.cache.trim(req.eid, seq.length)  # free rejected pages
+            if self.eos_id is not None and self.eos_id in emitted:
+                emitted = emitted[:emitted.index(self.eos_id) + 1]
+            budget = req.max_new_tokens - len(req.out_tokens)
+            # emitted[j] came from verify-logits row j
+            for j, tok in enumerate(emitted[:budget]):
+                self._emit(req, tok, now,
+                           row=logits[i, j] if req.logprobs else None)
+            self._maybe_finish(i, now)
+        self.telemetry.spec(drafted, accepted)
+        spec.observe(drafted, accepted)
+        return dt, len(ready)
+
     # ------------------------------------------------------------------
     def summary(self) -> Dict[str, float]:
         s = self.telemetry.summary()
@@ -369,6 +492,8 @@ class PagedServeEngine:
         s["weight_fused_dequants"] = float(dq["fused_dequant"])
         s["cow_copies"] = float(self.cache.cow_copies)
         s["kv_pages_shared"] = float(self.cache.pages_shared)
+        if self.spec is not None:
+            s["spec_k_now"] = float(self.spec.current_k())
         if self.prefix is not None:
             s["prefix_pages_resident"] = float(self.prefix.n_pages)
             s["prefix_pages_evicted"] = float(self.prefix.pages_evicted)

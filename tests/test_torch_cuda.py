@@ -18,8 +18,11 @@ import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.paged_flash_decode import (paged_decode_plain,
-                                                    paged_flash_decode)
+                                                    paged_flash_decode,
+                                                    paged_flash_verify,
+                                                    paged_verify_plain)
 from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
 from repro_torch.quant.qarray import quantize
 
@@ -126,6 +129,57 @@ def test_paged_decode_kernel_zero_length_lane_is_zero(device):
     _close(out[keep], ref[keep])
 
 
+def _verify(device, pools, s, seed=5):
+    """Verify-window inputs at qwen2.5-3b attention shapes: lanes whose
+    window crosses a page boundary, ends at the table's last row, starts
+    at 0, and sits at a long context."""
+    q, kp, vp, tables, _, ks, vs = _paged(device, pools, seed=seed)
+    b, max_pages, ps = q.shape[0], tables.shape[1], kp.shape[1]
+    q = torch.randn(b, s, *q.shape[1:], generator=_gen(seed + 1),
+                    device=device)
+    lengths = torch.tensor([ps * 3 - 1, max_pages * ps - s, 0, 777],
+                           dtype=torch.int32, device=device)
+    return q, kp, vp, tables, lengths, ks, vs
+
+
+@pytest.mark.parametrize("pools", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("s", [1, 2, 5])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (200, 0.0), (0, 30.0)])
+def test_paged_verify_kernel_matches_plain(device, pools, s, window, cap):
+    args = _verify(device, pools, s)
+    q, kp, vp, tables, lengths, ks, vs = args
+    out = paged_flash_verify(q, kp, vp, tables, lengths, window, cap, ks, vs)
+    ref = paged_verify_plain(q, kp, vp, tables, lengths, window, cap, ks, vs)
+    assert out.shape == q.shape
+    _close(out, ref)
+
+
+def test_paged_verify_s1_is_a_decode_step(device):
+    q, kp, vp, tables, lengths, ks, vs = _verify(device, "int8", 1)
+    lengths[2] = 5                 # decode needs a live token on every lane
+    ver = paged_flash_verify(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    dec = paged_flash_decode(q[:, 0].contiguous(), kp, vp, tables,
+                             lengths + 1, 0, 0.0, ks, vs)
+    _close(ver[:, 0], dec)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,pos,window,cap", [
+    (1024, 1023, 0, 0.0), (1024, 300, 0, 0.0), (1024, 0, 0, 0.0),
+    (1024, 900, 200, 0.0), (1024, 700, 0, 30.0), (1000, 999, 0, 0.0),
+    (1000, 5000, 0, 0.0)])
+def test_flash_decode_kernel_matches_plain(device, dtype, S, pos, window,
+                                           cap):
+    gen = _gen(6)
+    q = torch.randn(8, 8, 128, generator=gen, device=device)
+    k = torch.randn(8, S, 128, generator=gen, device=device).to(dtype)
+    v = torch.randn(8, S, 128, generator=gen, device=device).to(dtype)
+    ref = flash_decode_plain(q, k, v, pos, window, cap)
+    _close(flash_decode(q, k, v, pos, window, cap), ref)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
+    _close(flash_decode(q, k, v, pos_t, window, cap), ref)
+
+
 def test_launches_count_on_the_card_only(device):
     reset_launch_counts()
     x = torch.randn(2, 256, device=device)
@@ -133,8 +187,16 @@ def test_launches_count_on_the_card_only(device):
     cim_gemv(x, w)
     cim_gemv(x.cpu(), w.to("cpu"))
     swiglu_qgemv(x, w, w)
+    q, kp, vp, tables, lengths, ks, vs = _verify(device, "int8", 2)
+    paged_flash_verify(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    paged_flash_verify(*[t.cpu() for t in (q, kp, vp, tables, lengths)],
+                       0, 0.0, ks.cpu(), vs.cpu())
+    kv = torch.randn(2, 64, 32, device=device)
+    flash_decode(torch.randn(2, 4, 32, device=device), kv, kv, 10)
+    flash_decode(torch.randn(2, 4, 32), kv.cpu(), kv.cpu(), 10)
     assert launch_counts() == {"cim_gemv": 1, "swiglu_qgemv": 1,
-                               "paged_flash_decode": 0}
+                               "paged_flash_decode": 0,
+                               "paged_flash_verify": 1, "flash_decode": 1}
 
 
 def test_wrappers_raise_instead_of_falling_back(device):
@@ -146,6 +208,25 @@ def test_wrappers_raise_instead_of_falling_back(device):
     w6 = quantize(torch.randn(256, 126, device=device), 4, 128)
     with pytest.raises(ValueError):                  # N not a multiple of 4
         cim_gemv(torch.randn(2, 256, device=device), w6)
+    q, kp, vp, tables, lengths, ks, vs = _verify(device, "int8", 2)
+    with pytest.raises(ValueError):                  # lengths on the CPU
+        paged_flash_verify(q, kp, vp, tables, lengths.cpu(), 0, 0.0, ks, vs)
+    with pytest.raises(ValueError):                  # f16 pools
+        paged_flash_verify(q, kp.half(), vp.half(), tables, lengths)
+    with pytest.raises(ValueError):                  # bf16 queries
+        paged_flash_verify(q.bfloat16(), kp, vp, tables, lengths, 0, 0.0,
+                           ks, vs)
+    with pytest.raises(ValueError):                  # window too wide a tile
+        paged_flash_verify(q[:, :1].repeat(1, 64, 1, 1, 1), kp, vp, tables,
+                           lengths, 0, 0.0, ks, vs)
+    kv = torch.randn(2, 64, 32, device=device)
+    qd = torch.randn(2, 4, 32, device=device)
+    with pytest.raises(ValueError):                  # pos on the CPU
+        flash_decode(qd, kv, kv, torch.tensor(5, dtype=torch.int32))
+    with pytest.raises(ValueError):                  # f16 cache
+        flash_decode(qd, kv.half(), kv.half(), 5)
+    with pytest.raises(ValueError):                  # k on the CPU
+        flash_decode(qd, kv.cpu(), kv, 5)
 
 
 def test_serve_step_on_card_matches_cpu(device):
@@ -181,3 +262,38 @@ def test_serve_step_on_card_matches_cpu(device):
     for a, b in zip(outs["cpu"], outs["cuda"]):
         assert float((a - b).abs().max()) < 2e-3 * max(1.0,
                                                        float(a.abs().max()))
+
+
+def test_spec_engine_on_card_runs_every_window_through_verify(device):
+    """A small model served with n-gram speculation on the card: the
+    stream equals the non-speculative one and every verify call launched
+    one `paged_flash_verify` per layer."""
+    import numpy as np
+
+    from repro_torch.models import DecoderLM, ModelConfig, init_params
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+    from repro_torch.spec import SpecConfig
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=688, vocab=512,
+                      head_dim=64, qkv_bias=True, dtype="float32")
+    model = DecoderLM(cfg)
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=device).manual_seed(0),
+                         device, torch.float32)
+    motif = np.array([5, 77, 301, 9, 42, 1, 260, 13], np.int32)
+    outs, engines = [], []
+    for spec in (None, SpecConfig(k=4)):
+        eng = PagedServeEngine(model, params, ServeConfig(
+            precision="int4", max_batch=2, max_seq=64, page_size=16),
+            spec=spec, device=device)
+        reqs = [ServeRequest(prompt=np.tile(motif, n), max_new_tokens=12)
+                for n in (3, 4)]
+        reset_launch_counts()
+        eng.run(reqs)
+        outs.append([r.out_tokens for r in reqs])
+        engines.append((eng, launch_counts()))
+    eng, counts = engines[1]
+    assert outs[0] == outs[1]
+    assert eng.verify_calls > 0
+    assert counts["paged_flash_verify"] == cfg.n_layers * eng.verify_calls
+    assert counts["paged_flash_decode"] == cfg.n_layers * eng.decode_calls

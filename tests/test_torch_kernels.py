@@ -28,7 +28,9 @@ from repro.quant import qarray as jax_qarray
 from repro_torch.convert import from_numpy_tree
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cim_gemv import cim_gemv
-from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.paged_flash_decode import (paged_flash_decode,
+                                                    paged_flash_verify)
 from repro_torch.kernels.swiglu_gemv import swiglu_qgemv
 from repro_torch.quant import ptq as port_ptq
 from repro_torch.quant import qarray as port_qarray
@@ -257,8 +259,16 @@ def test_cpu_calls_run_plain_versions_and_count_no_launches():
                          ("q", "k", "v", "tables", "lengths")],
                        k_scales=torch.from_numpy(c["k_scales"]),
                        v_scales=torch.from_numpy(c["v_scales"]))
+    q5 = torch.from_numpy(c["q"])[:, None].repeat(1, 3, 1, 1, 1)
+    paged_flash_verify(q5, *[torch.from_numpy(c[n]) for n in
+                             ("k", "v", "tables", "lengths")],
+                       k_scales=torch.from_numpy(c["k_scales"]),
+                       v_scales=torch.from_numpy(c["v_scales"]))
+    kv = torch.ones(4, 40, 64)
+    flash_decode(torch.ones(4, 2, 64), kv, kv, 17)
     assert launch_counts() == {"cim_gemv": 0, "swiglu_qgemv": 0,
-                               "paged_flash_decode": 0}
+                               "paged_flash_decode": 0,
+                               "paged_flash_verify": 0, "flash_decode": 0}
 
 
 def test_wrapper_refuses_mixed_devices():

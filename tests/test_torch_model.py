@@ -277,10 +277,8 @@ def test_features_outside_the_slice_raise():
                                      local_pattern=2)))
     with pytest.raises(NotImplementedError):
         DecoderLM(ModelConfig(**dict(SMOKE, family="moe")))
-    _, _, tm, tp = _pair(SMOKE, "fp")
     with pytest.raises(NotImplementedError):
-        PagedServeEngine(tm, tp, ServeConfig(max_seq=32, page_size=4),
-                         spec=object(), device="cpu")
+        DecoderLM(ModelConfig(**dict(SMOKE, attn_softcap=30.0)))
 
 
 def test_launcher_smoke_on_cpu():
