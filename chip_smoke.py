@@ -6,14 +6,18 @@
 Phases (any failure exits non-zero; nothing is retried or skipped):
   1. device: the card's name and power limit; build the five CUDA
      kernels from src/repro_torch/csrc (one nvcc per source, in
-     parallel).
+     parallel), and beside them one `-Xptxas -v` compile of each
+     split-KV source (registers, stack, spills).
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at qwen2.5-3b shapes, with a stated tolerance; then the time
-     of one decode step's worth of calls (36 layers, batch 4, weights
-     cold in L2), one verify step's `paged_flash_verify` calls (s = 5)
-     and 36 `flash_decode` calls, each against its bound, the plain
-     version's time and, where one PyTorch call computes the same
-     function, that call's time.
+     card, at qwen2.5-3b shapes, with a stated tolerance; the split-KV
+     kernels also at their split boundaries, at batch 1, for rows that
+     see no key (compared in full), and called twice (bitwise equal).
+     Then the time of one decode step's worth of calls (36 layers, batch
+     4, weights cold in L2), one verify step's `paged_flash_verify`
+     calls (s = 5) and 36 `flash_decode` calls, each against its bound,
+     the plain version's time and, where one PyTorch call computes the
+     same function, that call's time; `paged_flash_decode` and
+     `flash_decode` also at batch 1 over 4096 keys.
   3. full model: qwen2.5-3b at full width (36 layers, INT4 weights drawn
      from a seed on the card, INT8 paged KV) served by PagedServeEngine:
      4 requests of 16-64 prompt tokens, 16 new tokens each, greedy.  The
@@ -39,6 +43,7 @@ result.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +127,59 @@ class Checks:
         if w is None or err / tol > w[0] / w[1]:
             self.worst[name] = (err, tol, label)
 
+    def repeat(self, name: str, label: str, first, second) -> None:
+        """Two calls on the same inputs must agree bit for bit."""
+        import torch
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        log(f"check {name:18s} {label:46s} second call bitwise "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"{name} {label}: two calls on the same inputs differ")
+
+
+def start_ptxas(names=("paged_flash_decode", "flash_decode")):
+    """One extra compile of each split-KV source with `-Xptxas -v`,
+    started beside the build: registers, stack and spills per kernel."""
+    from repro_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    return [(n, subprocess.Popen(
+        [_build._nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+         str(_build.BUILD_DIR / f"ptxas-{n}.o"),
+         str(_build.CSRC / f"{n}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for n in names]
+
+
+def log_ptxas(procs) -> None:
+    kern = re.compile(r"(flash_decode_kernel|decode_kernel|merge_kernel)"
+                      r"(?:I(a|f|13__nv_bfloat16)Li(\d+)E)?")
+    types = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16"}
+    for name, proc in procs:
+        text, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            fail(f"nvcc -Xptxas -v failed for {name}.cu:\n{text}")
+        fn, spill, rows = None, "", []
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = kern.search(m.group(1))
+                fn = (f"{k.group(1)}<{types.get(k.group(2), '')},"
+                      f"{k.group(3) or ''}>" if k else m.group(1)[:40])
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                spill = (f"stack {m.group(1)} B, spills {m.group(2)}/"
+                         f"{m.group(3)} B")
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                rows.append(f"{fn} {m.group(1)} regs, {spill}")
+                fn = None
+        log(f"ptxas {name}.cu: " + "; ".join(rows))
+
 
 def build_full_model(device):
     from repro_torch.configs import get_config
@@ -136,10 +194,13 @@ def phase_kernels(model, params, device, checks: Checks):
     from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
-    from repro_torch.kernels.paged_flash_decode import (paged_decode_plain,
+    from repro_torch.kernels.flash_decode import plan as flash_plan
+    from repro_torch.kernels.paged_flash_decode import (decode_plan,
+                                                        paged_decode_plain,
                                                         paged_flash_decode,
                                                         paged_flash_verify,
                                                         paged_verify_plain)
+    from repro_torch.kernels.split_decode import sm_count
     from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
     from repro_torch.quant.qarray import quantize
 
@@ -224,17 +285,49 @@ def phase_kernels(model, params, device, checks: Checks):
     zl = lengths.clone()
     zl[3] = 0
     kp, vp, ks, vs = pools("int8")
-    out = paged_flash_decode(q, kp[0], vp[0], tables, zl, 0, 0.0, ks[0],
-                             vs[0])
-    ref = paged_decode_plain(q, kp[0], vp[0], tables, zl, 0, 0.0, ks[0],
-                             vs[0])
-    keep = zl > 0
     checks.compare("paged_flash_decode", "int8 pools, a length-0 lane",
-                   out[keep], ref[keep])
-    torch.cuda.synchronize()
-    log(f"length-0 lane: kernel max|out| {float(out[3].abs().max()):.3e} "
-        f"(zeros), plain max|out| {float(ref[3].abs().max()):.3e} "
-        "(mean of masked rows); the engine drops this row")
+                   paged_flash_decode(q, kp[0], vp[0], tables, zl, 0, 0.0,
+                                      ks[0], vs[0]),
+                   paged_decode_plain(q, kp[0], vp[0], tables, zl, 0, 0.0,
+                                      ks[0], vs[0]))
+
+    # split-KV cases: the plan's split boundary (`chunk` keys), lengths on
+    # it and one past it, length 1 and 0, a window across a boundary,
+    # every pool type, batch 1; every lane compared in full (a length-0
+    # lane gets the mean of V over its whole table)
+    n_split, chunk = decode_plan(b, g, max_pages, ps, sm_count(device))
+    log(f"plan paged_flash_decode b={b} g={g} max_pages={max_pages} "
+        f"ps={ps}: n_split {n_split}, chunk {chunk} keys, "
+        f"{b * g * n_split} blocks")
+    edge = torch.tensor([chunk, chunk + 1, 1, 0], dtype=torch.int32,
+                        device=device)
+    cross = torch.tensor([2 * chunk + 7, 777, chunk + 5, 0],
+                         dtype=torch.int32, device=device)
+    for kind, lv, window, cap in (
+            ("int8", edge, 0, 0.0), ("bf16", edge, 0, 0.0),
+            ("f32", edge, 0, 0.0), ("int8", cross, 20, 0.0),
+            ("f32", cross, 20, 30.0), ("int8", edge, 0, 30.0)):
+        kp, vp, ks, vs = pools(kind)
+        sc = (ks[0], vs[0]) if ks is not None else (None, None)
+        args = (q, kp[0], vp[0], tables, lv, window, cap, *sc)
+        out = paged_flash_decode(*args)
+        checks.compare(
+            "paged_flash_decode",
+            f"{kind} pools b={b} len {lv.tolist()} window={window} "
+            f"cap={cap}", out, paged_decode_plain(*args))
+        checks.repeat("paged_flash_decode", f"{kind} len {lv.tolist()}",
+                      out, paged_flash_decode(*args))
+    for kind in ("int8", "f32"):
+        kp, vp, ks, vs = pools(kind)
+        sc = (ks[0], vs[0]) if ks is not None else (None, None)
+        for n in (1, chunk, 1024):
+            l1 = torch.tensor([n], dtype=torch.int32, device=device)
+            args = (q[:1].contiguous(), kp[0], vp[0], tables[:1], l1, 0,
+                    0.0, *sc)
+            checks.compare("paged_flash_decode",
+                           f"{kind} pools batch 1 len {n}",
+                           paged_flash_decode(*args),
+                           paged_decode_plain(*args))
 
     # paged verify: windows of s = 1, 2, 5 at the same shapes; lane 0's
     # window crosses a page boundary, lane 1's ends at the table's last row
@@ -286,6 +379,31 @@ def phase_kernels(model, params, device, checks: Checks):
     checks.compare("flash_decode", "f32 S=1000 pos=511 as a device tensor",
                    flash_decode(qf, kc.float(), vc.float(), pos_t),
                    flash_decode_plain(qf, kc.float(), vc.float(), 511))
+    # split-KV cases: pos on and one past a split boundary, a window
+    # across one, no visible key (pos < 0; a window past the cache: the
+    # mean of V over all S keys), batch 1 (b*g = 2), repeat bitwise
+    n_split, chunk = flash_plan(bg, 1024, sm_count(device))
+    log(f"plan flash_decode b*g={bg} S=1024: n_split {n_split}, chunk "
+        f"{chunk} keys, {bg * n_split} blocks")
+    for dt, rows, S, pos, window, cap in (
+            (torch.float32, bg, 1024, chunk - 1, 0, 0.0),
+            (torch.float32, bg, 1024, chunk, 0, 0.0),
+            (torch.bfloat16, bg, 1024, 2 * chunk + 7, 20, 0.0),
+            (torch.float32, bg, 1024, 2 * chunk + 7, 20, 30.0),
+            (torch.float32, bg, 1024, -1, 0, 0.0),
+            (torch.bfloat16, bg, 1000, 5000, 10, 0.0),
+            (torch.float32, 2, 4096, 4095, 0, 0.0),
+            (torch.float32, 2, 4096, 1, 0, 0.0)):
+        qx = qf[:rows].contiguous()
+        kc = torch.randn(rows, S, hd, generator=gen, device=device).to(dt)
+        vc = torch.randn(rows, S, hd, generator=gen, device=device).to(dt)
+        label = (f"{str(dt)[6:]} b*g={rows} S={S} pos={pos} "
+                 f"window={window} cap={cap}")
+        out = flash_decode(qx, kc, vc, pos, window, cap)
+        checks.compare("flash_decode", label, out,
+                       flash_decode_plain(qx, kc, vc, pos, window, cap))
+        checks.repeat("flash_decode", label, out,
+                      flash_decode(qx, kc, vc, pos, window, cap))
     del kc, vc
 
     # ---- timings: one decode step's calls at batch 4, 36 layers -------
@@ -338,23 +456,25 @@ def phase_kernels(model, params, device, checks: Checks):
     timings = {}
 
     def time_kernel(name, what, step, kernel_fn, plain, nbytes, flops,
-                    library=None):
+                    library=None, key=None):
         """`step(fn)` runs one step's calls of `fn`; kernel time is a
-        CUDA-graph replay, eager and plain are dispatched one by one."""
+        CUDA-graph replay, eager and plain are dispatched one by one.
+        Stored under `key` (default: the kernel's name)."""
         ms = graph_time_ms(lambda: step(kernel_fn))
         eager_ms = cuda_time_ms(lambda: step(kernel_fn), iters=10)
         plain_ms = cuda_time_ms(lambda: step(plain), iters=2, warmup=1)
         lib_ms = graph_time_ms(lambda: step(library)) if library else None
         b_ms, b_by = bound(nbytes, flops)
-        timings[name] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                             step_bytes=nbytes, step_flops=flops,
-                             timed=what)
+        timings[key or name] = dict(
+            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bound_share=b_ms / ms, library_ms=lib_ms,
+            step_bytes=nbytes, step_flops=flops, timed=what)
         lib = f"{lib_ms:.4f} ms" if library else "none"
         log(f"time {name:18s} {what}: kernel {ms:.4f} ms (graph replay; "
             f"eager dispatch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
             f"library {lib}, bound {b_ms:.4f} ms ({b_by}: "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+            f"bound share {100 * b_ms / ms:.2f} %, "
             f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
             f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s")
 
@@ -363,9 +483,15 @@ def phase_kernels(model, params, device, checks: Checks):
                 cim_bytes, cim_flops)
     time_kernel("swiglu_qgemv", what, sw_step, swiglu_qgemv, swiglu_plain,
                 sw_bytes, sw_flops)
+    n_split, chunk = decode_plan(b, g, max_pages, ps, sm_count(device))
+    log(f"plan paged_flash_decode (timed) b={b} g={g} max_pages="
+        f"{max_pages} ps={ps}: n_split {n_split}, chunk {chunk} keys, "
+        f"{b * g * n_split} blocks")
     time_kernel("paged_flash_decode", what + ", lengths 1024/777/301/45",
                 pd_step, paged_flash_decode, paged_decode_plain, pd_bytes,
                 pd_flops)
+    device_split("paged_flash_decode x36, batch 4",
+                 lambda: pd_step(paged_flash_decode))
     # where cim_gemv's time goes: each projection over 36 layers, and the
     # logits table once
     for k, xin in (("wq", x), ("wk", x), ("wo", x), ("w_down", xd)):
@@ -385,6 +511,31 @@ def phase_kernels(model, params, device, checks: Checks):
             for i in range(L)])
         log(f"time paged_flash_decode x{L}, all {b} lanes at length "
             f"{n_live}: {t:.4f} ms")
+    del kp, vp, ks, vs
+
+    # the single-user edge point: batch 1 at length 4096 (256 pages)
+    mp1, n1 = 256, 4096
+    kp, vp, ks, vs = pools("int8", layers=L, n_pages=mp1)
+    q1 = torch.randn(1, g, qpk, hd, generator=gen, device=device)
+    t1 = torch.randperm(mp1, generator=gen, device=device)[None].int()
+    l1 = torch.tensor([n1], dtype=torch.int32, device=device)
+    n_split, chunk = decode_plan(1, g, mp1, ps, sm_count(device))
+    log(f"plan paged_flash_decode (timed) b=1 g={g} max_pages={mp1} "
+        f"ps={ps}: n_split {n_split}, chunk {chunk} keys, "
+        f"{g * n_split} blocks")
+
+    def pd1_step(fn):
+        for i in range(L):
+            fn(q1, kp[i], vp[i], t1, l1, 0, 0.0, ks[i], vs[i])
+
+    time_kernel("paged_flash_decode",
+                f"{L} calls, batch 1, length {n1}, int8", pd1_step,
+                paged_flash_decode, paged_decode_plain,
+                L * (n1 * g * (2 * hd + 2 * 2) + 2 * q1.numel() * 4
+                     + (mp1 + 1) * 4),
+                L * n1 * g * qpk * hd * 4, key="paged_flash_decode b1")
+    device_split("paged_flash_decode x36, batch 1, length 4096",
+                 lambda: pd1_step(paged_flash_decode))
     del kp, vp, ks, vs
 
     # one verify step: s = 5 (k = 4) at lengths 1024/777/301/45 before the
@@ -432,9 +583,38 @@ def phase_kernels(model, params, device, checks: Checks):
         f"timed below, not the plain version): max_abs_err {lib_err:.3e}")
     fd_bytes = L * (2 * bg * (pos + 1) * hd * 4 + 2 * qf.numel() * 4)
     fd_flops = L * bg * qpk * (pos + 1) * hd * 4
+    n_split, chunk = flash_plan(bg, S, sm_count(device))
+    log(f"plan flash_decode (timed) b*g={bg} S={S}: n_split {n_split}, "
+        f"chunk {chunk} keys, {bg * n_split} blocks")
     time_kernel("flash_decode", f"{L} calls, b*g={bg}, S={S}, pos={pos}, "
                 "f32 cache", fd_step, flash_decode, flash_decode_plain,
                 fd_bytes, fd_flops, library=sdpa)
+    device_split(f"flash_decode x36, b*g={bg}, S={S}",
+                 lambda: fd_step(flash_decode))
+    del kcs, vcs
+
+    # batch 1 (b*g = 2) at S = 4096, pos = 4095
+    S, pos, bg1 = 4096, 4095, 2
+    q1 = qf[:bg1].contiguous()
+    kcs = [torch.randn(bg1, S, hd, generator=gen, device=device)
+           for _ in range(L)]
+    vcs = [torch.randn(bg1, S, hd, generator=gen, device=device)
+           for _ in range(L)]
+    n_split, chunk = flash_plan(bg1, S, sm_count(device))
+    log(f"plan flash_decode (timed) b*g={bg1} S={S}: n_split {n_split}, "
+        f"chunk {chunk} keys, {bg1 * n_split} blocks")
+
+    def fd1_step(fn):
+        for i in range(L):
+            fn(q1, kcs[i], vcs[i], pos)
+
+    time_kernel("flash_decode", f"{L} calls, b*g={bg1}, S={S}, pos={pos}, "
+                "f32 cache", fd1_step, flash_decode, flash_decode_plain,
+                L * (2 * bg1 * (pos + 1) * hd * 4 + 2 * q1.numel() * 4),
+                L * bg1 * qpk * (pos + 1) * hd * 4, library=sdpa,
+                key="flash_decode b1")
+    device_split(f"flash_decode x36, b*g={bg1}, S={S}",
+                 lambda: fd1_step(flash_decode))
     del kcs, vcs
     torch.cuda.empty_cache()
     return timings
@@ -515,7 +695,6 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     `paged_verify_step` windows of s tokens otherwise.  Host wall time
     per step against the device time of the kernels it ran."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     b, mp = eng.max_batch, eng.cache.max_pages
@@ -538,13 +717,7 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_name = {}
-    n_dev = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dur = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + dur
-            n_dev += 1
+    by_name, n_dev = device_times(prof)
     dev_ms = sum(by_name.values()) / 1e3 / steps
     if n_dev == 0:
         log(f"{what} profile: wall {wall_ms:.3f} ms/step; device "
@@ -555,6 +728,41 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
         f"{dev_ms:.3f} ms/step busy ({100 * dev_ms / wall_ms:.1f} %), "
         f"{n_dev / steps:.0f} device events/step; top: " + "; ".join(
             f"{n[:60]} {d / 1e3 / steps:.3f} ms" for n, d in top))
+
+
+def device_times(prof):
+    """({kernel name: device us summed}, device events) of a profile."""
+    from torch.autograd import DeviceType
+    by_name, n = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+            n += 1
+    return by_name, n
+
+
+def device_split(label, step, steps: int = 3) -> None:
+    """Device time per call of `step` by kernel name (torch.profiler),
+    logged: how a step's time divides between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_name, n = device_times(prof)
+    if not by_name:
+        log(f"device split {label}: not measured (no CUDA events)")
+        return
+    parts = sorted(by_name.items(), key=lambda kv: -kv[1])
+    names = [re.sub(r"^void |\(anonymous namespace\)::|\(.*", "", k)[:60]
+             for k, _ in parts]
+    log(f"device split {label}: {n / steps:.0f} kernels per step; "
+        + "; ".join(f"{nm} {v / 1e3 / steps:.4f} ms"
+                    for nm, (_, v) in zip(names, parts)))
 
 
 def top2_gap(model, params, device, tokens):
@@ -832,9 +1040,15 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.ops import KERNELS
     t0 = time.perf_counter()
+    ptxas = start_ptxas()
     built = _build.build_all()
     log(f"built {built or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s")
+    log_ptxas(ptxas)
+    from repro_torch.kernels.split_decode import smem_bytes
+    log("split-KV block shared memory: " + ", ".join(
+        f"{n} hd 128 {smem_bytes(e, 128)} B" for n, e in
+        (("int8", 1), ("bf16", 2), ("f32", 4))))
 
     t0 = time.perf_counter()
     model, params = build_full_model(device)
@@ -876,9 +1090,12 @@ def main() -> None:
             "ms": t["ms"], "eager_ms": t["eager_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_share": t["bound_share"],
             "library_ms": t["library_ms"],
             "timed": t["timed"] + "; ms is CUDA-graph replay, eager_ms "
-                     "host-dispatched"})
+                     "host-dispatched",
+            "also_timed": [v for k, v in timings.items()
+                           if k.startswith(name + " ")]})
     log("spec summary " + json.dumps(spec_result))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

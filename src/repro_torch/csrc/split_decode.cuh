@@ -1,0 +1,454 @@
+// Split-KV ("flash-decoding") one-token attention, shared by
+// paged_flash_decode.cu and flash_decode.cu.
+//
+// A call's grid is (rows, n_split): a row is one (lane, kv head) with its
+// qpk query heads, and split s folds keys [s * chunk, (s + 1) * chunk) of
+// it.  The visible keys of a row are one interval [lo, hi); each kernel
+// supplies that interval and how key t's K/V row is found (`row_of`, a
+// row index into (rows, hd) pools, and its scale when QUANT).  Three
+// pieces live here:
+//   * the per-split walk (`fold`): each of the block's 4 warps stages its
+//     own tiles of KT keys (K and V rows, 16-byte cp.async chunks into a
+//     double buffer, so tile i + 1 loads while tile i is computed) and
+//     keeps its own online-softmax state in registers: lane j of a key
+//     group computes q . k for key j over its share of hd, the groups sum
+//     by warp shuffles, and the max runs over the tile by shuffles too;
+//     for p . v each lane owns hd / 32 dims of the (qpk, hd) accumulator.
+//     The warps merge once, at the end of the split, through shared
+//     memory.  No block-wide barrier runs per tile;
+//   * the partial (m, l, acc) each split writes to scratch, (rows,
+//     n_split, qpk, hd) f32 then (rows, n_split, qpk, 2) f32, or the
+//     output itself when n_split == 1;
+//   * the merge (`merge_kernel`), a second launch that folds the partials
+//     of each row in split order.  Every sum has a fixed order, so a call
+//     is bitwise repeatable; no float atomics.
+// A row that sees no key takes the TPU kernels' result, the mean of V over
+// every key the kernel walks: all keys count as visible, with score 0.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <stdint.h>
+
+#include "attention_tile.cuh"
+
+namespace split {
+
+using attn::NEG_INF;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int QMAX = 8;                 // query rows per kv head, at most
+constexpr int MAX_SPLITS = 256;         // splits per row, at most
+constexpr unsigned FULL = 0xffffffffu;
+
+// Tile geometry of one warp for element type T and head dim HD.
+template <typename T, int HD>
+struct Shape {
+  static constexpr int ROW = HD * static_cast<int>(sizeof(T));  // bytes
+  static constexpr int RS = ROW + 16;   // padded shared-memory row stride
+  // keys per tile: 16, fewer for rows wider than 256 B (stage <= ~8.5 KB)
+  static constexpr int KT = ROW <= 256 ? 16 : (ROW <= 512 ? 8 : 4);
+  static constexpr int PARTS = 32 / KT;  // lanes that share one key's q . k
+  static constexpr int DP = HD / PARTS;  // dims of q . k per lane
+  static constexpr int VB = DP * static_cast<int>(sizeof(T)) < 16
+      ? DP * static_cast<int>(sizeof(T)) : 16;
+  static constexpr int VE = VB / static_cast<int>(sizeof(T));  // per load
+  static constexpr int HDL = HD >= 32 ? HD / 32 : 1;  // p . v dims per lane
+  static constexpr int CPR = ROW / 16;  // 16-byte chunks per row
+  static constexpr int STAGE = 2 * KT * RS;            // K + V tile, bytes
+  static constexpr int WARP_SMEM = 2 * STAGE + KT * QMAX * 4;
+  static constexpr int SMEM = QMAX * HD * 4 + WARPS * WARP_SMEM;
+  static_assert(HD % 16 == 0 && HD <= 256, "hd: a multiple of 16, <= 256");
+  static_assert(ROW % 16 == 0, "rows are whole 16-byte chunks");
+  static_assert(VE % 4 == 0, "q . k runs on float4 pieces of q");
+  // the warp's merge area (m, l, acc) reuses its stage buffers
+  static_assert(QMAX * (HD + 2) * 4 <= 2 * STAGE, "merge area");
+};
+
+// Element k of T packed little-endian in a 32-bit word, as f32.
+template <typename T>
+__device__ __forceinline__ float unpack(uint32_t w, int k);
+template <>
+__device__ __forceinline__ float unpack<float>(uint32_t w, int) {
+  return __uint_as_float(w);
+}
+template <>
+__device__ __forceinline__ float unpack<__nv_bfloat16>(uint32_t w, int k) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(static_cast<unsigned short>(w >> (16 * k))));
+}
+template <>
+__device__ __forceinline__ float unpack<int8_t>(uint32_t w, int k) {
+  return static_cast<float>(static_cast<int8_t>((w >> (8 * k)) & 0xffu));
+}
+
+// N elements of T at p (N * sizeof(T) bytes, aligned to that size or to
+// 16) into f32: one vector load per 16 bytes, each element converted once.
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const T* p, float* out) {
+  constexpr int SZ = static_cast<int>(sizeof(T));
+  constexpr int B = N * SZ;
+  constexpr int PER = SZ < 4 ? 4 / SZ : 1;          // elements per word
+  if constexpr (B > 16) {
+#pragma unroll
+    for (int k = 0; k < B / 16; ++k)
+      load_f<T, 16 / SZ>(p + k * (16 / SZ), out + k * (16 / SZ));
+  } else {
+    uint32_t w[B >= 4 ? B / 4 : 1];
+    if constexpr (B == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+    } else if constexpr (B == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x; w[1] = u.y;
+    } else if constexpr (B == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else if constexpr (B == 2) {
+      w[0] = *reinterpret_cast<const uint16_t*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const uint8_t*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = unpack<T>(w[i / PER], i % PER);
+  }
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m <= 0.5f * NEG_INF ? 0.f : expf(m - mx);
+}
+
+// One block: fold keys [kbeg, kend) of row `row` (split `split` of
+// n_split) into the block's partial, or into the output when n_split == 1.
+// zero_scores: the row sees no key, so every key counts with score 0.
+// row_of(t): row index of key t in the pools (and in the scale pools).
+// qh, out_h: this row's (qpk, HD) query and output; part: the scratch.
+template <typename T, int HD, bool QUANT, typename RowOf>
+__device__ __forceinline__ void fold(
+    const float* __restrict__ qh, const T* __restrict__ kp,
+    const T* __restrict__ vp, const __half* __restrict__ ks,
+    const __half* __restrict__ vs, RowOf row_of, int kbeg, int kend,
+    bool zero_scores, int qpk, float scale, float cap,
+    float* __restrict__ out_h, float* __restrict__ part, int row,
+    int split, int n_split) {
+  using S = Shape<T, HD>;
+  constexpr int KT = S::KT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t n_part = static_cast<size_t>(gridDim.x) * n_split * qpk;
+  float* ml = part + n_part * HD;                  // (rows, n_split, qpk, 2)
+  const size_t pidx = (static_cast<size_t>(row) * n_split + split) * qpk;
+
+  if (kbeg >= kend) {                 // nothing of this row in this split
+    if (n_split > 1) {
+      for (int r = tid; r < qpk; r += THREADS) {
+        ml[(pidx + r) * 2] = NEG_INF;
+        ml[(pidx + r) * 2 + 1] = 0.f;
+      }
+    } else {
+      for (int i = tid; i < qpk * HD; i += THREADS) out_h[i] = 0.f;
+    }
+    return;
+  }
+
+  float* q_s = reinterpret_cast<float*>(smem);     // (QMAX, HD), zero rows
+  unsigned char* wbase = smem + QMAX * HD * 4 + warp * S::WARP_SMEM;
+  float* p_s = reinterpret_cast<float*>(wbase + 2 * S::STAGE);  // (KT, QMAX)
+
+  const int n_tiles = (kend - kbeg + KT - 1) / KT;
+  const int j = lane % KT;            // this lane's key in a tile (q . k)
+  const int prt = lane / KT;          // and its share of hd
+  const int d0 = lane * S::HDL;       // this lane's dims of acc (p . v)
+
+  // Stage tile `tile` into buffer `st`; returns this lane's key's scales.
+  auto stage = [&](int tile, int st, float& ksc, float& vsc) {
+    const int t0 = kbeg + tile * KT;
+    const bool mine = t0 + j < kend;
+    const long long my_row = mine ? static_cast<long long>(row_of(t0 + j))
+                                  : 0;
+    if (QUANT) {
+      ksc = mine ? __half2float(ks[my_row]) : 0.f;
+      vsc = mine ? __half2float(vs[my_row]) : 0.f;
+    }
+    unsigned char* kd = wbase + st * S::STAGE;
+    unsigned char* vd = kd + KT * S::RS;
+    const unsigned char* kg = reinterpret_cast<const unsigned char*>(kp);
+    const unsigned char* vg = reinterpret_cast<const unsigned char*>(vp);
+#pragma unroll
+    for (int i0 = 0; i0 < KT * S::CPR; i0 += 32) {
+      const int i = i0 + lane;
+      const int r = i < KT * S::CPR ? i / S::CPR : 0;
+      const long long rr = __shfl_sync(FULL, my_row, r);
+      if (i < KT * S::CPR) {
+        const int c = i - r * S::CPR;
+        const bool ok = t0 + r < kend;
+        const size_t off = ok ? static_cast<size_t>(rr) * S::ROW + c * 16 : 0;
+        cp16(kd + r * S::RS + c * 16, kg + off, ok);
+        cp16(vd + r * S::RS + c * 16, vg + off, ok);
+      }
+    }
+    cp_commit();
+  };
+
+  float m[QMAX], l[QMAX], acc[QMAX][S::HDL];
+#pragma unroll
+  for (int r = 0; r < QMAX; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < S::HDL; ++i) acc[r][i] = 0.f;
+  }
+  float ks_cur = 1.f, vs_cur = 1.f, ks_nxt = 1.f, vs_nxt = 1.f;
+  if (warp < n_tiles) stage(warp, 0, ks_cur, vs_cur);  // first tile in
+  for (int i = tid; i < QMAX * HD; i += THREADS)      //   flight under q
+    q_s[i] = i < qpk * HD ? qh[i] : 0.f;
+  __syncthreads();                    // q_s is in place
+  int it = 0;
+  for (int tile = warp; tile < n_tiles; tile += WARPS, ++it) {
+    const int st = it & 1;
+    if (tile + WARPS < n_tiles) stage(tile + WARPS, st ^ 1, ks_nxt, vs_nxt);
+    else cp_commit();                 // an empty group keeps the count
+    cp_wait<1>();
+    __syncwarp();
+    const unsigned char* kd = wbase + st * S::STAGE;
+    const unsigned char* vd = kd + KT * S::RS;
+    const int t0 = kbeg + tile * KT;
+
+    // scores of key j, this lane's DP dims, then summed over the PARTS
+    float sc[QMAX];
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r) sc[r] = 0.f;
+    const T* krow = reinterpret_cast<const T*>(kd + j * S::RS) + prt * S::DP;
+    const float* qp = q_s + prt * S::DP;
+#pragma unroll
+    for (int c = 0; c < S::DP; c += S::VE) {
+      float kv[S::VE];
+      load_f<T, S::VE>(krow + c, kv);
+#pragma unroll
+      for (int r = 0; r < QMAX; ++r) {
+#pragma unroll
+        for (int e = 0; e < S::VE; e += 4) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(qp + r * HD + c + e);
+          sc[r] = fmaf(qv.x, kv[e], sc[r]);
+          sc[r] = fmaf(qv.y, kv[e + 1], sc[r]);
+          sc[r] = fmaf(qv.z, kv[e + 2], sc[r]);
+          sc[r] = fmaf(qv.w, kv[e + 3], sc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int off = KT; off < 32; off <<= 1)
+#pragma unroll
+      for (int r = 0; r < QMAX; ++r)
+        sc[r] += __shfl_xor_sync(FULL, sc[r], off);
+
+    // online softmax over the tile; the max is uniform across the warp
+    const bool vis = t0 + j < kend;
+    const float f = (QUANT ? ks_cur : 1.f) * scale;
+    float alpha[QMAX], p[QMAX];
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r) {
+      float s = sc[r] * f;
+      if (cap > 0.f) s = cap * tanhf(s / cap);
+      if (zero_scores) s = 0.f;
+      s = vis ? s : NEG_INF;
+      float tm = s;
+#pragma unroll
+      for (int off = 1; off < KT; off <<= 1)
+        tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, off));
+      const float mn = fmaxf(m[r], tm);
+      alpha[r] = weight(m[r], mn);
+      p[r] = weight(s, mn);
+      l[r] = l[r] * alpha[r] + p[r];  // this lane's keys; summed at the end
+      m[r] = mn;
+    }
+    if (prt == 0) {                   // v's row scale folds into p
+      const float vsf = QUANT ? vs_cur : 1.f;
+      float4* pw = reinterpret_cast<float4*>(p_s + j * QMAX);
+      pw[0] = make_float4(p[0] * vsf, p[1] * vsf, p[2] * vsf, p[3] * vsf);
+      pw[1] = make_float4(p[4] * vsf, p[5] * vsf, p[6] * vsf, p[7] * vsf);
+    }
+    __syncwarp();
+
+    if (d0 < HD) {
+#pragma unroll
+      for (int r = 0; r < QMAX; ++r)
+#pragma unroll
+        for (int i = 0; i < S::HDL; ++i) acc[r][i] *= alpha[r];
+      const int nj = min(KT, kend - t0);
+#pragma unroll 4
+      for (int jj = 0; jj < nj; ++jj) {
+        float vv[S::HDL];
+        load_f<T, S::HDL>(
+            reinterpret_cast<const T*>(vd + jj * S::RS) + d0, vv);
+        const float4* pr = reinterpret_cast<const float4*>(p_s + jj * QMAX);
+        const float4 pa = pr[0], pb = pr[1];
+        const float pv[QMAX] = {pa.x, pa.y, pa.z, pa.w,
+                                pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+        for (int r = 0; r < QMAX; ++r)
+#pragma unroll
+          for (int i = 0; i < S::HDL; ++i)
+            acc[r][i] = fmaf(pv[r], vv[i], acc[r][i]);
+      }
+    }
+    __syncwarp();                     // buffer st and p_s free for reuse
+    ks_cur = ks_nxt;
+    vs_cur = vs_nxt;
+  }
+  cp_wait<0>();
+#pragma unroll
+  for (int r = 0; r < QMAX; ++r)
+#pragma unroll
+    for (int off = 1; off < KT; off <<= 1)
+      l[r] += __shfl_xor_sync(FULL, l[r], off);
+
+  // merge the warps, in warp order, through each warp's stage area
+  float* wm = reinterpret_cast<float*>(wbase);     // m (QMAX), l (QMAX),
+  __syncwarp();                                    //   acc (QMAX, HD)
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r) {
+      wm[r] = m[r];
+      wm[QMAX + r] = l[r];
+    }
+  }
+  if (d0 < HD) {
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r)
+#pragma unroll
+      for (int i = 0; i < S::HDL; ++i)
+        wm[2 * QMAX + r * HD + d0 + i] = acc[r][i];
+  }
+  __syncthreads();
+  for (int i = tid; i < qpk * HD; i += THREADS) {
+    const int r = i / HD;
+    const int d = i - r * HD;
+    const float* w0 = reinterpret_cast<const float*>(smem + QMAX * HD * 4);
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+      mx = fmaxf(mx, w0[w * (S::WARP_SMEM / 4) + r]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float* ww = w0 + w * (S::WARP_SMEM / 4);
+      const float e = weight(ww[r], mx);
+      if (e != 0.f) {
+        L += ww[QMAX + r] * e;
+        A += ww[2 * QMAX + r * HD + d] * e;
+      }
+    }
+    if (n_split == 1) {
+      out_h[i] = A / fmaxf(L, 1e-30f);
+    } else {
+      part[(pidx + r) * HD + d] = A;
+      if (d == 0) {
+        ml[(pidx + r) * 2] = mx;
+        ml[(pidx + r) * 2 + 1] = L;
+      }
+    }
+  }
+}
+
+// Grid (rows, qpk): fold each row's n_split partials in split order.
+// The splits' (m, l) and weights go to shared memory first, so each
+// thread's walk over the splits starts its loads without waiting on
+// them.  Partials with no key (m = NEG_INF) are skipped, never
+// multiplied.
+__global__ void __launch_bounds__(128)
+merge_kernel(const float* __restrict__ part, float* __restrict__ out,
+             int QPK, int HD, int n_split) {
+  __shared__ float w_s[MAX_SPLITS];
+  __shared__ float l_s[MAX_SPLITS];
+  __shared__ float red[4];
+  const int row = blockIdx.x;
+  const int r = blockIdx.y;
+  const int tid = threadIdx.x;
+  const size_t n_part = static_cast<size_t>(gridDim.x) * n_split * QPK;
+  const float* ml = part + n_part * HD;
+  const size_t p0 = static_cast<size_t>(row) * n_split * QPK + r;
+  float mx = NEG_INF;
+  for (int s = tid; s < n_split; s += 128) {
+    const size_t pi = p0 + static_cast<size_t>(s) * QPK;
+    w_s[s] = ml[pi * 2];
+    l_s[s] = ml[pi * 2 + 1];
+    mx = fmaxf(mx, w_s[s]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+  if ((tid & 31) == 0) red[tid >> 5] = mx;
+  __syncthreads();
+  mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  for (int s = tid; s < n_split; s += 128) w_s[s] = weight(w_s[s], mx);
+  __syncthreads();
+  float L = 0.f;
+  for (int s = 0; s < n_split; ++s)
+    if (w_s[s] != 0.f) L += l_s[s] * w_s[s];
+  const float inv_l = 1.f / fmaxf(L, 1e-30f);
+  for (int d = tid; d < HD; d += 128) {
+    float A = 0.f;
+    const float* pd = part + p0 * HD + d;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s) {
+      const float e = w_s[s];
+      const float pv = pd[static_cast<size_t>(s) * QPK * HD];
+      A += e != 0.f ? pv * e : 0.f;
+    }
+    out[(static_cast<size_t>(row) * QPK + r) * HD + d] = A * inv_l;
+  }
+}
+
+// Launch a fold kernel (grid (rows, n_split)) and, when n_split > 1, the
+// merge.  Raises the block's dynamic shared-memory limit once.
+template <typename T, int HD, typename Kernel, typename... Args>
+int launch(Kernel kern, int rows, int n_split, int qpk, float* part,
+           float* out, cudaStream_t st, Args... args) {
+  using S = Shape<T, HD>;
+  static bool attr_set = false;
+  if (!attr_set && S::SMEM > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  attr_set = true;
+  kern<<<dim3(rows, n_split), THREADS, S::SMEM, st>>>(args...);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return static_cast<int>(e);
+  merge_kernel<<<dim3(rows, qpk), 128, 0, st>>>(part, out, qpk, HD, n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dispatch a runtime head dim onto the instantiated ones.
+template <template <int> class Fn, typename... Args>
+int by_hd(int hd, Args... args) {
+  switch (hd) {
+    case 16: return Fn<16>::run(args...);
+    case 32: return Fn<32>::run(args...);
+    case 64: return Fn<64>::run(args...);
+    case 128: return Fn<128>::run(args...);
+    case 256: return Fn<256>::run(args...);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace split

@@ -3,13 +3,17 @@ cache, CUDA kernel + plain version.
 
 Replaces the Pallas TPU kernel
 `src/repro/kernels/flash_decode.py:flash_decode`.  The kernel
-(`csrc/flash_decode.cu`) is bound by the bytes of the K/V rows up to
-`pos`; one block per `bg` row (batch x kv head) walks only the tiles
-that hold visible keys, with an online softmax in f32, and masks its own
+(`csrc/flash_decode.cu` on `csrc/split_decode.cuh`) is bound by the
+bytes of the K/V rows up to `pos`.  It splits each `bg` row's keys
+across blocks from a shape-only plan (`split_decode.plan_splits`); each
+block folds its keys with an online softmax in f32 and masks its own
 ragged edge, so any cache length S is taken (the TPU kernel needed S to
-be a multiple of its 512-key block).  f32 and bf16 caches, a sliding
-window and a softcap.  `pos` is a Python int or a 0-d int32 tensor on
-the card, which the kernel reads itself (no host sync).
+be a multiple of its 512-key block), and a second launch merges the
+splits in a fixed order.  f32 and bf16 caches, a sliding window and a
+softcap.  `pos` is a Python int or a 0-d int32 tensor on the card,
+which the kernel reads itself (no host sync).  When no key is visible
+(pos < 0, or a window past the cache) the result is the mean of V over
+all S keys, as the TPU kernel and the plain version give.
 
 On CPU tensors the wrapper runs the plain version (`ref_flash_decode`);
 on CUDA tensors it launches the kernel or raises.
@@ -22,11 +26,9 @@ from typing import Union
 
 import torch
 
-from . import _build
-from .paged_flash_decode import MAX_SMEM
+from . import _build, split_decode
 from .ref import ref_flash_decode
 
-TILE = 32                   # keys per staged tile, as in the source
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -43,8 +45,8 @@ def _lib():
     lib = _build.load("flash_decode")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i,
-                                     ctypes.c_float, ctypes.c_float, p]
+        lib.flash_decode.argtypes = [p, p, p, p, i, p, p] + [i] * 8 + [
+            ctypes.c_float, ctypes.c_float, p]
         lib.flash_decode.restype = i
         lib.flash_decode_error_string.argtypes = [i]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -52,9 +54,9 @@ def _lib():
     return lib
 
 
-def smem_bytes(qpk: int, hd: int) -> int:
-    """Dynamic shared memory of one block, as the source sizes it."""
-    return 4 * (2 * qpk * hd + TILE * (2 * hd + 1) + qpk * TILE + 3 * qpk)
+def plan(bg: int, S: int, n_sms: int = split_decode.H100_SMS):
+    """(n_split, chunk) of a call over `bg` rows of S keys."""
+    return split_decode.plan_splits(bg, S, 16, n_sms)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,17 +93,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pos_ptr = pos.data_ptr()
     else:
         pos_val = int(pos)
-    if smem_bytes(qpk, hd) > MAX_SMEM:
-        raise ValueError(f"flash_decode: qpk {qpk} x hd {hd} needs more "
-                         f"shared memory than a block has ({MAX_SMEM} B)")
+    split_decode.check_shape("flash_decode", qpk, hd)
+    split_decode.check_aligned("flash_decode", k, v)
     out = torch.empty_like(q)
     if bg == 0:
         return out
+    S = k.shape[1]
+    n_split, chunk = plan(bg, S, split_decode.sm_count(q.device))
+    part = split_decode.scratch(bg, n_split, qpk, hd, q.device)
     lib = _lib()
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_ptr, pos_val,
-        out.data_ptr(), bg, k.shape[1], qpk, hd, kind, int(window),
-        float(attn_cap), 1.0 / math.sqrt(hd), _build.stream_handle())
+        out.data_ptr(), part.data_ptr(), bg, S, qpk, hd, chunk, n_split,
+        kind, int(window), float(attn_cap), 1.0 / math.sqrt(hd),
+        _build.stream_handle())
     if err:
         raise RuntimeError("flash_decode launch failed: "
                            + lib.flash_decode_error_string(err).decode())

@@ -4,14 +4,15 @@ token per lane) and `paged_flash_verify` (a speculative-decode window of
 
 `paged_flash_decode` replaces the Pallas TPU kernel
 `src/repro/kernels/paged_flash_decode.py:paged_flash_decode`.  The
-kernel (`csrc/paged_flash_decode.cu`) is bound by the bytes of the K/V
-rows a lane owns; one block per (lane, kv head) walks only that lane's
-pages, `ceil(length / page_size)` of them, with an online softmax in
-f32, and dequantizes INT8 rows by their f16 scale right after the load.
-It also takes f32 and bf16 pools, a sliding window and a softcap.
-Lanes with `length == 0` are inactive padding: the kernel returns zeros
-there, while the plain version (like the TPU kernel) returns the mean of
-masked rows.  Callers drop those rows.
+kernel (`csrc/paged_flash_decode.cu` on `csrc/split_decode.cuh`) is bound
+by the bytes of the K/V rows a lane owns.  It splits each (lane, kv
+head)'s keys across blocks by whole pages, from a shape-only plan
+(`split_decode.plan_splits`); each block folds its pages with an online
+softmax in f32, and a second launch merges the splits in a fixed order.
+It also takes f32 and bf16 pools, a sliding window and a softcap.  A
+lane with `length == 0` (an inactive padding lane) gets the mean of V
+over all `max_pages` pages of its table, as the TPU kernel and the plain
+version give; every table entry must be a valid page id.
 
 `paged_flash_verify` replaces the Pallas TPU kernel
 `src/repro/kernels/paged_flash_decode.py:paged_flash_verify`.  Its
@@ -33,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, split_decode
 from .ref import ref_paged_decode, ref_paged_verify
 
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -43,13 +44,13 @@ paged_decode_plain = ref_paged_decode
 paged_verify_plain = ref_paged_verify
 
 
-def _lib(name: str, n_ints: int):
+def _lib(name: str, n_ptrs: int, n_ints: int):
     lib = _build.load(name)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = getattr(lib, name)
-        fn.argtypes = [p] * 8 + [i] * n_ints + [ctypes.c_float,
-                                                 ctypes.c_float, p]
+        fn.argtypes = [p] * n_ptrs + [i] * n_ints + [ctypes.c_float,
+                                                      ctypes.c_float, p]
         fn.restype = i
         err = getattr(lib, name + "_error_string")
         err.argtypes = [i]
@@ -104,14 +105,16 @@ def _check(name: str, ndim: int, q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _launch(name: str, ints, q, k_pages, v_pages, tables, lengths, out,
-            window, attn_cap, k_scales, v_scales) -> None:
+            window, attn_cap, k_scales, v_scales, part=None) -> None:
     quant = k_scales is not None
-    lib = _lib(name, len(ints) + 2)
+    ptrs = [out.data_ptr()] + ([part.data_ptr()] if part is not None
+                               else [])
+    lib = _lib(name, 7 + len(ptrs), len(ints) + 2)
     err = getattr(lib, name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None,
         v_scales.data_ptr() if quant else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *ints,
+        tables.data_ptr(), lengths.data_ptr(), *ptrs, *ints,
         _KV_KIND[k_pages.dtype], int(window), float(attn_cap),
         1.0 / math.sqrt(q.shape[-1]), _build.stream_handle())
     if err:
@@ -128,23 +131,38 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        ) -> torch.Tensor:
     """q: (b, g, qpk, hd) f32; k_pages/v_pages: (n_pages, page_size, g,
     hd) f32, bf16, or int8 with k_scales/v_scales (n_pages, page_size, g)
-    f16; tables: (b, max_pages) int32 (entries past a lane's length are
-    never read); lengths: (b,) int32 including the current token.
-    Returns (b, g, qpk, hd) f32."""
+    f16; tables: (b, max_pages) int32 valid page ids (a lane reads only
+    the pages under its length, a length-0 lane all of them); lengths:
+    (b,) int32 including the current token.  Returns (b, g, qpk, hd)
+    f32."""
     if _check("paged_flash_decode", 4, q, k_pages, v_pages, tables, lengths,
               k_scales, v_scales):
         return paged_decode_plain(q, k_pages, v_pages, tables, lengths,
                                   window, attn_cap, k_scales, v_scales)
     b, g, qpk, hd = q.shape
+    split_decode.check_shape("paged_flash_decode", qpk, hd)
+    split_decode.check_aligned("paged_flash_decode", k_pages, v_pages)
     out = torch.empty_like(q)
     if b == 0:
         return out
+    ps, max_pages = k_pages.shape[1], tables.shape[1]
+    n_split, chunk = decode_plan(b, g, max_pages, ps,
+                                 split_decode.sm_count(q.device))
+    part = split_decode.scratch(b * g, n_split, qpk, hd, q.device)
     _launch("paged_flash_decode",
-            (b, g, qpk, hd, k_pages.shape[1], tables.shape[1]), q, k_pages,
+            (b, g, qpk, hd, ps, max_pages, chunk, n_split), q, k_pages,
             v_pages, tables, lengths, out, window, attn_cap, k_scales,
-            v_scales)
+            v_scales, part)
     paged_flash_decode.launches += 1
     return out
+
+
+def decode_plan(b: int, g: int, max_pages: int, page_size: int,
+                n_sms: int = split_decode.H100_SMS):
+    """(n_split, chunk) of a `paged_flash_decode` call: splits of whole
+    pages over the `max_pages * page_size` keys a lane may hold."""
+    return split_decode.plan_splits(b * g, max_pages * page_size,
+                                    page_size, n_sms)
 
 
 def verify_smem_bytes(s: int, qpk: int, hd: int, page_size: int) -> int:

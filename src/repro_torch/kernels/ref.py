@@ -87,9 +87,22 @@ def ref_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     per-token INT8.  A lane with length 0 gets the mean of its masked
     rows, as in the JAX oracle.  Returns (b, g, qpk, hd) in q.dtype.
     """
+    scores, v = _paged_scores(q, k_pages, v_pages, tables, attn_cap,
+                              k_scales, v_scales)
+    mask = _paged_visible(lengths.to(q.device), window, scores.shape[-1])
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype),
+                        v.to(q.dtype))
+
+
+def _paged_scores(q, k_pages, v_pages, tables, attn_cap, k_scales,
+                  v_scales):
+    """Scaled (and capped) scores (b, g, qpk, S) of every row of each
+    lane's table, and the gathered V rows (b, S, g, hd)."""
     b, hd = q.shape[0], q.shape[-1]
-    ps = k_pages.shape[1]
-    S = tables.shape[1] * ps
+    S = tables.shape[1] * k_pages.shape[1]
     tables = tables.long()
     k = _gather_pages(k_pages, tables, b, S, k_scales)
     v = _gather_pages(v_pages, tables, b, S, v_scales)
@@ -98,16 +111,26 @@ def ref_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     scores = scores / math.sqrt(hd)
     if attn_cap:
         scores = attn_cap * torch.tanh(scores / attn_cap)
-    k_pos = torch.arange(S, device=q.device)
-    lengths = lengths.to(q.device)
+    return scores, v
+
+
+def _paged_visible(lengths, window, S):
+    """(b, S) keys each lane sees: k_pos < length, within the window."""
+    k_pos = torch.arange(S, device=lengths.device)
     mask = k_pos[None, :] < lengths[:, None]
     if window:
         mask = mask & ((lengths[:, None] - 1) - k_pos[None, :] < window)
-    scores = torch.where(mask[:, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=q.device))
-    w = torch.softmax(scores, dim=-1)
-    return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype),
-                        v.to(q.dtype))
+    return mask
+
+
+def _flash_visible(pos, window, S, device):
+    """(S,) keys a query at `pos` sees over a contiguous cache."""
+    k_pos = torch.arange(S, device=device)
+    pos = torch.as_tensor(pos, device=device)
+    mask = k_pos <= pos
+    if window:
+        mask = mask & (pos - k_pos < window)
+    return mask
 
 
 def ref_paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
@@ -165,12 +188,80 @@ def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k.to(q.dtype).to(torch.float32)) / math.sqrt(hd)
     if attn_cap:
         scores = attn_cap * torch.tanh(scores / attn_cap)
-    k_pos = torch.arange(S, device=q.device)
-    pos = torch.as_tensor(pos, device=q.device)
-    mask = k_pos <= pos
-    if window:
-        mask = mask & (pos - k_pos < window)
+    mask = _flash_visible(pos, window, S, q.device)
     scores = torch.where(mask[None, None, None, :], scores,
                          torch.tensor(NEG_INF, device=q.device))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype), v.to(q.dtype))
+
+
+# ----------------------------------------------------------------------------
+# the two halves of the split-KV decode kernels, for the CPU tests
+# ----------------------------------------------------------------------------
+def _range_partials(scores, v, visible, k0, k1):
+    """Softmax state (m, l, acc) of keys [k0, k1), as one split of a
+    split-KV kernel folds them.  scores (n, qpk, S) f32, v (n, S, hd)
+    f32, visible (n, S) bool; a row that sees no key counts every key
+    with score 0.  A range with no key gives m = NEG_INF, l = 0, acc =
+    0."""
+    empty = ~visible.any(-1)
+    scores = torch.where(empty[:, None, None], torch.zeros_like(scores),
+                         scores)
+    vis = (visible | empty[:, None])[:, None, k0:k1]
+    s = torch.where(vis, scores[..., k0:k1],
+                    torch.tensor(NEG_INF, device=scores.device))
+    n, qpk = scores.shape[:2]
+    if k1 <= k0:
+        m = torch.full((n, qpk), NEG_INF, device=scores.device)
+    else:
+        m = s.amax(-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    return m, p.sum(-1), torch.einsum("nqt,nth->nqh", p,
+                                      v[:, k0:k1].to(torch.float32))
+
+
+def ref_paged_decode_partials(q, k_pages, v_pages, tables, lengths, k0, k1,
+                              window=0, attn_cap=0.0, k_scales=None,
+                              v_scales=None):
+    """One split of `paged_flash_decode`: (m, l, acc) of keys [k0, k1)
+    of every (lane, kv head), shapes (b, g, qpk), (b, g, qpk), (b, g,
+    qpk, hd).  Same arguments as `ref_paged_decode`."""
+    b, g, qpk, hd = q.shape
+    scores, v = _paged_scores(q, k_pages, v_pages, tables, attn_cap,
+                              k_scales, v_scales)
+    S = scores.shape[-1]
+    vis = _paged_visible(lengths.to(q.device), window, S)
+    m, l, acc = _range_partials(
+        scores.reshape(b * g, qpk, S), v.transpose(1, 2).reshape(b * g, S,
+                                                                 hd),
+        vis.repeat_interleave(g, 0), k0, k1)
+    return m.reshape(b, g, qpk), l.reshape(b, g, qpk), acc.reshape(q.shape)
+
+
+def ref_flash_decode_partials(q, k, v, pos, k0, k1, window=0,
+                              attn_cap=0.0):
+    """One split of `flash_decode`, in its (bg, ...) layout: (m, l, acc)
+    of keys [k0, k1), shapes (bg, qpk), (bg, qpk), (bg, qpk, hd)."""
+    bg, S = q.shape[0], k.shape[1]
+    scores = torch.einsum("nph,nkh->npk", q.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(q.shape[-1])
+    if attn_cap:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    vis = _flash_visible(pos, window, S, q.device)[None].expand(bg, S)
+    return _range_partials(scores, v, vis, k0, k1)
+
+
+def ref_merge_partials(parts):
+    """Merge the splits' (m, l, acc) in split order, as the merge kernel
+    does: out = sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, a split
+    with no key (m = NEG_INF) skipped, never multiplied."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        live = m > 0.5 * NEG_INF            # a split with no key adds
+        e = torch.exp(torch.where(live, m - M, torch.zeros_like(m)))
+        L = L + torch.where(live, l * e, torch.zeros_like(l))
+        A = A + torch.where(live[..., None], acc * e[..., None],
+                            torch.zeros_like(acc))
+    return A / L.clamp_min(1e-30)[..., None]

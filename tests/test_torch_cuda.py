@@ -118,15 +118,46 @@ def test_paged_decode_kernel_matches_plain(device, pools, window, cap):
     _close(out, ref)
 
 
-def test_paged_decode_kernel_zero_length_lane_is_zero(device):
+def test_paged_decode_kernel_zero_length_lane_matches_plain(device):
     q, kp, vp, tables, lengths, ks, vs = _paged(device, "int8", seed=4)
     lengths[2] = 0
     out = paged_flash_decode(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
     ref = paged_decode_plain(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
-    torch.cuda.synchronize()
-    assert float(out[2].abs().max()) == 0.0
-    keep = lengths > 0
-    _close(out[keep], ref[keep])
+    _close(out, ref)
+
+
+def _split_lengths(b, g, max_pages, ps):
+    """Lengths on and one past the plan's first split boundary, length 1
+    and length 0, for a table of max_pages pages."""
+    from repro_torch.kernels.paged_flash_decode import decode_plan
+    from repro_torch.kernels.split_decode import sm_count
+    _, chunk = decode_plan(b, g, max_pages, ps, sm_count(torch.device(
+        "cuda")))
+    return chunk, [chunk, chunk + 1, 1, 0][:b]
+
+
+@pytest.mark.parametrize("pools", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,max_pages,window,cap", [
+    (4, 64, 0, 0.0), (4, 64, 20, 0.0), (4, 64, 0, 30.0), (1, 256, 0, 0.0),
+    (2, 5, 7, 0.0)])
+def test_paged_decode_kernel_split_edges_match_plain(device, pools, b,
+                                                      max_pages, window,
+                                                      cap):
+    """Lengths on a split boundary and one past it, length 1, length 0,
+    a window across a boundary; batch 1 over 256 pages; every lane
+    compared; a second call bitwise equal to the first."""
+    q, kp, vp, tables, _, ks, vs = _paged(device, pools, b=b,
+                                          max_pages=max_pages, seed=7)
+    chunk, lens = _split_lengths(b, q.shape[1], max_pages, kp.shape[1])
+    if b == 1:
+        lens = [max_pages * kp.shape[1]]
+    elif window:
+        lens = [2 * chunk + 7, chunk + 5, 1, 0][:b]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    args = (q, kp, vp, tables, lengths, window, cap, ks, vs)
+    out = paged_flash_decode(*args)
+    _close(out, paged_decode_plain(*args))
+    assert torch.equal(out, paged_flash_decode(*args))
 
 
 def _verify(device, pools, s, seed=5):
@@ -180,6 +211,41 @@ def test_flash_decode_kernel_matches_plain(device, dtype, S, pos, window,
     _close(flash_decode(q, k, v, pos_t, window, cap), ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bg,S,pos,window,cap", [
+    (8, 1024, 47, 0, 0.0), (8, 1024, 48, 0, 0.0), (8, 1024, 103, 20, 0.0),
+    (8, 1024, 103, 20, 30.0), (8, 1024, -1, 0, 0.0),
+    (8, 1000, 5000, 10, 0.0), (2, 4096, 4095, 0, 0.0), (2, 4096, 0, 0, 0.0),
+    (3, 40, 17, 0, 0.0)])
+def test_flash_decode_kernel_split_edges_match_plain(device, dtype, bg, S,
+                                                     pos, window, cap):
+    """pos on and one past a split boundary, a window across one, no
+    visible key (the mean of V over all S keys), batch 1 (b*g = 2); a
+    second call, with pos on the card, bitwise equal to the first."""
+    gen = _gen(8)
+    q = torch.randn(bg, 8, 128, generator=gen, device=device)
+    k = torch.randn(bg, S, 128, generator=gen, device=device).to(dtype)
+    v = torch.randn(bg, S, 128, generator=gen, device=device).to(dtype)
+    out = flash_decode(q, k, v, pos, window, cap)
+    _close(out, flash_decode_plain(q, k, v, pos, window, cap))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=device)
+    assert torch.equal(out, flash_decode(q, k, v, pos_t, window, cap))
+
+
+@pytest.mark.parametrize("qpk,hd", [(2, 16), (4, 32), (2, 64), (3, 256)])
+def test_split_kernels_take_every_instantiated_head_dim(device, qpk, hd):
+    gen = _gen(9)
+    q = torch.randn(3, qpk, hd, generator=gen, device=device)
+    k = torch.randn(3, 100, hd, generator=gen, device=device)
+    v = torch.randn(3, 100, hd, generator=gen, device=device)
+    _close(flash_decode(q, k, v, 77), flash_decode_plain(q, k, v, 77))
+    qp, kp, vp, tables, lengths, ks, vs = _paged(device, "int8", b=3, g=1,
+                                                 qpk=qpk, hd=hd,
+                                                 max_pages=6, seed=10)
+    _close(paged_flash_decode(qp, kp, vp, tables, lengths, 0, 0.0, ks, vs),
+           paged_decode_plain(qp, kp, vp, tables, lengths, 0, 0.0, ks, vs))
+
+
 def test_launches_count_on_the_card_only(device):
     reset_launch_counts()
     x = torch.randn(2, 256, device=device)
@@ -227,6 +293,11 @@ def test_wrappers_raise_instead_of_falling_back(device):
         flash_decode(qd, kv.half(), kv.half(), 5)
     with pytest.raises(ValueError):                  # k on the CPU
         flash_decode(qd, kv.cpu(), kv, 5)
+    with pytest.raises(ValueError):                  # qpk above 8
+        flash_decode(torch.randn(2, 9, 32, device=device), kv, kv, 5)
+    with pytest.raises(ValueError):                  # hd 48: no kernel
+        kv48 = torch.randn(2, 64, 48, device=device)
+        flash_decode(torch.randn(2, 4, 48, device=device), kv48, kv48, 5)
 
 
 def test_serve_step_on_card_matches_cpu(device):
