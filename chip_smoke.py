@@ -7,22 +7,28 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
   1. device: the card's name and power limit; build the five CUDA
      kernels from src/repro_torch/csrc (one nvcc per source, in
      parallel), and beside them one `-Xptxas -v` compile of each
-     split-KV source (registers, stack, spills).
+     split-KV source and of cim_gemv.cu (registers, stack, spills).
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at qwen2.5-3b shapes, with a stated tolerance; the split-KV
-     kernels also at their split boundaries, at batch 1, for rows that
-     see no key (compared in full), and called twice (bitwise equal).
-     Then the time of one decode step's worth of calls (36 layers, batch
-     4, weights cold in L2), one verify step's `paged_flash_verify`
-     calls (s = 5) and 36 `flash_decode` calls, each against its bound,
-     the plain version's time and, where one PyTorch call computes the
-     same function, that call's time; `paged_flash_decode` and
-     `flash_decode` also at batch 1 over 4096 keys.
+     card, at qwen2.5-3b shapes, with a stated tolerance; cim_gemv also
+     at M = 9 (past an M tile) and on weights whose rows are not 16-byte
+     aligned, every call twice (bitwise equal); the split-KV kernels
+     also at their split boundaries, at batch 1, for rows that see no
+     key (compared in full), and called twice (bitwise equal).  Then the
+     time of one decode step's worth of calls (36 layers, batch 4,
+     weights cold in L2), of a verify step's cim_gemv calls (M = 20),
+     one verify step's `paged_flash_verify` calls (s = 5) and 36
+     `flash_decode` calls, each against its bound, the plain version's
+     time and, where one PyTorch call computes the same function, that
+     call's time; `paged_flash_decode` and `flash_decode` also at batch
+     1 over 4096 keys.  A profile shows one cim_gemv call is one device
+     kernel.
   3. full model: qwen2.5-3b at full width (36 layers, INT4 weights drawn
      from a seed on the card, INT8 paged KV) served by PagedServeEngine:
      4 requests of 16-64 prompt tokens, 16 new tokens each, greedy.  The
      kernel launch counters are zeroed right before and read right
      after; each must equal its per-call count times the calls made.
+     A profile of a decode step must show no second cim_gemv pass
+     (`reduce_kernel`).
   4. speculative decoding: the same model and engine with
      SpecConfig(drafter="ngram", k=4) on prompts that repeat a motif,
      32 new tokens each, against the same prompts without speculation;
@@ -138,9 +144,10 @@ class Checks:
             fail(f"{name} {label}: two calls on the same inputs differ")
 
 
-def start_ptxas(names=("paged_flash_decode", "flash_decode")):
-    """One extra compile of each split-KV source with `-Xptxas -v`,
-    started beside the build: registers, stack and spills per kernel."""
+def start_ptxas(names=("paged_flash_decode", "flash_decode", "cim_gemv")):
+    """One extra compile of the split-KV sources and of cim_gemv.cu with
+    `-Xptxas -v`, started beside the build: registers, stack, static
+    shared memory and spills per kernel."""
     from repro_torch.kernels import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
@@ -156,6 +163,8 @@ def log_ptxas(procs) -> None:
     kern = re.compile(r"(flash_decode_kernel|decode_kernel|merge_kernel)"
                       r"(?:I(a|f|13__nv_bfloat16)Li(\d+)E)?")
     types = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16"}
+    # cim_gemv: <bits, M tile, copy bytes>
+    qkern = re.compile(r"(cols_kernel|rows_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E")
     for name, proc in procs:
         text, _ = proc.communicate(timeout=600)
         if proc.returncode:
@@ -164,8 +173,10 @@ def log_ptxas(procs) -> None:
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = kern.search(m.group(1))
-                fn = (f"{k.group(1)}<{types.get(k.group(2), '')},"
+                k, qk = kern.search(m.group(1)), qkern.search(m.group(1))
+                fn = (f"{qk.group(1)}<int{qk.group(2)},MT{qk.group(3)},"
+                      f"{qk.group(4)}B>" if qk else
+                      f"{k.group(1)}<{types.get(k.group(2), '')},"
                       f"{k.group(3) or ''}>" if k else m.group(1)[:40])
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -174,9 +185,11 @@ def log_ptxas(procs) -> None:
                 spill = (f"stack {m.group(1)} B, spills {m.group(2)}/"
                          f"{m.group(3)} B")
                 continue
-            m = re.search(r"Used (\d+) registers", line)
+            m = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                          line)
             if m and fn:
-                rows.append(f"{fn} {m.group(1)} regs, {spill}")
+                smem = f", static smem {m.group(2)} B" if m.group(2) else ""
+                rows.append(f"{fn} {m.group(1)} regs, {spill}{smem}")
                 fn = None
         log(f"ptxas {name}.cu: " + "; ".join(rows))
 
@@ -191,7 +204,9 @@ def build_full_model(device):
 def phase_kernels(model, params, device, checks: Checks):
     """Correctness at qwen2.5-3b shapes, then decode-step timings."""
     import torch
-    from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              smem_bytes, split_plan,
+                                              vec_bytes)
     from repro_torch.kernels.flash_decode import (flash_decode,
                                                   flash_decode_plain)
     from repro_torch.kernels.flash_decode import plan as flash_plan
@@ -202,7 +217,7 @@ def phase_kernels(model, params, device, checks: Checks):
                                                         paged_verify_plain)
     from repro_torch.kernels.split_decode import sm_count
     from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
-    from repro_torch.quant.qarray import quantize
+    from repro_torch.quant.qarray import QTensor, quantize
 
     cfg = model.cfg
     L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
@@ -228,16 +243,35 @@ def phase_kernels(model, params, device, checks: Checks):
             "w_down": ffn["w_down"][0], "table": table,
             "w_gate": ffn["w_gate"][0], "w_up": ffn["w_up"][0]}
 
+    # cim_gemv: the 16-byte instantiation at every main-path shape, and
+    # the 4-byte one on weights whose rows are not 16-byte aligned (a
+    # copy 4 bytes into a buffer, and the 172 -> 68 test shape)
+    def shifted(w):
+        flat = torch.empty(w.data.numel() + 4, dtype=w.data.dtype,
+                           device=device)
+        data = flat[4:].view(w.data.shape)
+        data.copy_(w.data)
+        return QTensor(data, w.scales, w.bits, w.group, w.axis,
+                       w.orig_shape)
+
     for bits, ws in ((4, int4), (8, int8)):
-        for m in (1, 4, 20, 128):        # 20 = a verify step's b * (k + 1)
-            for name, k in (("wq", d), ("wk", d), ("w_down", f),
-                            ("table", d)):
-                w = ws[name]
+        odd = quantize(torch.randn(172, 68, generator=gen, device=device),
+                       bits, 43)
+        cases = [("wq", d, ws["wq"]), ("wk", d, ws["wk"]),
+                 ("w_down", f, ws["w_down"]), ("table", d, ws["table"]),
+                 ("wq at +4 B", d, shifted(ws["wq"])),
+                 ("table at +4 B", d, shifted(ws["table"])),
+                 ("odd", 172, odd)]
+        for m in (1, 4, 9, 20, 128):     # 9: past an M tile; 20: a verify
+            for name, k, w in cases:     #   step's b * (k + 1)
                 x = torch.randn(m, k, generator=gen, device=device)
                 n = w.data.shape[0] if w.axis == -1 else w.data.shape[1]
-                label = (f"int{bits} {name} {k}->{n} g{w.group} M={m}")
-                checks.compare("cim_gemv", label, cim_gemv(x, w),
-                               cim_gemv_plain(x, w))
+                row = w.data.shape[1] if w.axis == -1 else n
+                label = (f"int{bits} {name} {k}->{n} g{w.group} M={m} "
+                         f"{vec_bytes(w, row)}B")
+                out = cim_gemv(x, w)
+                checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+                checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
             x = torch.randn(m, d, generator=gen, device=device)
             checks.compare("swiglu_qgemv",
                            f"int{bits} {d}->{f} g{ws['w_gate'].group} M={m}",
@@ -481,6 +515,43 @@ def phase_kernels(model, params, device, checks: Checks):
     what = f"one decode step's calls, batch {M}, {L} layers"
     time_kernel("cim_gemv", what, cim_step, cim_gemv, cim_gemv_plain,
                 cim_bytes, cim_flops)
+    # a verify step's 181 calls: M = 20 rows (batch 4 x k + 1 = 5)
+    Mv = 20
+    xv20 = torch.randn(Mv, d, generator=gen, device=device)
+    xd20 = torch.randn(Mv, f, generator=gen, device=device)
+
+    def cim_verify_step(fn):
+        for lw in layers:
+            for k in ("wq", "wk", "wv", "wo"):
+                fn(xv20, lw[k])
+            fn(xd20, lw["w_down"])
+        fn(xv20, table)
+
+    time_kernel("cim_gemv", f"one verify step's calls, M={Mv}, {L} layers",
+                cim_verify_step, cim_gemv, cim_gemv_plain,
+                cim_bytes + 4 * (Mv - M) * (cim_in + cim_out),
+                cim_flops * Mv // M, key="cim_gemv verify")
+    # the plan of each call and its block's shared memory
+    for k, w, mm in (("wq", layers[0]["wq"], M), ("wk", layers[0]["wk"], M),
+                     ("w_down", layers[0]["w_down"], M), ("table", table, M),
+                     ("w_down", layers[0]["w_down"], Mv),
+                     ("table", table, Mv)):
+        lay = "table" if w.axis == -1 else "cols"
+        kk = w.orig_shape[1] if w.axis == -1 else w.orig_shape[0]
+        nn = w.data.shape[0] if w.axis == -1 else w.data.shape[1]
+        stored = w.data.shape[1] if w.axis == -1 else w.data.shape[0]
+        pl = split_plan(lay, mm, stored, nn, w.bits, sm_count(device))
+        log(f"plan cim_gemv {k} M={mm}: M tile {pl.mt}, {pl.splits} splits "
+            f"of {pl.rows} rows, {pl.blocks} blocks, "
+            f"{smem_bytes(lay, pl, mm, kk, w.bits, w.group)} B shared memory")
+    # one call is one kernel on the device
+    for k, w, xin in (("wq", layers[0]["wq"], x),
+                      ("w_down", layers[0]["w_down"], xd),
+                      ("table", table, x)):
+        n_k = kernels_per_call(lambda: cim_gemv(xin, w))
+        log(f"cim_gemv {k} M={M}: {n_k} device kernel(s) per call")
+        if n_k != 1:
+            fail(f"cim_gemv {k}: {n_k} device kernels per call, expected 1")
     time_kernel("swiglu_qgemv", what, sw_step, swiglu_qgemv, swiglu_plain,
                 sw_bytes, sw_flops)
     n_split, chunk = decode_plan(b, g, max_pages, ps, sm_count(device))
@@ -685,7 +756,19 @@ def phase_full_model(model, params, device):
         "launches": counts,
     }
     log("full model result " + json.dumps(result))
-    profile_step(model, params, eng, device)
+    names = profile_step(model, params, eng, device)
+    # cim_gemv's kernels live in an anonymous namespace; PyTorch's own
+    # reductions (at::native::reduce_kernel) are the model's glue
+    ours = [n for n in names if n.startswith("void (anonymous namespace)::")]
+    stale = [n for n in ours if "reduce_kernel" in n]
+    log("decode step profile: kernels of the port "
+        + ", ".join(sorted({re.sub(r"^void \(anonymous namespace\)::|\(.*",
+                                   "", n) for n in ours}))
+        + f"; cim_gemv's second pass (reduce_kernel) "
+        f"{'present' if stale else 'absent'}")
+    if not ours or stale:
+        fail(f"decode step profile: no kernel of the port seen, or a "
+             f"second cim_gemv pass ran: {stale}")
     return counts
 
 
@@ -693,7 +776,8 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     """torch.profiler over a few batch-4 model steps on the engine's
     pools (lanes at length 64): decode `serve_step` calls for s = 1,
     `paged_verify_step` windows of s tokens otherwise.  Host wall time
-    per step against the device time of the kernels it ran."""
+    per step against the device time of the kernels it ran.  Returns
+    {kernel name: device us}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -722,12 +806,13 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     if n_dev == 0:
         log(f"{what} profile: wall {wall_ms:.3f} ms/step; device "
             "time not measured (the profiler recorded no CUDA events)")
-        return
+        return by_name
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"{what} profile: wall {wall_ms:.3f} ms/step, device "
         f"{dev_ms:.3f} ms/step busy ({100 * dev_ms / wall_ms:.1f} %), "
         f"{n_dev / steps:.0f} device events/step; top: " + "; ".join(
             f"{n[:60]} {d / 1e3 / steps:.3f} ms" for n, d in top))
+    return by_name
 
 
 def device_times(prof):
@@ -740,6 +825,21 @@ def device_times(prof):
                 e.time_range.end - e.time_range.start)
             n += 1
     return by_name, n
+
+
+def kernels_per_call(call, calls: int = 4) -> float:
+    """Device kernels per call of `call` (torch.profiler), after a
+    warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    _, n = device_times(prof)
+    return n / calls
 
 
 def device_split(label, step, steps: int = 3) -> None:

@@ -2,9 +2,9 @@
 version.
 
 Replaces the Pallas TPU kernel `src/repro/kernels/cim_gemv.py:cim_gemv`.
-The kernel (`csrc/cim_gemv.cu`) is bound by the bytes of the packed
-weight; its source comment says how it streams them once per M-tile at
-full rate.  It takes both serve-path layouts:
+The kernel (`csrc/cim_gemv.cu`, on the loaders of `csrc/qgemv.cuh`)
+streams the packed weight once per call; its source comment says what
+bounds it and how.  It takes both serve-path layouts:
 
   * axis=-2 `(K/2, N)` (or `(K, N)` INT8) projections, scales
     `(K/group, N)`: q/k/v/o, `w_down`;
@@ -14,24 +14,116 @@ full rate.  It takes both serve-path layouts:
 Any group dividing K works (qwen2.5-3b's `w_down` has groups of 86,
 which the Pallas kernel's `block_k % group` rule could not take).
 
+One call is one kernel launch.  The host plan (`split_plan`) reads
+shapes only, and the per-tile arrival counters the kernel leaves zeroed
+are kept once per device, so a call makes no host sync and allocates
+nothing but its output and workspace: it can be captured in a CUDA
+graph.  The counters belong to one stream.
+
 On a CPU tensor the wrapper runs the plain version (`ref_qmatmul_fused`);
 on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple
 
 import torch
 
-from repro_torch.quant.qarray import QTensor, count_dequant
+from repro_torch.quant.qarray import QTensor, count_dequant, int_weight
 
 from . import _build
 from .ref import ref_qmatmul_fused
+from .split_decode import H100_SMS, sm_count
 
-BM = 8                      # x rows per block, as in the source
-TILE_N = 128                # columns per block, (K/2, N) layout
-TARGET_BLOCKS = 132 * 8     # enough blocks in flight to fill the SMs
-MIN_ROWS_PER_SPLIT = 32     # stored K rows per block: 8 per warp
+# Mirrors of the source's constants (csrc/cim_gemv.cu): change both.
+TN = 64                     # columns per block, (K/2, N) layout
+LANES = 32                  # row-lanes per block, each a K sub-range
+WARPS = 8                   # warps per (K/2, N) block
+MAX_SPLITS = 8              # K splits of a column tile, at most
+MAX_TILES = 4096            # arrival counters kept per device
+BLOCKS_PER_SM = 2           # (K/2, N) blocks that fit on an SM at once
+TBL_VB = 64                 # vocab rows per table tile
+M_TILES = (1, 2, 4)         # instantiated M tiles
+SMEM_MAX = 226 * 1024       # dynamic shared memory per block, at most
+
+
+class Plan(NamedTuple):
+    mt: int                 # M tile: rows of x a block holds at once
+    splits: int             # K splits of a column tile (1 for the table)
+    rows: int               # stored rows per split (vocab rows per tile
+                            # for the table)
+    blocks: int             # grid size
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def m_tile(m: int) -> int:
+    """The M tile the kernel is instantiated with for M rows of x."""
+    return 1 if m <= 1 else (2 if m == 2 else 4)
+
+
+def split_plan(layout: str, m: int, stored_rows: int, n: int, bits: int,
+               n_sms: int = H100_SMS) -> Plan:
+    """The launch of one call, from shapes alone.  layout "cols": a
+    (stored_rows, n) projection in column tiles of TN, K split over up
+    to MAX_SPLITS blocks (a power of two, at least LANES stored rows
+    each) while tiles x splits fits the one wave of two blocks per SM;
+    "table": (n, stored_rows) rows in tiles of TBL_VB, one persistent
+    block per SM, no split."""
+    if bits not in (4, 8) or layout not in ("cols", "table"):
+        raise ValueError(f"split_plan: layout {layout!r}, bits {bits}")
+    mt = m_tile(m)
+    if layout == "table":
+        return Plan(mt, 1, TBL_VB, max(1, min(_cdiv(n, TBL_VB), n_sms)))
+    tiles = _cdiv(n, TN)
+    splits = 1
+    while (splits < MAX_SPLITS and tiles * splits * 2 <= BLOCKS_PER_SM * n_sms
+           and stored_rows >= 2 * splits * LANES):
+        splits *= 2
+    rows = _cdiv(_cdiv(stored_rows, splits), LANES) * LANES
+    while splits > 1 and (splits - 1) * rows >= stored_rows:
+        splits //= 2                     # no split left without rows
+        rows = _cdiv(_cdiv(stored_rows, splits), LANES) * LANES
+    return Plan(mt, splits, rows, tiles * splits)
+
+
+def _table_smem(k, bits, group, mt, nbuf):
+    """A table block with nbuf weight buffers (`rows_smem`)."""
+    kp = k // (2 if bits == 4 else 1)
+    wbuf = _cdiv(TBL_VB * kp + 16, 16) * 16
+    return (nbuf * wbuf + _cdiv(nbuf * TBL_VB * (k // group) * 2, 16) * 16
+            + mt * _cdiv(k, 32) * 128)
+
+
+def smem_bytes(layout: str, plan: Plan, m: int, k: int, bits: int,
+               group: int) -> int:
+    """Dynamic shared memory of one block for M = m rows of x, as the
+    source computes it (`cols_smem` / `rows_smem`)."""
+    if layout == "cols":
+        rpp = 2 if bits == 4 else 1
+        pl = _cdiv(plan.rows, LANES)     # odd strides: see the source
+        xbufs = 2 if m > plan.mt else 1
+        return (LANES * (pl | 1) * TN
+                + xbufs * plan.mt * LANES * ((pl * rpp) | 1) * 4
+                + WARPS * plan.mt * TN * 4
+                + (_cdiv(plan.rows * rpp, group) + 1) * TN * 2)
+    # two weight buffers (the next tile loads under this one) if they fit
+    two = _table_smem(k, bits, group, plan.mt, 2)
+    return two if two <= SMEM_MAX else _table_smem(k, bits, group,
+                                                    plan.mt, 1)
+
+
+def lane_rows(plan: Plan, split: int, stored_rows: int):
+    """Stored rows [begin, end) each row-lane of split `split` walks, as
+    the (K/2, N) kernel divides its slice."""
+    p0 = split * plan.rows
+    rows = max(0, min(plan.rows, stored_rows - p0))
+    pl = _cdiv(rows, LANES)
+    return [(p0 + min(rows, r * pl), p0 + min(rows, (r + 1) * pl))
+            for r in range(LANES)]
 
 
 def cim_gemv_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -39,29 +131,72 @@ def cim_gemv_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     return ref_qmatmul_fused(x, w, out_dtype=torch.float32)
 
 
-def split_plan(m: int, stored_rows: int, n: int, bm: int = BM):
-    """(splits, rows_per_split) for the (K/2, N) layout with `bm` x rows
-    per block: split K across blocks until about TARGET_BLOCKS blocks
-    are in flight, keeping at least MIN_ROWS_PER_SPLIT rows each."""
-    blocks = -(-m // bm) * -(-n // TILE_N)
-    want = max(1, -(-TARGET_BLOCKS // blocks))
-    splits = max(1, min(want, stored_rows // MIN_ROWS_PER_SPLIT))
-    rows = -(-stored_rows // splits)
-    return -(-stored_rows // rows), rows
+def cim_gemv_split_order(x: torch.Tensor, w: QTensor,
+                         n_sms: int = H100_SMS) -> torch.Tensor:
+    """The (K/2, N) kernel's order of summation in plain PyTorch, f32:
+    each row-lane's K range scaled group by group (a group cut by a
+    range edge is scaled in pieces); the four row-lanes of a warp as
+    (0 + 1) + (2 + 3), the warps in order, then the splits in split
+    order.  Shows that the plan covers K once and that this order
+    keeps the reference's accuracy; the kernel differs from it only
+    inside a group's sum."""
+    if w.axis != -2:
+        raise ValueError("cim_gemv_split_order: the (K/2, N) layout")
+    m, k = x.shape
+    rpp = 2 if w.bits == 4 else 1
+    stored, n = k // rpp, w.data.shape[1]
+    plan = split_plan("cols", m, stored, n, w.bits, n_sms)
+    q = int_weight(w).to(torch.float32)
+    xf, sf = x.to(torch.float32), w.scales.to(torch.float32)
+    out = torch.zeros(m, n, dtype=torch.float32)
+    for sp in range(plan.splits):
+        lanes = []
+        for pb, pe in lane_rows(plan, sp, stored):
+            acc = torch.zeros(m, n, dtype=torch.float32)
+            k0, k1 = pb * rpp, pe * rpp
+            while k0 < k1:
+                gi = k0 // w.group
+                ke = min(k1, (gi + 1) * w.group)
+                acc = acc + (xf[:, k0:ke] @ q[k0:ke]) * sf[gi]
+                k0 = ke
+            lanes.append(acc)
+        warps = [(lanes[4 * i] + lanes[4 * i + 1])
+                 + (lanes[4 * i + 2] + lanes[4 * i + 3])
+                 for i in range(WARPS)]      # 4 row-lanes per warp
+        block = warps[0]
+        for wv in warps[1:]:
+            block = block + wv
+        out = out + block
+    return out
 
 
 def _lib():
     lib = _build.load("cim_gemv")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cim_gemv_cols.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.cim_gemv_cols.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                      i, i, i, p]
         lib.cim_gemv_cols.restype = i
-        lib.cim_gemv_rows.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.cim_gemv_rows.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         lib.cim_gemv_rows.restype = i
         lib.cim_gemv_error_string.argtypes = [i]
         lib.cim_gemv_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device) -> torch.Tensor:
+    """The per-device arrival counters of the column tiles, zeroed once;
+    every call leaves them zero.  They belong to one stream: two calls
+    running at once on two streams must not share them."""
+    t = _COUNTERS.get(device)
+    if t is None:
+        t = _COUNTERS[device] = torch.zeros(MAX_TILES, dtype=torch.int32,
+                                            device=device)
+    return t
 
 
 def _check_packed(w: QTensor, k: int) -> int:
@@ -81,6 +216,12 @@ def _check_packed(w: QTensor, k: int) -> int:
     return k // 2 if w.bits == 4 else k
 
 
+def vec_bytes(w: QTensor, row_bytes: int) -> int:
+    """16 when every packed row starts on a 16-byte boundary (the kernel
+    copies 16-byte chunks), else 4 (the 4-byte instantiation)."""
+    return 16 if w.data.data_ptr() % 16 == 0 and row_bytes % 16 == 0 else 4
+
+
 def cim_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x: (M, K) f32; w: a 2D packed QTensor in either layout.
     Returns (M, N) f32 (N = V for the axis=-1 table)."""
@@ -97,7 +238,8 @@ def cim_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
                          f"got {tuple(x.shape)} {x.dtype}")
     m, k = x.shape
     stored = _check_packed(w, k)
-    lib = _lib()
+    if w.scales.data_ptr() % 4:            # copied in 4-byte pieces
+        raise ValueError("cim_gemv: scales must start on a 4-byte boundary")
     if w.axis == -2:
         if w.data.shape[0] != stored or w.scales.shape != (
                 k // w.group, w.data.shape[1]):
@@ -106,33 +248,46 @@ def cim_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
         n = w.data.shape[1]
         if n % 4:
             raise ValueError(f"cim_gemv: N={n} must be a multiple of 4")
+        layout, row_bytes = "cols", n
     elif w.axis == -1:
         n = w.data.shape[0]
         if w.data.shape[1] != stored or w.scales.shape != (n, k // w.group):
             raise ValueError(f"cim_gemv: table {tuple(w.data.shape)} / "
                              f"scales {tuple(w.scales.shape)} vs K={k}")
-        if stored % 4 or -(-n // 8) > 65535:
+        if stored % 4:
             raise ValueError(f"cim_gemv: table row of {stored} bytes must "
-                             "be a multiple of 4 and V < 524288")
+                             "be a multiple of 4")
+        layout, row_bytes = "table", stored
     else:
         raise ValueError(f"cim_gemv: layout axis={w.axis}")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
+    plan = split_plan(layout, m, stored, n, w.bits, sm_count(x.device))
+    smem = smem_bytes(layout, plan, m, k, w.bits, w.group)
+    if smem > SMEM_MAX:
+        raise ValueError(f"cim_gemv: a {layout} block of this weight needs "
+                         f"{smem} B of shared memory, over {SMEM_MAX}")
+    if layout == "cols" and plan.splits > 1 and _cdiv(n, TN) > MAX_TILES:
+        raise ValueError(f"cim_gemv: N={n} has more column tiles than the "
+                         f"{MAX_TILES} arrival counters")
+    vec = vec_bytes(w, row_bytes)
     count_dequant("fused_dequant")
+    lib = _lib()
     stream = _build.stream_handle()
-    if w.axis == -2:
-        splits, rows = split_plan(m, stored, n)
-        work = (torch.empty(splits * m * n, dtype=torch.float32,
-                            device=x.device) if splits > 1 else None)
+    if layout == "cols":
+        part = (torch.empty(plan.splits * m * n, dtype=torch.float32,
+                            device=x.device) if plan.splits > 1 else None)
         err = lib.cim_gemv_cols(
             x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
-            out.data_ptr(), work.data_ptr() if work is not None else None,
-            m, k, n, w.bits, w.group, splits, rows, stream)
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            _counters(x.device).data_ptr(), m, k, n, w.bits, w.group,
+            plan.mt, plan.splits, plan.rows, vec, stream)
     else:
         err = lib.cim_gemv_rows(
             x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
-            out.data_ptr(), m, k, n, w.bits, w.group, stream)
+            out.data_ptr(), m, k, n, w.bits, w.group, plan.mt, vec,
+            plan.blocks, stream)
     if err:
         raise RuntimeError("cim_gemv launch failed: "
                            + lib.cim_gemv_error_string(err).decode())

@@ -20,16 +20,30 @@ import torch
 from repro_torch.quant.qarray import QTensor, count_dequant
 
 from . import _build
-from .cim_gemv import _check_packed, split_plan
+from .cim_gemv import _check_packed
 from .ref import ref_swiglu_qgemv
 
 BM = 4                      # x rows per block, as in the source
+TILE_N = 128                # columns per block
+TARGET_BLOCKS = 132 * 8     # enough blocks in flight to fill the SMs
+MIN_ROWS_PER_SPLIT = 32     # stored K rows per block: 8 per warp
 
 
 def swiglu_plain(x: torch.Tensor, w_gate: QTensor, w_up: QTensor
                  ) -> torch.Tensor:
     """The plain PyTorch version: two fused grouped contractions."""
     return ref_swiglu_qgemv(x, w_gate, w_up)
+
+
+def split_plan(m: int, stored_rows: int, n: int, bm: int = BM):
+    """(splits, rows_per_split): split K across blocks until about
+    TARGET_BLOCKS blocks are in flight, keeping at least
+    MIN_ROWS_PER_SPLIT rows each."""
+    blocks = -(-m // bm) * -(-n // TILE_N)
+    want = max(1, -(-TARGET_BLOCKS // blocks))
+    splits = max(1, min(want, stored_rows // MIN_ROWS_PER_SPLIT))
+    rows = -(-stored_rows // splits)
+    return -(-stored_rows // rows), rows
 
 
 def _lib():

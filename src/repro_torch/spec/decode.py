@@ -16,6 +16,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import resolve_device
 from repro_torch.serve.sampling import SamplingParams
 
 from .drafter import Drafter, DraftModelDrafter, NGramDrafter
@@ -70,7 +71,7 @@ class SpecDecoder:
                 dm, spec_cfg.draft_params, max_batch=max_batch,
                 max_seq=max_seq, page_size=page, kv_dtype=kv_dtype,
                 chunk=spec_cfg.draft_chunk, seed=spec_cfg.seed,
-                device=device)
+                device=resolve_device(device))
         else:
             raise ValueError(f"unknown drafter {spec_cfg.drafter!r} "
                              "(ngram or model)")

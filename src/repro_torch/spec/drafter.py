@@ -23,6 +23,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.sampling import processed_probs, sample_tokens
 
@@ -108,7 +109,7 @@ class DraftModelDrafter(Drafter):
         self.model, self.params = model, params
         self.max_batch, self.max_seq = max_batch, max_seq
         self.chunk = min(chunk, max_seq)
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)   # CUDA unless asked
         if n_pages is None:              # worst case: drafting never OOMs
             n_pages = max_batch * (max_seq // page_size)
         self.cache = PagedKVCache(model, n_pages, page_size, max_seq,

@@ -1,0 +1,150 @@
+"""`cim_gemv`'s host plan and its order of summation, on the CPU.
+
+The plan (`repro_torch.kernels.cim_gemv.split_plan`) is a function of
+shapes alone; it must give every call qwen2.5-3b and its smoke config
+make an instantiated M tile, a shared-memory size the card holds, enough
+blocks to fill 132 SMs on the wide projections, and splits that cover K
+exactly once.  The kernel's order of summation, emulated in plain
+PyTorch (`cim_gemv_split_order`: per-lane group-scaled partials, lanes
+in pairs, warps and splits in order), must equal the JAX oracle and the
+Pallas kernel (interpret mode) within 1e-5 relative: f32 sums in
+another order, on O(1) inputs.
+
+Inputs are drawn with numpy from a seed and handed to both packages.
+"""
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.cim_gemv import cim_gemv as pl_cim_gemv
+from repro.kernels.ref import ref_qmatmul_fused as jax_ref_qmatmul_fused
+from repro.quant import qarray as jax_qarray
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.convert import from_numpy_tree
+from repro_torch.kernels import cim_gemv as cg
+from repro_torch.quant.ptq import _pick_group
+
+M_SENT = (1, 4, 9, 20, 64, 128)   # batch 1/4, tile edge, verify, prefill
+
+
+def _port_qtensor(jq):
+    return from_numpy_tree({"data": np.asarray(jq.data),
+                            "scales": np.asarray(jq.scales), "bits": jq.bits,
+                            "group": jq.group, "axis": jq.axis,
+                            "orig_shape": jq.orig_shape})
+
+
+def _rel_err(out, ref):
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return float(np.max(np.abs(out - ref)) / (np.max(np.abs(ref)) + 1e-12))
+
+
+def _calls(cfg):
+    """(name, layout, K, N, group) of every cim_gemv call of a model."""
+    d, hd = cfg.d_model, cfg.hd()
+    H, G = cfg.n_heads * hd, cfg.n_kv_heads * hd
+
+    def grp(k):
+        return _pick_group(k, 128, 16)
+    return [("wq", "cols", d, H, grp(d)), ("wk", "cols", d, G, grp(d)),
+            ("wo", "cols", H, d, grp(H)),
+            ("w_down", "cols", cfg.d_ff, d, grp(cfg.d_ff)),
+            ("table", "table", d, cfg.vocab, grp(d))]
+
+
+def test_plan_reads_shapes_only():
+    params = list(inspect.signature(cg.split_plan).parameters)
+    assert params == ["layout", "m", "stored_rows", "n", "bits", "n_sms"]
+    a = cg.split_plan("cols", 4, 5504, 2048, 4, 132)
+    assert a == cg.split_plan("cols", 4, 5504, 2048, 4, 132)
+    assert all(isinstance(v, int) for v in a)
+    with pytest.raises(ValueError):
+        cg.split_plan("rows", 4, 1024, 2048, 4)
+    with pytest.raises(ValueError):
+        cg.split_plan("cols", 4, 1024, 2048, 5)
+
+
+@pytest.mark.parametrize("arch", ["full", "smoke"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", M_SENT)
+def test_plan_takes_every_call_the_model_sends(arch, bits, m):
+    cfg = (get_config if arch == "full" else get_smoke_config)("qwen2.5-3b")
+    for name, layout, k, n, group in _calls(cfg):
+        stored = k // 2 if bits == 4 else k
+        plan = cg.split_plan(layout, m, stored, n, bits, 132)
+        assert plan.mt in cg.M_TILES and plan.mt == min(4, m)
+        smem = cg.smem_bytes(layout, plan, m, k, bits, group)
+        assert smem <= cg.SMEM_MAX, (name, smem)
+        if layout == "cols":
+            assert plan.rows % cg.LANES == 0
+            assert plan.splits <= cg.MAX_SPLITS
+            assert plan.splits & (plan.splits - 1) == 0   # a cluster
+            assert (plan.splits - 1) * plan.rows < stored \
+                <= plan.splits * plan.rows
+            assert plan.blocks == -(-n // cg.TN) * plan.splits
+            if arch == "full" and (n == 2048 or name == "w_down"):
+                assert plan.blocks >= 132, (name, plan)
+        else:                          # persistent: one block per SM
+            assert plan.splits == 1
+            assert plan.blocks == min(132, -(-n // cg.TBL_VB))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_plan_splits_cover_k_exactly_once(seed):
+    rng = np.random.default_rng(seed)
+    for _ in range(60):
+        stored = int(rng.integers(1, 6000))
+        n = 4 * int(rng.integers(1, 1200))
+        m = int(rng.choice(M_SENT))
+        n_sms = int(rng.choice([1, 8, 132]))
+        plan = cg.split_plan("cols", m, stored, n, int(rng.choice([4, 8])),
+                             n_sms)
+        rows = [p for sp in range(plan.splits)
+                for b, e in cg.lane_rows(plan, sp, stored)
+                for p in range(b, e)]
+        assert rows == list(range(stored)), (stored, n, plan)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,n,group,n_sms", [
+    (4, 512, 256, 128, 132),      # 8 splits
+    (20, 1024, 512, 128, 16),     # 2 splits
+    (9, 768, 128, 64, 4),         # 2 splits
+])
+def test_split_order_matches_pallas_and_oracle(bits, m, k, n, group, n_sms):
+    rng = np.random.default_rng(7)
+    w = (rng.standard_normal((k, n)) * 0.1).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jq = jax_qarray.quantize(jnp.asarray(w), bits=bits, group=group)
+    pallas = pl_cim_gemv(jnp.asarray(x), jq.data, jq.scales, bits=bits,
+                         group=group, block_n=128, block_k=256,
+                         interpret=True)
+    oracle = jax_ref_qmatmul_fused(jnp.asarray(x), jq, out_dtype=jnp.float32)
+    stored = k // 2 if bits == 4 else k
+    assert cg.split_plan("cols", m, stored, n, bits, n_sms).splits > 1
+    out = cg.cim_gemv_split_order(torch.from_numpy(x), _port_qtensor(jq),
+                                  n_sms)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    assert _rel_err(out.numpy(), pallas) < 1e-5
+    assert _rel_err(out.numpy(), oracle) < 1e-5
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,n,group,n_sms", [
+    (4, 11008 // 8, 64, 86, 132),  # w_down's group of 86, 8 splits
+    (3, 172, 68, 43, 132),         # odd group: pairs straddle groups
+    (20, 688, 16, 86, 1),          # one lane range cuts groups
+])
+def test_split_order_matches_oracle_any_group(bits, m, k, n, group, n_sms):
+    rng = np.random.default_rng(8)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jq = jax_qarray.quantize(jnp.asarray(w), bits=bits, group=group)
+    oracle = jax_ref_qmatmul_fused(jnp.asarray(x), jq, out_dtype=jnp.float32)
+    out = cg.cim_gemv_split_order(torch.from_numpy(x), _port_qtensor(jq),
+                                  n_sms)
+    assert _rel_err(out.numpy(), oracle) < 1e-5

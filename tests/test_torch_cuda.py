@@ -17,14 +17,14 @@ import pytest
 import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
+from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain, vec_bytes
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.paged_flash_decode import (paged_decode_plain,
                                                     paged_flash_decode,
                                                     paged_flash_verify,
                                                     paged_verify_plain)
 from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
-from repro_torch.quant.qarray import quantize
+from repro_torch.quant.qarray import QTensor, quantize
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +50,7 @@ def _gen(seed=0):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("m", [1, 4, 9, 128])
+@pytest.mark.parametrize("m", [1, 4, 9, 20, 64, 128])
 @pytest.mark.parametrize("layout,k,n,group", [
     ("cols", 2048, 2048, 128),
     ("cols", 2048, 256, 128),
@@ -69,6 +69,92 @@ def test_cim_gemv_kernel_matches_plain(device, bits, m, layout, k, n, group):
         w = quantize(torch.randn(n, k, generator=g, device=device), bits,
                      group, axis=1)
     _close(cim_gemv(x, w), cim_gemv_plain(x, w))
+
+
+def _at_offset(w, nbytes=4):
+    """The same packed weight, its data copied `nbytes` past a 16-byte
+    boundary: the kernel's 4-byte instantiation."""
+    flat = torch.empty(w.data.numel() + nbytes, dtype=w.data.dtype,
+                       device=w.data.device)
+    data = flat[nbytes:].view(w.data.shape)
+    data.copy_(w.data)
+    return QTensor(data, w.scales, w.bits, w.group, w.axis, w.orig_shape)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 4, 20])
+@pytest.mark.parametrize("layout,k,n,group", [
+    ("cols", 2048, 2048, 128),
+    ("cols", 11008, 2048, 86),
+    ("table", 2048, 4099, 128),
+])
+def test_cim_gemv_kernel_unaligned_weight_matches_plain(device, bits, m,
+                                                        layout, k, n, group):
+    g = _gen(4)
+    x = torch.randn(m, k, generator=g, device=device)
+    if layout == "cols":
+        w = quantize(torch.randn(k, n, generator=g, device=device), bits,
+                     group)
+    else:
+        w = quantize(torch.randn(n, k, generator=g, device=device), bits,
+                     group, axis=1)
+    wo = _at_offset(w)
+    row = w.data.shape[1]
+    assert vec_bytes(w, row) == 16 and vec_bytes(wo, row) == 4
+    out = cim_gemv(x, wo)
+    _close(out, cim_gemv_plain(x, w))
+    assert torch.equal(out, cim_gemv(x, wo))
+
+
+@pytest.mark.parametrize("layout,k,n,group", [
+    ("cols", 11008, 2048, 86),     # split K: arrival counters, last block
+    ("cols", 2048, 256, 128),
+    ("table", 2048, 4099, 128),
+])
+def test_cim_gemv_repeats_bitwise_and_in_a_graph(device, layout, k, n,
+                                                 group):
+    g = _gen(5)
+    x = torch.randn(4, k, generator=g, device=device)
+    if layout == "cols":
+        w = quantize(torch.randn(k, n, generator=g, device=device), 4, group)
+    else:
+        w = quantize(torch.randn(n, k, generator=g, device=device), 4, group,
+                     axis=1)
+    first, second = cim_gemv(x, w), cim_gemv(x, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cim_gemv(x, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cim_gemv(x, w)
+    graph.replay()
+    third = captured.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    # the counters were left zero: every call and replay sums the same
+    assert torch.equal(first, second)
+    assert torch.equal(first, third) and torch.equal(first, captured)
+    _close(first, cim_gemv_plain(x, w))
+
+
+@pytest.mark.parametrize("layout", ["cols", "table"])
+def test_cim_gemv_call_is_one_device_kernel(device, layout):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(4, 2048, device=device)
+    w = (quantize(torch.randn(2048, 2048, device=device), 4, 128)
+         if layout == "cols" else
+         quantize(torch.randn(4096, 2048, device=device), 4, 128, axis=1))
+    cim_gemv(x, w)                       # counters and library in place
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cim_gemv(x, w)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1, kernels
 
 
 @pytest.mark.parametrize("bits", [4, 8])

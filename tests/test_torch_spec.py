@@ -310,6 +310,28 @@ def test_autok_adapts_up_and_down():
     assert pinned.current_k() == 4
 
 
+def test_model_drafter_device_defaults_to_cuda_or_raises(monkeypatch):
+    """A draft model's cache goes where every port entry point goes: the
+    card, unless the caller asks for the CPU; with no card, device=None
+    raises rather than drafting on the CPU."""
+    from repro_torch.spec import DraftModelDrafter
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, _, tm, _ = _pair(SMOKE, "fp")
+    _, _, dm, dp = _draft_pair()
+    spec = SpecConfig(k=2, drafter="model", draft_model=dm,
+                      draft_params=dp, draft_page_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DraftModelDrafter(dm, dp, max_batch=2, max_seq=64, page_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpecDecoder(tm, spec, max_batch=2, max_seq=64)
+    on_cpu = SpecDecoder(tm, spec, max_batch=2, max_seq=64, device="cpu")
+    assert on_cpu.drafter.device == torch.device("cpu")
+    assert all(t.device.type == "cpu" for t in
+               on_cpu.drafter.cache.pools["attn"].values())
+    ngram = SpecDecoder(tm, SpecConfig(k=2), max_batch=2, max_seq=64)
+    assert isinstance(ngram.drafter, NGramDrafter)   # needs no device
+
+
 # ----------------------------------------------------------------------------
 # engine: greedy streams with speculation on/off, port vs JAX
 # ----------------------------------------------------------------------------
