@@ -7,28 +7,31 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
   1. device: the card's name and power limit; build the five CUDA
      kernels from src/repro_torch/csrc (one nvcc per source, in
      parallel), and beside them one `-Xptxas -v` compile of each
-     split-KV source and of cim_gemv.cu (registers, stack, spills).
+     split-KV source, of cim_gemv.cu and of swiglu_gemv.cu (registers,
+     stack, spills).
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at qwen2.5-3b shapes, with a stated tolerance; cim_gemv also
-     at M = 9 (past an M tile) and on weights whose rows are not 16-byte
-     aligned, every call twice (bitwise equal); the split-KV kernels
-     also at their split boundaries, at batch 1, for rows that see no
-     key (compared in full), and called twice (bitwise equal).  Then the
-     time of one decode step's worth of calls (36 layers, batch 4,
-     weights cold in L2), of a verify step's cim_gemv calls (M = 20),
-     one verify step's `paged_flash_verify` calls (s = 5) and 36
-     `flash_decode` calls, each against its bound, the plain version's
-     time and, where one PyTorch call computes the same function, that
-     call's time; `paged_flash_decode` and `flash_decode` also at batch
-     1 over 4096 keys.  A profile shows one cim_gemv call is one device
-     kernel.
+     card, at qwen2.5-3b shapes, with a stated tolerance; cim_gemv and
+     swiglu_qgemv also at M = 9 (past an M tile), 20 and 128, on weights
+     whose rows are not 16-byte aligned and on the 172 -> 68 shape with
+     groups of 43, every call twice (bitwise equal); the split-KV
+     kernels also at their split boundaries, at batch 1, for rows that
+     see no key (compared in full), and called twice (bitwise equal).
+     Then the time of one decode step's worth of calls (36 layers,
+     batch 4, weights cold in L2), of a verify step's cim_gemv and
+     swiglu_qgemv calls (M = 20), one verify step's
+     `paged_flash_verify` calls (s = 5) and 36 `flash_decode` calls,
+     each against its bound, the plain version's time and, where one
+     PyTorch call computes the same function, that call's time;
+     `paged_flash_decode` and `flash_decode` also at batch 1 over 4096
+     keys.  A CUDA graph of one cim_gemv call, and of one swiglu_qgemv
+     call at M = 4 and at M = 20, holds one node, a kernel.
   3. full model: qwen2.5-3b at full width (36 layers, INT4 weights drawn
      from a seed on the card, INT8 paged KV) served by PagedServeEngine:
      4 requests of 16-64 prompt tokens, 16 new tokens each, greedy.  The
      kernel launch counters are zeroed right before and read right
      after; each must equal its per-call count times the calls made.
-     A profile of a decode step must show no second cim_gemv pass
-     (`reduce_kernel`).
+     A profile of a decode step must show no second cim_gemv or
+     swiglu_qgemv pass (`reduce_kernel`, `epilogue_kernel`).
   4. speculative decoding: the same model and engine with
      SpecConfig(drafter="ngram", k=4) on prompts that repeat a motif,
      32 new tokens each, against the same prompts without speculation;
@@ -144,10 +147,11 @@ class Checks:
             fail(f"{name} {label}: two calls on the same inputs differ")
 
 
-def start_ptxas(names=("paged_flash_decode", "flash_decode", "cim_gemv")):
-    """One extra compile of the split-KV sources and of cim_gemv.cu with
-    `-Xptxas -v`, started beside the build: registers, stack, static
-    shared memory and spills per kernel."""
+def start_ptxas(names=("paged_flash_decode", "flash_decode", "cim_gemv",
+                       "swiglu_gemv")):
+    """One extra compile of the split-KV sources, cim_gemv.cu and
+    swiglu_gemv.cu with `-Xptxas -v`, started beside the build:
+    registers, stack, static shared memory and spills per kernel."""
     from repro_torch.kernels import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
@@ -163,8 +167,9 @@ def log_ptxas(procs) -> None:
     kern = re.compile(r"(flash_decode_kernel|decode_kernel|merge_kernel)"
                       r"(?:I(a|f|13__nv_bfloat16)Li(\d+)E)?")
     types = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16"}
-    # cim_gemv: <bits, M tile, copy bytes>
-    qkern = re.compile(r"(cols_kernel|rows_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E")
+    # cim_gemv and swiglu_qgemv: <bits, M tile, copy bytes>
+    qkern = re.compile(r"(cols_kernel|rows_kernel|swiglu_kernel)"
+                       r"ILi(\d+)ELi(\d+)ELi(\d+)E")
     for name, proc in procs:
         text, _ = proc.communicate(timeout=600)
         if proc.returncode:
@@ -216,6 +221,7 @@ def phase_kernels(model, params, device, checks: Checks):
                                                         paged_flash_verify,
                                                         paged_verify_plain)
     from repro_torch.kernels.split_decode import sm_count
+    from repro_torch.kernels import swiglu_gemv as sw
     from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
     from repro_torch.quant.qarray import QTensor, quantize
 
@@ -257,6 +263,15 @@ def phase_kernels(model, params, device, checks: Checks):
     for bits, ws in ((4, int4), (8, int8)):
         odd = quantize(torch.randn(172, 68, generator=gen, device=device),
                        bits, 43)
+        # swiglu_qgemv: gate/up at qwen2.5-3b's shape, the same copied 4
+        # bytes into a buffer (the 4-byte instantiation), the 172 -> 68
+        # shape with groups of 43
+        sw_cases = [("gate/up", d, ws["w_gate"], ws["w_up"]),
+                    ("gate/up at +4 B", d, shifted(ws["w_gate"]),
+                     shifted(ws["w_up"])),
+                    ("odd", 172, odd,
+                     quantize(torch.randn(172, 68, generator=gen,
+                                          device=device), bits, 43))]
         cases = [("wq", d, ws["wq"]), ("wk", d, ws["wk"]),
                  ("w_down", f, ws["w_down"]), ("table", d, ws["table"]),
                  ("wq at +4 B", d, shifted(ws["wq"])),
@@ -272,11 +287,16 @@ def phase_kernels(model, params, device, checks: Checks):
                 out = cim_gemv(x, w)
                 checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
                 checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
-            x = torch.randn(m, d, generator=gen, device=device)
-            checks.compare("swiglu_qgemv",
-                           f"int{bits} {d}->{f} g{ws['w_gate'].group} M={m}",
-                           swiglu_qgemv(x, ws["w_gate"], ws["w_up"]),
-                           swiglu_plain(x, ws["w_gate"], ws["w_up"]))
+            for name, k, wg, wu in sw_cases:
+                x = torch.randn(m, k, generator=gen, device=device)
+                ff = wg.data.shape[1]
+                label = (f"int{bits} {name} {k}->{ff} g{wg.group} M={m} "
+                         f"{min(vec_bytes(wg, ff), vec_bytes(wu, ff))}B")
+                out = swiglu_qgemv(x, wg, wu)
+                checks.compare("swiglu_qgemv", label, out,
+                               swiglu_plain(x, wg, wu))
+                checks.repeat("swiglu_qgemv", label, out,
+                              swiglu_qgemv(x, wg, wu))
     del int8
 
     # paged decode: 4 lanes, 2 kv heads x 8 query heads, hd 128, ps 16,
@@ -549,11 +569,38 @@ def phase_kernels(model, params, device, checks: Checks):
                       ("w_down", layers[0]["w_down"], xd),
                       ("table", table, x)):
         n_k = kernels_per_call(lambda: cim_gemv(xin, w))
-        log(f"cim_gemv {k} M={M}: {n_k} device kernel(s) per call")
+        log(f"cim_gemv {k} M={M}: {n_k} device kernel(s) per call (nodes "
+            "of a CUDA graph of one call)")
         if n_k != 1:
             fail(f"cim_gemv {k}: {n_k} device kernels per call, expected 1")
     time_kernel("swiglu_qgemv", what, sw_step, swiglu_qgemv, swiglu_plain,
                 sw_bytes, sw_flops)
+
+    def sw_verify_step(fn):
+        for lw in layers:
+            fn(xv20, lw["w_gate"], lw["w_up"])
+
+    time_kernel("swiglu_qgemv", f"one verify step's calls, M={Mv}, {L} "
+                "layers", sw_verify_step, swiglu_qgemv, swiglu_plain,
+                sw_bytes + L * 4 * (Mv - M) * (d + f), sw_flops * Mv // M,
+                key="swiglu_qgemv verify")
+    wg0 = layers[0]["w_gate"]
+    for mm, xin in ((M, x), (Mv, xv20)):
+        pl = sw.split_plan(mm, wg0.data.shape[0], f, wg0.bits, wg0.group,
+                           sm_count(device))
+        smem = sw.smem_bytes(pl, mm, wg0.bits, wg0.group)
+        per_sm = sw.blocks_per_sm(smem)
+        log(f"plan swiglu_qgemv M={mm}: M tile {pl.mt}, {pl.splits} splits "
+            f"of {pl.rows} rows, {pl.blocks} blocks, {per_sm} per SM, "
+            f"{pl.blocks / (per_sm * sm_count(device)):.2f} waves, {smem} B "
+            "shared memory")
+        n_k = kernels_per_call(lambda: swiglu_qgemv(xin, wg0,
+                                                    layers[0]["w_up"]))
+        log(f"swiglu_qgemv M={mm}: {n_k} device kernel(s) per call (nodes "
+            "of a CUDA graph of one call)")
+        if n_k != 1:
+            fail(f"swiglu_qgemv M={mm}: {n_k} device kernels per call, "
+                 "expected 1")
     n_split, chunk = decode_plan(b, g, max_pages, ps, sm_count(device))
     log(f"plan paged_flash_decode (timed) b={b} g={g} max_pages="
         f"{max_pages} ps={ps}: n_split {n_split}, chunk {chunk} keys, "
@@ -760,15 +807,16 @@ def phase_full_model(model, params, device):
     # cim_gemv's kernels live in an anonymous namespace; PyTorch's own
     # reductions (at::native::reduce_kernel) are the model's glue
     ours = [n for n in names if n.startswith("void (anonymous namespace)::")]
-    stale = [n for n in ours if "reduce_kernel" in n]
+    stale = [n for n in ours
+             if "reduce_kernel" in n or "epilogue_kernel" in n]
     log("decode step profile: kernels of the port "
         + ", ".join(sorted({re.sub(r"^void \(anonymous namespace\)::|\(.*",
                                    "", n) for n in ours}))
-        + f"; cim_gemv's second pass (reduce_kernel) "
-        f"{'present' if stale else 'absent'}")
+        + f"; a second cim_gemv or swiglu_qgemv pass (reduce_kernel, "
+        f"epilogue_kernel) {'present' if stale else 'absent'}")
     if not ours or stale:
         fail(f"decode step profile: no kernel of the port seen, or a "
-             f"second cim_gemv pass ran: {stale}")
+             f"second cim_gemv or swiglu_qgemv pass ran: {stale}")
     return counts
 
 
@@ -827,19 +875,29 @@ def device_times(prof):
     return by_name, n
 
 
-def kernels_per_call(call, calls: int = 4) -> float:
-    """Device kernels per call of `call` (torch.profiler), after a
-    warm-up call."""
+def kernels_per_call(call) -> int:
+    """Device kernels one call of `call` enqueues, after a warm-up call:
+    the nodes of a CUDA graph captured around it, which must all be
+    kernels (a memset or a copy fails the run).  Counted in the graph,
+    not with torch.profiler: in a long process the profiler can drop a
+    short profile's kernel events."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    _, n = device_times(prof)
-    return n / calls
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        call()
+    dot = _build.BUILD_DIR / "call.dot"
+    graph.debug_dump(str(dot))
+    nodes = re.findall(r'"graph_\d+_node_\d+"\[[^\]]*?label="\{(\w+)',
+                       dot.read_text())
+    dot.unlink()
+    if set(nodes) - {"KERNEL"}:
+        fail(f"one call enqueues device operations other than kernels: "
+             f"{nodes}")
+    return len(nodes)
 
 
 def device_split(label, step, steps: int = 3) -> None:

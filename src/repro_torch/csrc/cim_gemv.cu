@@ -649,7 +649,7 @@ template <int BITS, int MT, int VEC>
 int run_cols(const float* x, const uint8_t* w, const __half* s, float* out,
              float* part, int* counters, int M, int K, int N, int group,
              int P, int splits, cudaStream_t st) {
-  static int limit = 48 * 1024;
+  static int limit = 0;                   // the opt-in is set on first use
   auto kern = cols_kernel<BITS, MT, VEC>;
   const int smem = cols_smem(P, MT, BITS == 4 ? 2 : 1, group, M);
   int err = smem_ok(kern, smem, limit);
@@ -662,7 +662,7 @@ int run_cols(const float* x, const uint8_t* w, const __half* s, float* out,
 template <int BITS, int MT, int VEC>
 int run_rows(const float* x, const uint8_t* w, const __half* s, float* out,
              int M, int K, int V, int group, int blocks, cudaStream_t st) {
-  static int limit = 48 * 1024;
+  static int limit = 0;                   // the opt-in is set on first use
   auto kern = rows_kernel<BITS, MT, VEC>;
   const int KP = K / (BITS == 4 ? 2 : 1);
   // two weight buffers when they fit, so the next tile loads under this

@@ -1,8 +1,7 @@
 // Packed-weight GEMV building blocks for Hopper: 16-byte (or 4-byte)
 // asynchronous copies of packed INT4/INT8 weight rows into shared memory,
 // and the conversion of packed nibbles / bytes to f32 without I2F.
-// Used by cim_gemv.cu; written so that swiglu_gemv.cu can take the same
-// loaders when it is redesigned.
+// Used by cim_gemv.cu and swiglu_gemv.cu.
 #pragma once
 #include <cuda_fp16.h>
 #include <stdint.h>

@@ -26,7 +26,7 @@ on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -116,14 +116,15 @@ def smem_bytes(layout: str, plan: Plan, m: int, k: int, bits: int,
                                                     plan.mt, 1)
 
 
-def lane_rows(plan: Plan, split: int, stored_rows: int):
-    """Stored rows [begin, end) each row-lane of split `split` walks, as
-    the (K/2, N) kernel divides its slice."""
+def lane_rows(plan, split: int, stored_rows: int, lanes: int = LANES):
+    """Stored rows [begin, end) each of the `lanes` row-lanes of split
+    `split` walks, as the (K/2, N) kernel (and swiglu_qgemv's) divides
+    its slice."""
     p0 = split * plan.rows
     rows = max(0, min(plan.rows, stored_rows - p0))
-    pl = _cdiv(rows, LANES)
+    pl = _cdiv(rows, lanes)
     return [(p0 + min(rows, r * pl), p0 + min(rows, (r + 1) * pl))
-            for r in range(LANES)]
+            for r in range(lanes)]
 
 
 def cim_gemv_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
@@ -143,15 +144,27 @@ def cim_gemv_split_order(x: torch.Tensor, w: QTensor,
     if w.axis != -2:
         raise ValueError("cim_gemv_split_order: the (K/2, N) layout")
     m, k = x.shape
+    stored = k // (2 if w.bits == 4 else 1)
+    plan = split_plan("cols", m, stored, w.data.shape[1], w.bits, n_sms)
+    return split_order_sum(x, w, plan, LANES, WARPS)
+
+
+def split_order_sum(x: torch.Tensor, w: QTensor, plan, lanes: int,
+                    warps: int) -> torch.Tensor:
+    """x @ w in f32, summed in the order of a split-K kernel whose blocks
+    have `lanes` row-lanes over `warps` warps: each row-lane's stored
+    rows (`lane_rows`) scaled group by group, the row-lanes of a warp in
+    a pairwise tree (the shuffles), the warps in order, then the splits
+    (`plan.splits` slices of `plan.rows` stored rows) in split order."""
+    m, k = x.shape
     rpp = 2 if w.bits == 4 else 1
     stored, n = k // rpp, w.data.shape[1]
-    plan = split_plan("cols", m, stored, n, w.bits, n_sms)
     q = int_weight(w).to(torch.float32)
     xf, sf = x.to(torch.float32), w.scales.to(torch.float32)
     out = torch.zeros(m, n, dtype=torch.float32)
     for sp in range(plan.splits):
-        lanes = []
-        for pb, pe in lane_rows(plan, sp, stored):
+        vals = []
+        for pb, pe in lane_rows(plan, sp, stored, lanes):
             acc = torch.zeros(m, n, dtype=torch.float32)
             k0, k1 = pb * rpp, pe * rpp
             while k0 < k1:
@@ -159,12 +172,13 @@ def cim_gemv_split_order(x: torch.Tensor, w: QTensor,
                 ke = min(k1, (gi + 1) * w.group)
                 acc = acc + (xf[:, k0:ke] @ q[k0:ke]) * sf[gi]
                 k0 = ke
-            lanes.append(acc)
-        warps = [(lanes[4 * i] + lanes[4 * i + 1])
-                 + (lanes[4 * i + 2] + lanes[4 * i + 3])
-                 for i in range(WARPS)]      # 4 row-lanes per warp
-        block = warps[0]
-        for wv in warps[1:]:
+            vals.append(acc)
+        per_warp = lanes // warps
+        while per_warp > 1:              # the shuffles: pairs, then pairs
+            vals = [vals[i] + vals[i + 1] for i in range(0, len(vals), 2)]
+            per_warp //= 2
+        block = vals[0]
+        for wv in vals[1:]:
             block = block + wv
         out = out + block
     return out
@@ -185,17 +199,19 @@ def _lib():
     return lib
 
 
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 
-def _counters(device: torch.device) -> torch.Tensor:
-    """The per-device arrival counters of the column tiles, zeroed once;
-    every call leaves them zero.  They belong to one stream: two calls
-    running at once on two streams must not share them."""
-    t = _COUNTERS.get(device)
+def _counters(device: torch.device, kernel: str = "cim_gemv"
+              ) -> torch.Tensor:
+    """`kernel`'s per-device arrival counters of the column tiles, zeroed
+    once; every call leaves them zero.  Each kernel has its own.  They
+    belong to one stream: two calls running at once on two streams must
+    not share them."""
+    t = _COUNTERS.get((kernel, device))
     if t is None:
-        t = _COUNTERS[device] = torch.zeros(MAX_TILES, dtype=torch.int32,
-                                            device=device)
+        t = _COUNTERS[kernel, device] = torch.zeros(
+            MAX_TILES, dtype=torch.int32, device=device)
     return t
 
 

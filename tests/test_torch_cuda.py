@@ -13,6 +13,8 @@ K, per-warp partials, online softmax), which moves results by a few
 f32 ulps of the largest partial sum; TF32 is off for the plain
 versions' matrix products.
 """
+import re
+
 import pytest
 import torch
 
@@ -157,19 +159,85 @@ def test_cim_gemv_call_is_one_device_kernel(device, layout):
     assert len(kernels) == 1, kernels
 
 
-@pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("m,k,f,group", [(1, 2048, 11008, 128),
-                                         (4, 2048, 11008, 128),
-                                         (64, 512, 1376, 128),
-                                         (3, 172, 68, 86)])
-def test_swiglu_kernel_matches_plain(device, bits, m, k, f, group):
-    g = _gen(2)
-    x = torch.randn(m, k, generator=g, device=device)
+def _gate_up(device, bits, k, f, group, seed=2):
+    g = _gen(seed)
     wg = quantize(torch.randn(k, f, generator=g, device=device) * 0.05,
                   bits, group)
     wu = quantize(torch.randn(k, f, generator=g, device=device) * 0.05,
                   bits, group)
+    return g, wg, wu
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,f,group", [(1, 2048, 11008, 128),
+                                         (4, 2048, 11008, 128),
+                                         (64, 512, 1376, 128),
+                                         (3, 172, 68, 86),
+                                         (9, 2048, 11008, 128),
+                                         (20, 2048, 11008, 128),
+                                         (128, 2048, 11008, 128),
+                                         (20, 172, 68, 43)])
+def test_swiglu_kernel_matches_plain(device, bits, m, k, f, group):
+    g, wg, wu = _gate_up(device, bits, k, f, group)
+    x = torch.randn(m, k, generator=g, device=device)
     _close(swiglu_qgemv(x, wg, wu), swiglu_plain(x, wg, wu))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 4, 20, 128])
+def test_swiglu_kernel_unaligned_weight_matches_plain(device, bits, m):
+    g, wg, wu = _gate_up(device, bits, 2048, 11008, 128, seed=6)
+    x = torch.randn(m, 2048, generator=g, device=device)
+    go, uo = _at_offset(wg), _at_offset(wu)
+    assert vec_bytes(wg, 11008) == 16 and vec_bytes(go, 11008) == 4
+    out = swiglu_qgemv(x, go, uo)
+    _close(out, swiglu_plain(x, wg, wu))
+    assert torch.equal(out, swiglu_qgemv(x, go, uo))
+
+
+@pytest.mark.parametrize("m,k,f,group", [(4, 2048, 11008, 128),
+                                         (20, 2048, 11008, 128),
+                                         (9, 172, 68, 43)])
+def test_swiglu_repeats_bitwise_and_in_a_graph(device, m, k, f, group):
+    g, wg, wu = _gate_up(device, 4, k, f, group, seed=7)
+    x = torch.randn(m, k, generator=g, device=device)
+    first, second = swiglu_qgemv(x, wg, wu), swiglu_qgemv(x, wg, wu)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        swiglu_qgemv(x, wg, wu)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = swiglu_qgemv(x, wg, wu)
+    graph.replay()
+    third = captured.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    # the counters were left zero: every call and replay sums the same
+    assert torch.equal(first, second)
+    assert torch.equal(first, third) and torch.equal(first, captured)
+    _close(first, swiglu_plain(x, wg, wu))
+
+
+@pytest.mark.parametrize("m", [4, 20])
+def test_swiglu_call_is_one_device_kernel(device, m, tmp_path):
+    """A CUDA graph captured around one call holds one node, the kernel.
+    (Counted in the graph: in a long process torch.profiler can drop a
+    short profile's kernel events.)"""
+    g, wg, wu = _gate_up(device, 4, 2048, 11008, 128, seed=8)
+    x = torch.randn(m, 2048, generator=g, device=device)
+    swiglu_qgemv(x, wg, wu)              # counters and library in place
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        swiglu_qgemv(x, wg, wu)
+    dot = tmp_path / "call.dot"
+    graph.debug_dump(str(dot))
+    text = dot.read_text()
+    nodes = re.findall(r'"graph_\d+_node_\d+"\[[^\]]*?label="\{(\w+)', text)
+    assert nodes == ["KERNEL"] and "swiglu_kernel" in text, text
 
 
 def _paged(device, pools, b=4, g=2, qpk=8, hd=128, ps=16, max_pages=64,
