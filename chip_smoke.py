@@ -14,17 +14,20 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      swiglu_qgemv also at M = 9 (past an M tile), 20 and 128, on weights
      whose rows are not 16-byte aligned and on the 172 -> 68 shape with
      groups of 43, every call twice (bitwise equal); the split-KV
-     kernels also at their split boundaries, at batch 1, for rows that
-     see no key (compared in full), and called twice (bitwise equal).
-     Then the time of one decode step's worth of calls (36 layers,
-     batch 4, weights cold in L2), of a verify step's cim_gemv and
-     swiglu_qgemv calls (M = 20), one verify step's
-     `paged_flash_verify` calls (s = 5) and 36 `flash_decode` calls,
-     each against its bound, the plain version's time and, where one
-     PyTorch call computes the same function, that call's time;
-     `paged_flash_decode` and `flash_decode` also at batch 1 over 4096
-     keys.  A CUDA graph of one cim_gemv call, and of one swiglu_qgemv
-     call at M = 4 and at M = 20, holds one node, a kernel.
+     kernels (`paged_flash_verify` too) also at their split boundaries,
+     at batch 1, for rows that see no key (compared in full), and
+     called twice (bitwise equal); `paged_flash_verify` also at s = 9
+     and 24 (more than one block of rows).  Then the time of one decode
+     step's worth of calls (36 layers, batch 4, weights cold in L2), of
+     a verify step's cim_gemv and swiglu_qgemv calls (M = 20), one
+     verify step's `paged_flash_verify` calls (s = 5) and 36
+     `flash_decode` calls, each against its bound, the plain version's
+     time and, where one PyTorch call computes the same function, that
+     call's time; the three split-KV kernels also at batch 1 over 4096
+     keys, each with its fold / merge split.  A CUDA graph of one
+     cim_gemv call, and of one swiglu_qgemv call at M = 4 and at M =
+     20, holds one node, a kernel; of one verify call, at most two (the
+     fold, then the merge).
   3. full model: qwen2.5-3b at full width (36 layers, INT4 weights drawn
      from a seed on the card, INT8 paged KV) served by PagedServeEngine:
      4 requests of 16-64 prompt tokens, 16 new tokens each, greedy.  The
@@ -147,8 +150,8 @@ class Checks:
             fail(f"{name} {label}: two calls on the same inputs differ")
 
 
-def start_ptxas(names=("paged_flash_decode", "flash_decode", "cim_gemv",
-                       "swiglu_gemv")):
+def start_ptxas(names=("paged_flash_decode", "paged_flash_verify",
+                       "flash_decode", "cim_gemv", "swiglu_gemv")):
     """One extra compile of the split-KV sources, cim_gemv.cu and
     swiglu_gemv.cu with `-Xptxas -v`, started beside the build:
     registers, stack, static shared memory and spills per kernel."""
@@ -164,8 +167,8 @@ def start_ptxas(names=("paged_flash_decode", "flash_decode", "cim_gemv",
 
 
 def log_ptxas(procs) -> None:
-    kern = re.compile(r"(flash_decode_kernel|decode_kernel|merge_kernel)"
-                      r"(?:I(a|f|13__nv_bfloat16)Li(\d+)E)?")
+    kern = re.compile(r"(flash_decode_kernel|decode_kernel|verify_kernel|"
+                      r"merge_kernel)(?:I(a|f|13__nv_bfloat16)Li(\d+)E)?")
     types = {"a": "int8", "f": "f32", "13__nv_bfloat16": "bf16"}
     # cim_gemv and swiglu_qgemv: <bits, M tile, copy bytes>
     qkern = re.compile(r"(cols_kernel|rows_kernel|swiglu_kernel)"
@@ -219,8 +222,10 @@ def phase_kernels(model, params, device, checks: Checks):
                                                         paged_decode_plain,
                                                         paged_flash_decode,
                                                         paged_flash_verify,
-                                                        paged_verify_plain)
-    from repro_torch.kernels.split_decode import sm_count
+                                                        paged_verify_plain,
+                                                        verify_plan)
+    from repro_torch.kernels.split_decode import (sm_count, verify_geometry,
+                                                  verify_smem_bytes)
     from repro_torch.kernels import swiglu_gemv as sw
     from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
     from repro_torch.quant.qarray import QTensor, quantize
@@ -384,25 +389,40 @@ def phase_kernels(model, params, device, checks: Checks):
                            paged_decode_plain(*args))
 
     # paged verify: windows of s = 1, 2, 5 at the same shapes; lane 0's
-    # window crosses a page boundary, lane 1's ends at the table's last row
-    for kind, s, window, cap in (
-            [(kd, sv, 0, 0.0) for kd in ("int8", "bf16", "f32")
+    # window crosses a page boundary, lane 1's ends at the table's last
+    # row.  Split-KV cases: lane 0's first row ends on the plan's split
+    # boundary, lane 1's first row one past it, length 0; window 1 with
+    # windows past the table (rows that see no key: the mean of V over
+    # the table); s = 9 and 24 (72 and 192 rows: more than one block of
+    # rows).  Every lane compared in full, every case called twice.
+    n_keys = max_pages * ps
+    for kind, s, lens, window, cap in (
+            [(kd, sv, "tail", 0, 0.0) for kd in ("int8", "bf16", "f32")
              for sv in (1, 2, 5)]
-            + [("int8", 5, 200, 0.0), ("int8", 5, 0, 30.0),
-               ("f32", 2, 200, 30.0)]):
+            + [("int8", 5, "tail", 200, 0.0), ("int8", 5, "tail", 0, 30.0),
+               ("f32", 2, "tail", 200, 30.0)]
+            + [(kd, 5, "edge", 0, 0.0) for kd in ("int8", "bf16", "f32")]
+            + [("int8", 2, "edge", 0, 30.0), ("int8", 5, "edge", 20, 0.0),
+               ("int8", 5, "past", 1, 0.0), ("f32", 2, "past", 1, 30.0),
+               ("int8", 9, "tail", 0, 0.0), ("bf16", 24, "edge", 0, 0.0)]):
         kp, vp, ks, vs = pools(kind)
         sc = (ks[0], vs[0]) if ks is not None else (None, None)
         qv = torch.randn(b, s, g, qpk, hd, generator=gen, device=device)
-        lv = torch.tensor([3 * ps - 1, max_pages * ps - s, 301, 45],
-                          dtype=torch.int32, device=device)
-        checks.compare(
-            "paged_flash_verify",
-            f"{kind} pools s={s} len {lv.tolist()} window={window} "
-            f"cap={cap}",
-            paged_flash_verify(qv, kp[0], vp[0], tables, lv, window, cap,
-                               *sc),
-            paged_verify_plain(qv, kp[0], vp[0], tables, lv, window, cap,
-                               *sc))
+        _, vchunk = verify_plan(b, g, s, qpk, max_pages, ps,
+                                sm_count(device))
+        lv = torch.tensor({
+            "tail": [3 * ps - 1, n_keys - s, 301, 45],
+            "edge": [vchunk - 1, vchunk, 0, n_keys - s],
+            "past": [n_keys - 2, n_keys - 1, n_keys + 3, 0]}[lens],
+            dtype=torch.int32, device=device)
+        args = (qv, kp[0], vp[0], tables, lv, window, cap, *sc)
+        label = (f"{kind} pools s={s} len {lv.tolist()} window={window} "
+                 f"cap={cap}")
+        out = paged_flash_verify(*args)
+        checks.compare("paged_flash_verify", label, out,
+                       paged_verify_plain(*args))
+        checks.repeat("paged_flash_verify", label, out,
+                      paged_flash_verify(*args))
     kp, vp, ks, vs = pools("int8")
     q1 = torch.randn(b, 1, g, qpk, hd, generator=gen, device=device)
     checks.compare(
@@ -668,15 +688,67 @@ def phase_kernels(model, params, device, checks: Checks):
         for i in range(L):
             fn(qv, kp[i], vp[i], tv, lengths, 0, 0.0, ks[i], vs[i])
 
-    rows = int(lengths.sum()) + b * sv        # K/V rows the windows see
-    pv_bytes = L * (rows * g * (2 * hd + 2 * 2) + 2 * qv.numel() * 4
-                    + b * (mpv + 1) * 4)
-    keys = sum(sv * int(n) + sv * (sv + 1) // 2 for n in lengths.tolist())
-    pv_flops = L * keys * g * qpk * hd * 4    # q.k and p.v per visible key
+    def pv_cost(lens, q, n_tab):
+        """(bytes, flops) of 36 verify calls: the K/V rows the windows
+        see, q in and out, tables and lengths; q.k and p.v per visible
+        key of each row."""
+        rows = sum(lens) + len(lens) * sv
+        keys = sum(sv * n + sv * (sv + 1) // 2 for n in lens)
+        return (L * (rows * g * (2 * hd + 2 * 2) + 2 * q.numel() * 4
+                     + len(lens) * (n_tab + 1) * 4),
+                L * keys * g * qpk * hd * 4)
+
+    def log_verify_plan(bb, n_tab, what):
+        n_split, chunk = verify_plan(bb, g, sv, qpk, n_tab, ps,
+                                     sm_count(device))
+        warps, z = verify_geometry(sv * qpk)
+        log(f"plan paged_flash_verify ({what}) b={bb} g={g} s={sv} "
+            f"qpk={qpk} max_pages={n_tab} ps={ps}: n_split {n_split}, "
+            f"chunk {chunk} keys, {bb * g * n_split * z} blocks of "
+            f"{warps} warps, {verify_smem_bytes(1, hd, warps)} B shared "
+            "memory (int8)")
+
+    log_verify_plan(b, mpv, "timed")
     time_kernel("paged_flash_verify",
                 f"one verify step's calls, batch {b}, s={sv}, {L} layers, "
                 "lengths 1024/777/301/45", pv_step, paged_flash_verify,
-                paged_verify_plain, pv_bytes, pv_flops)
+                paged_verify_plain, *pv_cost(lengths.tolist(), qv, mpv))
+    device_split("paged_flash_verify x36, batch 4, s=5",
+                 lambda: pv_step(paged_flash_verify))
+    n_k = kernels_per_call(lambda: paged_flash_verify(
+        qv, kp[0], vp[0], tv, lengths, 0, 0.0, ks[0], vs[0]))
+    log(f"paged_flash_verify batch {b} s={sv}: {n_k} device kernel(s) per "
+        "call (nodes of a CUDA graph of one call)")
+    if n_k > 2:
+        fail(f"paged_flash_verify: {n_k} device kernels per call, expected "
+             "a fold and a merge")
+    del kp, vp, ks, vs
+
+    # the single-user edge point: batch 1, s = 5, length 4096 before the
+    # window, over a table of 260 pages
+    mpv1, nv1 = 260, 4096
+    kp, vp, ks, vs = pools("int8", layers=L, n_pages=mpv1)
+    qv1 = torch.randn(1, sv, g, qpk, hd, generator=gen, device=device)
+    tv1 = torch.randperm(mpv1, generator=gen, device=device)[None].int()
+    lv1 = torch.tensor([nv1], dtype=torch.int32, device=device)
+    args = (qv1, kp[0], vp[0], tv1, lv1, 0, 0.0, ks[0], vs[0])
+    out = paged_flash_verify(*args)
+    checks.compare("paged_flash_verify", f"int8 pools batch 1 s={sv} len "
+                   f"{nv1}", out, paged_verify_plain(*args))
+    checks.repeat("paged_flash_verify", f"int8 batch 1 len {nv1}", out,
+                  paged_flash_verify(*args))
+    log_verify_plan(1, mpv1, "timed")
+
+    def pv1_step(fn):
+        for i in range(L):
+            fn(qv1, kp[i], vp[i], tv1, lv1, 0, 0.0, ks[i], vs[i])
+
+    time_kernel("paged_flash_verify",
+                f"{L} calls, batch 1, s={sv}, length {nv1}, int8", pv1_step,
+                paged_flash_verify, paged_verify_plain,
+                *pv_cost([nv1], qv1, mpv1), key="paged_flash_verify b1")
+    device_split("paged_flash_verify x36, batch 1, s=5, length 4096",
+                 lambda: pv1_step(paged_flash_verify))
     del kp, vp, ks, vs
 
     # flash_decode: 36 calls at b*g = 8, S = 1024, pos = 1023, each layer

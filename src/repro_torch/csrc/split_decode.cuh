@@ -1,24 +1,28 @@
-// Split-KV ("flash-decoding") one-token attention, shared by
-// paged_flash_decode.cu and flash_decode.cu.
+// Split-KV ("flash-decoding") attention, shared by paged_flash_decode.cu,
+// flash_decode.cu and paged_flash_verify.cu.
 //
 // A call's grid is (rows, n_split): a row is one (lane, kv head) with its
-// qpk query heads, and split s folds keys [s * chunk, (s + 1) * chunk) of
-// it.  The visible keys of a row are one interval [lo, hi); each kernel
-// supplies that interval and how key t's K/V row is found (`row_of`, a
-// row index into (rows, hd) pools, and its scale when QUANT).  Three
-// pieces live here:
-//   * the per-split walk (`fold`): each of the block's 4 warps stages its
-//     own tiles of KT keys (K and V rows, 16-byte cp.async chunks into a
-//     double buffer, so tile i + 1 loads while tile i is computed) and
-//     keeps its own online-softmax state in registers: lane j of a key
-//     group computes q . k for key j over its share of hd, the groups sum
-//     by warp shuffles, and the max runs over the tile by shuffles too;
-//     for p . v each lane owns hd / 32 dims of the (qpk, hd) accumulator.
-//     The warps merge once, at the end of the split, through shared
-//     memory.  No block-wide barrier runs per tile;
+// query rows (qpk heads; s * qpk for a verify window), and split s folds
+// keys [s * chunk, (s + 1) * chunk) of it.  The visible keys of a
+// one-token row are one interval [lo, hi); each kernel supplies that
+// interval and how key t's K/V row is found (`row_of`, a row index into
+// (rows, hd) pools, and its scale when QUANT).  The pieces here:
+//   * one warp's work on a staged tile of KT keys for QMAX query rows:
+//     `tile_scores` (lane j of a key group computes q . k for key j over
+//     its share of hd, the groups sum by warp shuffles) and `tile_fold`
+//     (the online softmax, its max over the tile by shuffles too, then
+//     p . v, each lane owning hd / 32 dims of the (QMAX, hd)
+//     accumulator); the state stays in registers;
+//   * the one-token walk (`fold`): each of the block's 4 warps stages its
+//     own tiles (K and V rows, 16-byte cp.async chunks into a double
+//     buffer, so tile i + 1 loads while tile i is computed) and merges
+//     with the others once, at the end of the split, through shared
+//     memory; no block-wide barrier runs per tile.  The verify kernel
+//     walks its split in its own source: it stages each tile once per
+//     block, for all its warps;
 //   * the partial (m, l, acc) each split writes to scratch, (rows,
-//     n_split, qpk, hd) f32 then (rows, n_split, qpk, 2) f32, or the
-//     output itself when n_split == 1;
+//     n_split, R, hd) f32 then (rows, n_split, R, 2) f32 for R query rows
+//     per grid row, or the output itself when n_split == 1;
 //   * the merge (`merge_kernel`), a second launch that folds the partials
 //     of each row in split order.  Every sum has a fixed order, so a call
 //     is bitwise repeatable; no float atomics.
@@ -133,6 +137,106 @@ __device__ __forceinline__ float weight(float m, float mx) {
   return m <= 0.5f * NEG_INF ? 0.f : expf(m - mx);
 }
 
+// Scores of this lane's key j = lane % KT of a staged K tile `kd` (rows
+// RS bytes apart) against the QMAX rows of q_s ((QMAX, HD) f32): lane j
+// of a key group takes DP dims of hd, and the PARTS groups sum by warp
+// shuffles, so every lane of key j ends with its QMAX full dot products.
+template <typename T, int HD>
+__device__ __forceinline__ void tile_scores(const unsigned char* kd,
+                                            const float* q_s, int lane,
+                                            float (&sc)[QMAX]) {
+  using S = Shape<T, HD>;
+  const int j = lane % S::KT;
+  const int prt = lane / S::KT;
+#pragma unroll
+  for (int r = 0; r < QMAX; ++r) sc[r] = 0.f;
+  const T* krow = reinterpret_cast<const T*>(kd + j * S::RS) + prt * S::DP;
+  const float* qp = q_s + prt * S::DP;
+#pragma unroll
+  for (int c = 0; c < S::DP; c += S::VE) {
+    float kv[S::VE];
+    load_f<T, S::VE>(krow + c, kv);
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r) {
+#pragma unroll
+      for (int e = 0; e < S::VE; e += 4) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qp + r * HD + c + e);
+        sc[r] = fmaf(qv.x, kv[e], sc[r]);
+        sc[r] = fmaf(qv.y, kv[e + 1], sc[r]);
+        sc[r] = fmaf(qv.z, kv[e + 2], sc[r]);
+        sc[r] = fmaf(qv.w, kv[e + 3], sc[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = S::KT; off < 32; off <<= 1)
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r)
+      sc[r] += __shfl_xor_sync(FULL, sc[r], off);
+}
+
+// Fold one staged tile into the online-softmax state of QMAX rows.
+// s: this lane's key's scores, scaled, capped and masked (NEG_INF: the
+// row does not see the key); vsc: its V row scale (1 unless int8), folded
+// into p; vd: the staged V tile; nj: keys staged in it.  m, l: running
+// max and this lane's keys' sum (summed over the key group at the end);
+// acc: this lane's HDL dims of the (QMAX, HD) numerator.  The max over
+// the tile is uniform across the warp.  p_s (KT, QMAX) is the warp's
+// scratch; it is free again when this returns.
+template <typename T, int HD>
+__device__ __forceinline__ void tile_fold(
+    const unsigned char* vd, float* p_s, int nj, float vsc, int lane,
+    const float (&s)[QMAX], float (&m)[QMAX], float (&l)[QMAX],
+    float (&acc)[QMAX][Shape<T, HD>::HDL]) {
+  using S = Shape<T, HD>;
+  constexpr int KT = S::KT;
+  const int j = lane % KT;
+  const int d0 = lane * S::HDL;
+  float alpha[QMAX], p[QMAX];
+#pragma unroll
+  for (int r = 0; r < QMAX; ++r) {
+    float tm = s[r];
+#pragma unroll
+    for (int off = 1; off < KT; off <<= 1)
+      tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, off));
+    const float mn = fmaxf(m[r], tm);
+    alpha[r] = weight(m[r], mn);
+    p[r] = weight(s[r], mn);
+    l[r] = l[r] * alpha[r] + p[r];
+    m[r] = mn;
+  }
+  if (lane < KT) {                    // v's row scale folds into p
+    float4* pw = reinterpret_cast<float4*>(p_s + j * QMAX);
+    pw[0] = make_float4(p[0] * vsc, p[1] * vsc, p[2] * vsc, p[3] * vsc);
+    pw[1] = make_float4(p[4] * vsc, p[5] * vsc, p[6] * vsc, p[7] * vsc);
+  }
+  __syncwarp();
+
+  if (d0 < HD) {
+#pragma unroll
+    for (int r = 0; r < QMAX; ++r)
+#pragma unroll
+      for (int i = 0; i < S::HDL; ++i) acc[r][i] *= alpha[r];
+#pragma unroll 4
+    for (int jj = 0; jj < nj; ++jj) {
+      float vv[S::HDL];
+      load_f<T, S::HDL>(reinterpret_cast<const T*>(vd + jj * S::RS) + d0,
+                        vv);
+      const float4* pr = reinterpret_cast<const float4*>(p_s + jj * QMAX);
+      const float4 pa = pr[0], pb = pr[1];
+      const float pv[QMAX] = {pa.x, pa.y, pa.z, pa.w,
+                              pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int r = 0; r < QMAX; ++r)
+#pragma unroll
+        for (int i = 0; i < S::HDL; ++i)
+          acc[r][i] = fmaf(pv[r], vv[i], acc[r][i]);
+    }
+  }
+  __syncwarp();                       // p_s and the V tile free for reuse
+}
+
 // One block: fold keys [kbeg, kend) of row `row` (split `split` of
 // n_split) into the block's partial, or into the output when n_split == 1.
 // zero_scores: the row sees no key, so every key counts with score 0.
@@ -174,7 +278,6 @@ __device__ __forceinline__ void fold(
 
   const int n_tiles = (kend - kbeg + KT - 1) / KT;
   const int j = lane % KT;            // this lane's key in a tile (q . k)
-  const int prt = lane / KT;          // and its share of hd
   const int d0 = lane * S::HDL;       // this lane's dims of acc (p . v)
 
   // Stage tile `tile` into buffer `st`; returns this lane's key's scales.
@@ -231,86 +334,19 @@ __device__ __forceinline__ void fold(
     const unsigned char* vd = kd + KT * S::RS;
     const int t0 = kbeg + tile * KT;
 
-    // scores of key j, this lane's DP dims, then summed over the PARTS
     float sc[QMAX];
-#pragma unroll
-    for (int r = 0; r < QMAX; ++r) sc[r] = 0.f;
-    const T* krow = reinterpret_cast<const T*>(kd + j * S::RS) + prt * S::DP;
-    const float* qp = q_s + prt * S::DP;
-#pragma unroll
-    for (int c = 0; c < S::DP; c += S::VE) {
-      float kv[S::VE];
-      load_f<T, S::VE>(krow + c, kv);
-#pragma unroll
-      for (int r = 0; r < QMAX; ++r) {
-#pragma unroll
-        for (int e = 0; e < S::VE; e += 4) {
-          const float4 qv =
-              *reinterpret_cast<const float4*>(qp + r * HD + c + e);
-          sc[r] = fmaf(qv.x, kv[e], sc[r]);
-          sc[r] = fmaf(qv.y, kv[e + 1], sc[r]);
-          sc[r] = fmaf(qv.z, kv[e + 2], sc[r]);
-          sc[r] = fmaf(qv.w, kv[e + 3], sc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = KT; off < 32; off <<= 1)
-#pragma unroll
-      for (int r = 0; r < QMAX; ++r)
-        sc[r] += __shfl_xor_sync(FULL, sc[r], off);
-
-    // online softmax over the tile; the max is uniform across the warp
+    tile_scores<T, HD>(kd, q_s, lane, sc);
     const bool vis = t0 + j < kend;
     const float f = (QUANT ? ks_cur : 1.f) * scale;
-    float alpha[QMAX], p[QMAX];
 #pragma unroll
     for (int r = 0; r < QMAX; ++r) {
       float s = sc[r] * f;
       if (cap > 0.f) s = cap * tanhf(s / cap);
       if (zero_scores) s = 0.f;
-      s = vis ? s : NEG_INF;
-      float tm = s;
-#pragma unroll
-      for (int off = 1; off < KT; off <<= 1)
-        tm = fmaxf(tm, __shfl_xor_sync(FULL, tm, off));
-      const float mn = fmaxf(m[r], tm);
-      alpha[r] = weight(m[r], mn);
-      p[r] = weight(s, mn);
-      l[r] = l[r] * alpha[r] + p[r];  // this lane's keys; summed at the end
-      m[r] = mn;
+      sc[r] = vis ? s : NEG_INF;
     }
-    if (prt == 0) {                   // v's row scale folds into p
-      const float vsf = QUANT ? vs_cur : 1.f;
-      float4* pw = reinterpret_cast<float4*>(p_s + j * QMAX);
-      pw[0] = make_float4(p[0] * vsf, p[1] * vsf, p[2] * vsf, p[3] * vsf);
-      pw[1] = make_float4(p[4] * vsf, p[5] * vsf, p[6] * vsf, p[7] * vsf);
-    }
-    __syncwarp();
-
-    if (d0 < HD) {
-#pragma unroll
-      for (int r = 0; r < QMAX; ++r)
-#pragma unroll
-        for (int i = 0; i < S::HDL; ++i) acc[r][i] *= alpha[r];
-      const int nj = min(KT, kend - t0);
-#pragma unroll 4
-      for (int jj = 0; jj < nj; ++jj) {
-        float vv[S::HDL];
-        load_f<T, S::HDL>(
-            reinterpret_cast<const T*>(vd + jj * S::RS) + d0, vv);
-        const float4* pr = reinterpret_cast<const float4*>(p_s + jj * QMAX);
-        const float4 pa = pr[0], pb = pr[1];
-        const float pv[QMAX] = {pa.x, pa.y, pa.z, pa.w,
-                                pb.x, pb.y, pb.z, pb.w};
-#pragma unroll
-        for (int r = 0; r < QMAX; ++r)
-#pragma unroll
-          for (int i = 0; i < S::HDL; ++i)
-            acc[r][i] = fmaf(pv[r], vv[i], acc[r][i]);
-      }
-    }
-    __syncwarp();                     // buffer st and p_s free for reuse
+    tile_fold<T, HD>(vd, p_s, min(KT, kend - t0), QUANT ? vs_cur : 1.f,
+                     lane, sc, m, l, acc);
     ks_cur = ks_nxt;
     vs_cur = vs_nxt;
   }
@@ -369,26 +405,29 @@ __device__ __forceinline__ void fold(
   }
 }
 
-// Grid (rows, qpk): fold each row's n_split partials in split order.
-// The splits' (m, l) and weights go to shared memory first, so each
-// thread's walk over the splits starts its loads without waiting on
-// them.  Partials with no key (m = NEG_INF) are skipped, never
-// multiplied.
+// Grid (rows, R): fold each grid row's n_split partials in split order.
+// A grid row is one (lane, kv head) of a (b, G) layout with R partial
+// rows; partial row r = j * qpk + p is query head p of window position j,
+// written to the output's (b, R / qpk, G, qpk, HD) row, which is the
+// (rows, qpk, HD) layout when R == qpk.  The splits' (m, l) and weights
+// go to shared memory first, so each thread's walk over the splits starts
+// its loads without waiting on them.  Partials with no key (m = NEG_INF)
+// are skipped, never multiplied.
 __global__ void __launch_bounds__(128)
 merge_kernel(const float* __restrict__ part, float* __restrict__ out,
-             int QPK, int HD, int n_split) {
+             int R, int HD, int n_split, int G, int QPK) {
   __shared__ float w_s[MAX_SPLITS];
   __shared__ float l_s[MAX_SPLITS];
   __shared__ float red[4];
   const int row = blockIdx.x;
   const int r = blockIdx.y;
   const int tid = threadIdx.x;
-  const size_t n_part = static_cast<size_t>(gridDim.x) * n_split * QPK;
+  const size_t n_part = static_cast<size_t>(gridDim.x) * n_split * R;
   const float* ml = part + n_part * HD;
-  const size_t p0 = static_cast<size_t>(row) * n_split * QPK + r;
+  const size_t p0 = static_cast<size_t>(row) * n_split * R + r;
   float mx = NEG_INF;
   for (int s = tid; s < n_split; s += 128) {
-    const size_t pi = p0 + static_cast<size_t>(s) * QPK;
+    const size_t pi = p0 + static_cast<size_t>(s) * R;
     w_s[s] = ml[pi * 2];
     l_s[s] = ml[pi * 2 + 1];
     mx = fmaxf(mx, w_s[s]);
@@ -405,37 +444,56 @@ merge_kernel(const float* __restrict__ part, float* __restrict__ out,
   for (int s = 0; s < n_split; ++s)
     if (w_s[s] != 0.f) L += l_s[s] * w_s[s];
   const float inv_l = 1.f / fmaxf(L, 1e-30f);
+  const int b = row / G;
+  const int j = r / QPK;
+  const size_t orow =
+      ((static_cast<size_t>(b) * (R / QPK) + j) * G + (row - b * G)) * QPK +
+      (r - j * QPK);
   for (int d = tid; d < HD; d += 128) {
     float A = 0.f;
     const float* pd = part + p0 * HD + d;
 #pragma unroll 8
     for (int s = 0; s < n_split; ++s) {
       const float e = w_s[s];
-      const float pv = pd[static_cast<size_t>(s) * QPK * HD];
+      const float pv = pd[static_cast<size_t>(s) * R * HD];
       A += e != 0.f ? pv * e : 0.f;
     }
-    out[(static_cast<size_t>(row) * QPK + r) * HD + d] = A * inv_l;
+    out[orow * HD + d] = A * inv_l;
   }
 }
 
-// Launch a fold kernel (grid (rows, n_split)) and, when n_split > 1, the
-// merge.  Raises the block's dynamic shared-memory limit once.
+// Launch a fold kernel on `grid` ((rows, n_split, ...), `threads` threads,
+// `smem` bytes of dynamic shared memory) and, when n_split > 1, the merge
+// of its R partial rows per grid row into `out` (G, qpk: the output's
+// layout, as merge_kernel).  `limit` is the caller's per-instantiation
+// opt-in, 0 before its first launch: every first launch sets it.
+template <typename Kernel, typename... Args>
+int launch_grid(Kernel kern, dim3 grid, int threads, int smem, int& limit,
+                int R, int G, int qpk, int hd, float* part, float* out,
+                cudaStream_t st, Args... args) {
+  if (smem > limit) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    limit = smem;
+  }
+  kern<<<grid, threads, smem, st>>>(args...);
+  cudaError_t e = cudaGetLastError();
+  const int n_split = static_cast<int>(grid.y);
+  if (e != cudaSuccess || n_split == 1) return static_cast<int>(e);
+  merge_kernel<<<dim3(grid.x, R), 128, 0, st>>>(part, out, R, hd, n_split,
+                                                G, qpk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The one-token kernels: grid (rows, n_split) of THREADS threads, qpk
+// partial rows per grid row.
 template <typename T, int HD, typename Kernel, typename... Args>
 int launch(Kernel kern, int rows, int n_split, int qpk, float* part,
            float* out, cudaStream_t st, Args... args) {
-  using S = Shape<T, HD>;
-  static bool attr_set = false;
-  if (!attr_set && S::SMEM > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  attr_set = true;
-  kern<<<dim3(rows, n_split), THREADS, S::SMEM, st>>>(args...);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 1) return static_cast<int>(e);
-  merge_kernel<<<dim3(rows, qpk), 128, 0, st>>>(part, out, qpk, HD, n_split);
-  return static_cast<int>(cudaGetLastError());
+  static int limit = 0;               // the opt-in is set on first use
+  return launch_grid(kern, dim3(rows, n_split), THREADS, Shape<T, HD>::SMEM,
+                     limit, qpk, 1, qpk, HD, part, out, st, args...);
 }
 
 // Dispatch a runtime head dim onto the instantiated ones.

@@ -16,12 +16,17 @@ version give; every table entry must be a valid page id.
 
 `paged_flash_verify` replaces the Pallas TPU kernel
 `src/repro/kernels/paged_flash_decode.py:paged_flash_verify`.  Its
-kernel (`csrc/paged_flash_verify.cu`) holds all `s * qpk` query rows of
-a (lane, kv head) in one block, so each K/V row is loaded once for the
-whole window; at the verify shape the f32 products, not the bytes, bound
-it.  `lengths` EXCLUDES the window: row j sees k_pos <= lengths + j.
-Padded rows and padding lanes read stale pool rows, as the plain version
-does; their output is finite and discarded.
+kernel (`csrc/paged_flash_verify.cu` on `csrc/split_decode.cuh`) is
+split-KV too, from `split_decode.plan_verify`: a block holds all `s *
+qpk` query rows of a (lane, kv head) (up to 64; more go to further
+blocks), stages each K/V tile of its split once and folds it for every
+row of the window, one warp per 8 rows; at the verify shape the f32
+products, not the bytes, bound it.  `lengths` EXCLUDES the window: row j
+sees k_pos <= lengths + j.  A row that sees no key (a window, and a
+padded row past the table) gets the mean of V over the whole table, as
+the TPU kernel and the plain version give.  Padded rows and padding
+lanes read stale pool rows, as the plain version does; their output is
+finite and discarded.
 
 On CPU tensors each wrapper runs its plain version (`ref_paged_decode`,
 `ref_paged_verify`); on CUDA tensors it launches its kernel or raises.
@@ -38,7 +43,6 @@ from . import _build, split_decode
 from .ref import ref_paged_decode, ref_paged_verify
 
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_SMEM = 232448           # dynamic shared memory a block may use (227 KB)
 
 paged_decode_plain = ref_paged_decode
 paged_verify_plain = ref_paged_verify
@@ -165,13 +169,13 @@ def decode_plan(b: int, g: int, max_pages: int, page_size: int,
                                     page_size, n_sms)
 
 
-def verify_smem_bytes(s: int, qpk: int, hd: int, page_size: int) -> int:
-    """Dynamic shared memory of one verify block, as the source sizes it:
-    q and accumulator tiles, one staged K (padded) and V page, scores,
-    and three per-row softmax values, all f32."""
-    r = s * qpk
-    return 4 * (2 * r * hd + page_size * (2 * hd + 1) + r * page_size
-                + 3 * r)
+def verify_plan(b: int, g: int, s: int, qpk: int, max_pages: int,
+                page_size: int, n_sms: int = split_decode.H100_SMS):
+    """(n_split, chunk) of a `paged_flash_verify` call: splits of whole
+    pages over the `max_pages * page_size` keys of a lane's table, for
+    s * qpk query rows per (lane, kv head)."""
+    return split_decode.plan_verify(b * g, s * qpk, max_pages * page_size,
+                                    page_size, n_sms)
 
 
 def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
@@ -184,24 +188,33 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (b, s, g, qpk, hd) f32, query j of lane i at position
     lengths[i] + j; pools, scales and tables as `paged_flash_decode`;
     lengths: (b,) int32 tokens cached BEFORE the window.  Returns
-    (b, s, g, qpk, hd) f32."""
+    (b, s, g, qpk, hd) f32.
+
+    On CUDA tensors it raises ValueError, as `paged_flash_decode` does,
+    for tensors on another device or not contiguous, q not f32, pools,
+    scales, tables or lengths of the wrong shape or type, and also for hd
+    not in `split_decode.HEAD_DIMS` (the instantiated head dims) and for
+    q, K or V not starting on a 16-byte boundary.  Any s and qpk go."""
     if _check("paged_flash_verify", 5, q, k_pages, v_pages, tables, lengths,
               k_scales, v_scales):
         return paged_verify_plain(q, k_pages, v_pages, tables, lengths,
                                   window, attn_cap, k_scales, v_scales)
     b, s, g, qpk, hd = q.shape
-    ps = k_pages.shape[1]
-    smem = verify_smem_bytes(s, qpk, hd, ps)
-    if smem > MAX_SMEM:
-        raise ValueError(f"paged_flash_verify: s*qpk = {s * qpk} rows of "
-                         f"hd {hd} need {smem} B of shared memory, more "
-                         f"than a block has ({MAX_SMEM} B)")
+    if hd not in split_decode.HEAD_DIMS:
+        raise ValueError(f"paged_flash_verify: hd {hd} is not one of the "
+                         f"instantiated head dims {split_decode.HEAD_DIMS}")
+    split_decode.check_aligned("paged_flash_verify", q, k_pages, v_pages)
     out = torch.empty_like(q)
-    if b == 0 or s == 0:
+    if out.numel() == 0:
         return out
-    _launch("paged_flash_verify", (b, s, g, qpk, hd, ps, tables.shape[1]),
-            q, k_pages, v_pages, tables, lengths, out, window, attn_cap,
-            k_scales, v_scales)
+    ps, max_pages = k_pages.shape[1], tables.shape[1]
+    n_split, chunk = verify_plan(b, g, s, qpk, max_pages, ps,
+                                 split_decode.sm_count(q.device))
+    part = split_decode.scratch(b * g, n_split, s * qpk, hd, q.device)
+    _launch("paged_flash_verify",
+            (b, s, g, qpk, hd, ps, max_pages, chunk, n_split), q, k_pages,
+            v_pages, tables, lengths, out, window, attn_cap, k_scales,
+            v_scales, part)
     paged_flash_verify.launches += 1
     return out
 

@@ -133,6 +133,18 @@ def _flash_visible(pos, window, S, device):
     return mask
 
 
+def _verify_visible(lengths, s, window, S):
+    """(b, s, S) keys each window position sees: query j of a lane at
+    position lengths + j sees k_pos <= lengths + j, within the window."""
+    k_pos = torch.arange(S, device=lengths.device)
+    q_pos = (lengths.long()[:, None]
+             + torch.arange(s, device=lengths.device)[None, :])     # (b, s)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]
+    if window:
+        mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+    return mask
+
+
 def ref_paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, tables: torch.Tensor,
                      lengths: torch.Tensor, window: int = 0,
@@ -161,12 +173,7 @@ def ref_paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     scores = scores / math.sqrt(hd)
     if attn_cap:
         scores = attn_cap * torch.tanh(scores / attn_cap)
-    k_pos = torch.arange(S, device=q.device)
-    q_pos = (lengths.to(q.device).long()[:, None]
-             + torch.arange(s, device=q.device)[None, :])          # (b, s)
-    mask = k_pos[None, None, :] <= q_pos[:, :, None]               # (b, s, S)
-    if window:
-        mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+    mask = _verify_visible(lengths.to(q.device), s, window, S)    # (b, s, S)
     scores = torch.where(mask[:, None, None, :, :], scores,
                          torch.tensor(NEG_INF, device=q.device))
     w = torch.softmax(scores, dim=-1)
@@ -196,23 +203,25 @@ def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
-# the two halves of the split-KV decode kernels, for the CPU tests
+# the two halves of the split-KV kernels, for the CPU tests
 # ----------------------------------------------------------------------------
 def _range_partials(scores, v, visible, k0, k1):
     """Softmax state (m, l, acc) of keys [k0, k1), as one split of a
-    split-KV kernel folds them.  scores (n, qpk, S) f32, v (n, S, hd)
-    f32, visible (n, S) bool; a row that sees no key counts every key
-    with score 0.  A range with no key gives m = NEG_INF, l = 0, acc =
-    0."""
-    empty = ~visible.any(-1)
-    scores = torch.where(empty[:, None, None], torch.zeros_like(scores),
+    split-KV kernel folds them.  scores (n, rows, S) f32, v (n, S, hd)
+    f32, visible (n, S) bool, the same for every row, or (n, rows, S); a
+    row that sees no key counts every key with score 0.  A range with no
+    key gives m = NEG_INF, l = 0, acc = 0."""
+    if visible.dim() == 2:
+        visible = visible[:, None, :]
+    empty = ~visible.any(-1)                                   # (n, 1|rows)
+    scores = torch.where(empty[..., None], torch.zeros_like(scores),
                          scores)
-    vis = (visible | empty[:, None])[:, None, k0:k1]
+    vis = (visible | empty[..., None])[..., k0:k1]
     s = torch.where(vis, scores[..., k0:k1],
                     torch.tensor(NEG_INF, device=scores.device))
-    n, qpk = scores.shape[:2]
+    n, rows = scores.shape[:2]
     if k1 <= k0:
-        m = torch.full((n, qpk), NEG_INF, device=scores.device)
+        m = torch.full((n, rows), NEG_INF, device=scores.device)
     else:
         m = s.amax(-1)
     p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
@@ -236,6 +245,33 @@ def ref_paged_decode_partials(q, k_pages, v_pages, tables, lengths, k0, k1,
                                                                  hd),
         vis.repeat_interleave(g, 0), k0, k1)
     return m.reshape(b, g, qpk), l.reshape(b, g, qpk), acc.reshape(q.shape)
+
+
+def ref_paged_verify_partials(q, k_pages, v_pages, tables, lengths, k0,
+                              k1, window=0, attn_cap=0.0, k_scales=None,
+                              v_scales=None):
+    """One split of `paged_flash_verify`: (m, l, acc) of keys [k0, k1)
+    for the s * qpk rows of every (lane, kv head), row r = j * qpk + p
+    being query head p of window position j, each masked by its own
+    horizon; shapes (b, g, s * qpk), (b, g, s * qpk), (b, g, s * qpk,
+    hd).  Same arguments as `ref_paged_verify`."""
+    b, s, g, qpk, hd = q.shape
+    S = tables.shape[1] * k_pages.shape[1]
+    tables = tables.long()
+    k = _gather_pages(k_pages, tables, b, S, k_scales)
+    v = _gather_pages(v_pages, tables, b, S, v_scales)
+    scores = torch.einsum("bqgph,bkgh->bgqpk", q.to(torch.float32),
+                          k.to(q.dtype).to(torch.float32)) / math.sqrt(hd)
+    if attn_cap:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    vis = _verify_visible(lengths.to(q.device), s, window, S)     # (b, s, S)
+    vis = vis[:, None, :, None, :].expand(b, g, s, qpk, S)
+    m, l, acc = _range_partials(
+        scores.reshape(b * g, s * qpk, S),
+        v.transpose(1, 2).reshape(b * g, S, hd).to(torch.float32),
+        vis.reshape(b * g, s * qpk, S), k0, k1)
+    return (m.reshape(b, g, s * qpk), l.reshape(b, g, s * qpk),
+            acc.reshape(b, g, s * qpk, hd))
 
 
 def ref_flash_decode_partials(q, k, v, pos, k0, k1, window=0,

@@ -328,15 +328,52 @@ def _verify(device, pools, s, seed=5):
 
 
 @pytest.mark.parametrize("pools", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("s", [1, 2, 5])
-@pytest.mark.parametrize("window,cap", [(0, 0.0), (200, 0.0), (0, 30.0)])
+@pytest.mark.parametrize("s", [1, 2, 5, 9, 24])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (200, 0.0), (0, 30.0),
+                                        (1, 0.0)])
 def test_paged_verify_kernel_matches_plain(device, pools, s, window, cap):
+    """Every lane compared in full; s = 9 and 24 (72 and 192 rows) take
+    more than one block of rows.  With window 1 the lanes' windows run
+    past the table, so those rows see no key and get the mean of V over
+    the table.  A second call is bitwise equal to the first."""
     args = _verify(device, pools, s)
     q, kp, vp, tables, lengths, ks, vs = args
+    if window == 1:
+        n_keys = tables.shape[1] * kp.shape[1]
+        lengths = torch.tensor([n_keys - 2, n_keys - 1, n_keys + 3, 0],
+                               dtype=torch.int32, device=device)
     out = paged_flash_verify(q, kp, vp, tables, lengths, window, cap, ks, vs)
     ref = paged_verify_plain(q, kp, vp, tables, lengths, window, cap, ks, vs)
     assert out.shape == q.shape
     _close(out, ref)
+    assert torch.equal(out, paged_flash_verify(q, kp, vp, tables, lengths,
+                                               window, cap, ks, vs))
+
+
+@pytest.mark.parametrize("max_pages,nodes", [(64, 2), (1, 1)])
+def test_paged_verify_call_is_fold_then_merge(device, max_pages, nodes,
+                                              tmp_path):
+    """A CUDA graph captured around one call holds the fold kernel, then
+    the merge when the plan splits the keys (64 pages), and only the
+    fold when it does not (one page)."""
+    q, kp, vp, tables, lengths, ks, vs = _verify(device, "int8", 5)
+    tables = tables[:, :max_pages].contiguous()
+    lengths = lengths.clamp(max=max_pages * kp.shape[1] - 5)
+    paged_flash_verify(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = paged_flash_verify(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    dot = tmp_path / "call.dot"
+    graph.debug_dump(str(dot))
+    text = dot.read_text()
+    found = re.findall(r'"graph_\d+_node_\d+"\[[^\]]*?label="\{(\w+)', text)
+    assert found == ["KERNEL"] * nodes and "verify_kernel" in text, text
+    assert ("merge_kernel" in text) == (nodes == 2), text
+    graph.replay()
+    _close(out, paged_verify_plain(q, kp, vp, tables, lengths, 0, 0.0, ks,
+                                   vs))
 
 
 def test_paged_verify_s1_is_a_decode_step(device):
@@ -436,9 +473,13 @@ def test_wrappers_raise_instead_of_falling_back(device):
     with pytest.raises(ValueError):                  # bf16 queries
         paged_flash_verify(q.bfloat16(), kp, vp, tables, lengths, 0, 0.0,
                            ks, vs)
-    with pytest.raises(ValueError):                  # window too wide a tile
-        paged_flash_verify(q[:, :1].repeat(1, 64, 1, 1, 1), kp, vp, tables,
-                           lengths, 0, 0.0, ks, vs)
+    with pytest.raises(ValueError):                  # hd 48: no kernel
+        paged_flash_verify(q[..., :48].contiguous(), kp[..., :48].contiguous(),
+                           vp[..., :48].contiguous(), tables, lengths, 0,
+                           0.0, ks, vs)
+    with pytest.raises(ValueError):                  # q off 16 bytes
+        qs = torch.empty(q.numel() + 1, device=device)[1:].view(q.shape)
+        paged_flash_verify(qs, kp, vp, tables, lengths, 0, 0.0, ks, vs)
     kv = torch.randn(2, 64, 32, device=device)
     qd = torch.randn(2, 4, 32, device=device)
     with pytest.raises(ValueError):                  # pos on the CPU
