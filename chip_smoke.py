@@ -30,17 +30,28 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      fold, then the merge).
   3. full model: qwen2.5-3b at full width (36 layers, INT4 weights drawn
      from a seed on the card, INT8 paged KV) served by PagedServeEngine:
-     4 requests of 16-64 prompt tokens, 16 new tokens each, greedy.  The
-     kernel launch counters are zeroed right before and read right
-     after; each must equal its per-call count times the calls made.
-     A profile of a decode step must show no second cim_gemv or
-     swiglu_qgemv pass (`reduce_kernel`, `epilogue_kernel`).
+     two waves of 4 requests of 16-64 prompt tokens, 16 new tokens each,
+     greedy; first with the steps as CUDA graphs (the engine's default),
+     then eagerly (`eager=True`), and the greedy streams must agree.
+     The kernel launch counters are zeroed right before each run and
+     read right after; each must equal its per-call count times the
+     calls made (a replay counts the kernels its capture recorded).
+     Each (step, shape) is captured once and its graph holds one call's
+     kernels; two replays of the decode graph on the same inputs are
+     bitwise equal.  Logged beside each other: decode step wall median,
+     host ms per step (wall - the replay's device ms), TTFT p50 per
+     wave, peak memory.  A profile of a decode step, eager and as a
+     replay, must show no second cim_gemv or swiglu_qgemv pass
+     (`reduce_kernel`, `epilogue_kernel`).
   4. speculative decoding: the same model and engine with
      SpecConfig(drafter="ngram", k=4) on prompts that repeat a motif,
      32 new tokens each, against the same prompts without speculation;
-     then a short run with the launcher's 1-layer draft model.  Counters
-     as in phase 3: `paged_flash_verify` must run 36 times per verify
-     call.  A profile of one verify step splits its device time.
+     then a short run with the launcher's 1-layer draft model; each
+     speculative run as CUDA graphs and once more eagerly, streams
+     compared.  Counters as in phase 3: `paged_flash_verify` must run
+     36 times per verify call.  Graphs as in phase 3, the draft model's
+     steps too.  A profile of one verify step, eager and as a replay,
+     splits its device time.
   5. decode_attention: the public entry point over a contiguous cache,
      36 calls at qwen2.5-3b's attention shape, through `flash_decode`.
   6. card vs CPU: a 2-layer full-width copy, one prefill chunk and one
@@ -810,70 +821,172 @@ def phase_kernels(model, params, device, checks: Checks):
     return timings
 
 
+def step_launches(cfg, s: int, verify: bool = False, packed: bool = True):
+    """Kernel launches of one model step call of width s (its graph
+    holds the same): packed weights go to cim_gemv / swiglu_qgemv, a
+    decode step's attention to paged_flash_decode, a verify window's to
+    paged_flash_verify."""
+    L = cfg.n_layers
+    return {"cim_gemv": (5 * L + 1) if packed else 0,
+            "swiglu_qgemv": L if packed else 0,
+            "paged_flash_decode": L if s == 1 else 0,
+            "paged_flash_verify": L if verify else 0, "flash_decode": 0}
+
+
+def check_graphs(label, eng, allowed, required):
+    """Every step call of `eng` went through a CUDA graph captured once
+    per (step, shape): `allowed` maps (step, shape) to the kernels one
+    call launches, which its graph must hold; each of `required` was
+    replayed.  Logs capture seconds and replays."""
+    steps = eng.runner.steps()
+    got = {(st["fn"], tuple(st["shape"])): st for st in steps}
+    if not eng.runner.graphs or not all(st["captured"] for st in steps):
+        fail(f"{label}: steps not captured as CUDA graphs: {steps}")
+    if not set(required) <= set(got) <= set(allowed):
+        fail(f"{label}: graphs {sorted(got)}, expected {sorted(required)} "
+             f"and at most {sorted(allowed)}")
+    for key, st in got.items():
+        if st["launches_per_call"] != allowed[key]:
+            fail(f"{label}: graph {key} holds {st['launches_per_call']} "
+                 f"kernel launches a call, expected {allowed[key]}")
+        if key in required and st["replays"] <= 0:
+            fail(f"{label}: graph {key} was never replayed")
+    log(f"{label} graphs, each captured once: " + "; ".join(
+        f"{fn} {list(shape)} capture {st['capture_s']:.3f} s, "
+        f"{st['replays']} replays, kernels a call "
+        + json.dumps({k: v for k, v in st["launches_per_call"].items()
+                      if v})
+        for (fn, shape), st in got.items()))
+    return {f"{fn} {list(shape)}": {"capture_s": st["capture_s"],
+                                    "replays": st["replays"]}
+            for (fn, shape), st in got.items()}
+
+
+def replay_check(label, eng, fn, shape, iters: int = 20) -> float:
+    """Device ms of one replay of the engine's graph of (fn, shape)
+    (CUDA events), and two replays on its static inputs bitwise equal
+    in logits and pools.  Direct replays: no launch is counted."""
+    import torch
+    graph, logits = eng.runner.graph_of(fn, shape)
+    ms = cuda_time_ms(graph.replay, iters)
+    snaps = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        snaps.append((logits.clone(), [v.clone() for v in
+                                       eng.cache.pools["attn"].values()]))
+    same = torch.equal(snaps[0][0], snaps[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(snaps[0][1], snaps[1][1]))
+    log(f"check {label} graph {list(shape)}: two replays on the same "
+        f"inputs bitwise {'equal' if same else 'DIFFERENT'} (logits and "
+        f"pools); replay device {ms:.3f} ms")
+    if not same:
+        fail(f"{label}: two replays of one graph differ")
+    return ms
+
+
 def phase_full_model(model, params, device):
+    """Serve the same two waves of requests with the steps as CUDA
+    graphs (the default) and eagerly (eager=True), in that order."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+    from repro_torch.serve.telemetry import Telemetry
 
     cfg = model.cfg
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-               for n in rng.integers(16, 65, size=4)]
+    waves = [[rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+              for n in rng.integers(16, 65, size=4)] for _ in range(2)]
     n_new = 16
-    eng = PagedServeEngine(model, params, ServeConfig(
-        precision="int4", kv_dtype="auto", max_batch=4, max_seq=128,
-        page_size=16, prefill_chunk=16), device=device)
-    reqs = [ServeRequest(prompt=p, max_new_tokens=n_new, rid=i)
-            for i, p in enumerate(prompts)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for r in reqs:
-        eng.submit(r)
-    decode_ms = []
-    reset_launch_counts()
-    t_run = time.perf_counter()
-    while eng.busy:
-        pre = eng.prefill_calls
-        t0 = time.perf_counter()
-        eng.step()
+
+    def serve(eager):
+        eng = PagedServeEngine(model, params, ServeConfig(
+            precision="int4", kv_dtype="auto", max_batch=4, max_seq=128,
+            page_size=16, prefill_chunk=16), device=device, eager=eager)
         torch.cuda.synchronize()
-        if eng.prefill_calls == pre:
-            decode_ms.append((time.perf_counter() - t0) * 1e3)
-    run_s = time.perf_counter() - t_run
-    counts = launch_counts()
-    m = eng.summary()
-    gen_tokens = sum(len(r.out_tokens) for r in reqs)
-    log(f"full model: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
-        f"vocab={cfg.vocab}, prompts {[len(p) for p in prompts]}, "
-        f"{gen_tokens} tokens generated in {run_s:.2f} s")
-    if gen_tokens != 4 * n_new or not all(r.done for r in reqs):
-        fail(f"generated {gen_tokens} tokens, expected {4 * n_new}")
-    for r in reqs:
-        if not all(0 <= t < cfg.vocab for t in r.out_tokens):
-            fail(f"token out of range in request {r.rid}")
-    calls = eng.prefill_calls + eng.decode_calls
-    expect = {"cim_gemv": (5 * cfg.n_layers + 1) * calls,
-              "swiglu_qgemv": cfg.n_layers * calls,
-              "paged_flash_decode": cfg.n_layers * eng.decode_calls,
-              "paged_flash_verify": 0, "flash_decode": 0}
-    log(f"serve_step calls: {eng.prefill_calls} prefill + "
-        f"{eng.decode_calls} decode; launches {counts}, expected {expect}")
-    if counts != expect or min(counts["cim_gemv"], counts["swiglu_qgemv"],
-                               counts["paged_flash_decode"]) <= 0:
-        fail(f"kernel launches {counts} != expected {expect}")
-    per_step = 5 * cfg.n_layers + 1 + 2 * cfg.n_layers
-    med = float(np.median(decode_ms)) if decode_ms else float("nan")
+        torch.cuda.reset_peak_memory_stats()
+        reqs, decode_ms, ttft = [], [], []
+        reset_launch_counts()
+        t_run = time.perf_counter()
+        # wave 1 captures the graphs; wave 2 (new prompts, no prefix
+        # hit) runs on captured graphs
+        for wave in waves:
+            eng.telemetry = Telemetry()
+            batch = [ServeRequest(prompt=p, max_new_tokens=n_new,
+                                  rid=len(reqs) + i)
+                     for i, p in enumerate(wave)]
+            reqs += batch
+            for r in batch:
+                eng.submit(r)
+            while eng.busy:
+                pre = eng.prefill_calls
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                if eng.prefill_calls == pre:
+                    decode_ms.append((time.perf_counter() - t0) * 1e3)
+            ttft.append(eng.summary()["ttft_p50_s"] * 1e3)
+        run_s = time.perf_counter() - t_run
+        counts = launch_counts()
+        mode = "eager" if eager else "graph"
+        gen_tokens = sum(len(r.out_tokens) for r in reqs)
+        log(f"full model ({mode}): {cfg.name} {cfg.n_layers} layers "
+            f"d={cfg.d_model} vocab={cfg.vocab}, prompts "
+            f"{[len(r.prompt) for r in reqs]}, {gen_tokens} tokens "
+            f"generated in {run_s:.2f} s")
+        if gen_tokens != len(reqs) * n_new or not all(r.done for r in reqs):
+            fail(f"generated {gen_tokens} tokens, expected "
+                 f"{len(reqs) * n_new}")
+        for r in reqs:
+            if not all(0 <= t < cfg.vocab for t in r.out_tokens):
+                fail(f"token out of range in request {r.rid}")
+        calls = eng.prefill_calls + eng.decode_calls
+        expect = {"cim_gemv": (5 * cfg.n_layers + 1) * calls,
+                  "swiglu_qgemv": cfg.n_layers * calls,
+                  "paged_flash_decode": cfg.n_layers * eng.decode_calls,
+                  "paged_flash_verify": 0, "flash_decode": 0}
+        log(f"serve_step calls ({mode}): {eng.prefill_calls} prefill + "
+            f"{eng.decode_calls} decode; launches {counts}, expected "
+            f"{expect}")
+        if counts != expect or min(counts["cim_gemv"],
+                                   counts["swiglu_qgemv"],
+                                   counts["paged_flash_decode"]) <= 0:
+            fail(f"kernel launches {counts} != expected {expect}")
+        return dict(eng=eng, reqs=reqs, counts=counts, run_s=run_s,
+                    decode_ms=float(np.median(decode_ms)),
+                    decode_steps=len(decode_ms), ttft_ms=ttft,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    graph, eager = serve(False), serve(True)
+    eng = graph["eng"]
+    name = f"{cfg.name}.serve_step"
+    graphs = check_graphs("full model", eng, {
+        (name, (4, 16)): step_launches(cfg, 16),
+        (name, (4, 1)): step_launches(cfg, 1)},
+        [(name, (4, 16)), (name, (4, 1))])
+    check_identity("graphs vs eager (full model)", eager["reqs"],
+                   graph["reqs"], model, params, device)
+    replay_ms = replay_check("full model decode", eng, model.serve_step,
+                             (4, 1))
     result = {
-        "tokens": gen_tokens,
+        "tokens": sum(len(r.out_tokens) for r in graph["reqs"]),
         "decode_tok_s": eng.throughput(),
-        "decode_step_ms_median": med,
-        "decode_steps": len(decode_ms),
-        "ttft_p50_ms": m["ttft_p50_s"] * 1e3,
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches_per_decode_step": per_step,
-        "launches": counts,
+        "decode_steps": graph["decode_steps"],
+        "launches_per_decode_step": sum(step_launches(cfg, 1).values()),
+        "launches": graph["counts"],
+        "graphs": graphs,
+        "decode_replay_device_ms": replay_ms,
     }
+    for mode, run in (("graph", graph), ("eager", eager)):
+        result[mode] = {
+            "decode_step_ms_median": run["decode_ms"],
+            "host_ms_per_decode_step": run["decode_ms"] - replay_ms,
+            "device_busy_share": replay_ms / run["decode_ms"],
+            "ttft_p50_ms_wave1": run["ttft_ms"][0],
+            "ttft_p50_ms_wave2": run["ttft_ms"][1],
+            "max_memory_allocated_gb": run["peak_gb"],
+            "run_s": run["run_s"]}
     log("full model result " + json.dumps(result))
     names = profile_step(model, params, eng, device)
     # cim_gemv's kernels live in an anonymous namespace; PyTorch's own
@@ -889,50 +1002,64 @@ def phase_full_model(model, params, device):
     if not ours or stale:
         fail(f"decode step profile: no kernel of the port seen, or a "
              f"second cim_gemv or swiglu_qgemv pass ran: {stale}")
-    return counts
+    return graph["counts"], result
 
 
 def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     """torch.profiler over a few batch-4 model steps on the engine's
     pools (lanes at length 64): decode `serve_step` calls for s = 1,
-    `paged_verify_step` windows of s tokens otherwise.  Host wall time
-    per step against the device time of the kernels it ran.  Returns
-    {kernel name: device us}."""
+    `paged_verify_step` windows of s tokens otherwise; first eagerly,
+    then as replays of a CUDA graph (a `StepRunner` of its own, captured
+    before the profile).  Host wall time per step against the device
+    time of the kernels it ran.  Returns {kernel name: device us} of
+    both."""
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.serve import StepRunner
+
     b, mp = eng.max_batch, eng.cache.max_pages
-    tables = torch.arange(b * mp, dtype=torch.int32,
-                          device=device).reshape(b, mp)
-    lengths = torch.full((b,), 64, dtype=torch.int32, device=device)
-    n_new = torch.full((b,), s, dtype=torch.int32, device=device)
-    tok = torch.zeros((b, s), dtype=torch.int32, device=device)
+    host = (np.zeros((b, s), np.int32),
+            np.arange(b * mp, dtype=np.int32).reshape(b, mp),
+            np.full(b, 64, np.int32), np.full(b, s, np.int32))
+    tok, tables, lengths, n_new = (torch.from_numpy(a).to(device)
+                                   for a in host)
     fn = model.serve_step if s == 1 else model.paged_verify_step
     what = "decode step" if s == 1 else f"verify step (s={s})"
+    runner = StepRunner(device)
 
-    def step():
+    def eager():
         fn(params, eng.cache.pools, {"tokens": tok}, tables, lengths, n_new)
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+
+    def replay():
+        runner(fn, params, eng.cache.pools, *host)
+    names = {}
+    for mode, step in (("eager", eager), ("graph replay", replay)):
+        step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    by_name, n_dev = device_times(prof)
-    dev_ms = sum(by_name.values()) / 1e3 / steps
-    if n_dev == 0:
-        log(f"{what} profile: wall {wall_ms:.3f} ms/step; device "
-            "time not measured (the profiler recorded no CUDA events)")
-        return by_name
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{what} profile: wall {wall_ms:.3f} ms/step, device "
-        f"{dev_ms:.3f} ms/step busy ({100 * dev_ms / wall_ms:.1f} %), "
-        f"{n_dev / steps:.0f} device events/step; top: " + "; ".join(
-            f"{n[:60]} {d / 1e3 / steps:.3f} ms" for n, d in top))
-    return by_name
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        by_name, n_dev = device_times(prof)
+        for k, v in by_name.items():
+            names[k] = names.get(k, 0.0) + v
+        dev_ms = sum(by_name.values()) / 1e3 / steps
+        if n_dev == 0:
+            log(f"{what} profile ({mode}): wall {wall_ms:.3f} ms/step; "
+                "device time not measured (the profiler recorded no CUDA "
+                "events)")
+            continue
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        log(f"{what} profile ({mode}): wall {wall_ms:.3f} ms/step, device "
+            f"{dev_ms:.3f} ms/step busy ({100 * dev_ms / wall_ms:.1f} %), "
+            f"{n_dev / steps:.0f} device events/step; top: " + "; ".join(
+                f"{n[:60]} {d / 1e3 / steps:.3f} ms" for n, d in top))
+    return names
 
 
 def device_times(prof):
@@ -1016,10 +1143,11 @@ def top2_gap(model, params, device, tokens):
 
 
 def check_identity(label, base, spec, model, params, device) -> int:
-    """Greedy streams with and without speculation must be equal.  The
-    one exception: a first divergence at a step whose top-two target
-    logits lie within the logit tolerance (the two paths sum in another
-    order), which is logged.  Returns the number of such requests."""
+    """Greedy streams of two runs (with and without speculation, or
+    eager and as CUDA graphs) must be equal.  The one exception: a first
+    divergence at a step whose top-two target logits lie within the
+    logit tolerance (the two paths sum in another order), which is
+    logged.  Returns the number of such requests."""
     import numpy as np
     near_ties = 0
     for rb, rs in zip(base, spec):
@@ -1038,15 +1166,15 @@ def check_identity(label, base, spec, model, params, device) -> int:
                 fail(f"{label}: request {rs.rid} diverges at token {t} with "
                      f"a top-2 gap {gap:.3e} above the tolerance {tol:.3e}")
             near_ties += 1
-    log(f"{label}: streams identical to the non-speculative run for "
-        f"{len(spec) - near_ties} of {len(spec)} requests; {near_ties} "
-        "diverge at a near-tie")
+    log(f"{label}: streams identical for {len(spec) - near_ties} of "
+        f"{len(spec)} requests; {near_ties} diverge at a near-tie")
     return near_ties
 
 
 def phase_spec(model, params, device):
     """Speculative decoding at full width: n-gram drafter, k = 4, then a
-    short run with the launcher's 1-layer draft model."""
+    short run with the launcher's 1-layer draft model; each with the
+    steps as CUDA graphs and once more eagerly, on the same prompts."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1063,15 +1191,16 @@ def phase_spec(model, params, device):
     serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
                             max_seq=128, page_size=16, prefill_chunk=16)
 
-    def serve(spec, n_new):
+    def serve(spec, n_new, eager=False):
         eng = PagedServeEngine(model, params, serve_cfg, spec=spec,
-                               device=device)
+                               device=device, eager=eager)
         reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=n_new, rid=i)
                 for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         steps = []                    # (ms, tokens) of verify-only steps
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t_run = time.perf_counter()
         while eng.busy:
@@ -1094,6 +1223,7 @@ def phase_spec(model, params, device):
                  f"{4 * n_new}")
         if not all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens):
             fail("token out of range")
+        eng.peak_gb = torch.cuda.max_memory_allocated() / 1e9
         return eng, reqs, counts, steps, run_s
 
     def report(label, eng, counts, steps, run_s, draft_decode_calls=0):
@@ -1128,10 +1258,34 @@ def phase_spec(model, params, device):
             "decode_step_ms_median": float(np.median(
                 [ms for ms, _, _ in steps])),
             "decode_tok_s": eng.throughput(),
+            "ttft_p50_ms": m["ttft_p50_s"] * 1e3,
+            "max_memory_allocated_gb": eng.peak_gb,
             "run_s": run_s,
         }
         log(f"{label} result " + json.dumps(result))
         return result
+
+    def graphs_vs_eager(label, graph, eager, replay_ms):
+        """Graph and eager runs of one workload side by side: verify step
+        wall medians, host ms (wall - the replay's device ms), device
+        busy share, TTFT p50, peak memory."""
+        out = {"verify_replay_device_ms": replay_ms}
+        for mode, r in (("graph", graph), ("eager", eager)):
+            out[mode] = {
+                "verify_step_ms_median": r["verify_step_ms_median"],
+                "host_ms_per_verify_step":
+                    r["verify_step_ms_median"] - replay_ms,
+                "device_busy_share": replay_ms / r["verify_step_ms_median"],
+                "ttft_p50_ms": r["ttft_p50_ms"],
+                "max_memory_allocated_gb": r["max_memory_allocated_gb"]}
+        log(f"{label} graphs vs eager " + json.dumps(out))
+        return out
+
+    target = f"{cfg.name}.serve_step"
+    verify = (f"{cfg.name}.paged_verify_step", (4, 5))
+    allowed = {(target, (4, 16)): step_launches(cfg, 16),
+               (target, (4, 1)): step_launches(cfg, 1),
+               verify: step_launches(cfg, 5, verify=True)}
 
     base_eng, base, base_counts, base_steps, base_s = serve(None, 32)
     log("spec baseline (no speculation, same prompts) decode step median "
@@ -1141,25 +1295,53 @@ def phase_spec(model, params, device):
     if eng.verify_calls <= 0:
         fail("speculative run made no verify call")
     ngram = report("spec ngram k=4", eng, counts, steps, run_s)
+    ngram["graphs"] = check_graphs("spec ngram k=4", eng, allowed,
+                                   [(target, (4, 16)), verify])
     ngram["near_ties"] = check_identity("spec ngram", base, reqs, model,
                                         params, device)
     ngram_counts = counts
+    replay_ms = replay_check("spec ngram verify", eng,
+                             model.paged_verify_step, (4, 5))
+    e_eng, e_reqs, e_counts, e_steps, e_run_s = serve(SpecConfig(k=4), 32,
+                                                      eager=True)
+    ngram_eager = report("spec ngram k=4 (eager)", e_eng, e_counts, e_steps,
+                         e_run_s)
+    check_identity("graphs vs eager (spec ngram)", e_reqs, reqs, model,
+                   params, device)
+    ngram["graphs_vs_eager"] = graphs_vs_eager("spec ngram k=4", ngram,
+                                               ngram_eager, replay_ms)
     profile_step(model, params, eng, device, s=5)
     log("acceptance on random weights says nothing about a drafter; "
         "recorded, not claimed")
+    del base_eng, eng, e_eng
 
     draft, dparams = build_draft(cfg, device)
-    eng, reqs, counts, steps, run_s = serve(
-        SpecConfig(k=4, drafter="model", draft_model=draft,
-                   draft_params=dparams, draft_page_size=16), 12)
-    if eng.verify_calls <= 0:
-        fail("draft-model run made no verify call")
-    report("spec model k=4", eng, counts, steps, run_s,
-           draft.cfg.n_layers * eng.spec.drafter.decode_calls)
+    dname = f"{draft.cfg.name}.serve_step"
+    dl = draft.cfg.n_layers
+    allowed.update({
+        (dname, (4, 16)): step_launches(draft.cfg, 16, packed=False),
+        (dname, (4, 1)): step_launches(draft.cfg, 1, packed=False)})
+    spec = SpecConfig(k=4, drafter="model", draft_model=draft,
+                      draft_params=dparams, draft_page_size=16)
+    runs = {}
+    for eager in (False, True):
+        eng, reqs, counts, steps, run_s = serve(spec, 12, eager=eager)
+        if eng.verify_calls <= 0:
+            fail("draft-model run made no verify call")
+        label = "spec model k=4" + (" (eager)" if eager else "")
+        runs[eager] = (reqs, report(label, eng, counts, steps, run_s,
+                                    dl * eng.spec.drafter.decode_calls))
+        if not eager:
+            check_graphs(label, eng, allowed,
+                         [(target, (4, 16)), verify, (dname, (4, 1))])
+        del eng
+    check_identity("graphs vs eager (spec model)", runs[True][0],
+                   runs[False][0], model, params, device)
     for r in base:
         r.out_tokens = r.out_tokens[:12]
-    check_identity("spec model", base, reqs, model, params, device)
-    del draft, dparams, eng
+    check_identity("spec model", base, runs[False][0], model, params,
+                   device)
+    del draft, dparams, runs
     torch.cuda.empty_cache()
     return ngram_counts, ngram
 
@@ -1289,7 +1471,8 @@ def main() -> None:
 
     checks = Checks()
     timings = phase_kernels(model, params, device, checks)
-    by_path = {"decode": phase_full_model(model, params, device)}
+    by_path = {}
+    by_path["decode"], full_result = phase_full_model(model, params, device)
     by_path["spec_ngram"], spec_result = phase_spec(model, params, device)
     by_path["decode_attention"] = phase_decode_attention(model.cfg, device,
                                                          checks)
@@ -1326,6 +1509,7 @@ def main() -> None:
                      "host-dispatched",
             "also_timed": [v for k, v in timings.items()
                            if k.startswith(name + " ")]})
+    log("full model summary " + json.dumps(full_result))
     log("spec summary " + json.dumps(spec_result))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

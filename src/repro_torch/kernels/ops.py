@@ -29,13 +29,22 @@ KERNELS = {"cim_gemv": cim_gemv, "swiglu_qgemv": swiglu_qgemv,
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset (CPU calls never count)."""
+    """Kernel launches since the last reset (CPU calls never count; a
+    CUDA graph's kernels count once per replay)."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count launches no wrapper call made: a CUDA graph replay runs the
+    kernels its capture recorded, and a capture runs none of the
+    launches its wrapper calls counted (`serve.graphs.StepRunner`)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:

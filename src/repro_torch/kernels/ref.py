@@ -90,8 +90,7 @@ def ref_paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
     scores, v = _paged_scores(q, k_pages, v_pages, tables, attn_cap,
                               k_scales, v_scales)
     mask = _paged_visible(lengths.to(q.device), window, scores.shape[-1])
-    scores = torch.where(mask[:, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype),
                         v.to(q.dtype))
@@ -174,8 +173,7 @@ def ref_paged_verify(q: torch.Tensor, k_pages: torch.Tensor,
     if attn_cap:
         scores = attn_cap * torch.tanh(scores / attn_cap)
     mask = _verify_visible(lengths.to(q.device), s, window, S)    # (b, s, S)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bgpqk,bkgh->bqgph", w.to(q.dtype), v.to(q.dtype))
 
@@ -196,8 +194,7 @@ def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if attn_cap:
         scores = attn_cap * torch.tanh(scores / attn_cap)
     mask = _flash_visible(pos, window, S, q.device)
-    scores = torch.where(mask[None, None, None, :], scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    scores = scores.masked_fill(~mask[None, None, None, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bgpk,bkgh->bgph", w.to(q.dtype), v.to(q.dtype))
 
@@ -217,8 +214,7 @@ def _range_partials(scores, v, visible, k0, k1):
     scores = torch.where(empty[..., None], torch.zeros_like(scores),
                          scores)
     vis = (visible | empty[..., None])[..., k0:k1]
-    s = torch.where(vis, scores[..., k0:k1],
-                    torch.tensor(NEG_INF, device=scores.device))
+    s = scores[..., k0:k1].masked_fill(~vis, NEG_INF)
     n, rows = scores.shape[:2]
     if k1 <= k0:
         m = torch.full((n, rows), NEG_INF, device=scores.device)

@@ -5,11 +5,15 @@ Differences from the JAX package, all PyTorch idiom:
   * the KV pools are updated IN PLACE (`index_copy_` into the layer's
     pool view), where JAX returned new, donated pools;
   * where a step's new K/V rows land is computed once per forward
-    (`page_rows`), with explicit masking: JAX leaned on out-of-range
-    scatters being dropped (padding lanes aim at page `n_pages`) and on
-    gathers being clamped (right-padded prefill slots of a lane near
-    `max_seq` index past `max_pages`); torch raises on both, so the page
-    index is clamped and the padding rows are left out by index.
+    (`page_rows`), at a static shape with no host sync, so a step can be
+    captured in a CUDA graph.  JAX sends padding rows to page `n_pages`
+    and lets the scatter drop them; torch raises on an index out of
+    range, so every pool has one page more than the allocator hands out
+    (`paged_cache_spec`): page `n_pages`, the dump page, which no block
+    table names.  All `b * s` rows are written, the padding rows into
+    the dump page.  The page index is clamped where JAX's gather clamps
+    (right-padded prefill slots of a lane near `max_seq` index past
+    `max_pages`).
 """
 from __future__ import annotations
 
@@ -66,35 +70,38 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor
 class PageRows:
     """Where one step's new K/V rows land in every layer's pool.
 
-    slots: (b, s) absolute positions; dst: (n,) flat row indices into a
-    pool viewed as (n_pages * page_size, ...); src: (n,) flat indices
-    into the step's (b * s) token rows.  Only the n_new[i] real tokens
-    of each lane appear in dst/src."""
+    slots: (b, s) absolute positions; dst: (b * s,) flat row indices
+    into a pool viewed as (n_pages_with_dump * page_size, ...), one per
+    token row of the step: the n_new[i] real tokens of lane i go to its
+    pages, every other row to the dump page."""
     slots: torch.Tensor
     dst: torch.Tensor
-    src: torch.Tensor
 
 
 def page_rows(tables: torch.Tensor, lengths: torch.Tensor,
-              n_new: torch.Tensor, s: int, page_size: int) -> PageRows:
+              n_new: torch.Tensor, s: int, page_size: int,
+              dump_page: int) -> PageRows:
+    """Shape-only: reads no device value to the host.  `dump_page` is
+    the pool's last page, which no table names (JAX's `n_pages`, whose
+    writes are dropped); several padding rows may land on one of its
+    rows, so what it holds is unspecified and never read."""
     max_pages = tables.shape[1]
     pos = torch.arange(s, device=tables.device, dtype=lengths.dtype)
     slots = lengths[:, None] + pos[None, :]                       # (b, s)
     idx = (slots // page_size).clamp(max=max_pages - 1).long()
     page = tables.long().gather(1, idx)
+    page = page.masked_fill(pos[None, :] >= n_new[:, None], dump_page)
     flat = page * page_size + (slots % page_size).long()
-    valid = pos[None, :] < n_new[:, None]
-    src = valid.reshape(-1).nonzero().squeeze(1)     # one sync per step
-    return PageRows(slots=slots, dst=flat.reshape(-1)[src], src=src)
+    return PageRows(slots=slots, dst=flat.reshape(-1))
 
 
 def _page_scatter(pool: torch.Tensor, vals: torch.Tensor,
                   rows: PageRows) -> None:
     """Write per-token rows into a paged pool in place.
-    pool: (n_pages, page_size, ...); vals: (b, s, ...)."""
+    pool: (n_pages + 1, page_size, ...); vals: (b, s, ...)."""
     flat = pool.view(-1, *pool.shape[2:])
-    src = vals.reshape(-1, *vals.shape[2:])[rows.src]
-    flat.index_copy_(0, rows.dst, src.to(pool.dtype))
+    flat.index_copy_(0, rows.dst,
+                     vals.reshape(-1, *vals.shape[2:]).to(pool.dtype))
 
 
 def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,8 +189,7 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k_pos = torch.arange(S, device=x.device)
     mask = (k_pos[None, None, :] <= rows.slots[:, :, None]) \
         & (k_pos[None, None, :] < total[:, None, None])          # (b, s, S)
-    scores = torch.where(mask[:, None, None, :, :], scores,
-                         torch.tensor(NEG_INF, device=x.device))
+    scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgpqk,bkgh->bqgph", w.to(vg.dtype), vg)
     out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
@@ -193,15 +199,17 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,
                      dtype: torch.dtype = torch.bfloat16
                      ) -> Dict[str, ParamSpec]:
-    """One layer's paged KV pools.  dtype int8 adds f16 per-(token,
-    kv-head) scale pools "k_scale"/"v_scale"; every leaf keeps the page
-    axis first, so page copies move scales with their pages."""
-    kv = ParamSpec((n_pages, page_size, cfg.n_kv_heads, cfg.hd()), dtype,
-                   init="zeros")
+    """One layer's paged KV pools: `n_pages` pages for the block tables
+    plus the dump page `n_pages` that takes a step's padding rows
+    (`page_rows`).  dtype int8 adds f16 per-(token, kv-head) scale pools
+    "k_scale"/"v_scale"; every leaf keeps the page axis first, so page
+    copies move scales with their pages."""
+    kv = ParamSpec((n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd()),
+                   dtype, init="zeros")
     spec = {"k": kv, "v": kv}
     if dtype == torch.int8:
-        sc = ParamSpec((n_pages, page_size, cfg.n_kv_heads), torch.float16,
-                       init="zeros")
+        sc = ParamSpec((n_pages + 1, page_size, cfg.n_kv_heads),
+                       torch.float16, init="zeros")
         spec["k_scale"] = sc
         spec["v_scale"] = sc
     return spec

@@ -105,8 +105,7 @@ def rope_tables(positions: torch.Tensor, dim: int, theta: float = 10000.0
     """cos/sin tables for rotary embedding. positions: (...,) int."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32,
                         device=positions.device) / dim
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    freqs = 1.0 / torch.pow(theta, exps)     # f32: theta is a scalar
     angles = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 

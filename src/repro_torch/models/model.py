@@ -159,7 +159,10 @@ class DecoderLM:
         h = self._embed(params, inputs["tokens"])
         s = h.shape[1]
         pools = cache["attn"]
-        rows = page_rows(tables, lengths, n_new, s, pools["k"].shape[2])
+        # stacked (L, n_pages + 1, page_size, ...): the last page is the
+        # dump page of `page_rows`
+        rows = page_rows(tables, lengths, n_new, s, pools["k"].shape[2],
+                         dump_page=pools["k"].shape[1] - 1)
         for i, layer_p in enumerate(self._layer_params(params["blocks"])):
             layer_cache = {k: v[i] for k, v in pools.items()}
             h = transformer_block_paged(layer_p, cfg, h, layer_cache, tables,
@@ -170,7 +173,8 @@ class DecoderLM:
     def paged_cache_specs(self, n_pages: int, page_size: int,
                           kv_dtype: torch.dtype = torch.bfloat16) -> Any:
         """Per-layer page pools stacked over layers, shared by every
-        sequence via block tables."""
+        sequence via block tables: (L, n_pages + 1, ...), page `n_pages`
+        being the dump page no table names (`attention.page_rows`)."""
         one = paged_cache_spec(self.cfg, n_pages, page_size, kv_dtype)
         return {"attn": {k: v.stacked(self.cfg.n_layers)
                          for k, v in one.items()}}

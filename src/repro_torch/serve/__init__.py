@@ -1,5 +1,6 @@
 from .config import ServeConfig
 from .engine import PagedServeEngine
+from .graphs import StepRunner
 from .paged_cache import BlockAllocator, OutOfPagesError, PagedKVCache
 from .prefix import PrefixIndex
 from .sampling import SamplingParams, processed_probs, sample_tokens
@@ -8,5 +9,5 @@ from .telemetry import Telemetry
 
 __all__ = ["BlockAllocator", "OutOfPagesError", "PagedKVCache",
            "PagedServeEngine", "PrefixIndex", "SamplingParams", "Scheduler",
-           "ServeConfig", "ServeRequest", "Telemetry", "processed_probs",
-           "sample_tokens"]
+           "ServeConfig", "ServeRequest", "StepRunner", "Telemetry",
+           "processed_probs", "sample_tokens"]

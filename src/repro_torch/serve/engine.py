@@ -23,12 +23,18 @@ window and emits a variable number of tokens per lane (speculative
 decoding, see repro_torch/spec/); a step where nothing was drafted
 takes the plain (b, 1) decode call.
 
+Every model step goes through a `graphs.StepRunner`, the counterpart of
+the JAX engine's `_jit_step`: on the card each (step, shape) is captured
+once as a CUDA graph and replayed after; `eager=True` asks for eager
+execution instead (for comparisons).  The greedy argmax and sampling
+stay outside the graph, on the engine's `torch.Generator`.
+
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
-versions of the kernels).  Not in this port yet, and refused when asked
-for: tensor parallelism and replicas (`ServeConfig`), recurrent families
-and their StateArena, sliding-window and softcap models (`DecoderLM`).
-The JAX engine's energy meter, flight recorder and tracer are not
-ported either.
+versions of the kernels, run eagerly).  Not in this port yet, and
+refused when asked for: tensor parallelism and replicas (`ServeConfig`),
+recurrent families and their StateArena, sliding-window and softcap
+models (`DecoderLM`).  The JAX engine's energy meter, flight recorder and
+tracer are not ported either.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from repro_torch.quant.ptq import quantize_params
 from repro_torch.quant.qarray import QTensor, dequant_counters
 
 from .config import ServeConfig
+from .graphs import StepRunner
 from .paged_cache import PagedKVCache
 from .prefix import PrefixIndex
 from .sampling import SamplingParams, processed_probs, sample_tokens
@@ -61,7 +68,7 @@ class PagedServeEngine:
     def __init__(self, model, params: Any,
                  config: Optional[ServeConfig] = None, *,
                  spec: Optional[Any] = None, device=None,
-                 clock=time.monotonic):
+                 eager: bool = False, clock=time.monotonic):
         config = config if config is not None else ServeConfig()
         self.config = config
         self.device = resolve_device(device)
@@ -104,6 +111,7 @@ class PagedServeEngine:
         self.lanes: List[Optional[ServeRequest]] = [None] * max_batch
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
+        self.runner = StepRunner(self.device, eager=eager)
         self.prefill_calls = 0      # model step calls, by phase
         self.decode_calls = 0
         self.verify_calls = 0
@@ -113,7 +121,7 @@ class PagedServeEngine:
             from repro_torch.spec import SpecDecoder
             self.spec = SpecDecoder(model, spec, max_batch=max_batch,
                                     max_seq=max_seq, kv_dtype=kv_dtype,
-                                    device=self.device)
+                                    device=self.device, runner=self.runner)
 
     # ------------------------------------------------------------------
     @property
@@ -170,15 +178,12 @@ class PagedServeEngine:
     def _dispatch(self, tokens: np.ndarray, tables: np.ndarray,
                   lengths: np.ndarray, n_new: np.ndarray,
                   step_fn=None) -> torch.Tensor:
-        """One model step call (`serve_step` unless `step_fn` is given);
-        the pools are updated in place."""
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-        step_fn = step_fn or self.model.serve_step
-        logits, _ = step_fn(
-            self.params, self.cache.pools, {"tokens": dev(tokens)},
-            dev(tables), dev(lengths), dev(n_new))
-        return logits
+        """One model step call (`serve_step` unless `step_fn` is given)
+        through the runner; the pools are updated in place.  The logits
+        are the step's static output: every use of them ends before the
+        next call of the same step."""
+        return self.runner(step_fn or self.model.serve_step, self.params,
+                           self.cache.pools, tokens, tables, lengths, n_new)
 
     def _tables(self) -> np.ndarray:
         tab = np.zeros((self.max_batch, self.cache.max_pages), np.int32)

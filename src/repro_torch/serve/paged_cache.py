@@ -155,7 +155,9 @@ class PagedKVCache:
     `pools` is the model's paged cache pytree (per-layer page pools);
     `table_for` assembles the padded (max_pages,) block-table row a lane
     feeds to `DecoderLM.serve_step`.  Page 0 pads unused table entries —
-    padded slots are masked by length, never read into scores.
+    padded slots are masked by length, never read into scores.  The
+    pools hold one page more than the allocator's `n_pages`: the dump
+    page of `models.attention.page_rows`, which no table names.
 
     When `prefix_index` is attached (serve/prefix.py), admission can
     adopt trie-resident prompt pages (`seq.length` starts past them) and
@@ -186,6 +188,8 @@ class PagedKVCache:
         if specs is None:
             specs = model.paged_cache_specs(n_pages, page_size, kv_dtype)
         from repro_torch.models.common import map_specs
+        # allocated once and only ever written in place: the captured
+        # step graphs (serve/graphs.py) hold these addresses
         self.pools = map_specs(
             lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
             specs)

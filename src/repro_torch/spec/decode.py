@@ -7,7 +7,10 @@ token.  A verify step scores a (k + 1)-token window per lane in one pass
 over those weights (`DecoderLM.paged_verify_step`, every projection a
 GEMV of M = max_batch * (k + 1) rows), and the accept/reject walk keeps
 the served distribution exactly the target's.  Every verify call is
-(max_batch, k + 1) wide whatever the lanes drafted.
+(max_batch, k + 1) wide whatever the lanes drafted.  The engine runs
+`verify_fn` through its `serve.graphs.StepRunner` (a CUDA graph per
+shape on the card, as JAX jits it), and a draft model's steps go through
+the same runner.
 """
 from __future__ import annotations
 
@@ -46,7 +49,10 @@ class SpecConfig:
 
 class SpecDecoder:
     def __init__(self, model, spec_cfg: SpecConfig, *, max_batch: int,
-                 max_seq: int, kv_dtype=None, device=None):
+                 max_seq: int, kv_dtype=None, device=None,
+                 runner=None):
+        """`runner`: the engine's `StepRunner`, which a draft model's
+        steps share (its own, on `device`, when None)."""
         assert spec_cfg.k >= 1
         self.cfg = spec_cfg
         self.verify_fn = model.paged_verify_step
@@ -71,7 +77,7 @@ class SpecDecoder:
                 dm, spec_cfg.draft_params, max_batch=max_batch,
                 max_seq=max_seq, page_size=page, kv_dtype=kv_dtype,
                 chunk=spec_cfg.draft_chunk, seed=spec_cfg.seed,
-                device=resolve_device(device))
+                device=resolve_device(device), runner=runner)
         else:
             raise ValueError(f"unknown drafter {spec_cfg.drafter!r} "
                              "(ngram or model)")

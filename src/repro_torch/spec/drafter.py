@@ -10,7 +10,9 @@
                      holds only target-verified tokens at round
                      boundaries: proposals are drafted ahead, then the
                      draft cache is rolled back (`trim`) and re-fed the
-                     accepted prefix next round.
+                     accepted prefix next round.  Its steps run
+                     through a `serve.graphs.StepRunner` (CUDA graphs
+                     on the card, as JAX jits `paged_step`).
 
 The engine calls `propose(histories, k, sampling)` once per decode step
 with the full lane vector (inactive lanes None).
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.serve.graphs import StepRunner
 from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.sampling import processed_probs, sample_tokens
 
@@ -103,7 +106,7 @@ class DraftModelDrafter(Drafter):
     def __init__(self, model, params, *, max_batch: int, max_seq: int,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  kv_dtype=None, chunk: int = 16, seed: int = 0,
-                 device=None):
+                 device=None, runner: Optional[StepRunner] = None):
         assert model.supports_paged(), model.cfg.family
         assert max_seq % page_size == 0, (max_seq, page_size)
         self.model, self.params = model, params
@@ -117,6 +120,8 @@ class DraftModelDrafter(Drafter):
                                   device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.runner = runner if runner is not None else \
+            StepRunner(self.device)
         self.decode_calls = 0            # paged_step calls, by width
         self.chunk_calls = 0
         # verified tokens materialized in the draft cache, per lane
@@ -136,12 +141,8 @@ class DraftModelDrafter(Drafter):
             if i in self.cache.seqs:
                 tab[i] = self.cache.table_for(i)
                 ln[i] = self.cache.seqs[i].length
-
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-        logits, _ = self.model.paged_step(
-            self.params, self.cache.pools, {"tokens": dev(tokens)},
-            dev(tab), dev(ln), dev(n_new))
+        logits = self.runner(self.model.paged_step, self.params,
+                             self.cache.pools, tokens, tab, ln, n_new)
         if tokens.shape[1] == 1:
             self.decode_calls += 1
         else:

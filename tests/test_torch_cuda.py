@@ -563,3 +563,52 @@ def test_spec_engine_on_card_runs_every_window_through_verify(device):
     assert eng.verify_calls > 0
     assert counts["paged_flash_verify"] == cfg.n_layers * eng.verify_calls
     assert counts["paged_flash_decode"] == cfg.n_layers * eng.decode_calls
+
+
+def test_captured_decode_step_replays_bitwise_equal(device):
+    """`StepRunner` captures a decode step on its first call (which runs
+    eagerly); two replays on the same inputs, in the same pools at the
+    same lengths, give bitwise-equal logits and pools, equal to the
+    eager call's, and each replay counts one call's kernels."""
+    import numpy as np
+
+    from repro_torch.models import DecoderLM, ModelConfig, init_params
+    from repro_torch.models.common import tree_to
+    from repro_torch.quant.ptq import quantize_params
+    from repro_torch.serve import StepRunner
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=688, vocab=512,
+                      head_dim=64, qkv_bias=True, dtype="float32")
+    model = DecoderLM(cfg)
+    params = tree_to(quantize_params(init_params(
+        model.param_specs(), torch.Generator().manual_seed(0), "cpu",
+        torch.float32), 4, 128), device)
+    pools = {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                      for k, v in model.paged_cache_specs(
+                          8, 16, torch.int8)["attn"].items()}}
+    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
+    runner = StepRunner(device)
+    assert runner.graphs
+    tok = (np.arange(32, dtype=np.int32).reshape(2, 16) * 7) % 512
+    runner(model.serve_step, params, pools, tok, tables,
+           np.zeros(2, np.int32), np.array([16, 9], np.int32))
+    args = (tok[:, :1].copy(), tables, np.array([16, 9], np.int32),
+            np.ones(2, np.int32))
+    eager = runner(model.serve_step, params, pools, *args).clone()
+    reset_launch_counts()
+    outs = []
+    for _ in range(2):
+        logits = runner(model.serve_step, params, pools, *args)
+        torch.cuda.synchronize()
+        outs.append((logits.clone(), {k: v.clone() for k, v in
+                                      pools["attn"].items()}))
+    counts = launch_counts()
+    assert [st["replays"] for st in runner.steps()] == [0, 2]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][0], eager)
+    for k in pools["attn"]:
+        assert torch.equal(outs[0][1][k], outs[1][1][k]), k
+    L = cfg.n_layers
+    assert counts == {"cim_gemv": 2 * (5 * L + 1), "swiglu_qgemv": 2 * L,
+                      "paged_flash_decode": 2 * L, "paged_flash_verify": 0,
+                      "flash_decode": 0}
