@@ -42,7 +42,17 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      host ms per step (wall - the replay's device ms), TTFT p50 per
      wave, peak memory.  A profile of a decode step, eager and as a
      replay, must show no second cim_gemv or swiglu_qgemv pass
-     (`reduce_kernel`, `epilogue_kernel`).
+     (`reduce_kernel`, `epilogue_kernel`).  Each wave's EdgeCIM
+     energy meter must have charged exactly the decode tokens served;
+     wave 2's `sim_*` keys (cost-model output, labelled so) are logged
+     beside the decode tokens/s measured on the card.  The graph engine
+     then serves a third wave with the tracer on: its `prefill_chunk` /
+     `decode_step` spans must equal the engine's calls, and every
+     request must have one submit, admit and finish in the flight
+     recorder, and its Chrome trace is written under build/chip_smoke/.
+     Wave 3's prompts are then served four more times, tracer off, on,
+     off, on, and the decode step wall medians with the tracer off and
+     on are logged beside wave 2's.
   4. speculative decoding: the same model and engine with
      SpecConfig(drafter="ngram", k=4) on prompts that repeat a motif,
      32 new tokens each, against the same prompts without speculation;
@@ -51,7 +61,11 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      compared.  Counters as in phase 3: `paged_flash_verify` must run
      36 times per verify call.  Graphs as in phase 3, the draft model's
      steps too.  A profile of one verify step, eager and as a replay,
-     splits its device time.
+     splits its device time.  The n-gram run as graphs, eager and its
+     statistics stay untraced; a further n-gram graph run, traced, logs
+     the median `spec_draft` and `spec_verify` span per verify call, and
+     its spans' drafted / accepted sums must equal the telemetry's (and
+     the flight recorder's).
   5. decode_attention: the public entry point over a contiguous cache,
      36 calls at qwen2.5-3b's attention shape, through `flash_decode`.
   6. card vs CPU: a 2-layer full-width copy, one prefill chunk and one
@@ -885,19 +899,49 @@ def replay_check(label, eng, fn, shape, iters: int = 20) -> float:
     return ms
 
 
-def phase_full_model(model, params, device):
+def run_wave(eng, wave, n_new, first_rid):
+    """Submit one wave of requests and step the engine until it drains,
+    on a fresh Telemetry and energy meter.  Returns (requests, wall ms of
+    each step that made no prefill call, the wave's summary)."""
+    import torch
+    from repro_torch.serve import ServeRequest
+    from repro_torch.serve.telemetry import Telemetry
+
+    eng.telemetry = Telemetry()
+    eng.energy.reset()
+    batch = [ServeRequest(prompt=p, max_new_tokens=n_new, rid=first_rid + i)
+             for i, p in enumerate(wave)]
+    for r in batch:
+        eng.submit(r)
+    decode_ms = []
+    while eng.busy:
+        pre = eng.prefill_calls
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if eng.prefill_calls == pre:
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    m = eng.summary()
+    if m["sim_decode_tokens"] != eng.telemetry.decode_tokens:
+        fail(f"energy meter charged {m['sim_decode_tokens']} decode tokens, "
+             f"the engine served {eng.telemetry.decode_tokens}")
+    return batch, decode_ms, m
+
+
+def phase_full_model(model, params, device, card):
     """Serve the same two waves of requests with the steps as CUDA
-    graphs (the default) and eagerly (eager=True), in that order."""
+    graphs (the default) and eagerly (eager=True), in that order; the
+    graph engine then serves a third wave with the tracer on."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
-    from repro_torch.serve.telemetry import Telemetry
+    from repro_torch.obs import chrome_trace, get_tracer
+    from repro_torch.serve import PagedServeEngine, ServeConfig
 
     cfg = model.cfg
     rng = np.random.default_rng(0)
     waves = [[rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
-              for n in rng.integers(16, 65, size=4)] for _ in range(2)]
+              for n in rng.integers(16, 65, size=4)] for _ in range(3)]
     n_new = 16
 
     def serve(eager):
@@ -906,27 +950,18 @@ def phase_full_model(model, params, device):
             page_size=16, prefill_chunk=16), device=device, eager=eager)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reqs, decode_ms, ttft = [], [], []
+        reqs, decode_ms, ttft, wave_ms, sims = [], [], [], [], []
         reset_launch_counts()
         t_run = time.perf_counter()
         # wave 1 captures the graphs; wave 2 (new prompts, no prefix
         # hit) runs on captured graphs
-        for wave in waves:
-            eng.telemetry = Telemetry()
-            batch = [ServeRequest(prompt=p, max_new_tokens=n_new,
-                                  rid=len(reqs) + i)
-                     for i, p in enumerate(wave)]
+        for wave in waves[:2]:
+            batch, ms, m = run_wave(eng, wave, n_new, len(reqs))
             reqs += batch
-            for r in batch:
-                eng.submit(r)
-            while eng.busy:
-                pre = eng.prefill_calls
-                t0 = time.perf_counter()
-                eng.step()
-                torch.cuda.synchronize()
-                if eng.prefill_calls == pre:
-                    decode_ms.append((time.perf_counter() - t0) * 1e3)
-            ttft.append(eng.summary()["ttft_p50_s"] * 1e3)
+            decode_ms += ms
+            wave_ms.append(ms)
+            sims.append(m)
+            ttft.append(m["ttft_p50_s"] * 1e3)
         run_s = time.perf_counter() - t_run
         counts = launch_counts()
         mode = "eager" if eager else "graph"
@@ -956,10 +991,77 @@ def phase_full_model(model, params, device):
         return dict(eng=eng, reqs=reqs, counts=counts, run_s=run_s,
                     decode_ms=float(np.median(decode_ms)),
                     decode_steps=len(decode_ms), ttft_ms=ttft,
+                    wave_ms=wave_ms, sims=sims,
                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     graph, eager = serve(False), serve(True)
     eng = graph["eng"]
+
+    # the EdgeCIM cost model's reading of wave 2, beside what the card did
+    sim = graph["sims"][1]
+    log(f"EdgeCIM cost model (simulated for the paper's CIM accelerator, "
+        f"not a measurement of this card), wave 2: sim_tokens_per_j "
+        f"{sim['sim_tokens_per_j']!r}, sim_tokens_per_s "
+        f"{sim['sim_tokens_per_s']!r}, sim_energy_j {sim['sim_energy_j']!r}, "
+        f"sim_w_bits {sim['sim_w_bits']!r}, sim_decode_tokens "
+        f"{sim['sim_decode_tokens']!r}; measured on the card ({card}): "
+        f"{sim['decode_tokens_per_s']!r} decode tokens/s")
+
+    # wave 3, graphs, tracer on: spans and recorder events against the
+    # engine's own call counts
+    tracer = get_tracer()
+    tracer.clear()
+    tracer.enable()
+    pre, dec = eng.prefill_calls, eng.decode_calls
+    try:
+        batch, traced_ms, _ = run_wave(eng, waves[2], n_new, 8)
+    finally:
+        tracer.disable()
+    spans = {}
+    for e in tracer.events():
+        spans[e["name"]] = spans.get(e["name"], 0) + 1
+    want = {"prefill_chunk": eng.prefill_calls - pre,
+            "decode_step": eng.decode_calls - dec}
+    got = {k: spans.get(k, 0) for k in want}
+    events = eng.recorder.snapshot()
+    per_req = {r.eid: [e["kind"] for e in events if e.get("eid") == r.eid]
+               for r in batch}
+    log(f"tracer on (wave 3): events {json.dumps(spans)}; spans {got}, "
+        f"engine calls {want}; recorder {eng.recorder.pushes} pushes, "
+        f"{eng.recorder.dropped} dropped; per request "
+        f"{sorted(set(map(tuple, per_req.values())))}")
+    if got != want:
+        fail(f"tracer spans {got} != engine calls {want}")
+    for eid, kinds in per_req.items():
+        if [kinds.count(k) for k in ("submit", "admit", "finish")] != [1] * 3:
+            fail(f"flight recorder, request {eid}: events {kinds}")
+    trace_path = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    trace_path.mkdir(parents=True, exist_ok=True)
+    trace_path = trace_path / "trace_wave3.json"
+    doc = chrome_trace(tracer)
+    trace_path.write_text(json.dumps(doc))
+    tracer.clear()
+    log(f"Chrome trace of wave 3: {len(doc['traceEvents'])} events -> "
+        f"{trace_path}")
+    # the tracer's cost: wave 3's prompts four more times (prefix hits
+    # in all four), tracer off, on, off, on
+    by_mode = {False: [], True: []}
+    for k, on in enumerate((False, True, False, True)):
+        if on:
+            tracer.enable()
+        try:
+            by_mode[on] += run_wave(eng, waves[2], n_new, 12 + 4 * k)[1]
+        finally:
+            tracer.disable()
+            tracer.clear()
+    w2_ms = float(np.median(graph["wave_ms"][1]))
+    off_ms = float(np.median(by_mode[False]))
+    on_ms = float(np.median(by_mode[True]))
+    log(f"decode step wall median, graphs, recorder on: wave 2 (tracer off) "
+        f"{w2_ms:.3f} ms over {len(graph['wave_ms'][1])} steps; waves 4-7 "
+        f"(wave 3's prompts, in turns) tracer off {off_ms:.3f} ms over "
+        f"{len(by_mode[False])} steps, tracer on {on_ms:.3f} ms over "
+        f"{len(by_mode[True])} steps")
     name = f"{cfg.name}.serve_step"
     graphs = check_graphs("full model", eng, {
         (name, (4, 16)): step_launches(cfg, 16),
@@ -971,12 +1073,17 @@ def phase_full_model(model, params, device):
                              (4, 1))
     result = {
         "tokens": sum(len(r.out_tokens) for r in graph["reqs"]),
-        "decode_tok_s": eng.throughput(),
+        "decode_tok_s": graph["sims"][1]["decode_tokens_per_s"],
         "decode_steps": graph["decode_steps"],
         "launches_per_decode_step": sum(step_launches(cfg, 1).values()),
         "launches": graph["counts"],
         "graphs": graphs,
         "decode_replay_device_ms": replay_ms,
+        "decode_step_ms_median_wave2": w2_ms,
+        "decode_step_ms_median_tracer_off": off_ms,
+        "decode_step_ms_median_tracer_on": on_ms,
+        "sim_wave2": {k: v for k, v in sim.items()
+                      if k.startswith("sim_")},
     }
     for mode, run in (("graph", graph), ("eager", eager)):
         result[mode] = {
@@ -1171,6 +1278,49 @@ def check_identity(label, base, spec, model, params, device) -> int:
     return near_ties
 
 
+def spec_split(eng, events, step_ms):
+    """The spec phase's spans of a traced run: in each verify-only step
+    (the steps of the wall median `step_ms`), the drafting ms and the
+    call with its acceptance walk.  The spans' sums of drafted and
+    accepted tokens over the whole run must equal the engine's
+    telemetry (and the recorder's, when it dropped nothing)."""
+    import numpy as np
+    draft, verify, n_verify = [], [], 0
+    ver = [e for e in events if e["name"] == "spec_verify"]
+    for e in ver:
+        n_verify += e["args"]["drafted"] > 0
+    for lo, hi in eng.verify_windows:
+        inside = {e["name"]: e["dur_s"] * 1e3 for e in events
+                  if lo <= e["t_s"] <= hi
+                  and e["name"] in ("spec_draft", "spec_verify")}
+        if "spec_verify" not in inside:
+            fail(f"no spec_verify span inside a verify step: {inside}")
+        draft.append(inside.get("spec_draft", 0.0))
+        verify.append(inside["spec_verify"])
+    sums = {k: sum(e["args"][k] for e in ver)
+            for k in ("drafted", "accepted")}
+    tel = {"drafted": eng.telemetry.spec_drafted,
+           "accepted": eng.telemetry.spec_accepted}
+    rec = [e for e in eng.recorder.snapshot() if e["kind"] == "spec_verify"]
+    rec_sums = ({k: sum(e[k] for e in rec) for k in tel}
+                if eng.recorder.dropped == 0 else tel)
+    if sums != tel or rec_sums != tel or n_verify != eng.verify_calls:
+        fail(f"spec_verify spans {sums} ({n_verify} verify calls), "
+             f"recorder {rec_sums}, telemetry {tel} "
+             f"({eng.verify_calls} verify calls)")
+    out = {"spec_draft_ms_median": float(np.median(draft)),
+           "spec_verify_ms_median": float(np.median(verify)),
+           "verify_step_ms_median": step_ms, "verify_steps": len(verify),
+           "spans_drafted_accepted": sums}
+    log(f"spec ngram k=4, {len(verify)} verify-only steps: spec_draft "
+        "(drafting) median "
+        f"{out['spec_draft_ms_median']:.3f} ms, spec_verify (the call, the "
+        f"logits to the host, the acceptance walk) median "
+        f"{out['spec_verify_ms_median']:.3f} ms, of a {step_ms:.3f} ms step "
+        f"wall median; spans' drafted/accepted {sums} = telemetry's")
+    return out
+
+
 def phase_spec(model, params, device):
     """Speculative decoding at full width: n-gram drafter, k = 4, then a
     short run with the launcher's 1-layer draft model; each with the
@@ -1179,6 +1329,7 @@ def phase_spec(model, params, device):
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import build_draft
+    from repro_torch.obs import get_tracer
     from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
     from repro_torch.spec import SpecConfig
 
@@ -1191,14 +1342,19 @@ def phase_spec(model, params, device):
     serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
                             max_seq=128, page_size=16, prefill_chunk=16)
 
-    def serve(spec, n_new, eager=False):
+    def serve(spec, n_new, eager=False, traced=False):
         eng = PagedServeEngine(model, params, serve_cfg, spec=spec,
                                device=device, eager=eager)
         reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=n_new, rid=i)
                 for i, p in enumerate(prompts)]
+        tracer = get_tracer()
+        tracer.clear()
+        if traced:
+            tracer.enable()
         for r in reqs:
             eng.submit(r)
         steps = []                    # (ms, tokens) of verify-only steps
+        eng.verify_windows = []       # their spans on the tracer's clock
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -1207,6 +1363,7 @@ def phase_spec(model, params, device):
             pre, ver = eng.prefill_calls, eng.verify_calls
             dec = eng.decode_calls
             made = sum(len(r.out_tokens) for r in reqs)
+            t_mono = time.monotonic()
             t0 = time.perf_counter()
             eng.step()
             torch.cuda.synchronize()
@@ -1215,8 +1372,11 @@ def phase_spec(model, params, device):
                 steps.append(((time.perf_counter() - t0) * 1e3,
                               sum(len(r.out_tokens) for r in reqs) - made,
                               eng.verify_calls > ver))
+                if eng.verify_calls > ver:
+                    eng.verify_windows.append((t_mono, time.monotonic()))
         run_s = time.perf_counter() - t_run
         counts = launch_counts()
+        tracer.disable()
         n = sum(len(r.out_tokens) for r in reqs)
         if n != 4 * n_new or not all(r.done for r in reqs):
             fail(f"spec={spec is not None}: generated {n} tokens, expected "
@@ -1310,10 +1470,21 @@ def phase_spec(model, params, device):
                    params, device)
     ngram["graphs_vs_eager"] = graphs_vs_eager("spec ngram k=4", ngram,
                                                ngram_eager, replay_ms)
+    # the host split from a run of its own, so the statistics above stay
+    # untraced
+    t_eng, t_reqs, t_counts, t_steps, t_run_s = serve(SpecConfig(k=4), 32,
+                                                      traced=True)
+    traced = report("spec ngram k=4 (traced)", t_eng, t_counts, t_steps,
+                    t_run_s)
+    ngram["host_split"] = spec_split(t_eng, get_tracer().events(),
+                                     traced["verify_step_ms_median"])
+    get_tracer().clear()
+    check_identity("traced vs untraced (spec ngram)", reqs, t_reqs, model,
+                   params, device)
     profile_step(model, params, eng, device, s=5)
     log("acceptance on random weights says nothing about a drafter; "
         "recorded, not claimed")
-    del base_eng, eng, e_eng
+    del base_eng, eng, e_eng, t_eng
 
     draft, dparams = build_draft(cfg, device)
     dname = f"{draft.cfg.name}.serve_step"
@@ -1472,7 +1643,8 @@ def main() -> None:
     checks = Checks()
     timings = phase_kernels(model, params, device, checks)
     by_path = {}
-    by_path["decode"], full_result = phase_full_model(model, params, device)
+    by_path["decode"], full_result = phase_full_model(model, params, device,
+                                                      card)
     by_path["spec_ngram"], spec_result = phase_spec(model, params, device)
     by_path["decode_attention"] = phase_decode_attention(model.cfg, device,
                                                          checks)

@@ -5,6 +5,7 @@
   python -m repro_torch.launch.serve --arch qwen2.5-3b --smoke \
       --device cpu --requests 3 --tokens 6          # plain versions, CPU
   python -m repro_torch.launch.serve --spec ngram --spec-k 4   # speculative
+  python -m repro_torch.launch.serve --trace ...   # engine spans, counted
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -14,7 +15,9 @@ card it stops instead of falling back to the CPU.
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -91,7 +94,15 @@ def main(argv=None):
                          "an EMA of the measured acceptance rate")
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", action="store_true",
+                    help="record request/engine spans in the in-memory "
+                         "tracer and print their counts (equivalent to "
+                         "REPRO_TRACE=1)")
     args = ap.parse_args(argv)
+
+    if args.trace:
+        from repro_torch.obs import get_tracer
+        get_tracer().enable()
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_smoke_config
@@ -153,6 +164,16 @@ def main(argv=None):
               f"{acc_txt}, {m['tokens_per_decode_step']:.2f} tokens per "
               f"lane per decode step, {eng.verify_calls} verify + "
               f"{eng.decode_calls} plain decode calls")
+    print(f"[serve] EdgeCIM cost model (simulated, not measured): "
+          f"{m['sim_tokens_per_j']:.2f} tok/J, "
+          f"{m['sim_tokens_per_s']:.1f} tok/s, "
+          f"{m['sim_energy_j']:.4g} J for "
+          f"{int(m['sim_decode_tokens'])} decode tokens at "
+          f"w{int(m['sim_w_bits'])}/a{int(m['sim_a_bits'])}")
+    if args.trace:
+        names = Counter(e["name"] for e in eng.tracer.events())
+        print(f"[serve] trace: {sum(names.values())} events "
+              + json.dumps(dict(sorted(names.items()))))
     return eng, reqs
 
 

@@ -29,12 +29,23 @@ once as a CUDA graph and replayed after; `eager=True` asks for eager
 execution instead (for comparisons).  The greedy argmax and sampling
 stay outside the graph, on the engine's `torch.Generator`.
 
+Observability, as in the JAX engine: every lifecycle event (submit,
+admit, finish, preempt, reject, cancel) lands in an always-on
+`FlightRecorder` and, when the process tracer is enabled, in the tracer
+as an instant; each phase records a `prefill_chunk`, `decode_step` or
+`spec_verify` event and span (`spec_draft` too), and an `EnergyMeter`
+charges every served token its EdgeCIM cost (the `sim_*` keys of
+`summary()`: cost-model output, not a measurement).  A phase's span
+starts before its model call and ends when the sampled tokens (or the
+verify logits) reach the host.  A replayed CUDA graph runs
+asynchronously until that copy, so unlike the JAX engine's spans, which
+cover the jitted dispatch, the port's include the device's work.
+
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
 versions of the kernels, run eagerly).  Not in this port yet, and
 refused when asked for: tensor parallelism and replicas (`ServeConfig`),
 recurrent families and their StateArena, sliding-window and softcap
-models (`DecoderLM`).  The JAX engine's energy meter, flight recorder and
-tracer are not ported either.
+models (`DecoderLM`).
 """
 from __future__ import annotations
 
@@ -46,6 +57,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.common import tree_to
+from repro_torch.obs.energy import EnergyMeter
+from repro_torch.obs.recorder import FlightRecorder
+from repro_torch.obs.trace import get_tracer
 from repro_torch.quant.ptq import quantize_params
 from repro_torch.quant.qarray import QTensor, dequant_counters
 
@@ -108,6 +122,17 @@ class PagedServeEngine:
         self.scheduler = Scheduler(
             max_batch, prefill_chunk=min(config.prefill_chunk, max_seq))
         self.telemetry = Telemetry()
+        # observability: the process tracer (opt-in), the always-on
+        # flight recorder, and the CIM energy meter (simulated J and
+        # tokens/J in summary()) charging at the served precision
+        self.tracer = get_tracer()
+        self.scheduler.tracer = self.tracer
+        self.recorder = FlightRecorder(label="engine", clock=clock)
+        self.energy = EnergyMeter(
+            model.cfg, w_bits=config.weight_bits(),
+            a_bits=8 if config.quantized() else 16)
+        self._cow_seen = 0          # deltas -> cow_copy / prefix_evict
+        self._evict_seen = 0        # trace instants per step
         self.lanes: List[Optional[ServeRequest]] = [None] * max_batch
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
@@ -124,6 +149,15 @@ class PagedServeEngine:
                                     device=self.device, runner=self.runner)
 
     # ------------------------------------------------------------------
+    def _event(self, kind: str, **fields: Any) -> None:
+        """One engine lifecycle event: always lands in the flight
+        recorder, mirrored to the tracer as an instant when tracing is
+        on."""
+        self.recorder.record(kind, **fields)
+        if self.tracer.enabled:
+            self.tracer.instant(kind, cat="engine", **fields)
+
+    # ------------------------------------------------------------------
     @property
     def n_running(self) -> int:
         return sum(r is not None for r in self.lanes)
@@ -138,6 +172,8 @@ class PagedServeEngine:
         self._next_eid += 1           # collide; eid keys cache/telemetry
         self.telemetry.enqueue(req.eid, now)
         self.scheduler.submit(req, now)
+        self._event("submit", eid=req.eid, rid=req.trace_id,
+                    prompt_len=req.prompt_len)
 
     def cancel(self, eid: int) -> bool:
         """Abort a submitted request wherever it is — queued,
@@ -149,6 +185,8 @@ class PagedServeEngine:
         if queued is not None:
             queued.done = True
             self.telemetry.cancel(eid, now)
+            self._event("cancel", eid=eid, rid=queued.trace_id,
+                        where="queued")
             return True
         for lane, req in enumerate(self.lanes):
             if req is not None and req.eid == eid:
@@ -156,6 +194,8 @@ class PagedServeEngine:
                 req.cancelled = True
                 self._free_lane(lane, eid)
                 self.telemetry.cancel(eid, now)
+                self._event("cancel", eid=eid, rid=req.trace_id,
+                            where="lane", lane=lane)
                 return True
         return False
 
@@ -244,6 +284,9 @@ class PagedServeEngine:
                 or seq.length >= self.max_seq):
             req.done = True
             self.telemetry.done(req.eid, now)
+            self._event("finish", eid=req.eid, rid=req.trace_id,
+                        lane=lane, tokens=len(req.out_tokens),
+                        reason="eos" if hit_eos else "budget")
             if self.prefix is not None and seq.length > req.prompt_len:
                 # generated-suffix caching: commit the full pages past the
                 # prompt too (materialized tokens run to seq.length; the
@@ -260,6 +303,8 @@ class PagedServeEngine:
         generated since the last fold) as its new prompt; its pages are
         rebuilt by prefill when they free up."""
         req = self.lanes[lane]
+        self._event("preempt", eid=req.eid, rid=req.trace_id, lane=lane,
+                    tokens=len(req.out_tokens))
         req.prompt = np.concatenate(
             [np.asarray(req.prompt, np.int32),
              np.asarray(req.out_tokens[req.prompt_folded:], np.int32)])
@@ -276,12 +321,20 @@ class PagedServeEngine:
 
         def _reject(r: ServeRequest) -> None:
             self.telemetry.done(r.eid, now)
+            self._event("reject", eid=r.eid, rid=r.trace_id,
+                        reason=r.reject_reason, truncated=r.truncated)
 
         for req in self.scheduler.admit(
                 now, self.n_running, self.cache, on_reject=_reject):
             lane = self.lanes.index(None)
             self.lanes[lane] = req
             self.telemetry.admit(req.eid, now)
+            self._event("fork_admit" if req.fork_from is not None
+                        else "admit",
+                        eid=req.eid, rid=req.trace_id, lane=lane,
+                        prompt_len=req.prompt_len,
+                        prefix_cached=req.prefix_cached,
+                        resumed=req.saved_state is not None)
             if req.fork_from is not None:
                 self.telemetry.fork(req.forked_tokens)
             elif self.prefix is not None:
@@ -292,6 +345,19 @@ class PagedServeEngine:
             decode_s, decode_lanes = self._decode_phase_spec()
         else:
             decode_s, decode_lanes = self._decode_phase()
+        # page-sharing machinery reports deltas, not per-call hooks:
+        # surface them as per-step instants when tracing
+        evicted = self.prefix.pages_evicted if self.prefix is not None else 0
+        if self.tracer.enabled:
+            if self.cache.cow_copies > self._cow_seen:
+                self.tracer.instant(
+                    "cow_copy", cat="engine",
+                    n=self.cache.cow_copies - self._cow_seen)
+            if evicted > self._evict_seen:
+                self.tracer.instant("prefix_evict", cat="engine",
+                                    n=evicted - self._evict_seen)
+        self._cow_seen = self.cache.cow_copies
+        self._evict_seen = evicted
         self.telemetry.step(self.cache.occupancy(), self.n_running,
                             decode_s=decode_s, prefill_s=prefill_s,
                             decode_lanes=decode_lanes,
@@ -324,7 +390,7 @@ class PagedServeEngine:
             finishing |= q == req.prefill_remaining
         if not pre:
             return 0.0
-        t0 = time.perf_counter()
+        t0 = time.monotonic()       # the tracer's clock: spans line up
         logits = self._dispatch(tokens, self._tables(), self._lengths(),
                                 n_new)
         self.prefill_calls += 1
@@ -334,12 +400,15 @@ class PagedServeEngine:
             nxt = self._sample_rows(last)
         elif logits.is_cuda:
             torch.cuda.synchronize(logits.device)
-        dt = time.perf_counter() - t0
+        dt = time.monotonic() - t0
         now = self._clock()
+        chunk_rids = [self.lanes[i].trace_id for i in pre]
+        chunk_tokens = 0
         for i in pre:
             req = self.lanes[i]
             q = int(n_new[i])
             req.prefill_done += q
+            chunk_tokens += q
             self.cache.seqs[req.eid].length += q
             self.telemetry.prefill_tokens += q
             if req.prefill_remaining == 0:
@@ -349,6 +418,13 @@ class PagedServeEngine:
                 self._emit(req, int(nxt[i]), now, decode=False,
                            row=last[i] if req.logprobs else None)
                 self._maybe_finish(i, now)
+        self.energy.charge_prefill(chunk_tokens)
+        self.recorder.record("prefill_chunk", lanes=len(pre),
+                             tokens=chunk_tokens, dur_s=dt)
+        if self.tracer.enabled:
+            self.tracer.complete(
+                "prefill_chunk", t0, dt, cat="engine",
+                rids=chunk_rids, lanes=len(pre), tokens=chunk_tokens)
         return dt
 
     def _decode_ready(self) -> List[int]:
@@ -375,13 +451,19 @@ class PagedServeEngine:
         for i in ready:
             tokens[i, 0] = self.lanes[i].out_tokens[-1]
             n_new[i] = 1
-        t0 = time.perf_counter()
-        logits = self._dispatch(tokens, self._tables(), self._lengths(),
-                                n_new)
+        t0 = time.monotonic()
+        lens = self._lengths()
+        logits = self._dispatch(tokens, self._tables(), lens, n_new)
         self.decode_calls += 1
         nxt = self._sample_rows(logits[:, 0, :])
-        dt = time.perf_counter() - t0
+        dt = time.monotonic() - t0
         now = self._clock()
+        rids = [self.lanes[i].trace_id for i in ready]
+        self.energy.charge_decode(len(ready), float(lens[ready].mean()))
+        self.recorder.record("decode_step", lanes=len(ready), dur_s=dt)
+        if self.tracer.enabled:
+            self.tracer.complete("decode_step", t0, dt, cat="engine",
+                                 rids=rids, lanes=len(ready))
         for i in ready:
             req = self.lanes[i]
             self.cache.seqs[req.eid].length += 1
@@ -399,8 +481,10 @@ class PagedServeEngine:
         Lanes with `req.spec == False`, or whose drafter found nothing,
         ride the same call with an empty window: for them it IS a plain
         decode step, so greedy output equals the non-speculative
-        engine's.  Returns (seconds of drafting + the call with
-        acceptance, lanes advanced)."""
+        engine's.  Returns (seconds from drafting until the verify
+        logits reach the host, lanes advanced); the `spec_draft` span
+        covers drafting, `spec_verify` the call with the acceptance
+        walk."""
         spec = self.spec
         k = spec.cfg.k              # verify width: always k + 1; autok
         k_draft = spec.current_k()  # narrows only what is drafted
@@ -421,8 +505,9 @@ class PagedServeEngine:
                                 np.int32)])
                 smp[i] = req.sampling
         # drafting counts toward the decode time speculation spends
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         prop = spec.drafter.propose(histories, k_draft, smp)
+        draft_s = time.monotonic() - t0
 
         tokens = np.zeros((self.max_batch, k + 1), np.int32)
         n_new = np.zeros(self.max_batch, np.int32)
@@ -447,13 +532,14 @@ class PagedServeEngine:
             tokens[i, 1:1 + nd] = prop.tokens[i, :nd]
             n_new[i] = 1 + nd
             ready.append((i, nd))
-        if not ready:
-            return time.perf_counter() - t0, 0
+        if not ready:       # nothing decoded: no decode time either
+            return 0.0, 0
         lengths = self._lengths()
 
         # nothing drafted anywhere: the (b, k + 1) window would spend
         # (k + 1)x the decode compute on a plain step, so take (b, 1)
         plain = all(nd == 0 for _, nd in ready)
+        t1 = time.monotonic()
         if plain:
             logits = self._dispatch(tokens[:, :1], self._tables(), lengths,
                                     n_new)
@@ -463,9 +549,11 @@ class PagedServeEngine:
                                     step_fn=spec.verify_fn)
             self.verify_calls += 1
         logits_np = logits.float().cpu().numpy()
-        dt = time.perf_counter() - t0
+        dt = time.monotonic() - t0
         now = self._clock()
-        drafted = accepted = 0
+        drafted = accepted = n_emitted = 0
+        lanes_idx = [i for i, _ in ready]
+        rids = [self.lanes[i].trace_id for i in lanes_idx]
         for i, nd in ready:
             req = self.lanes[i]
             q_rows = prop.probs[i, :nd] if prop.probs is not None else None
@@ -484,14 +572,30 @@ class PagedServeEngine:
             for j, tok in enumerate(emitted[:budget]):
                 self._emit(req, tok, now,
                            row=logits[i, j] if req.logprobs else None)
+                n_emitted += 1
             self._maybe_finish(i, now)
         self.telemetry.spec(drafted, accepted)
         spec.observe(drafted, accepted)
+        verify_s = time.monotonic() - t1
+        self.energy.charge_decode(
+            n_emitted, float(lengths[lanes_idx].mean()))
+        self.recorder.record("spec_verify", lanes=len(ready),
+                             drafted=drafted, accepted=accepted,
+                             dur_s=dt)
+        if self.tracer.enabled:
+            if draft_s > 0.0:
+                self.tracer.complete("spec_draft", t0, draft_s,
+                                     cat="engine", rids=rids)
+            self.tracer.complete("spec_verify", t1, verify_s,
+                                 cat="engine", rids=rids,
+                                 lanes=len(ready), drafted=drafted,
+                                 accepted=accepted)
         return dt, len(ready)
 
     # ------------------------------------------------------------------
     def summary(self) -> Dict[str, float]:
         s = self.telemetry.summary()
+        s.update(self.energy.summary())
         dq = dequant_counters()
         s["weight_full_dequants"] = float(dq["full_dequant"])
         s["weight_fused_dequants"] = float(dq["fused_dequant"])
@@ -508,3 +612,4 @@ class PagedServeEngine:
         """Decode token rate (decode tokens over decode-call seconds)."""
         s = self.telemetry
         return s.decode_tokens / s.decode_s if s.decode_s else 0.0
+
