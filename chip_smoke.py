@@ -28,6 +28,16 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      cim_gemv call, and of one swiglu_qgemv call at M = 4 and at M =
      20, holds one node, a kernel; of one verify call, at most two (the
      fold, then the merge).
+     Phase 2 also holds the kernels at the shapes of gemma3-4b,
+     gemma2-27b and phi3-medium-14b, every call twice (bitwise equal):
+     cim_gemv on each projection and both tables / phi3's untied head
+     (groups of 80, 96, 112, 128) at M = 1, 4, 20, swiglu_qgemv on
+     phi3's gate/up; the split-KV kernels (INT8 pools, verify at s = 5)
+     at hd 256 / qpk 2 with window 1024 and lanes shorter than, at, 1
+     and 300 keys past it, at hd 128 with window 4096 and softcap 50,
+     and at phi3's qpk 4; then 34 decode calls at gemma3's shape with
+     every lane at 4096 keys, with and without the window (the plan is
+     blind to it).
   3. full model: qwen2.5-3b at full width (36 layers, INT4 weights drawn
      from a seed on the card, INT8 paged KV) served by PagedServeEngine:
      two waves of 4 requests of 16-64 prompt tokens, 16 new tokens each,
@@ -68,10 +78,28 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      the flight recorder's).
   5. decode_attention: the public entry point over a contiguous cache,
      36 calls at qwen2.5-3b's attention shape, through `flash_decode`.
-  6. card vs CPU: a 2-layer full-width copy, one prefill chunk and one
-     decode step through serve_step on the card (kernels) and on the CPU
-     (plain versions) from the same weights.
-  7. summary: a `{"kernels": [...]}` line, the card line, and last
+  6. card vs CPU: 2-layer full-width copies, stepped in lockstep through
+     serve_step on the card (kernels) and on the CPU (plain versions)
+     from the same weights: qwen2.5-3b, gemma2-27b and phi3-medium-14b
+     one prefill chunk and one decode step of two lanes; gemma3-4b (its
+     local_pattern cut to 2, so one layer is local and one global, and
+     its window to 128 keys, so the CPU's plain 262144-row table
+     contraction stays short) one lane prefilled past its window in
+     chunks of 128, then two decode steps.
+  7. gemma3-4b at full width and depth (34 layers, INT4 weights from seed
+     0 on the card, INT8 paged KV) served by PagedServeEngine as CUDA
+     graphs and eagerly: a wave of 4 requests of 16-64 prompt tokens and
+     one request of 1100-1200 prompt tokens (past the 1024-key window of
+     its local layers), 16 new tokens each, streams compared, launches
+     equal to per-call counts x calls (a decode step: 34 x 7 + 1
+     cim_gemv, 34 paged_flash_decode); decode step wall median, replay
+     device ms, TTFT, peak memory; a profiled decode step's device ms by
+     kernel beside each bound.  Then n-gram speculation (k = 4) on motif
+     prompts against the same prompts without it, as graphs and
+     eagerly, with a profiled verify step split the same way.
+  8. gemma2-27b and phi3-medium-14b at full width and 4 layers: one wave
+     of 4 requests as CUDA graphs, launches and graphs checked.
+  9. summary: a `{"kernels": [...]}` line, the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -837,14 +865,31 @@ def phase_kernels(model, params, device, checks: Checks):
 
 def step_launches(cfg, s: int, verify: bool = False, packed: bool = True):
     """Kernel launches of one model step call of width s (its graph
-    holds the same): packed weights go to cim_gemv / swiglu_qgemv, a
-    decode step's attention to paged_flash_decode, a verify window's to
-    paged_flash_verify."""
+    holds the same): packed weights go to cim_gemv / swiglu_qgemv (a
+    gated SiLU FFN is one swiglu_qgemv call and w_down; any other FFN
+    one cim_gemv call per projection), a decode step's attention to
+    paged_flash_decode, a verify window's to paged_flash_verify."""
     L = cfg.n_layers
-    return {"cim_gemv": (5 * L + 1) if packed else 0,
-            "swiglu_qgemv": L if packed else 0,
+    fused = cfg.ffn_gated and cfg.ffn_act == "silu"
+    per_layer = 4 + (1 if fused else 3 if cfg.ffn_gated else 2)
+    return {"cim_gemv": (per_layer * L + 1) if packed else 0,
+            "swiglu_qgemv": L if packed and fused else 0,
             "paged_flash_decode": L if s == 1 else 0,
             "paged_flash_verify": L if verify else 0, "flash_decode": 0}
+
+
+def expected_launches(cfg, prefill: int, decode: int, verify: int = 0,
+                      draft_decode: int = 0):
+    """Launches of `prefill` chunk, `decode` step and `verify` window
+    calls of the packed model (graph replays count their capture's), and
+    `draft_decode` layer calls of a float draft model."""
+    out = {}
+    for k in step_launches(cfg, 1):
+        out[k] = (step_launches(cfg, 16)[k] * prefill
+                  + step_launches(cfg, 1)[k] * decode
+                  + step_launches(cfg, 5, verify=True)[k] * verify)
+    out["paged_flash_decode"] += draft_decode
+    return out
 
 
 def check_graphs(label, eng, allowed, required):
@@ -879,7 +924,10 @@ def check_graphs(label, eng, allowed, required):
 def replay_check(label, eng, fn, shape, iters: int = 20) -> float:
     """Device ms of one replay of the engine's graph of (fn, shape)
     (CUDA events), and two replays on its static inputs bitwise equal
-    in logits and pools.  Direct replays: no launch is counted."""
+    in logits and in every pool page a table can name: the dump page
+    (the last) takes the step's padding rows, several on one row in no
+    fixed order, and is never read.  Direct replays: no launch is
+    counted."""
     import torch
     graph, logits = eng.runner.graph_of(fn, shape)
     ms = cuda_time_ms(graph.replay, iters)
@@ -887,14 +935,16 @@ def replay_check(label, eng, fn, shape, iters: int = 20) -> float:
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
-        snaps.append((logits.clone(), [v.clone() for v in
+        snaps.append((logits.clone(), [v[:, :-1].clone() for v in
                                        eng.cache.pools["attn"].values()]))
-    same = torch.equal(snaps[0][0], snaps[1][0]) and all(
-        torch.equal(a, b) for a, b in zip(snaps[0][1], snaps[1][1]))
+    same_logits = torch.equal(snaps[0][0], snaps[1][0])
+    same_pools = all(torch.equal(a, b) for a, b in zip(snaps[0][1],
+                                                       snaps[1][1]))
     log(f"check {label} graph {list(shape)}: two replays on the same "
-        f"inputs bitwise {'equal' if same else 'DIFFERENT'} (logits and "
-        f"pools); replay device {ms:.3f} ms")
-    if not same:
+        f"inputs bitwise: logits {'equal' if same_logits else 'DIFFERENT'},"
+        f" pools (but the dump page) {'equal' if same_pools else 'DIFFERENT'}"
+        f"; replay device {ms:.3f} ms")
+    if not (same_logits and same_pools):
         fail(f"{label}: two replays of one graph differ")
     return ms
 
@@ -976,11 +1026,7 @@ def phase_full_model(model, params, device, card):
         for r in reqs:
             if not all(0 <= t < cfg.vocab for t in r.out_tokens):
                 fail(f"token out of range in request {r.rid}")
-        calls = eng.prefill_calls + eng.decode_calls
-        expect = {"cim_gemv": (5 * cfg.n_layers + 1) * calls,
-                  "swiglu_qgemv": cfg.n_layers * calls,
-                  "paged_flash_decode": cfg.n_layers * eng.decode_calls,
-                  "paged_flash_verify": 0, "flash_decode": 0}
+        expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls)
         log(f"serve_step calls ({mode}): {eng.prefill_calls} prefill + "
             f"{eng.decode_calls} decode; launches {counts}, expected "
             f"{expect}")
@@ -1095,7 +1141,7 @@ def phase_full_model(model, params, device, card):
             "max_memory_allocated_gb": run["peak_gb"],
             "run_s": run["run_s"]}
     log("full model result " + json.dumps(result))
-    names = profile_step(model, params, eng, device)
+    names, _ = profile_step(model, params, eng, device)
     # cim_gemv's kernels live in an anonymous namespace; PyTorch's own
     # reductions (at::native::reduce_kernel) are the model's glue
     ours = [n for n in names if n.startswith("void (anonymous namespace)::")]
@@ -1118,8 +1164,9 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     `paged_verify_step` windows of s tokens otherwise; first eagerly,
     then as replays of a CUDA graph (a `StepRunner` of its own, captured
     before the profile).  Host wall time per step against the device
-    time of the kernels it ran.  Returns {kernel name: device us} of
-    both."""
+    time of the kernels it ran.  Returns ({kernel name: device us} of
+    both, {mode: ({kernel name: device us per step}, wall ms per
+    step)})."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1141,7 +1188,7 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
 
     def replay():
         runner(fn, params, eng.cache.pools, *host)
-    names = {}
+    names, per_mode = {}, {}
     for mode, step in (("eager", eager), ("graph replay", replay)):
         step()
         torch.cuda.synchronize()
@@ -1156,6 +1203,8 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
         for k, v in by_name.items():
             names[k] = names.get(k, 0.0) + v
         dev_ms = sum(by_name.values()) / 1e3 / steps
+        per_mode[mode] = ({k: v / steps for k, v in by_name.items()},
+                          wall_ms)
         if n_dev == 0:
             log(f"{what} profile ({mode}): wall {wall_ms:.3f} ms/step; "
                 "device time not measured (the profiler recorded no CUDA "
@@ -1166,7 +1215,7 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
             f"{dev_ms:.3f} ms/step busy ({100 * dev_ms / wall_ms:.1f} %), "
             f"{n_dev / steps:.0f} device events/step; top: " + "; ".join(
                 f"{n[:60]} {d / 1e3 / steps:.3f} ms" for n, d in top))
-    return names
+    return names, per_mode
 
 
 def device_times(prof):
@@ -1334,7 +1383,6 @@ def phase_spec(model, params, device):
     from repro_torch.spec import SpecConfig
 
     cfg = model.cfg
-    L = cfg.n_layers
     rng = np.random.default_rng(1)
     motif = rng.integers(0, cfg.vocab, 8).astype(np.int32)
     prompts = [np.tile(motif, 8)[:int(n)]
@@ -1387,13 +1435,8 @@ def phase_spec(model, params, device):
         return eng, reqs, counts, steps, run_s
 
     def report(label, eng, counts, steps, run_s, draft_decode_calls=0):
-        calls = eng.prefill_calls + eng.decode_calls + eng.verify_calls
-        expect = {"cim_gemv": (5 * L + 1) * calls,
-                  "swiglu_qgemv": L * calls,
-                  "paged_flash_decode": (L * eng.decode_calls
-                                         + draft_decode_calls),
-                  "paged_flash_verify": L * eng.verify_calls,
-                  "flash_decode": 0}
+        expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls,
+                                   eng.verify_calls, draft_decode_calls)
         draft_txt = (f" + {draft_decode_calls} draft-layer decode"
                      if draft_decode_calls else "")
         log(f"{label}: model calls {eng.prefill_calls} prefill + "
@@ -1553,48 +1596,582 @@ def phase_decode_attention(cfg, device, checks: Checks):
     return counts
 
 
-def phase_card_vs_cpu(device):
+# ---------------------------------------------------------------------------
+# the sliding-window / softcap families (gemma3-4b, gemma2-27b) and phi3
+# ---------------------------------------------------------------------------
+FAMILIES = ("gemma3-4b", "gemma2-27b", "phi3-medium-14b")
+
+
+def int8_pools(gen, device, b, max_pages, g, hd, ps=16):
+    """One layer's INT8 K/V pools with f16 scale pages, and shuffled
+    (b, max_pages) tables."""
+    import torch
+    n_pages = b * max_pages
+    out = []
+    for _ in range(2):
+        xf = torch.randn(n_pages, ps, g, hd, generator=gen, device=device)
+        sc = (xf.abs().amax(-1).clamp_min(1e-8) / 127).half()
+        out += [torch.round(xf / sc[..., None].float()).clamp(-127, 127)
+                .to(torch.int8), sc]
+    tables = torch.randperm(n_pages, generator=gen, device=device
+                            ).reshape(b, max_pages).int()
+    return out[0], out[2], out[1], out[3], tables
+
+
+def phase_family_kernels(device, checks: Checks):
+    """Each kernel against its plain version at the shapes the gemma3-4b,
+    gemma2-27b and phi3-medium-14b paths give it (INT4 weights packed as
+    the model packs them, INT8 pools), every call twice (bitwise equal);
+    the split-KV kernels at hd 256 with a window shorter than the lanes,
+    and their time with and without the window."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              split_plan, vec_bytes)
+    from repro_torch.kernels.paged_flash_decode import (decode_plan,
+                                                        paged_decode_plain,
+                                                        paged_flash_decode,
+                                                        paged_flash_verify,
+                                                        paged_verify_plain,
+                                                        verify_plan)
+    from repro_torch.kernels.split_decode import (smem_bytes, sm_count,
+                                                  verify_geometry,
+                                                  verify_smem_bytes)
+    from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
+    from repro_torch.quant.ptq import quantize_leaf
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    sms = sm_count(device)
+    groups = {}
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab
+        H, G = cfg.n_heads * cfg.hd(), cfg.n_kv_heads * cfg.hd()
+        shapes = [("wq", (d, H)), ("wk", (d, G)), ("wo", (H, d)),
+                  ("w_down", (f, d))]
+        if cfg.ffn_act != "silu":
+            shapes.append(("w_up", (d, f)))
+        shapes.append(("embed", (V, d)) if cfg.tie_embeddings
+                      else ("head", (d, V)))
+        for name, shape in shapes:
+            w = quantize_leaf(name, torch.randn(shape, generator=gen,
+                                                device=device) * 0.02, 4, 128)
+            k = shape[1] if name == "embed" else shape[0]
+            n = w.data.shape[0] if w.axis == -1 else w.data.shape[1]
+            row = w.data.shape[1] if w.axis == -1 else n
+            groups[f"{arch} {name}"] = w.group
+            for m in (1, 4, 20):
+                x = torch.randn(m, k, generator=gen, device=device)
+                label = (f"{arch} int4 {name} {k}->{n} g{w.group} M={m} "
+                         f"{vec_bytes(w, row)}B")
+                out = cim_gemv(x, w)
+                checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+                checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+            lay = "table" if w.axis == -1 else "cols"
+            pl = split_plan(lay, 4, w.data.shape[1] if w.axis == -1
+                            else w.data.shape[0], n, 4, sms)
+            log(f"plan cim_gemv {arch} {name} M=4: M tile {pl.mt}, "
+                f"{pl.splits} splits of {pl.rows} rows, {pl.blocks} blocks")
+            del w, x, out
+        if cfg.ffn_gated and cfg.ffn_act == "silu":
+            wg, wu = (quantize_leaf(nm, torch.randn(d, f, generator=gen,
+                                                    device=device) * 0.02,
+                                    4, 128) for nm in ("w_gate", "w_up"))
+            groups[f"{arch} w_gate"] = wg.group
+            for m in (1, 4, 20):
+                x = torch.randn(m, d, generator=gen, device=device)
+                label = (f"{arch} int4 gate/up {d}->{f} g{wg.group} M={m} "
+                         f"{min(vec_bytes(wg, f), vec_bytes(wu, f))}B")
+                out = swiglu_qgemv(x, wg, wu)
+                checks.compare("swiglu_qgemv", label, out,
+                               swiglu_plain(x, wg, wu))
+                checks.repeat("swiglu_qgemv", label, out,
+                              swiglu_qgemv(x, wg, wu))
+            del wg, wu
+        torch.cuda.empty_cache()
+    log("packed groups at full width: " + json.dumps(groups))
+    for key, want in (("gemma3-4b wq", 80), ("gemma2-27b wq", 96),
+                      ("phi3-medium-14b wq", 80),
+                      ("phi3-medium-14b w_down", 112),
+                      ("gemma3-4b embed", 80), ("gemma2-27b embed", 96)):
+        if groups[key] != want:
+            fail(f"{key}: packed in groups of {groups[key]}, expected {want}")
+
+    # split-KV: lanes shorter than, at, 1 and 300 keys past the window;
+    # verify windows of s = 5 end at the same lengths
+    b, sv = 4, 5
+    for arch, g, qpk, hd, window, cap, lens in (
+            ("gemma3-4b", 4, 2, 256, 1024, 0.0, [700, 1024, 1025, 1324]),
+            ("gemma3-4b", 4, 2, 256, 0, 0.0, [700, 1024, 1025, 1324]),
+            ("gemma2-27b", 16, 2, 128, 4096, 50.0, [3000, 4096, 4097, 4396]),
+            ("gemma2-27b", 16, 2, 128, 0, 50.0, [3000, 4096, 4097, 4396]),
+            ("phi3-medium-14b", 10, 4, 128, 0, 0.0, [1024, 777, 301, 45])):
+        max_pages = -(-max(lens) // 16) + 2
+        kp, vp, ks, vs, tables = int8_pools(gen, device, b, max_pages, g, hd)
+        lv = torch.tensor(lens, dtype=torch.int32, device=device)
+        q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+        args = (q, kp, vp, tables, lv, window, cap, ks, vs)
+        label = (f"{arch} int8 hd {hd} qpk {qpk} len {lens} window={window}"
+                 f" cap={cap}")
+        out = paged_flash_decode(*args)
+        checks.compare("paged_flash_decode", label, out,
+                       paged_decode_plain(*args))
+        checks.repeat("paged_flash_decode", label, out,
+                      paged_flash_decode(*args))
+        qv = torch.randn(b, sv, g, qpk, hd, generator=gen, device=device)
+        vargs = (qv, kp, vp, tables, lv - sv, window, cap, ks, vs)
+        label = (f"{arch} int8 hd {hd} s={sv} len {(lv - sv).tolist()} "
+                 f"window={window} cap={cap}")
+        out = paged_flash_verify(*vargs)
+        checks.compare("paged_flash_verify", label, out,
+                       paged_verify_plain(*vargs))
+        checks.repeat("paged_flash_verify", label, out,
+                      paged_flash_verify(*vargs))
+        n_split, chunk = decode_plan(b, g, max_pages, 16, sms)
+        vn, vchunk = verify_plan(b, g, sv, qpk, max_pages, 16, sms)
+        warps, z = verify_geometry(sv * qpk)
+        log(f"plan {arch} hd {hd} max_pages {max_pages}: paged_flash_decode "
+            f"n_split {n_split} x {chunk} keys, {smem_bytes(1, hd)} B shared "
+            f"memory (int8); paged_flash_verify n_split {vn} x {vchunk} "
+            f"keys, {b * g * vn * z} blocks of {warps} warps, "
+            f"{verify_smem_bytes(1, hd, warps)} B")
+    del kp, vp, ks, vs
+
+    # the window-blind split plan: 34 decode calls at gemma3's shape
+    # (each on its own pools, 0.6 GB in all, past the 50 MB L2), batch 4,
+    # every lane at 4096 keys, all with the window of its local layers
+    # and all without; a windowed call folds 1024 keys a lane, and the
+    # splits before them return empty partials
+    L, n_keys, g, qpk, hd = 34, 4096, 4, 2, 256
+    mp = n_keys // 16 + 1
+    pools = [int8_pools(gen, device, b, mp, g, hd) for _ in range(L)]
+    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+    l4 = torch.full((b,), n_keys, dtype=torch.int32, device=device)
+    n_split, chunk = decode_plan(b, g, mp, 16, sms)
+    live = -(-1024 // chunk) + 1
+    out = {}
+    for window in (1024, 0):
+        t = graph_time_ms(lambda: [paged_flash_decode(
+            q, *pools[i][:2], pools[i][4], l4, window, 0.0, *pools[i][2:4])
+            for i in range(L)])
+        keys = min(window or n_keys, n_keys)
+        b_ms, b_by = bound(L * (b * keys * g * (2 * hd + 4) + 2 * q.numel()
+                                * 4), L * b * keys * g * qpk * hd * 4)
+        out[window] = t
+        log(f"time paged_flash_decode x{L}, gemma3 hd {hd}, batch {b}, "
+            f"every lane at {n_keys} keys, window={window}: {t:.4f} ms "
+            f"(graph replay), bound {b_ms:.4f} ms ({b_by}); plan n_split "
+            f"{n_split} x {chunk} keys, of which at most {live} hold keys "
+            f"of a window of 1024")
+    del pools
+    torch.cuda.empty_cache()
+    return {"window_1024_ms": out[1024], "window_0_ms": out[0],
+            "n_split": n_split, "chunk": chunk}
+
+
+def kernel_of(name: str, verify: bool):
+    """The port's kernel a profiled device kernel belongs to (None for
+    PyTorch's glue): the split-KV merge goes with the step's attention
+    kernel."""
+    for key, k in (("flash_decode_kernel", "flash_decode"),
+                   ("cols_kernel", "cim_gemv"), ("rows_kernel", "cim_gemv"),
+                   ("swiglu_kernel", "swiglu_qgemv"),
+                   ("decode_kernel", "paged_flash_decode"),
+                   ("verify_kernel", "paged_flash_verify"),
+                   ("merge_kernel", "paged_flash_verify" if verify
+                    else "paged_flash_decode")):
+        if key in name:
+            return k
+    return None
+
+
+def step_bounds(model, params, b: int, s: int, lens):
+    """{kernel: (bytes, flops)} of one batch-b model step of width s
+    (s = 1 decode, else a verify window) with lanes at `lens` keys
+    before it: each packed weight and scale read once, each call's
+    activations in and out; the K/V rows (INT8 + f16 scales) a layer's
+    window rows see, q in and out; 2 flops per weight and row, 4 per
+    visible key, query head and head dim."""
+    cfg = model.cfg
+    L, g, qpk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.q_per_kv(), cfg.hd()
+    M = b * s
+    blocks = params["blocks"]
+    cost = {"cim_gemv": [0, 0], "swiglu_qgemv": [0, 0]}
+
+    def add(kernel, ws):
+        """One call over the weights `ws` (gate and up for swiglu)."""
+        k, n = ((ws[0].orig_shape[-1], ws[0].orig_shape[-2])
+                if ws[0].axis == -1 else ws[0].orig_shape[-2:])
+        cost[kernel][0] += (sum(w.nbytes_packed() for w in ws)
+                            + 4 * M * (k + n))
+        cost[kernel][1] += 2 * M * k * n * len(ws)
+    fused = cfg.ffn_gated and cfg.ffn_act == "silu"
+    for i in range(L):
+        for k in ("wq", "wk", "wv", "wo"):
+            add("cim_gemv", [blocks["attn"][k][i]])
+        for k in blocks["ffn"]:
+            if not fused or k == "w_down":
+                add("cim_gemv", [blocks["ffn"][k][i]])
+        if fused:
+            add("swiglu_qgemv", [blocks["ffn"][k][i]
+                                 for k in ("w_gate", "w_up")])
+    add("cim_gemv", [params["embed"] if cfg.tie_embeddings
+                     else params["head"]])
+    kv_rows = keys = 0
+    for i in range(L):
+        win = cfg.local_window if cfg.is_local_layer(i) else 0
+        for n_len in lens:
+            last = n_len + s                 # the lane's keys after the step
+            kv_rows += min(last, win + s - 1) if win else last
+            for j in range(s):               # row j sees keys <= n_len + j
+                keys += min(n_len + j + 1, win) if win else n_len + j + 1
+    attn = "paged_flash_decode" if s == 1 else "paged_flash_verify"
+    cost[attn] = [kv_rows * g * (2 * hd + 4)
+                  + L * 2 * M * g * qpk * hd * 4,
+                  keys * g * qpk * hd * 4]
+    return cost
+
+
+def log_step_split(label, per_mode, bounds, verify: bool, launches):
+    """A profiled step's device ms by kernel (graph replay), each beside
+    its bound, and PyTorch's glue.  Returns the split."""
+    by_name, wall_ms = per_mode["graph replay"]
+    split = {}
+    for nm, us in by_name.items():
+        k = kernel_of(nm, verify) or "glue"
+        split[k] = split.get(k, 0.0) + us / 1e3
+    out = {}
+    for k, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        row = {"device_ms": ms, "launches": launches.get(k)}
+        if k in bounds:
+            b_ms, b_by = bound(*bounds[k])
+            row.update(bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                       bytes=bounds[k][0], flops=bounds[k][1])
+        out[k] = row
+    log(f"{label} (graph replay, wall {wall_ms:.3f} ms, device "
+        f"{sum(split.values()):.3f} ms): " + "; ".join(
+            f"{k} x{v['launches']} {v['device_ms']:.4f} ms"
+            + (f" (bound {v['bound_ms']:.4f} ms, {v['bound_by']}, "
+               f"{100 * v['bound_share']:.2f} %)" if "bound_ms" in v else "")
+            if v["launches"] is not None else f"{k} {v['device_ms']:.4f} ms"
+            for k, v in out.items()))
+    return out
+
+
+def serve_timed(eng, reqs):
+    """Step `eng` until `reqs` are done; wall ms of each decode-only
+    step (verify or plain decode, no prefill call) and whether it
+    verified."""
+    import torch
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.busy:
+        pre, ver, dec = eng.prefill_calls, eng.verify_calls, eng.decode_calls
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if eng.prefill_calls == pre and (eng.verify_calls > ver
+                                         or eng.decode_calls > dec):
+            steps.append(((time.perf_counter() - t0) * 1e3,
+                          eng.verify_calls > ver))
+    return steps
+
+
+def phase_gemma3(device, card):
+    """gemma3-4b at full width and depth served by PagedServeEngine as
+    CUDA graphs and eagerly: a wave of 4 requests, then one request
+    whose prompt passes the 1024-key window, then n-gram speculation on
+    motif prompts; launches, graphs, replays and streams checked; a
+    profiled decode and verify step split by kernel beside its bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+    from repro_torch.spec import SpecConfig
+
+    cfg = get_config("gemma3-4b").replace(dtype="float32", remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = build_model(cfg, "int4", 128, device, seed=0)
+    torch.cuda.synchronize()
+    wq, table = params["blocks"]["attn"]["wq"], params["embed"]
+    log(f"gemma3-4b INT4 weights drawn and packed on the card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while drawing); "
+        f"wq groups of {wq.group}, w_down of "
+        f"{params['blocks']['ffn']['w_down'].group}, table of {table.group};"
+        f" local layers {sum(map(cfg.is_local_layer, range(cfg.n_layers)))}"
+        f"/{cfg.n_layers}")
+    if wq.group != 80 or table.group != 80:
+        fail(f"gemma3-4b packed in groups of {wq.group} / {table.group}, "
+             "expected 80")
+    V, n_new = cfg.vocab, 16
+    rng = np.random.default_rng(3)
+    wave = [rng.integers(0, V, int(n)).astype(np.int32)
+            for n in rng.integers(16, 65, size=4)]
+    long_prompt = rng.integers(0, V, int(rng.integers(1100, 1201))
+                               ).astype(np.int32)
+    serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                            max_seq=1280, page_size=16, prefill_chunk=16)
+
+    def serve(eager):
+        eng = PagedServeEngine(model, params, serve_cfg, device=device,
+                               eager=eager)
+        if eng.config.resolved_kv_dtype() != torch.int8:
+            fail("gemma3-4b: kv_dtype auto did not resolve to int8")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_run = time.perf_counter()
+        w1, ms1, m1 = run_wave(eng, wave, n_new, 0)
+        w2, ms2, m2 = run_wave(eng, [long_prompt], n_new, 4)
+        run_s = time.perf_counter() - t_run
+        counts = launch_counts()
+        reqs = w1 + w2
+        mode = "eager" if eager else "graph"
+        gen_tokens = sum(len(r.out_tokens) for r in reqs)
+        if gen_tokens != 5 * n_new or not all(
+                r.done and all(0 <= t < V for t in r.out_tokens)
+                for r in reqs):
+            fail(f"gemma3-4b ({mode}): {gen_tokens} tokens, expected "
+                 f"{5 * n_new} in range")
+        expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls)
+        log(f"gemma3-4b ({mode}): prompts {[len(r.prompt) for r in reqs]}, "
+            f"{gen_tokens} tokens in {run_s:.2f} s; {eng.prefill_calls} "
+            f"prefill + {eng.decode_calls} decode calls; launches {counts}, "
+            f"expected {expect}")
+        if counts != expect or min(counts["cim_gemv"],
+                                   counts["paged_flash_decode"]) <= 0:
+            fail(f"gemma3-4b ({mode}): launches {counts} != {expect}")
+        return dict(eng=eng, reqs=reqs, counts=counts, run_s=run_s,
+                    decode_ms=[float(np.median(ms1)), float(np.median(ms2))],
+                    ttft_ms=[m1["ttft_p50_s"] * 1e3, m2["ttft_p50_s"] * 1e3],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    graph, eager = serve(False), serve(True)
+    eng = graph["eng"]
+    check_identity("graphs vs eager (gemma3-4b)", eager["reqs"],
+                   graph["reqs"], model, params, device)
+    name = f"{cfg.name}.serve_step"
+    graphs = check_graphs("gemma3-4b", eng, {
+        (name, (4, 16)): step_launches(cfg, 16),
+        (name, (4, 1)): step_launches(cfg, 1)},
+        [(name, (4, 16)), (name, (4, 1))])
+    replay_ms = replay_check("gemma3-4b decode", eng, model.serve_step,
+                             (4, 1))
+    result = {"launches": graph["counts"], "graphs": graphs,
+              "decode_replay_device_ms": replay_ms,
+              "launches_per_decode_step": step_launches(cfg, 1),
+              "long_prompt_tokens": len(long_prompt)}
+    for mode, run in (("graph", graph), ("eager", eager)):
+        result[mode] = {
+            "decode_step_ms_median_wave": run["decode_ms"][0],
+            "decode_step_ms_median_long_lane": run["decode_ms"][1],
+            "ttft_p50_ms_wave": run["ttft_ms"][0],
+            "ttft_ms_long_prompt": run["ttft_ms"][1],
+            "max_memory_allocated_gb": run["peak_gb"], "run_s": run["run_s"]}
+    log("gemma3-4b result " + json.dumps(result))
+    _, modes = profile_step(model, params, eng, device)
+    result["decode_step_split"] = log_step_split(
+        "gemma3-4b decode step, batch 4, lanes at 64 keys, by kernel",
+        modes, step_bounds(model, params, 4, 1, [64] * 4), False,
+        step_launches(cfg, 1))
+    del eager
+    eng = None
+    graph["eng"] = None
+
+    # n-gram speculation on motif prompts, against the same prompts
+    # without it; graphs and eager
+    motif = rng.integers(0, V, 8).astype(np.int32)
+    prompts = [np.tile(motif, 8)[:int(n)]
+               for n in rng.integers(32, 65, size=4)]
+    spec_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                           max_seq=128, page_size=16, prefill_chunk=16)
+
+    def spec_serve(spec, eager=False):
+        e = PagedServeEngine(model, params, spec_cfg, spec=spec,
+                             device=device, eager=eager)
+        reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=24, rid=i)
+                for i, p in enumerate(prompts)]
+        reset_launch_counts()
+        steps = serve_timed(e, reqs)
+        counts = launch_counts()
+        expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
+                                   e.verify_calls)
+        label = ("gemma3-4b spec ngram k=4" if spec else "gemma3-4b no spec"
+                 ) + (" (eager)" if eager else "")
+        ver = [ms for ms, v in steps if v]
+        log(f"{label}: {e.prefill_calls} prefill + {e.decode_calls} decode "
+            f"+ {e.verify_calls} verify calls; launches {counts}, expected "
+            f"{expect}; verify step wall median "
+            f"{float(np.median(ver)) if ver else float('nan'):.3f} ms over "
+            f"{len(ver)} steps; acceptance "
+            f"{e.summary().get('spec_acceptance_rate')}")
+        if counts != expect or sum(len(r.out_tokens) for r in reqs) != 96:
+            fail(f"{label}: launches {counts} != {expect}, or tokens short")
+        if spec is not None and e.verify_calls <= 0:
+            fail(f"{label}: no verify call")
+        return e, reqs, counts, (float(np.median(ver)) if ver else None)
+
+    _, base, _, _ = spec_serve(None)
+    s_eng, s_reqs, s_counts, s_ms = spec_serve(SpecConfig(k=4))
+    _, e_reqs, _, e_ms = spec_serve(SpecConfig(k=4), eager=True)
+    check_identity("gemma3-4b spec ngram", base, s_reqs, model, params,
+                   device)
+    check_identity("graphs vs eager (gemma3-4b spec ngram)", e_reqs, s_reqs,
+                   model, params, device)
+    verify = (f"{cfg.name}.paged_verify_step", (4, 5))
+    check_graphs("gemma3-4b spec ngram", s_eng, {
+        (name, (4, 16)): step_launches(cfg, 16),
+        (name, (4, 1)): step_launches(cfg, 1),
+        verify: step_launches(cfg, 5, verify=True)}, [(name, (4, 16)),
+                                                      verify])
+    v_replay = replay_check("gemma3-4b spec verify", s_eng,
+                            model.paged_verify_step, (4, 5))
+    _, modes = profile_step(model, params, s_eng, device, s=5)
+    result["spec_ngram"] = {
+        "launches": s_counts, "verify_calls": s_eng.verify_calls,
+        "verify_step_ms_median": s_ms, "verify_step_ms_median_eager": e_ms,
+        "verify_replay_device_ms": v_replay,
+        "acceptance_rate": s_eng.summary().get("spec_acceptance_rate"),
+        "verify_step_split": log_step_split(
+            "gemma3-4b verify step, batch 4, s=5, lanes at 64 keys, by "
+            "kernel", modes, step_bounds(model, params, 4, 5, [64] * 4),
+            True, step_launches(cfg, 5, verify=True))}
+    del s_eng, model, params
+    torch.cuda.empty_cache()
+    log("gemma3-4b spec result " + json.dumps(result["spec_ngram"]))
+    return graph["counts"], s_counts, result
+
+
+def phase_short_wave(arch, device, n_layers: int = 4):
+    """`arch` at full width and `n_layers` layers: one wave of 4
+    requests served as CUDA graphs; launches and graphs checked."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers)
+    t0 = time.perf_counter()
+    model, params = build_model(cfg, "int4", 128, device, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    wave = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+            for n in rng.integers(16, 65, size=4)]
+    eng = PagedServeEngine(model, params, ServeConfig(
+        precision="int4", kv_dtype="auto", max_batch=4, max_seq=128,
+        page_size=16, prefill_chunk=16), device=device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reqs, ms, m = run_wave(eng, wave, 16, 0)
+    counts = launch_counts()
+    expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls)
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    log(f"{arch} x{n_layers} layers, full width (drawn and packed in "
+        f"{setup_s:.1f} s): {n_tok} tokens, decode step wall median "
+        f"{float(np.median(ms)):.3f} ms, TTFT p50 "
+        f"{m['ttft_p50_s'] * 1e3:.1f} ms, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{counts}, expected {expect}")
+    if counts != expect or n_tok != 64 or not all(
+            0 <= t < cfg.vocab for r in reqs for t in r.out_tokens):
+        fail(f"{arch}: launches {counts} != {expect}, or tokens wrong")
+    name = f"{cfg.name}.serve_step"
+    check_graphs(arch, eng, {(name, (4, 16)): step_launches(cfg, 16),
+                             (name, (4, 1)): step_launches(cfg, 1)},
+                 [(name, (4, 16)), (name, (4, 1))])
+    replay_ms = replay_check(f"{arch} decode", eng, model.serve_step, (4, 1))
+    del eng, model, params
+    torch.cuda.empty_cache()
+    return counts, {"decode_step_ms_median": float(np.median(ms)),
+                    "decode_replay_device_ms": replay_ms,
+                    "ttft_p50_ms": m["ttft_p50_s"] * 1e3}
+
+
+def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
+                      **cut):
+    """A 2-layer full-width copy of `arch` (weights drawn on the card
+    from seed 2, copied to the CPU), stepped in lockstep through
+    serve_step on the card (kernels) and on the CPU (plain versions):
+    two lanes, one prefill chunk and one decode step; with `long_lane`
+    one lane past its window instead (cut to 128 keys by the caller:
+    past gemma3's 1024 the CPU's plain table contraction over 262144
+    rows took 271 s of a chip run), prefilled in chunks of 128, then two
+    decode steps.  Every real row's logits compared."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_model
     from repro_torch.models.common import tree_to
 
-    cfg = get_config("qwen2.5-3b").replace(dtype="float32", remat=False,
-                                           n_layers=2)
-    model, params_cpu = build_model(cfg, "int4", 128, "cpu", seed=2)
-    outs = {}
-    for dev in ("cpu", device):
-        p = tree_to(params_cpu, dev)
-        cache = {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
-                          for k, v in model.paged_cache_specs(
-                              16, 16, torch.int8)["attn"].items()}}
-        tables = torch.arange(16, dtype=torch.int32, device=dev).reshape(2, 8)
-        g = torch.Generator().manual_seed(3)
-        tok = torch.randint(0, cfg.vocab, (2, 16), generator=g).to(dev)
-        lengths = torch.zeros(2, dtype=torch.int32, device=dev)
-        n_new = torch.tensor([16, 11], dtype=torch.int32, device=dev)
-        pre, _ = model.serve_step(p, cache, {"tokens": tok}, tables,
-                                  lengths, n_new)
-        dec, _ = model.serve_step(p, cache, {"tokens": tok[:, :1]}, tables,
-                                  lengths + n_new,
-                                  torch.ones(2, dtype=torch.int32,
-                                             device=dev))
-        outs[str(dev)] = torch.cat([pre[0], pre[1, :11], dec[:, 0]]).cpu()
-        del p, cache
-    ref, got = outs["cpu"], outs[str(device)]
-    if got.shape != (29, cfg.vocab) or not torch.isfinite(got).all():
-        fail(f"card logits {tuple(got.shape)} not finite / wrong shape")
-    err = float((got - ref).abs().max())
-    tol = LOGIT_TOL * max(1.0, float(ref.abs().max()))
-    top2 = ref.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > tol
-    agree = (got.argmax(-1) == ref.argmax(-1))[clear]
-    log(f"card vs CPU, 2-layer full width: max logit diff {err:.3e} "
-        f"(tol {tol:.3e}, max|logit| {float(ref.abs().max()):.3f}); "
-        f"argmax agrees on {int(agree.sum())}/{int(clear.sum())} rows "
-        "with a top-2 gap above tol")
-    if err > tol or not bool(agree.all()):
-        fail("card and CPU logits disagree")
+    cfg = get_config(arch).replace(dtype="float32", remat=False, n_layers=2,
+                                   **cut)
+    t0 = time.perf_counter()
+    model, params = build_model(cfg, "int4", 128, device, seed=2)
+    devs = {"cpu": tree_to(params, "cpu"), str(device): params}
+    if long_lane:
+        b, max_pages = 1, 16
+        plan = [(128, [128]), (128, [66]), (1, [1]), (1, [1])]
+    else:
+        b, max_pages = 2, 8
+        plan = [(16, [16, 11]), (1, [1, 1])]
+    caches = {d: {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=d)
+                           for k, v in model.paged_cache_specs(
+                               b * max_pages, 16, torch.int8)["attn"].items()}}
+              for d in devs}
+    g = torch.Generator().manual_seed(3)
+    lengths = torch.zeros(b, dtype=torch.int32)
+    err = tol_min = 0.0
+    n_rows = n_clear = n_agree = 0
+    for s, n_new in plan:
+        tok = torch.randint(0, cfg.vocab, (b, s), generator=g)
+        nn = torch.tensor(n_new, dtype=torch.int32)
+        out = {}
+        for d, p in devs.items():
+            tables = torch.arange(b * max_pages, dtype=torch.int32,
+                                  device=d).reshape(b, max_pages)
+            logits, _ = model.serve_step(p, caches[d], {"tokens": tok.to(d)},
+                                         tables, lengths.to(d), nn.to(d))
+            out[d] = torch.cat([logits[i, :n] for i, n in enumerate(n_new)]
+                               ).cpu()
+        ref, got = out["cpu"], out[str(device)]
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{arch}: card logits {tuple(got.shape)} not finite / "
+                 "wrong shape")
+        tol = LOGIT_TOL * max(1.0, float(ref.abs().max()))
+        step_err = float((got - ref).abs().max())
+        top2 = ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        if step_err > tol or not bool(
+                (got.argmax(-1) == ref.argmax(-1))[clear].all()):
+            fail(f"{arch}: card and CPU logits disagree at lengths "
+                 f"{lengths.tolist()} + {n_new}: max diff {step_err:.3e}, "
+                 f"tol {tol:.3e}")
+        err = max(err, step_err)
+        tol_min = tol if not n_rows else min(tol_min, tol)
+        n_rows += ref.shape[0]
+        n_clear += int(clear.sum())
+        n_agree += int((got.argmax(-1) == ref.argmax(-1))[clear].sum())
+        lengths = lengths + nn
+    log(f"card vs CPU, {arch} 2 layers at full width"
+        + (f" ({', '.join(f'{k}={v}' for k, v in cut.items())})" if cut
+           else "")
+        + f", local layers {[cfg.is_local_layer(i) for i in range(2)]}: "
+        f"{len(plan)} steps, lanes to {lengths.tolist()} keys, {n_rows} "
+        f"rows; max logit diff {err:.3e} (smallest step tol "
+        f"{tol_min:.3e}); argmax agrees on {n_agree}/{n_clear} rows with a "
+        f"top-2 gap above tol; {time.perf_counter() - t0:.1f} s")
+    del devs, params, caches
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1630,8 +2207,8 @@ def main() -> None:
     log_ptxas(ptxas)
     from repro_torch.kernels.split_decode import smem_bytes
     log("split-KV block shared memory: " + ", ".join(
-        f"{n} hd 128 {smem_bytes(e, 128)} B" for n, e in
-        (("int8", 1), ("bf16", 2), ("f32", 4))))
+        f"{n} hd {hd} {smem_bytes(e, hd)} B" for hd in (128, 256)
+        for n, e in (("int8", 1), ("bf16", 2), ("f32", 4))))
 
     t0 = time.perf_counter()
     model, params = build_full_model(device)
@@ -1642,15 +2219,26 @@ def main() -> None:
 
     checks = Checks()
     timings = phase_kernels(model, params, device, checks)
+    window_timing = phase_family_kernels(device, checks)
     by_path = {}
     by_path["decode"], full_result = phase_full_model(model, params, device,
                                                       card)
     by_path["spec_ngram"], spec_result = phase_spec(model, params, device)
     by_path["decode_attention"] = phase_decode_attention(model.cfg, device,
                                                          checks)
-    del params
+    del model, params
     torch.cuda.empty_cache()
     phase_card_vs_cpu(device)
+    phase_card_vs_cpu(device, "gemma3-4b", long_lane=True, local_pattern=2,
+                      local_window=128)
+    phase_card_vs_cpu(device, "gemma2-27b")
+    phase_card_vs_cpu(device, "phi3-medium-14b")
+    (by_path["gemma3_decode"], by_path["gemma3_spec_ngram"],
+     gemma3_result) = phase_gemma3(device, card)
+    short = {}
+    for arch, key in (("gemma2-27b", "gemma2_decode"),
+                      ("phi3-medium-14b", "phi3_decode")):
+        by_path[key], short[arch] = phase_short_wave(arch, device)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -1683,6 +2271,9 @@ def main() -> None:
                            if k.startswith(name + " ")]})
     log("full model summary " + json.dumps(full_result))
     log("spec summary " + json.dumps(spec_result))
+    log("gemma3-4b summary " + json.dumps(gemma3_result))
+    log("gemma2-27b / phi3-medium-14b x4 summary " + json.dumps(short))
+    log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

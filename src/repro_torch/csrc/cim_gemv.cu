@@ -52,8 +52,10 @@
 //      group) scale is read from global memory once, into shared memory;
 //      a chunk inside one group runs without a per-element test.
 //   5. One launch per call, deterministic.  The (K/2, N) layout splits K
-//      across up to 8 blocks per column tile (grid (column tiles,
-//      splits)), as many as keep all blocks in one wave of two per SM.
+//      across up to 16 blocks per column tile (grid (column tiles,
+//      splits)), as many as keep all blocks in one wave of two per SM,
+//      and more where a block's slice of W and x would not fit in
+//      shared memory (gemma2-27b's w_down, K = 36864: 16 splits).
 //      Each block writes its partial to the workspace, then
 //      __threadfence() and an atomicAdd on the tile's arrival counter;
 //      the block that arrives last sums the partials in split order,
@@ -91,7 +93,7 @@ constexpr int CT = 8;                   // column threads, 8 columns each
 constexpr int TN = 8 * CT;              // 64 columns per block
 constexpr int CHUNKS = TN / 16;         // 16-byte chunks per row of a tile
 constexpr int LANES = THREADS / CT;     // 32 row-lanes, each a K sub-range
-constexpr int MAX_SPLITS = 8;           // K splits of a column tile, at most
+constexpr int MAX_SPLITS = 16;          // K splits of a column tile, at most
 constexpr int STEPS = 4;                // weight commit groups per block
 constexpr int TBL_THREADS = 256;        // table layout: 8 warps
 constexpr int TBL_R = 8;                // vocab rows per warp
@@ -709,7 +711,7 @@ const char* cim_gemv_error_string(int err) {
 // x (M, K) f32; w (K/2, N) uint8 [bits 4] or (K, N) int8; scales
 // (K/group, N) f16, 4-byte aligned; out (M, N) f32; part (splits, M, N)
 // f32 when splits > 1; counters: one int per column tile, zero on entry
-// and left zero.  mt: the M tile (1, 2, 4); splits: 1 to 8;
+// and left zero.  mt: the M tile (1, 2, 4); splits: 1 to 16;
 // rows_per_split: stored rows per block; vec: 16 when w's base and N are
 // 16-byte aligned, else 4.  Requires N % 4 == 0.
 int cim_gemv_cols(const void* x, const void* w, const void* scales,

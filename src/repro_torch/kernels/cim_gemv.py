@@ -40,7 +40,7 @@ from .split_decode import H100_SMS, sm_count
 TN = 64                     # columns per block, (K/2, N) layout
 LANES = 32                  # row-lanes per block, each a K sub-range
 WARPS = 8                   # warps per (K/2, N) block
-MAX_SPLITS = 8              # K splits of a column tile, at most
+MAX_SPLITS = 16             # K splits of a column tile, at most
 MAX_TILES = 4096            # arrival counters kept per device
 BLOCKS_PER_SM = 2           # (K/2, N) blocks that fit on an SM at once
 TBL_VB = 64                 # vocab rows per table tile
@@ -70,9 +70,10 @@ def split_plan(layout: str, m: int, stored_rows: int, n: int, bits: int,
     """The launch of one call, from shapes alone.  layout "cols": a
     (stored_rows, n) projection in column tiles of TN, K split over up
     to MAX_SPLITS blocks (a power of two, at least LANES stored rows
-    each) while tiles x splits fits the one wave of two blocks per SM;
-    "table": (n, stored_rows) rows in tiles of TBL_VB, one persistent
-    block per SM, no split."""
+    each) while tiles x splits fits the one wave of two blocks per SM,
+    and further while a block's slice would not fit its shared memory
+    (`_slice_fits`); "table": (n, stored_rows) rows in tiles of TBL_VB,
+    one persistent block per SM, no split."""
     if bits not in (4, 8) or layout not in ("cols", "table"):
         raise ValueError(f"split_plan: layout {layout!r}, bits {bits}")
     mt = m_tile(m)
@@ -84,10 +85,21 @@ def split_plan(layout: str, m: int, stored_rows: int, n: int, bits: int,
            and stored_rows >= 2 * splits * LANES):
         splits *= 2
     rows = _cdiv(_cdiv(stored_rows, splits), LANES) * LANES
+    while splits < MAX_SPLITS and not _slice_fits(rows, m, mt, bits):
+        splits *= 2                      # more blocks, each a smaller slice
+        rows = _cdiv(_cdiv(stored_rows, splits), LANES) * LANES
     while splits > 1 and (splits - 1) * rows >= stored_rows:
         splits //= 2                     # no split left without rows
         rows = _cdiv(_cdiv(stored_rows, splits), LANES) * LANES
     return Plan(mt, splits, rows, tiles * splits)
+
+
+def _slice_fits(rows: int, m: int, mt: int, bits: int) -> bool:
+    """Whether a (K/2, N) block over `rows` stored rows fits SMEM_MAX,
+    with scales counted as if in groups of LANES (the plan reads no
+    group; the wrapper checks the exact size)."""
+    plan = Plan(mt, 1, rows, 1)
+    return smem_bytes("cols", plan, m, 0, bits, LANES) <= SMEM_MAX
 
 
 def _table_smem(k, bits, group, mt, nbuf):

@@ -6,6 +6,9 @@
       --device cpu --requests 3 --tokens 6          # plain versions, CPU
   python -m repro_torch.launch.serve --spec ngram --spec-k 4   # speculative
   python -m repro_torch.launch.serve --trace ...   # engine spans, counted
+  python -m repro_torch.launch.serve --arch gemma3-4b --smoke \
+      --device cpu --spec ngram     # also gemma2-27b, phi3-medium-14b
+  python -m repro_torch.launch.serve --arch gemma2-27b --layers 4   # card
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -46,7 +49,9 @@ def build_model(cfg, precision: str, group: int, device, seed: int = 0):
 
 def build_draft(cfg, device):
     """The `--spec model` drafter: one layer of the target's shape at
-    half width, float weights drawn on `device` from seed 7."""
+    half width, float weights drawn on `device` from seed 7.  An explicit
+    `head_dim` (gemma, phi3) stays, so the draft's heads keep the
+    target's width; its one layer is local where the target's first is."""
     import torch
 
     from repro_torch.models import DecoderLM, init_params
@@ -63,7 +68,9 @@ def build_draft(cfg, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="qwen2.5-3b, gemma3-4b, gemma2-27b or "
+                         "phi3-medium-14b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = full)")

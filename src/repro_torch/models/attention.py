@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -27,7 +27,7 @@ from repro_torch.kernels.ops import (paged_decode_attention,
                                      paged_verify_attention)
 from repro_torch.kernels.ops import qmatmul as qmm
 
-from .common import ParamSpec, apply_rope, rope_tables
+from .common import ParamSpec, apply_rope, rms_norm, rope_tables, softcap
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -47,6 +47,9 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         sp["bq"] = ParamSpec((cfg.n_heads * hd,), init="zeros")
         sp["bk"] = ParamSpec((cfg.n_kv_heads * hd,), init="zeros")
         sp["bv"] = ParamSpec((cfg.n_kv_heads * hd,), init="zeros")
+    if cfg.qk_norm:
+        sp["q_norm"] = ParamSpec((hd,), init="ones")
+        sp["k_norm"] = ParamSpec((hd,), init="ones")
     return sp
 
 
@@ -61,9 +64,34 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return (q.reshape(b, s, cfg.n_heads, hd),
-            k.reshape(b, s, cfg.n_kv_heads, hd),
-            v.reshape(b, s, cfg.n_kv_heads, hd))
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        # plain RMSNorm scales (no +1), even where the block norms use
+        # rms_scale_plus_one, as the JAX package applies them
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def layer_theta(cfg: ModelConfig, is_local: bool) -> float:
+    """RoPE base of a layer: `rope_theta_local` (else `rope_theta`) on
+    sliding-window layers, `rope_theta` on global ones."""
+    return (cfg.rope_theta_local or cfg.rope_theta) if is_local \
+        else cfg.rope_theta
+
+
+Rope = Tuple[torch.Tensor, torch.Tensor]
+
+
+def rope_by_theta(cfg: ModelConfig, slots: torch.Tensor,
+                  local_flags: Iterable[bool]) -> Dict[float, Rope]:
+    """cos/sin tables (b, s, hd/2) at a step's positions `slots`, once
+    per distinct RoPE base among the layers (one or two), not per
+    layer."""
+    return {theta: rope_tables(slots, cfg.hd(), theta)
+            for theta in {layer_theta(cfg, f) for f in local_flags}}
 
 
 @dataclass
@@ -119,14 +147,24 @@ def _quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                    cache: Dict[str, torch.Tensor], tables: torch.Tensor,
                    lengths: torch.Tensor, n_new: torch.Tensor,
-                   rows: PageRows, verify: bool = False) -> torch.Tensor:
+                   rows: PageRows, rope: Rope, is_local: bool = False,
+                   verify: bool = False) -> torch.Tensor:
     """Chunked prefill / decode against this layer's paged KV pools.
 
     x: (b, s, d) — s == 1 is decode, s > 1 a right-padded prefill chunk
     (`n_new[i]` of the s tokens are real).  cache {k, v[, k_scale,
     v_scale]}: (n_pages, page_size, g, hd) pools shared by the batch,
     written in place; tables: (b, max_pages) int32; lengths: (b,) int32
-    tokens already cached.  Returns the attention output (b, s, d).
+    tokens already cached; rope: this layer's cos/sin tables at
+    `rows.slots` (`rope_by_theta`).  Returns the attention output (b, s,
+    d).
+
+    is_local (static: the port loops over layers in Python) makes this a
+    sliding-window layer: each query sees the `cfg.local_window` keys up
+    to its own.  Where the JAX package's traced `is_local` sends every
+    layer of a windowed model to the masked gather, the port hands the
+    window and `cfg.attn_softcap` to the decode and verify kernels, which
+    compute the same function.
 
     verify=True (speculative decode) sends an s > 1 window through the
     multi-query verify kernel — one pass over the lane's pages scores
@@ -138,7 +176,7 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     S = tables.shape[1] * ps
     q, k, v = _qkv(p, cfg, x)
 
-    cos, sin = rope_tables(rows.slots, hd, cfg.rope_theta)       # (b, s, hd/2)
+    cos, sin = rope                                              # (b, s, hd/2)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -158,18 +196,20 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         _page_scatter(cv, v, rows)
     total = lengths + n_new
     scale = 1.0 / math.sqrt(hd)
+    window = cfg.local_window if is_local else 0
+    cap = cfg.attn_softcap
 
     if s == 1:
         qg = q.reshape(b, g, qpk, hd).contiguous()
-        out_g = paged_decode_attention(qg, ck, cv, tables, total,
-                                       k_scales=cks, v_scales=cvs)
+        out_g = paged_decode_attention(qg, ck, cv, tables, total, window,
+                                       cap, k_scales=cks, v_scales=cvs)
         out = out_g.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
         return qmm(out, p["wo"])
 
     if verify:
         qg = q.reshape(b, s, g, qpk, hd).contiguous()
-        out_g = paged_verify_attention(qg, ck, cv, tables, lengths,
-                                       k_scales=cks, v_scales=cvs)
+        out_g = paged_verify_attention(qg, ck, cv, tables, lengths, window,
+                                       cap, k_scales=cks, v_scales=cvs)
         out = out_g.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
         return qmm(out, p["wo"])
 
@@ -186,9 +226,14 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     qg = q.reshape(b, s, g, qpk, hd)
     scores = torch.einsum("bqgph,bkgh->bgpqk", qg.to(torch.float32),
                           kg.to(qg.dtype).to(torch.float32)) * scale
+    if cap:
+        scores = softcap(scores, cap)                # after the scale
     k_pos = torch.arange(S, device=x.device)
     mask = (k_pos[None, None, :] <= rows.slots[:, :, None]) \
         & (k_pos[None, None, :] < total[:, None, None])          # (b, s, S)
+    if window:
+        mask = mask & (rows.slots[:, :, None] - k_pos[None, None, :]
+                       < window)
     scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgpqk,bkgh->bqgph", w.to(vg.dtype), vg)

@@ -6,7 +6,7 @@ from typing import Any, Dict
 
 import torch
 
-from .attention import PageRows, gqa_paged_step, gqa_specs
+from .attention import PageRows, Rope, gqa_paged_step, gqa_specs
 from .common import ParamSpec, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, dense_ffn_specs
@@ -25,19 +25,32 @@ def apply_norm(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def transformer_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    return {"ln_attn": norm_specs(cfg), "attn": gqa_specs(cfg),
-            "ln_ffn": norm_specs(cfg), "ffn": dense_ffn_specs(cfg)}
+    sp = {"ln_attn": norm_specs(cfg), "attn": gqa_specs(cfg),
+          "ln_ffn": norm_specs(cfg), "ffn": dense_ffn_specs(cfg)}
+    if cfg.post_block_norm:
+        sp["post_attn"] = norm_specs(cfg)
+        sp["post_ffn"] = norm_specs(cfg)
+    return sp
 
 
 def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             cache: Dict[str, torch.Tensor],
                             tables: torch.Tensor, lengths: torch.Tensor,
-                            n_new: torch.Tensor, rows: PageRows,
+                            n_new: torch.Tensor, rows: PageRows, rope: Rope,
+                            is_local: bool = False,
                             verify: bool = False) -> torch.Tensor:
     """Decode / chunked-prefill / verify block (x: (b, s, d)); writes
-    this layer's new K/V rows into `cache` in place."""
+    this layer's new K/V rows into `cache` in place.  With
+    `post_block_norm` each branch's output is normed before the
+    residual add."""
     h = apply_norm(p["ln_attn"], cfg, x)
-    x = x + gqa_paged_step(p["attn"], cfg, h, cache, tables, lengths,
-                           n_new, rows, verify=verify)
+    a = gqa_paged_step(p["attn"], cfg, h, cache, tables, lengths, n_new,
+                       rows, rope, is_local=is_local, verify=verify)
+    if cfg.post_block_norm:
+        a = apply_norm(p["post_attn"], cfg, a)
+    x = x + a
     h = apply_norm(p["ln_ffn"], cfg, x)
-    return x + dense_ffn(p["ffn"], cfg, h)
+    f = dense_ffn(p["ffn"], cfg, h)
+    if cfg.post_block_norm:
+        f = apply_norm(p["post_ffn"], cfg, f)
+    return x + f

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -122,3 +122,25 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s],
                      dim=-1).to(x.dtype)
 
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+# what each name computes in the JAX package: `jax.nn.gelu` defaults to
+# approximate=True, so "gelu" is the tanh form there too
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": swish,
+    "gelu": _gelu_tanh,
+    "gelu_tanh": _gelu_tanh,
+    "relu": torch.relu,
+}

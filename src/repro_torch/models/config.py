@@ -4,7 +4,8 @@ The same fields and defaults as the JAX `ModelConfig`, with dtypes held
 as strings and resolved to torch dtypes on demand.  The per-family
 sub-configs (`mla`, `moe`, `ssm`, `zamba`) are carried only so that a
 model asking for them is rejected by name: this port serves the dense
-GQA + SwiGLU family.
+GQA family (SwiGLU or gated GELU FFNs, sliding-window / global layer
+alternation, softcaps, QK-norm, post-block norms).
 """
 from __future__ import annotations
 
@@ -75,6 +76,13 @@ class ModelConfig:
 
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
+
+    def is_local_layer(self, i: int) -> bool:
+        """gemma-style alternation: in each `local_pattern` block, the LAST
+        layer is global, the rest local."""
+        if not self.local_window or not self.local_pattern:
+            return False
+        return (i % self.local_pattern) != (self.local_pattern - 1)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

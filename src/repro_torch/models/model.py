@@ -1,5 +1,8 @@
-"""Decoder-only LM, dense GQA + SwiGLU family (PyTorch port of the serve
-path of `repro.models.model.DecoderLM`).
+"""Decoder-only LM, dense GQA family (PyTorch port of the serve path of
+`repro.models.model.DecoderLM`): SwiGLU or gated GELU FFNs, tied or
+untied heads, and gemma's features (sliding-window / global layers,
+attention and final softcaps, QK-norm, post-block norms, scaled
+embeddings, a second RoPE base for local layers).
 
     model  = DecoderLM(cfg)
     specs  = model.param_specs()                     # ParamSpec tree
@@ -12,7 +15,8 @@ Parameters keep the JAX package's tree and stacked-layer layout
 (`blocks` leaves carry a leading layer dim), so `repro_torch.convert`
 carries weights across leaf for leaf.  The paged KV pools keep the
 stacked `(L, n_pages, page_size, g, hd)` layout and are updated in
-place.  Other families and attention flavors raise NotImplementedError.
+place.  Other families and attention flavors raise NotImplementedError
+(`_unsupported` names what is not ported yet).
 """
 from __future__ import annotations
 
@@ -24,10 +28,11 @@ import torch
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import QTensor, dequant_rows
 
-from .attention import page_rows, paged_cache_spec
+from .attention import layer_theta, page_rows, paged_cache_spec, \
+    rope_by_theta
 from .blocks import apply_norm, norm_specs, transformer_block_paged, \
     transformer_block_specs
-from .common import ParamSpec, stack_specs
+from .common import ACTIVATIONS, ParamSpec, softcap, stack_specs
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -39,12 +44,10 @@ def _unsupported(cfg: ModelConfig) -> List[str]:
         out.append(f"family {cfg.family!r}")
     if cfg.attn_kind != "gqa" or cfg.mla is not None:
         out.append(f"attention {cfg.attn_kind!r}")
-    if cfg.local_window or cfg.attn_softcap or cfg.final_softcap:
-        out.append("sliding-window / softcap attention")
-    if cfg.qk_norm or cfg.post_block_norm or cfg.norm_kind != "rms":
-        out.append("qk_norm / post-block norms / layer norm")
-    if not (cfg.ffn_gated and cfg.ffn_act == "silu"):
-        out.append(f"ffn {cfg.ffn_act!r} (gated={cfg.ffn_gated})")
+    if cfg.norm_kind != "rms":
+        out.append(f"norm {cfg.norm_kind!r}")
+    if cfg.ffn_act not in ACTIVATIONS:
+        out.append(f"ffn activation {cfg.ffn_act!r}")
     if not cfg.embed_inputs:
         out.append("frontend-stub embeddings")
     return out
@@ -55,9 +58,17 @@ class DecoderLM:
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense GQA + SwiGLU "
+                f"{cfg.name}: the PyTorch port serves dense GQA "
                 f"decoders only; not yet ported: {', '.join(bad)}")
         self.cfg = cfg
+        # the embedding scale rounded to the embeddings' dtype first, as
+        # the JAX package multiplies by jnp.asarray(sqrt(d), h.dtype)
+        # (bf16: sqrt(2560) = 50.596 -> 50.5); a Python float per dtype,
+        # so a step makes no tensor from host values
+        root = math.sqrt(cfg.d_model)
+        self._embed_scale = {dt: float(torch.tensor(root, dtype=dt))
+                             for dt in (torch.float32, torch.bfloat16)}
+        self._local = [cfg.is_local_layer(i) for i in range(cfg.n_layers)]
         self._layers_of = None      # (blocks dict, per-layer views)
         self._layers: List[Params] = []
 
@@ -84,7 +95,7 @@ class DecoderLM:
         else:
             h = emb[tokens]
         if cfg.embed_scale:
-            h = h * math.sqrt(cfg.d_model)
+            h = h * self._embed_scale[h.dtype]
         return h.to(cfg.activation_dtype())
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -94,10 +105,15 @@ class DecoderLM:
             w = params["embed"]
             if isinstance(w, QTensor):
                 # packed (V, d) table: the kernel contracts over d rows
-                return qmm(h, w).to(torch.float32)
-            return torch.matmul(h.to(torch.float32),
-                                w.to(torch.float32).t())
-        return qmm(h, params["head"]).to(torch.float32)
+                logits = qmm(h, w).to(torch.float32)
+            else:
+                logits = torch.matmul(h.to(torch.float32),
+                                      w.to(torch.float32).t())
+        else:
+            logits = qmm(h, params["head"]).to(torch.float32)
+        if cfg.final_softcap:
+            logits = softcap(logits, cfg.final_softcap)
+        return logits
 
     def _layer_params(self, blocks: Params) -> List[Params]:
         """Per-layer views of the stacked `blocks` tree, built once per
@@ -163,10 +179,14 @@ class DecoderLM:
         # dump page of `page_rows`
         rows = page_rows(tables, lengths, n_new, s, pools["k"].shape[2],
                          dump_page=pools["k"].shape[1] - 1)
+        ropes = rope_by_theta(cfg, rows.slots, self._local)
         for i, layer_p in enumerate(self._layer_params(params["blocks"])):
             layer_cache = {k: v[i] for k, v in pools.items()}
-            h = transformer_block_paged(layer_p, cfg, h, layer_cache, tables,
-                                        lengths, n_new, rows, verify)
+            local = self._local[i]
+            h = transformer_block_paged(
+                layer_p, cfg, h, layer_cache, tables, lengths, n_new, rows,
+                ropes[layer_theta(cfg, local)], is_local=local,
+                verify=verify)
         return self._logits(params, h), cache
 
     # ------------------------------------------------------------------

@@ -148,3 +148,55 @@ def test_split_order_matches_oracle_any_group(bits, m, k, n, group, n_sms):
     out = cg.cim_gemv_split_order(torch.from_numpy(x), _port_qtensor(jq),
                                   n_sms)
     assert _rel_err(out.numpy(), oracle) < 1e-5
+
+
+def _family_calls(cfg):
+    """(name, layout, K, N, group) of every cim_gemv call of a gemma or
+    phi3 model: the projections, gemma's unfused gate/up, the tied table
+    or phi3's untied head (cols layout)."""
+    d, f = cfg.d_model, cfg.d_ff
+    calls = [c for c in _calls(cfg) if c[0] != "table"]
+    if cfg.ffn_act != "silu":
+        calls += [(k, "cols", d, f, _pick_group(d, 128, 16))
+                  for k in ("w_gate", "w_up")]
+    if cfg.tie_embeddings:
+        return calls + [("table", "table", d, cfg.vocab,
+                         _pick_group(d, 128, 16))]
+    return calls + [("head", "cols", d, cfg.vocab, _pick_group(d, 128, 16))]
+
+
+@pytest.mark.parametrize("arch_id,bits", [
+    ("gemma3-4b", 4), ("gemma3-4b", 8), ("gemma2-27b", 4),
+    ("phi3-medium-14b", 4), ("phi3-medium-14b", 8)])
+@pytest.mark.parametrize("m", M_SENT + (256,))
+def test_plan_takes_every_call_of_the_window_families_and_phi3(arch_id,
+                                                                bits, m):
+    """At full width: a shared-memory size the card holds for every call
+    (gemma2-27b's w_down, K = 36864, takes 16 splits where one wave
+    would give it 1), splits covering K once.  gemma2-27b at INT8 is
+    not taken: its table rows (4.6 KB) and w_down slices outgrow a
+    block's shared memory, and the wrapper raises."""
+    cfg = get_config(arch_id)
+    for name, layout, k, n, group in _family_calls(cfg):
+        stored = k // 2 if bits == 4 else k
+        plan = cg.split_plan(layout, m, stored, n, bits, 132)
+        smem = cg.smem_bytes(layout, plan, m, k, bits, group)
+        assert smem <= cg.SMEM_MAX, (name, m, plan, smem)
+        if layout == "cols":
+            assert plan.splits <= cg.MAX_SPLITS
+            assert plan.splits & (plan.splits - 1) == 0
+            assert (plan.splits - 1) * plan.rows < stored \
+                <= plan.splits * plan.rows
+    if arch_id == "gemma2-27b" and bits == 4 and m >= 4:
+        assert cg.split_plan("cols", m, 18432, 4608, 4, 132).splits == 16
+
+
+def test_cols_constants_mirror_the_source():
+    """The host's mirrors equal the constants of csrc/cim_gemv.cu."""
+    import re
+
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "cim_gemv.cu").read_text()
+    const = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
+    assert (int(const["MAX_SPLITS"]), int(const["THREADS"]) // 8) == \
+        (cg.MAX_SPLITS, cg.LANES)

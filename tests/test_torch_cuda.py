@@ -612,3 +612,114 @@ def test_captured_decode_step_replays_bitwise_equal(device):
     assert counts == {"cim_gemv": 2 * (5 * L + 1), "swiglu_qgemv": 2 * L,
                       "paged_flash_decode": 2 * L, "paged_flash_verify": 0,
                       "flash_decode": 0}
+
+
+# ----------------------------------------------------------------------------
+# the shapes of the sliding-window / softcap families and phi3
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel", ["decode", "verify"])
+@pytest.mark.parametrize("g,qpk,hd,window,cap,lens", [
+    # gemma3: hd 256, lanes shorter than, at, 1 and 300 past the window
+    (4, 2, 256, 1024, 0.0, (700, 1024, 1025, 1324)),
+    (4, 2, 256, 0, 0.0, (700, 1024, 1025, 1324)),
+    # gemma2: hd 128, window 4096 and the attention softcap
+    (16, 2, 128, 4096, 50.0, (3000, 4096, 4097, 4396)),
+])
+def test_split_kernels_with_a_window_shorter_than_the_lane(
+        device, kernel, g, qpk, hd, window, cap, lens):
+    """INT8 pools; the lanes' keys run past the window, so the splits
+    before it fold nothing.  Verify windows of s = 5 end at the decode
+    lengths.  Every lane compared in full, a second call bitwise
+    equal."""
+    ps = 16
+    max_pages = -(-max(lens) // ps) + 2
+    q, kp, vp, tables, _, ks, vs = _paged(device, "int8", b=4, g=g, qpk=qpk,
+                                          hd=hd, max_pages=max_pages,
+                                          seed=21)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    if kernel == "decode":
+        args = (q, kp, vp, tables, lengths, window, cap, ks, vs)
+        out = paged_flash_decode(*args)
+        _close(out, paged_decode_plain(*args))
+        assert torch.equal(out, paged_flash_decode(*args))
+        return
+    s = 5
+    qv = torch.randn(4, s, g, qpk, hd, generator=_gen(22), device=device)
+    args = (qv, kp, vp, tables, lengths - s, window, cap, ks, vs)
+    out = paged_flash_verify(*args)
+    _close(out, paged_verify_plain(*args))
+    assert torch.equal(out, paged_flash_verify(*args))
+
+
+@pytest.mark.parametrize("m", [1, 4, 20])
+@pytest.mark.parametrize("layout,k,n,group", [
+    ("cols", 2560, 2048, 80),      # gemma3 wq
+    ("cols", 4608, 1024, 96),      # gemma2's K, a slice of its N
+    ("cols", 17920, 640, 112),     # phi3 w_down's K
+    ("cols", 36864, 512, 128),     # gemma2 w_down's K: 16 splits
+    ("table", 2560, 4099, 80),     # gemma3's table rows, ragged V
+    ("table", 4608, 2050, 96),     # gemma2's
+])
+def test_cim_gemv_kernel_at_groups_80_96_112(device, m, layout, k, n,
+                                             group):
+    g = _gen(23)
+    x = torch.randn(m, k, generator=g, device=device)
+    if layout == "cols":
+        w = quantize(torch.randn(k, n, generator=g, device=device), 4,
+                     group)
+    else:
+        w = quantize(torch.randn(n, k, generator=g, device=device), 4,
+                     group, axis=1)
+    out = cim_gemv(x, w)
+    _close(out, cim_gemv_plain(x, w))
+    assert torch.equal(out, cim_gemv(x, w))
+
+
+@pytest.mark.parametrize("m", [1, 4, 20])
+@pytest.mark.parametrize("k,f,group", [(5120, 17920, 80),   # phi3 gate/up
+                                       (4608, 1024, 96),
+                                       (3584, 1024, 112)])
+def test_swiglu_kernel_at_groups_80_96_112(device, m, k, f, group):
+    g, wg, wu = _gate_up(device, 4, k, f, group)
+    x = torch.randn(m, k, generator=g, device=device)
+    out = swiglu_qgemv(x, wg, wu)
+    _close(out, swiglu_plain(x, wg, wu))
+    assert torch.equal(out, swiglu_qgemv(x, wg, wu))
+
+
+def test_gemma3_smoke_decode_replay_equals_eager(device):
+    """gemma3-smoke (local and global layers, QK-norm, post-block norms,
+    the unfused GELU FFN), INT4 weights, INT8 KV, lanes past its window
+    of 8: a captured decode step replays bitwise equal to the eager
+    call, and counts 7 cim_gemv calls a layer plus the table."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.quant.ptq import quantize_params
+    from repro_torch.serve import StepRunner
+    cfg = get_smoke_config("gemma3-4b").replace(dtype="float32",
+                                                remat=False)
+    model = DecoderLM(cfg)
+    params = quantize_params(init_params(
+        model.param_specs(), torch.Generator(device=device).manual_seed(0),
+        device, torch.float32), 4, 16)
+    pools = {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                      for k, v in model.paged_cache_specs(
+                          8, 16, torch.int8)["attn"].items()}}
+    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
+    runner = StepRunner(device)
+    tok = (np.arange(32, dtype=np.int32).reshape(2, 16) * 7) % cfg.vocab
+    runner(model.serve_step, params, pools, tok, tables,
+           np.zeros(2, np.int32), np.array([16, 12], np.int32))
+    args = (tok[:, :1].copy(), tables, np.array([16, 12], np.int32),
+            np.ones(2, np.int32))
+    eager = runner(model.serve_step, params, pools, *args).clone()
+    reset_launch_counts()
+    logits = runner(model.serve_step, params, pools, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager)
+    L = cfg.n_layers
+    assert launch_counts() == {"cim_gemv": 7 * L + 1, "swiglu_qgemv": 0,
+                               "paged_flash_decode": L,
+                               "paged_flash_verify": 0, "flash_decode": 0}

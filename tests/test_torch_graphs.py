@@ -42,6 +42,13 @@ SMOKE = dict(name="graphs-smoke", family="dense", n_layers=2, d_model=64,
              remat=False)
 DRAFT = dict(SMOKE, name="graphs-draft", n_layers=1, d_model=32, n_heads=2,
              n_kv_heads=1, d_ff=64)
+# gemma's features: local / global layers with two RoPE bases, softcaps,
+# QK-norm, post-block norms, scaled embeddings, the unfused GELU FFN
+GEMMA = dict(SMOKE, name="graphs-gemma", n_layers=3, qkv_bias=False,
+             ffn_act="gelu_tanh", local_window=4, local_pattern=3,
+             qk_norm=True, rope_theta=1e6, rope_theta_local=1e4,
+             attn_softcap=1.0, final_softcap=2.0, post_block_norm=True,
+             rms_scale_plus_one=True, embed_scale=True)
 KV = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 _MODELS = {}
 
@@ -105,11 +112,12 @@ STEPS = [("serve_step", 8), ("serve_step", 1), ("paged_verify_step", 5),
 
 
 @pytest.mark.parametrize("arch,precision,kv", [
-    (SMOKE, "int4", "int8"), (DRAFT, "fp", "bf16")])
+    (SMOKE, "int4", "int8"), (DRAFT, "fp", "bf16"), (GEMMA, "int4", "int8")])
 @pytest.mark.parametrize("fn,s", STEPS)
 def test_steps_are_capturable(fn, s, arch, precision, kv):
-    """The engine's steps (int4 weights, int8 KV) and a draft model's
-    (float weights, bf16 KV), with an empty lane beside two live ones."""
+    """The engine's steps (int4 weights, int8 KV), a draft model's (float
+    weights, bf16 KV) and a gemma-style model's, with an empty lane
+    beside two live ones."""
     model, params = _model(arch, precision)
     pools = _pools(model, 12, 4, kv)
     tables = torch.tensor([[0, 0, 0, 0], [3, 7, 0, 9], [5, 1, 2, 4]],

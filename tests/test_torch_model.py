@@ -273,12 +273,13 @@ def test_features_outside_the_slice_raise():
     with pytest.raises(NotImplementedError):
         ServeConfig(tp=2)
     with pytest.raises(NotImplementedError):
-        DecoderLM(ModelConfig(**dict(SMOKE, local_window=8,
-                                     local_pattern=2)))
+        DecoderLM(ModelConfig(**dict(SMOKE, attn_kind="mla")))
     with pytest.raises(NotImplementedError):
         DecoderLM(ModelConfig(**dict(SMOKE, family="moe")))
     with pytest.raises(NotImplementedError):
-        DecoderLM(ModelConfig(**dict(SMOKE, attn_softcap=30.0)))
+        DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="layer")))
+    with pytest.raises(NotImplementedError):
+        DecoderLM(ModelConfig(**dict(SMOKE, embed_inputs=False)))
 
 
 def test_launcher_smoke_on_cpu():

@@ -158,3 +158,18 @@ def test_split_order_matches_oracle_any_group(bits, m, k, f, group, n_sms):
     out = sw.swiglu_split_order(torch.from_numpy(x), _port_qtensor(qg),
                                 _port_qtensor(qu), n_sms)
     assert _rel_err(out.numpy(), oracle) < 1e-5
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", M_SENT)
+def test_plan_takes_phi3_gate_up(bits, m):
+    """phi3-medium-14b's gate/up (5120 -> 17920, groups of 80): a
+    shared-memory size the card holds, K covered once."""
+    cfg = get_config("phi3-medium-14b")
+    k, f = cfg.d_model, cfg.d_ff
+    group = _pick_group(k, 128, 16)
+    assert group == 80
+    stored = k // 2 if bits == 4 else k
+    plan = sw.split_plan(m, stored, f, bits, group, 132)
+    assert sw.smem_bytes(plan, m, bits, group) <= sw.SMEM_MAX
+    assert (plan.splits - 1) * plan.rows < stored <= plan.splits * plan.rows
