@@ -99,7 +99,22 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      eagerly, with a profiled verify step split the same way.
   8. gemma2-27b and phi3-medium-14b at full width and 4 layers: one wave
      of 4 requests as CUDA graphs, launches and graphs checked.
-  9. summary: a `{"kernels": [...]}` line, the card line, and last
+  9. qwen3-moe-235b-a22b at full width and 4 layers (128 experts, top 8,
+     64 / 4 heads; INT4, groups of 96 on we_down; INT8 KV): a wave of 4
+     requests as CUDA graphs and eagerly, streams compared, launches
+     equal to per-call counts x calls (a decode step: 4 x (4 + 3 expert
+     stacks) + 1 cim_gemv, 4 paged_flash_decode), the eager run's experts
+     kept per layer and slots dropped at capacity; n-gram speculation
+     (k = 4) against none, streams compared; a profiled decode and verify
+     step by kernel beside its bound (the stacks' bytes those of the
+     experts the step's router kept).  Phase 2 holds, before it, the
+     stack layout (128 experts, capacity 8, counts 0 / 1 / 8 / all full,
+     NaN rows past a count, both shapes, INT4 and INT8), the split-KV
+     kernels at 16 query heads per kv head and gemma2-27b's INT8 table
+     and w_down (M = 4, 20, 64), and times 4 layers of the stack calls
+     (decode and a 64-token chunk) and of the qpk-16 attention; phase 6
+     holds a 2-layer full-width copy against the CPU.
+ 10. summary: a `{"kernels": [...]}` line, the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -260,6 +275,30 @@ def build_full_model(device):
     from repro_torch.launch.serve import build_model
     cfg = get_config("qwen2.5-3b").replace(dtype="float32", remat=False)
     return build_model(cfg, "int4", 128, device, seed=0)
+
+
+def time_calls(timings, name, what, step, kernel_fn, plain, nbytes, flops,
+               library=None, key=None):
+    """`step(fn)` runs one step's calls of `fn`; kernel time is a
+    CUDA-graph replay, eager and plain are dispatched one by one.
+    Stored in `timings` under `key` (default: the kernel's name)."""
+    ms = graph_time_ms(lambda: step(kernel_fn))
+    eager_ms = cuda_time_ms(lambda: step(kernel_fn), iters=10)
+    plain_ms = cuda_time_ms(lambda: step(plain), iters=2, warmup=1)
+    lib_ms = graph_time_ms(lambda: step(library)) if library else None
+    b_ms, b_by = bound(nbytes, flops)
+    timings[key or name] = dict(
+        ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_share=b_ms / ms, library_ms=lib_ms,
+        step_bytes=nbytes, step_flops=flops, timed=what)
+    lib = f"{lib_ms:.4f} ms" if library else "none"
+    log(f"time {name:18s} {what}: kernel {ms:.4f} ms (graph replay; "
+        f"eager dispatch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"library {lib}, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
+        f"bound share {100 * b_ms / ms:.2f} %, "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+        f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s")
 
 
 def phase_kernels(model, params, device, checks: Checks):
@@ -584,26 +623,8 @@ def phase_kernels(model, params, device, checks: Checks):
 
     def time_kernel(name, what, step, kernel_fn, plain, nbytes, flops,
                     library=None, key=None):
-        """`step(fn)` runs one step's calls of `fn`; kernel time is a
-        CUDA-graph replay, eager and plain are dispatched one by one.
-        Stored under `key` (default: the kernel's name)."""
-        ms = graph_time_ms(lambda: step(kernel_fn))
-        eager_ms = cuda_time_ms(lambda: step(kernel_fn), iters=10)
-        plain_ms = cuda_time_ms(lambda: step(plain), iters=2, warmup=1)
-        lib_ms = graph_time_ms(lambda: step(library)) if library else None
-        b_ms, b_by = bound(nbytes, flops)
-        timings[key or name] = dict(
-            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, bound_share=b_ms / ms, library_ms=lib_ms,
-            step_bytes=nbytes, step_flops=flops, timed=what)
-        lib = f"{lib_ms:.4f} ms" if library else "none"
-        log(f"time {name:18s} {what}: kernel {ms:.4f} ms (graph replay; "
-            f"eager dispatch {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"library {lib}, bound {b_ms:.4f} ms ({b_by}: "
-            f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), "
-            f"bound share {100 * b_ms / ms:.2f} %, "
-            f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
-            f"{flops / (ms * 1e-3) / 1e12:.3f} TFLOP/s")
+        time_calls(timings, name, what, step, kernel_fn, plain, nbytes,
+                   flops, library, key)
 
     what = f"one decode step's calls, batch {M}, {L} layers"
     time_kernel("cim_gemv", what, cim_step, cim_gemv, cim_gemv_plain,
@@ -867,13 +888,19 @@ def step_launches(cfg, s: int, verify: bool = False, packed: bool = True):
     """Kernel launches of one model step call of width s (its graph
     holds the same): packed weights go to cim_gemv / swiglu_qgemv (a
     gated SiLU FFN is one swiglu_qgemv call and w_down; any other FFN
-    one cim_gemv call per projection), a decode step's attention to
-    paged_flash_decode, a verify window's to paged_flash_verify."""
+    one cim_gemv call per projection; a MoE layer's routed experts three
+    calls in the stack layout, its shared experts three more), a decode
+    step's attention to paged_flash_decode, a verify window's to
+    paged_flash_verify."""
     L = cfg.n_layers
+    m = cfg.moe
+    n_dense = m.first_dense_layers if m is not None else L
     fused = cfg.ffn_gated and cfg.ffn_act == "silu"
-    per_layer = 4 + (1 if fused else 3 if cfg.ffn_gated else 2)
-    return {"cim_gemv": (per_layer * L + 1) if packed else 0,
-            "swiglu_qgemv": L if packed and fused else 0,
+    dense_cim = 1 if fused else 3 if cfg.ffn_gated else 2
+    moe_cim = 3 + (3 if m is not None and m.n_shared_experts else 0)
+    cim = 4 * L + n_dense * dense_cim + (L - n_dense) * moe_cim + 1
+    return {"cim_gemv": cim if packed else 0,
+            "swiglu_qgemv": n_dense if packed and fused else 0,
             "paged_flash_decode": L if s == 1 else 0,
             "paged_flash_verify": L if verify else 0, "flash_decode": 0}
 
@@ -1785,13 +1812,15 @@ def kernel_of(name: str, verify: bool):
     return None
 
 
-def step_bounds(model, params, b: int, s: int, lens):
+def step_bounds(model, params, b: int, s: int, lens, expert_counts=None):
     """{kernel: (bytes, flops)} of one batch-b model step of width s
     (s = 1 decode, else a verify window) with lanes at `lens` keys
     before it: each packed weight and scale read once, each call's
     activations in and out; the K/V rows (INT8 + f16 scales) a layer's
     window rows see, q in and out; 2 flops per weight and row, 4 per
-    visible key, query head and head dim."""
+    visible key, query head and head dim.  A MoE layer's stacks count
+    the experts with rows in this step (`expert_counts`: per layer, the
+    rows of each expert, from the router) and their counted rows."""
     cfg = model.cfg
     L, g, qpk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.q_per_kv(), cfg.hd()
     M = b * s
@@ -1809,6 +1838,13 @@ def step_bounds(model, params, b: int, s: int, lens):
     for i in range(L):
         for k in ("wq", "wk", "wv", "wo"):
             add("cim_gemv", [blocks["attn"][k][i]])
+        if cfg.moe is not None:
+            cb, cf = stack_cost([blocks["ffn"][k][i] for k in
+                                 ("we_gate", "we_up", "we_down")],
+                                expert_counts[i])
+            cost["cim_gemv"][0] += cb
+            cost["cim_gemv"][1] += cf
+            continue
         for k in blocks["ffn"]:
             if not fused or k == "w_down":
                 add("cim_gemv", [blocks["ffn"][k][i]])
@@ -2174,6 +2210,489 @@ def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts: qwen3-moe-235b-a22b at full width, 4 layers
+# ---------------------------------------------------------------------------
+MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def random_stack(gen, device, bits, E, k, n, group):
+    """A packed (E, k, n) expert stack of random INT4 nibbles / INT8
+    bytes and f16 scales near 0.01 (drawn packed: no f32 stack)."""
+    import torch
+    from repro_torch.quant.qarray import QTensor
+    if bits == 4:
+        data = torch.randint(0, 256, (E, k // 2, n), generator=gen,
+                             device=device, dtype=torch.uint8)
+    else:
+        data = torch.randint(-127, 128, (E, k, n), generator=gen,
+                             device=device, dtype=torch.int8)
+    scales = (torch.rand(E, k // group, n, generator=gen, device=device)
+              * 0.01 + 0.005).half()
+    return QTensor(data, scales, bits, group, -2, (E, k, n))
+
+
+def route_counts(gen, device, E, C, tokens, top_k):
+    """Rows per expert of `tokens` tokens each routed to top_k distinct
+    experts at random, capped at C (int32 on the card)."""
+    import torch
+    ids = torch.stack([torch.randperm(E, generator=gen, device=device)
+                       [:top_k] for _ in range(tokens)])
+    counts = torch.zeros(E, dtype=torch.long, device=device)
+    counts.scatter_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+    return counts.clamp(max=C).int()
+
+
+def stack_cost(ws, counts):
+    """(bytes, flops) of stack calls over `ws` at per-expert `counts`
+    (a list of ints): the packed weight and scales of the experts with
+    a row, each read once, the counted rows of x in and out; 2 flops
+    per weight and counted row."""
+    act = [e for e, c in enumerate(counts) if c > 0]
+    rows = sum(counts)
+    nbytes = flops = 0
+    for w in ws:
+        k, n = w.orig_shape[-2:]
+        nbytes += sum(w.data[e].numel() + 2 * w.scales[e].numel()
+                      for e in act) + 4 * rows * (k + n)
+        flops += 2 * rows * k * n
+    return nbytes, flops
+
+
+def phase_moe_kernels(device, checks: Checks):
+    """The kernels at qwen3-moe's new shapes and at gemma2-27b's INT8
+    widths against their plain versions, every call twice (bitwise
+    equal): cim_gemv's expert-stack layout (128 experts, capacity 8;
+    counts 0, 1, 8 and others, then all 128 experts full; x rows past a
+    count hold NaN, which must not reach a counted row), the split-KV
+    kernels at 16 query heads per kv head (hd 128, INT8 pools; verify at
+    s = 5: 80 rows), gemma2-27b's INT8 table and w_down at M = 4, 20,
+    64.  Then 4 layers' worth of decode calls of each at qwen3-moe's
+    shapes, beside their bounds.  Returns the timings."""
+    import torch
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              smem_bytes, split_plan,
+                                              stack_plan, table_rows)
+    from repro_torch.kernels.paged_flash_decode import (decode_plan,
+                                                        paged_decode_plain,
+                                                        paged_flash_decode,
+                                                        paged_flash_verify,
+                                                        paged_verify_plain,
+                                                        verify_plan)
+    from repro_torch.kernels.split_decode import sm_count
+    from repro_torch.quant.qarray import quantize
+
+    gen = torch.Generator(device=device).manual_seed(41)
+    sms = sm_count(device)
+    E, C, d, fe, top_k, L = 128, 8, 4096, 1536, 8, 4
+    shapes = (("gate/up", d, fe, 128), ("down", fe, d, 96))
+    timings = {}
+    for bits in (4, 8):
+        for what, k, n, group in shapes:
+            w = random_stack(gen, device, bits, E, k, n, group)
+            x = torch.randn(E, C, k, generator=gen, device=device)
+            ref = cim_gemv_plain(x, w)
+            mixed = torch.randint(0, C + 1, (E,), generator=gen,
+                                  device=device).int()
+            mixed[:4] = torch.tensor([0, 1, C, 3], device=device)
+            full = torch.full((E,), C, dtype=torch.int32, device=device)
+            for cname, counts in (("counts 0/1/8/mixed", mixed),
+                                  ("all 128 experts full", full)):
+                rows = torch.arange(C, device=device)[None] < counts[:, None]
+                xn = torch.where(rows[..., None], x, float("nan"))
+                label = (f"stack int{bits} {what} {k}->{n} g{group} E={E} "
+                         f"C={C} {cname}")
+                out = cim_gemv(xn, w, counts)
+                checks.compare("cim_gemv", label, out[rows], ref[rows])
+                checks.repeat("cim_gemv", label, out[rows],
+                              cim_gemv(xn, w, counts)[rows])
+            pl = stack_plan(C, w.data.shape[1], n, bits, E, sms)
+            log(f"plan cim_gemv stack int{bits} {what} C={C}: M tile "
+                f"{pl.mt}, {pl.splits} splits of {pl.rows} rows, "
+                f"{pl.blocks} blocks an expert x {E}, "
+                f"{smem_bytes('cols', pl, C, k, bits, group)} B shared "
+                "memory")
+            del w, x, ref
+    torch.cuda.empty_cache()
+
+    # gemma2-27b at INT8: its table (4608 B rows, 32 a tile) and w_down
+    # (K = 36864: 32 splits past M = 4), the repair
+    for name, shape, axis in (("table", (256000, 4608), 1),
+                              ("w_down", (36864, 4608), 0)):
+        w = quantize(torch.randn(shape, generator=gen, device=device)
+                     * 0.02, 8, 96, axis=axis)
+        k = shape[1] if axis == 1 else shape[0]
+        n = shape[0] if axis == 1 else shape[1]
+        lay = "table" if axis == 1 else "cols"
+        for m in (4, 20, 64):
+            x = torch.randn(m, k, generator=gen, device=device)
+            label = f"gemma2-27b int8 {name} {k}->{n} g96 M={m}"
+            out = cim_gemv(x, w)
+            checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+            checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+            pl = split_plan(lay, m, w.data.shape[1 if axis == 1 else 0], n,
+                            8, sms)
+            if lay == "table":
+                pl = table_rows(pl, k, n, 8, 96, sms)
+            log(f"plan cim_gemv gemma2-27b int8 {name} M={m}: M tile "
+                f"{pl.mt}, {pl.splits} splits of {pl.rows} rows, "
+                f"{pl.blocks} blocks, "
+                f"{smem_bytes(lay, pl, m, k, 8, 96)} B shared memory")
+        del w
+    torch.cuda.empty_cache()
+
+    # split-KV at 16 query heads per kv head: 4 lanes x 4 kv heads, hd
+    # 128, INT8 pools, lengths on a split boundary, past it, 1 and 0;
+    # verify windows of s = 5 (80 rows, two blocks of rows)
+    b, g, qpk, hd, ps, max_pages = 4, 4, 16, 128, 16, 72
+    kp, vp, ks, vs, tables = int8_pools(gen, device, b, max_pages, g, hd)
+    _, chunk = decode_plan(b, g, max_pages, ps, sms, qpk)
+    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+    qv = torch.randn(b, 5, g, qpk, hd, generator=gen, device=device)
+    for lens in ([1024, 777, 301, 45], [chunk, chunk + 1, 1, 0]):
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+        args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+        label = f"qpk 16 hd 128 int8 lengths {lens}"
+        out = paged_flash_decode(*args)
+        checks.compare("paged_flash_decode", label, out,
+                       paged_decode_plain(*args))
+        checks.repeat("paged_flash_decode", label, out,
+                      paged_flash_decode(*args))
+        args = (qv, kp, vp, tables, (lengths - 5).clamp(min=0), 0, 0.0, ks,
+                vs)
+        label = f"qpk 16 s=5 hd 128 int8 lengths {lens}"
+        out = paged_flash_verify(*args)
+        checks.compare("paged_flash_verify", label, out,
+                       paged_verify_plain(*args))
+        checks.repeat("paged_flash_verify", label, out,
+                      paged_flash_verify(*args))
+
+    # ---- timings at qwen3-moe's shapes, 4 layers ----------------------
+    # the stacks of a decode step: 4 tokens routed to 8 of 128 experts
+    # each (at most 32 experts with a row), each layer its own weights
+    layers = [{nm: random_stack(gen, device, 4, E, k, n, group)
+               for nm, (_, k, n, group) in zip(("we_gate", "we_down"),
+                                               shapes)} for _ in range(L)]
+    for lw in layers:
+        lw["we_up"] = random_stack(gen, device, 4, E, d, fe, 128)
+    for label, tokens in (("decode step, 4 tokens", 4),
+                          ("prefill chunk, 64 tokens", 64)):
+        counts = [route_counts(gen, device, E, C, tokens, top_k)
+                  for _ in range(L)]
+        xs = torch.randn(E, C, d, generator=gen, device=device)
+        hs = torch.randn(E, C, fe, generator=gen, device=device)
+
+        def stack_step(fn, counts=counts, xs=xs, hs=hs):
+            for lw, c in zip(layers, counts):
+                fn(xs, lw["we_gate"], c)
+                fn(xs, lw["we_up"], c)
+                fn(hs, lw["we_down"], c)
+        nbytes = flops = 0
+        for lw, c in zip(layers, counts):
+            cb, cf = stack_cost([lw["we_gate"], lw["we_up"], lw["we_down"]],
+                                c.tolist())
+            nbytes, flops = nbytes + cb, flops + cf
+        active = [int((c > 0).sum()) for c in counts]
+        time_calls(timings, "cim_gemv",
+                   f"expert stacks of a qwen3-moe {label}, {L} layers x 3 "
+                   f"calls, INT4, E={E} C={C}, experts with rows per layer "
+                   f"{active}", stack_step,
+                   lambda x, w, c: cim_gemv(x, w, c),
+                   lambda x, w, c: cim_gemv_plain(x, w), nbytes, flops,
+                   key=f"cim_gemv stack {tokens} tokens")
+    del layers
+    torch.cuda.empty_cache()
+
+    pools = [int8_pools(gen, device, b, max_pages, g, hd) for _ in range(L)]
+    lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
+                           device=device)
+
+    def pd_step(fn):
+        for kp, vp, ks, vs, tables in pools:
+            fn(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+
+    def pv_step(fn):
+        for kp, vp, ks, vs, tables in pools:
+            fn(qv, kp, vp, tables, lengths - 5, 0, 0.0, ks, vs)
+    tokens = int(lengths.sum())
+    rows_v = tokens
+    keys_v = sum(5 * (n - 5) + 15 for n in lengths.tolist())
+    n_split, chunk = decode_plan(b, g, max_pages, ps, sms, qpk)
+    log(f"plan paged_flash_decode qpk 16 b={b} g={g} max_pages={max_pages}"
+        f": n_split {n_split}, chunk {chunk} keys, {b * g * n_split * 2} "
+        "blocks (2 of 8 heads a row and split)")
+    time_calls(timings, "paged_flash_decode",
+               f"qwen3-moe decode attention, {L} calls, batch {b}, g={g} "
+               f"qpk={qpk} hd={hd}, lengths 1024/777/301/45", pd_step,
+               paged_flash_decode, paged_decode_plain,
+               L * (tokens * g * (2 * hd + 4) + 2 * q.numel() * 4
+                    + b * (max_pages + 1) * 4),
+               L * tokens * g * qpk * hd * 4, key="paged_flash_decode qpk16")
+    n_split, chunk = verify_plan(b, g, 5, qpk, max_pages, ps, sms)
+    log(f"plan paged_flash_verify qpk 16 s=5: n_split {n_split}, chunk "
+        f"{chunk} keys")
+    time_calls(timings, "paged_flash_verify",
+               f"qwen3-moe verify attention, {L} calls, batch {b}, s=5, "
+               f"qpk={qpk} hd={hd}, lengths 1024/777/301/45 after the "
+               "window", pv_step, paged_flash_verify, paged_verify_plain,
+               L * (rows_v * g * (2 * hd + 4) + 2 * qv.numel() * 4
+                    + b * (max_pages + 1) * 4),
+               L * keys_v * g * qpk * hd * 4, key="paged_flash_verify qpk16")
+    del pools, kp, vp, ks, vs
+    torch.cuda.empty_cache()
+    return timings
+
+
+class RouteLog:
+    """Spies on `repro_torch.models.ffn.dispatch_slots` while on: per
+    call, the tokens routed, the experts that kept a row, the slots
+    dropped at capacity (host reads: eager runs only)."""
+
+    def __init__(self):
+        from repro_torch.models import ffn
+        self.ffn, self.orig, self.calls, self.counts = ffn, None, [], []
+
+    def __enter__(self):
+        self.orig = self.ffn.dispatch_slots
+        orig = self.orig
+
+        def spy(ids, n_experts, cap, groups=1):
+            slot, counts = orig(ids, n_experts, cap, groups)
+            self.calls.append((int(ids.shape[0]), int((counts > 0).sum()),
+                               int((slot == n_experts * groups * cap)
+                                   .sum())))
+            self.counts.append(counts.tolist())
+            return slot, counts
+        self.ffn.dispatch_slots = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.ffn.dispatch_slots = self.orig
+
+    def summary(self, decode_tokens: int):
+        dec = [c for c in self.calls if c[0] == decode_tokens]
+        pre = [c for c in self.calls if c[0] != decode_tokens]
+
+        def mean(v):
+            return sum(v) / len(v) if v else None
+        return {"decode_calls": len(dec),
+                "experts_kept_per_layer_decode_mean":
+                    mean([c[1] for c in dec]),
+                "experts_kept_per_layer_decode_max":
+                    max([c[1] for c in dec], default=None),
+                "slots_dropped_decode": sum(c[2] for c in dec),
+                "other_calls": len(pre),
+                "experts_kept_per_layer_other_mean":
+                    mean([c[1] for c in pre]),
+                "slots_dropped_other": sum(c[2] for c in pre),
+                "tokens_other": sum(c[0] for c in pre)}
+
+
+def step_route_counts(model, params, eng, s: int):
+    """Per-layer expert counts of the batch-4 step `profile_step` runs
+    (tokens 0, lanes at 64 keys): the same inputs, one eager call."""
+    import numpy as np
+    import torch
+    b, mp = eng.max_batch, eng.cache.max_pages
+    dev = eng.device
+    fn = model.serve_step if s == 1 else model.paged_verify_step
+    with RouteLog() as rl:
+        fn(params, eng.cache.pools,
+           {"tokens": torch.zeros(b, s, dtype=torch.int32, device=dev)},
+           torch.from_numpy(np.arange(b * mp, dtype=np.int32)
+                            .reshape(b, mp)).to(dev),
+           torch.full((b,), 64, dtype=torch.int32, device=dev),
+           torch.full((b,), s, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+    return rl.counts
+
+
+def phase_qwen3moe(device, card):
+    """qwen3-moe-235b-a22b at full width and 4 layers served by
+    PagedServeEngine as CUDA graphs and eagerly: a wave of 4 requests,
+    streams compared, launches equal to per-call counts x calls (a
+    decode step: 4 x (4 projections + 3 expert stacks) + 1 cim_gemv, 4
+    paged_flash_decode), the experts kept and slots dropped of the eager
+    run; n-gram speculation (k = 4) against no speculation; a profiled
+    decode and verify step split by kernel beside its bound, the stacks'
+    bytes those of the experts the step's router kept."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+    from repro_torch.spec import SpecConfig
+
+    n_layers = 4
+    cfg = get_config(MOE_ARCH).replace(dtype="float32", remat=False,
+                                       n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = build_model(cfg, "int4", 128, device, seed=0)
+    torch.cuda.synchronize()
+    ffn = params["blocks"]["ffn"]
+    groups = {k: params["blocks"]["attn"]["wq"].group if k == "wq"
+              else ffn[k].group for k in ("wq", "we_gate", "we_down")}
+    log(f"{MOE_ARCH} x{n_layers} layers, full width: INT4 weights drawn and "
+        f"packed on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while drawing); "
+        f"groups {groups}; stacks {tuple(ffn['we_gate'].data.shape)} / "
+        f"{tuple(ffn['we_down'].data.shape)}")
+    if groups != {"wq": 128, "we_gate": 128, "we_down": 96}:
+        fail(f"{MOE_ARCH}: packed in groups {groups}")
+    V, n_new = cfg.vocab, 16
+    rng = np.random.default_rng(5)
+    wave = [rng.integers(0, V, int(n)).astype(np.int32)
+            for n in rng.integers(16, 65, size=4)]
+    serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                            max_seq=128, page_size=16, prefill_chunk=16)
+
+    def serve(eager):
+        eng = PagedServeEngine(model, params, serve_cfg, device=device,
+                               eager=eager)
+        if eng.config.resolved_kv_dtype() != torch.int8:
+            fail(f"{MOE_ARCH}: kv_dtype auto did not resolve to int8")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_run = time.perf_counter()
+        if eager:
+            with RouteLog() as rl:
+                reqs, ms, m = run_wave(eng, wave, n_new, 0)
+            routes = rl.summary(serve_cfg.max_batch)
+        else:
+            reqs, ms, m = run_wave(eng, wave, n_new, 0)
+            routes = None
+        run_s = time.perf_counter() - t_run
+        counts = launch_counts()
+        mode = "eager" if eager else "graph"
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        if n_tok != 4 * n_new or not all(
+                r.done and all(0 <= t < V for t in r.out_tokens)
+                for r in reqs):
+            fail(f"{MOE_ARCH} ({mode}): {n_tok} tokens, expected "
+                 f"{4 * n_new} in range")
+        expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls)
+        log(f"{MOE_ARCH} ({mode}): prompts {[len(r.prompt) for r in reqs]},"
+            f" {n_tok} tokens in {run_s:.2f} s; {eng.prefill_calls} "
+            f"prefill + {eng.decode_calls} decode calls; decode step wall "
+            f"median {float(np.median(ms)):.3f} ms; launches {counts}, "
+            f"expected {expect}")
+        if counts != expect or min(counts["cim_gemv"],
+                                   counts["paged_flash_decode"]) <= 0:
+            fail(f"{MOE_ARCH} ({mode}): launches {counts} != {expect}")
+        if routes is not None:
+            log(f"{MOE_ARCH} routing (eager run, every layer call): "
+                + json.dumps(routes))
+        return dict(eng=eng, reqs=reqs, counts=counts, run_s=run_s,
+                    decode_ms=float(np.median(ms)),
+                    ttft_ms=m["ttft_p50_s"] * 1e3, routes=routes,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    t_phase = time.perf_counter()
+    graph, eager = serve(False), serve(True)
+    eng = graph["eng"]
+    check_identity(f"graphs vs eager ({MOE_ARCH})", eager["reqs"],
+                   graph["reqs"], model, params, device)
+    name = f"{cfg.name}.serve_step"
+    graphs = check_graphs(MOE_ARCH, eng, {
+        (name, (4, 16)): step_launches(cfg, 16),
+        (name, (4, 1)): step_launches(cfg, 1)},
+        [(name, (4, 16)), (name, (4, 1))])
+    replay_ms = replay_check(f"{MOE_ARCH} decode", eng, model.serve_step,
+                             (4, 1))
+    result = {"n_layers": n_layers, "launches": graph["counts"],
+              "graphs": graphs, "decode_replay_device_ms": replay_ms,
+              "decode_busy_share": replay_ms / graph["decode_ms"],
+              "launches_per_decode_step": step_launches(cfg, 1),
+              "routing_eager_run": eager["routes"]}
+    for mode, run in (("graph", graph), ("eager", eager)):
+        result[mode] = {"decode_step_ms_median": run["decode_ms"],
+                        "ttft_p50_ms": run["ttft_ms"],
+                        "max_memory_allocated_gb": run["peak_gb"],
+                        "run_s": run["run_s"]}
+    log(f"{MOE_ARCH} decode step: wall median {graph['decode_ms']:.3f} ms "
+        f"as graphs (eager {eager['decode_ms']:.3f}), replay {replay_ms:.3f}"
+        f" ms on the device, busy {100 * replay_ms / graph['decode_ms']:.1f}"
+        " %")
+    counts = step_route_counts(model, params, eng, 1)
+    _, modes = profile_step(model, params, eng, device)
+    result["decode_step_experts_kept"] = [sum(c > 0 for c in cc)
+                                          for cc in counts]
+    result["decode_step_split"] = log_step_split(
+        f"{MOE_ARCH} decode step, batch 4, lanes at 64 keys, experts with "
+        f"rows per layer {result['decode_step_experts_kept']}, by kernel",
+        modes, step_bounds(model, params, 4, 1, [64] * 4, counts), False,
+        step_launches(cfg, 1))
+    del eager
+    eng = None
+    graph["eng"] = None
+
+    # n-gram speculation on motif prompts against the same prompts
+    # without it
+    motif = rng.integers(0, V, 8).astype(np.int32)
+    prompts = [np.tile(motif, 8)[:int(n)]
+               for n in rng.integers(32, 65, size=4)]
+
+    def spec_serve(spec):
+        e = PagedServeEngine(model, params, serve_cfg, spec=spec,
+                             device=device)
+        reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=24, rid=i)
+                for i, p in enumerate(prompts)]
+        reset_launch_counts()
+        steps = serve_timed(e, reqs)
+        counts = launch_counts()
+        expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
+                                   e.verify_calls)
+        label = f"{MOE_ARCH} " + ("spec ngram k=4" if spec else "no spec")
+        ver = [ms for ms, v in steps if v]
+        log(f"{label}: {e.prefill_calls} prefill + {e.decode_calls} decode "
+            f"+ {e.verify_calls} verify calls; launches {counts}, expected "
+            f"{expect}; verify step wall median "
+            f"{float(np.median(ver)) if ver else float('nan'):.3f} ms over "
+            f"{len(ver)} steps; acceptance "
+            f"{e.summary().get('spec_acceptance_rate')}")
+        if counts != expect or sum(len(r.out_tokens) for r in reqs) != 96:
+            fail(f"{label}: launches {counts} != {expect}, or tokens short")
+        if spec is not None and e.verify_calls <= 0:
+            fail(f"{label}: no verify call")
+        return e, reqs, counts, (float(np.median(ver)) if ver else None)
+
+    _, base, _, _ = spec_serve(None)
+    s_eng, s_reqs, s_counts, s_ms = spec_serve(SpecConfig(k=4))
+    check_identity(f"{MOE_ARCH} spec ngram", base, s_reqs, model, params,
+                   device)
+    verify = (f"{cfg.name}.paged_verify_step", (4, 5))
+    check_graphs(f"{MOE_ARCH} spec ngram", s_eng, {
+        (name, (4, 16)): step_launches(cfg, 16),
+        (name, (4, 1)): step_launches(cfg, 1),
+        verify: step_launches(cfg, 5, verify=True)}, [(name, (4, 16)),
+                                                      verify])
+    v_replay = replay_check(f"{MOE_ARCH} spec verify", s_eng,
+                            model.paged_verify_step, (4, 5))
+    v_counts = step_route_counts(model, params, s_eng, 5)
+    _, modes = profile_step(model, params, s_eng, device, s=5)
+    kept = [sum(c > 0 for c in cc) for cc in v_counts]
+    result["spec_ngram"] = {
+        "launches": s_counts, "verify_calls": s_eng.verify_calls,
+        "verify_step_ms_median": s_ms, "verify_replay_device_ms": v_replay,
+        "acceptance_rate": s_eng.summary().get("spec_acceptance_rate"),
+        "verify_step_experts_kept": kept,
+        "verify_step_split": log_step_split(
+            f"{MOE_ARCH} verify step, batch 4, s=5, lanes at 64 keys, "
+            f"experts with rows per layer {kept}, by kernel", modes,
+            step_bounds(model, params, 4, 5, [64] * 4, v_counts), True,
+            step_launches(cfg, 5, verify=True))}
+    result["phase_s"] = time.perf_counter() - t_phase
+    del s_eng, model, params
+    torch.cuda.empty_cache()
+    log(f"{MOE_ARCH} result " + json.dumps(result))
+    return graph["counts"], s_counts, result
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2220,6 +2739,7 @@ def main() -> None:
     checks = Checks()
     timings = phase_kernels(model, params, device, checks)
     window_timing = phase_family_kernels(device, checks)
+    timings.update(phase_moe_kernels(device, checks))
     by_path = {}
     by_path["decode"], full_result = phase_full_model(model, params, device,
                                                       card)
@@ -2233,12 +2753,15 @@ def main() -> None:
                       local_window=128)
     phase_card_vs_cpu(device, "gemma2-27b")
     phase_card_vs_cpu(device, "phi3-medium-14b")
+    phase_card_vs_cpu(device, MOE_ARCH)
     (by_path["gemma3_decode"], by_path["gemma3_spec_ngram"],
      gemma3_result) = phase_gemma3(device, card)
     short = {}
     for arch, key in (("gemma2-27b", "gemma2_decode"),
                       ("phi3-medium-14b", "phi3_decode")):
         by_path[key], short[arch] = phase_short_wave(arch, device)
+    (by_path["qwen3moe_decode"], by_path["qwen3moe_spec_ngram"],
+     moe_result) = phase_qwen3moe(device, card)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -2273,6 +2796,7 @@ def main() -> None:
     log("spec summary " + json.dumps(spec_result))
     log("gemma3-4b summary " + json.dumps(gemma3_result))
     log("gemma2-27b / phi3-medium-14b x4 summary " + json.dumps(short))
+    log(f"{MOE_ARCH} x4 summary " + json.dumps(moe_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

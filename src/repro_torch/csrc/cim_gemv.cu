@@ -54,8 +54,9 @@
 //   5. One launch per call, deterministic.  The (K/2, N) layout splits K
 //      across up to 16 blocks per column tile (grid (column tiles,
 //      splits)), as many as keep all blocks in one wave of two per SM,
-//      and more where a block's slice of W and x would not fit in
-//      shared memory (gemma2-27b's w_down, K = 36864: 16 splits).
+//      and more, up to 32, where a block's slice of W and x would not fit
+//      in shared memory (gemma2-27b's w_down, K = 36864: 16 splits at
+//      INT4, 32 at INT8 once M > 4).
 //      Each block writes its partial to the workspace, then
 //      __threadfence() and an atomicAdd on the tile's arrival counter;
 //      the block that arrives last sums the partials in split order,
@@ -66,10 +67,19 @@
 //      reducing through distributed shared memory was tried: the card
 //      could not hold every 8-block cluster of a call at once, and the
 //      second wave cost more than the reduction saved.)
-//   6. The host plan (kernels/cim_gemv.py: split_plan) reads shapes only:
-//      no host sync.  Its constants (TN, LANES, WARPS, MAX_SPLITS,
-//      TBL_VB, the M tiles, SMEM_MAX and the shared-memory sizes) mirror
-//      the ones here; change both together.
+//   6. The host plan (kernels/cim_gemv.py: split_plan, stack_plan) reads
+//      shapes only: no host sync.  Its constants (TN, LANES, WARPS,
+//      MAX_SPLITS, TBL_VB, the M tiles, SMEM_MAX and the shared-memory
+//      sizes) mirror the ones here; change both together.
+//   7. A stack of E expert weights (E, K/2, N), MoE's experts: the grid
+//      gains the expert axis, and block (tile, split, e) runs the (K/2,
+//      N) code on expert e's x rows (E, C, K) and weight.  The rows of
+//      each expert's capacity C that hold tokens, counts[e], are read on
+//      the device: an expert no token chose returns at once, and rows
+//      past its count are neither read nor written.  So a decode step
+//      reads the bytes of the chosen experts (at most 32 of qwen3-moe's
+//      128 a layer at batch 4), not of all E.  Its own arrival counters
+//      per (expert, tile).
 //
 // Any group that divides K works (qwen2.5-3b's w_down has groups of 86):
 // each row-lane walks its K range in order with a running position inside
@@ -93,11 +103,12 @@ constexpr int CT = 8;                   // column threads, 8 columns each
 constexpr int TN = 8 * CT;              // 64 columns per block
 constexpr int CHUNKS = TN / 16;         // 16-byte chunks per row of a tile
 constexpr int LANES = THREADS / CT;     // 32 row-lanes, each a K sub-range
-constexpr int MAX_SPLITS = 16;          // K splits of a column tile, at most
+constexpr int MAX_SPLITS = 32;          // K splits of a column tile, at most
 constexpr int STEPS = 4;                // weight commit groups per block
 constexpr int TBL_THREADS = 256;        // table layout: 8 warps
 constexpr int TBL_R = 8;                // vocab rows per warp
-constexpr int TBL_VB = TBL_R * TBL_THREADS / 32;  // 64 vocab rows per block
+constexpr int TBL_VB = TBL_R * TBL_THREADS / 32;  // 64 vocab rows a tile,
+                                        // at most (fewer for wide rows)
 constexpr int SMEM_MAX = 226 * 1024;     // of the H100's 227 KB per block,
                                         // 1 KB left for static shared memory
 
@@ -123,34 +134,53 @@ __host__ __device__ constexpr int cols_smem(int P, int MT, int rpp,
          (M > MT ? 2 : 1) * MT * LANES * cols_xstride(cdiv(P, LANES), rpp) * 4 +
          WARPS * MT * TN * 4 + cols_groups(P, rpp, group) * TN * 2;
 }
-// One table weight buffer: TBL_VB rows of KP bytes, +16 B of pad for a
+// One table weight buffer: VB rows of KP bytes, +16 B of pad for a
 // ragged last chunk, in whole 16-byte units.
-__host__ __device__ constexpr int tbl_wbuf(int KP) {
-  return cdiv(TBL_VB * KP + 16, 16) * 16;
+__host__ __device__ constexpr int tbl_wbuf(int KP, int VB) {
+  return cdiv(VB * KP + 16, 16) * 16;
 }
-// Shared memory of a table block with nbuf weight buffers: the weights,
-// their scales, and x for one M tile over K rounded up to 32.
+// Shared memory of a table block with nbuf weight buffers of VB rows: the
+// weights, their scales, and x for one M tile over K rounded up to 32.
 __host__ __device__ constexpr int rows_smem(int KP, int K, int NG, int MT,
-                                            int nbuf) {
-  return nbuf * tbl_wbuf(KP) + cdiv(nbuf * TBL_VB * NG * 2, 16) * 16 +
+                                            int nbuf, int VB) {
+  return nbuf * tbl_wbuf(KP, VB) + cdiv(nbuf * VB * NG * 2, 16) * 16 +
          MT * cdiv(K, 32) * 32 * 4;
 }
 
-// (K/2, N) or (K, N) layout.  Grid: (column tiles of TN, splits of P
-// stored rows).  Thread (rl, ct) owns columns 8 ct .. 8 ct + 7 of the
-// tile for row-lane rl, which walks stored rows [rl * PL, (rl + 1) * PL)
-// of the slice, PL = ceil(rows / LANES).  The weight comes in 16-byte
-// chunks in memory order, STEPS commit groups of row rounds, each group
-// read after a barrier.
+// (K/2, N) or (K, N) layout, or a stack of E such weights.  Grid: (column
+// tiles of TN, splits of P stored rows, E).  Thread (rl, ct) owns columns
+// 8 ct .. 8 ct + 7 of the tile for row-lane rl, which walks stored rows
+// [rl * PL, (rl + 1) * PL) of the slice, PL = ceil(rows / LANES).  The
+// weight comes in 16-byte chunks in memory order, STEPS commit groups of
+// row rounds, each group read after a barrier.  A stack (counts not
+// null): block (tile, split, e) computes rows [0, min(counts[e], M)) of
+// expert e's (M, K) x against its weight; an expert with no row returns at
+// once, and x rows past the count are neither read nor written.  M sizes
+// the layout (shared memory, workspace) either way.
 template <int BITS, int MT, int VEC>
 __global__ void __launch_bounds__(THREADS)
 cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
             const __half* __restrict__ scales, float* __restrict__ out,
-            float* __restrict__ part, int* __restrict__ counters, int M,
-            int K, int N, int group, int P) {
+            float* __restrict__ part, int* __restrict__ counters,
+            const int* __restrict__ counts, int M, int K, int N, int group,
+            int P) {
   constexpr int RPP = BITS == 4 ? 2 : 1;   // logical rows per stored row
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
+  const int e = blockIdx.z;                // expert (0 for one weight)
+  const int ME = counts != nullptr ? min(counts[e], M) : M;  // rows to do
+  if (ME <= 0) return;
+  {
+    const int KP_ = K / RPP;
+    const int tiles = gridDim.x;
+    x += static_cast<size_t>(e) * M * K;
+    w += static_cast<size_t>(e) * KP_ * N;
+    scales += static_cast<size_t>(e) * (K / group) * N;
+    out += static_cast<size_t>(e) * M * N;
+    if (part != nullptr)
+      part += static_cast<size_t>(e) * gridDim.y * M * N;
+    counters += e * tiles;
+  }
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -192,7 +222,7 @@ cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
       const int kk = i - m * KL;
       const int r = kk / (PL * RPP);
       float* d = xb + m * LANES * XS + r * XS + (kk - r * PL * RPP);
-      if (m0 + m < M)
+      if (m0 + m < ME)
         qgemv::cp4(d, x + static_cast<size_t>(m0 + m) * K + p0 * RPP + kk);
       else
         *d = 0.f;
@@ -226,11 +256,11 @@ cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     qgemv::cp_commit();
   }
 
-  for (int m0 = 0, t = 0; m0 < M; m0 += MT, ++t) {
+  for (int m0 = 0, t = 0; m0 < ME; m0 += MT, ++t) {
     if (t > 0) {
       qgemv::cp_wait<0>();                 // this tile's x is in, and
       __syncthreads();                     //   the last tile's is read
-      if (m0 + MT < M) {
+      if (m0 + MT < ME) {
         stage_x(m0 + MT, (t + 1) & 1);
         qgemv::cp_commit();
       }
@@ -321,7 +351,7 @@ cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
       }
     }
     if (mine && open) flush();             // the range ended inside a group
-    if (t == 0 && MT < M) {                // the next tile's x, under the
+    if (t == 0 && MT < ME) {               // the next tile's x, under the
       stage_x(MT, 1);                      //   reduction of this one
       qgemv::cp_commit();
     }
@@ -351,7 +381,7 @@ cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     for (int i = tid; i < MT * TN; i += THREADS) {
       const int m = i / TN;
       const int n = tile * TN + (i - m * TN);
-      if (m0 + m < M && n < N) {
+      if (m0 + m < ME && n < N) {
         float v = red[i];
 #pragma unroll
         for (int wv = 1; wv < WARPS; ++wv) v += red[wv * MT * TN + i];
@@ -375,7 +405,7 @@ cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
   __threadfence();
   const int cols = min(TN, N - tile * TN);
   const size_t MN = static_cast<size_t>(M) * N;
-  for (int i = tid; i < M * cols; i += THREADS) {
+  for (int i = tid; i < ME * cols; i += THREADS) {
     const int m = i / cols;
     const size_t o = static_cast<size_t>(m) * N + tile * TN + (i - m * cols);
     float t[MAX_SPLITS];
@@ -401,16 +431,18 @@ __device__ __forceinline__ int xswz(int k) {
 
 // (V, K/2) or (V, K) tied-table layout: out[m, v] = sum_k x[m, k] W[v, k].
 // Persistent: grid = min(vocab tiles, SMs); block b takes tiles b, b +
-// gridDim.x, ... of TBL_VB rows.  Warp wp computes rows r0 = 8 wp .. + 7
-// of a tile; lane l their 16-byte chunks l, l + 32, ...  With nbuf = 2
-// the next tile's weight lands in the second buffer while this one is
+// gridDim.x, ... of VB rows (64; 32, 16 or 8 where 64 rows of a wide
+// table do not fit shared memory: gemma2-27b's INT8 table, 4608 B a row).
+// Warp wp computes rows r0 = 8 wp .. + 7 of a tile, the warps past VB / 8
+// only copy; lane l takes their 16-byte chunks l, l + 32, ...  With nbuf =
+// 2 the next tile's weight lands in the second buffer while this one is
 // computed; x (one M tile) is staged once per block when M <= MT, else
-// once per tile and M tile.
+// once per tile and M tile.  A row's sum does not depend on VB.
 template <int BITS, int MT, int VEC>
 __global__ void __launch_bounds__(TBL_THREADS)
 rows_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
             const __half* __restrict__ scales, float* __restrict__ out,
-            int M, int K, int V, int group, int nbuf) {
+            int M, int K, int V, int group, int nbuf, int VB) {
   constexpr int RPP = BITS == 4 ? 2 : 1;
   constexpr int EPW = 4 * RPP;             // logical k per 32-bit word
   constexpr int EPC = 4 * EPW;             // logical k per 16-byte chunk
@@ -423,23 +455,24 @@ rows_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
   const int NI = cdiv(CPR, 32);            // chunks per lane
   const int NG = K / group;
   const int KS = cdiv(K, 32) * 32;
-  const int n_tiles = cdiv(V, TBL_VB);
-  const int wbuf = tbl_wbuf(KP);
+  const int n_tiles = cdiv(V, VB);
+  const int wbuf = tbl_wbuf(KP, VB);
   const bool one_mtile = M <= MT;
+  const bool computes = r0 < VB;           // warp-uniform
 
   unsigned char* w_s = smem;                         // nbuf weight buffers
   __half* s_s = reinterpret_cast<__half*>(smem + nbuf * wbuf);
   float* x_s = reinterpret_cast<float*>(
-      smem + nbuf * wbuf + cdiv(nbuf * TBL_VB * NG * 2, 16) * 16);
+      smem + nbuf * wbuf + cdiv(nbuf * VB * NG * 2, 16) * 16);
 
   // tile t's weight and its scales into buffer b, one commit group, read
   // after the next barrier.  Thread i copies 16-byte chunks i, i + 256,
   // ... of the tile in memory order, so the block's copies in flight at
   // any moment cover one contiguous stretch of the table.
   auto fetch = [&](int t, int b) {
-    const int v0 = t * TBL_VB;
+    const int v0 = t * VB;
     unsigned char* wb = w_s + b * wbuf;
-    const int n_rows = min(TBL_VB, V - v0);
+    const int n_rows = min(VB, V - v0);
     for (int i = tid; i < n_rows * CPR; i += TBL_THREADS) {
       const int r = i / CPR;
       const int ch = i - r * CPR;
@@ -449,8 +482,8 @@ rows_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     }
     // the tile's scales: (rows, NG) f16, contiguous, in 4-byte pieces;
     // a 2-byte tail (an odd count of halves) is read plainly
-    __half* sb = s_s + b * TBL_VB * NG;
-    const int nh = min(TBL_VB, V - v0) * NG;
+    __half* sb = s_s + b * VB * NG;
+    const int nh = min(VB, V - v0) * NG;
     const __half* sg = scales + static_cast<size_t>(v0) * NG;
     for (int i = 2 * tid; i + 1 < nh; i += 2 * TBL_THREADS)
       qgemv::cp4(sb + i, sg + i);
@@ -506,8 +539,8 @@ rows_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
     }
     __syncthreads();                       // tile t's scales (and x) are in
     const unsigned char* wb = w_s + b * wbuf;
-    const __half* sb = s_s + b * TBL_VB * NG;
-    const int v0 = t * TBL_VB;
+    const __half* sb = s_s + b * VB * NG;
+    const int v0 = t * VB;
 
     for (int m0 = 0; m0 < M; m0 += MT) {
       if (!one_mtile) {
@@ -515,6 +548,7 @@ rows_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
         stage_x(m0, false);
         __syncthreads();
       }
+      if (!computes) continue;
       float acc[TBL_R][MT];
 #pragma unroll
       for (int r = 0; r < TBL_R; ++r)
@@ -649,30 +683,34 @@ int smem_ok(Kern kern, int smem, int& limit) {
 
 template <int BITS, int MT, int VEC>
 int run_cols(const float* x, const uint8_t* w, const __half* s, float* out,
-             float* part, int* counters, int M, int K, int N, int group,
-             int P, int splits, cudaStream_t st) {
+             float* part, int* counters, const int* counts, int M, int K,
+             int N, int group, int P, int splits, int experts,
+             cudaStream_t st) {
   static int limit = 0;                   // the opt-in is set on first use
   auto kern = cols_kernel<BITS, MT, VEC>;
   const int smem = cols_smem(P, MT, BITS == 4 ? 2 : 1, group, M);
   int err = smem_ok(kern, smem, limit);
   if (err) return err;
-  kern<<<dim3(cdiv(N, TN), splits), THREADS, smem, st>>>(
-      x, w, s, out, part, counters, M, K, N, group, P);
+  kern<<<dim3(cdiv(N, TN), splits, experts), THREADS, smem, st>>>(
+      x, w, s, out, part, counters, counts, M, K, N, group, P);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS, int MT, int VEC>
 int run_rows(const float* x, const uint8_t* w, const __half* s, float* out,
-             int M, int K, int V, int group, int blocks, cudaStream_t st) {
+             int M, int K, int V, int group, int blocks, int vb,
+             cudaStream_t st) {
   static int limit = 0;                   // the opt-in is set on first use
   auto kern = rows_kernel<BITS, MT, VEC>;
   const int KP = K / (BITS == 4 ? 2 : 1);
   // two weight buffers when they fit, so the next tile loads under this
-  const int nbuf = rows_smem(KP, K, K / group, MT, 2) <= SMEM_MAX ? 2 : 1;
-  const int smem = rows_smem(KP, K, K / group, MT, nbuf);
+  const int nbuf =
+      rows_smem(KP, K, K / group, MT, 2, vb) <= SMEM_MAX ? 2 : 1;
+  const int smem = rows_smem(KP, K, K / group, MT, nbuf, vb);
   int err = smem_ok(kern, smem, limit);
   if (err) return err;
-  kern<<<blocks, TBL_THREADS, smem, st>>>(x, w, s, out, M, K, V, group, nbuf);
+  kern<<<blocks, TBL_THREADS, smem, st>>>(x, w, s, out, M, K, V, group, nbuf,
+                                          vb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -708,39 +746,46 @@ const char* cim_gemv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x (M, K) f32; w (K/2, N) uint8 [bits 4] or (K, N) int8; scales
-// (K/group, N) f16, 4-byte aligned; out (M, N) f32; part (splits, M, N)
-// f32 when splits > 1; counters: one int per column tile, zero on entry
-// and left zero.  mt: the M tile (1, 2, 4); splits: 1 to 16;
-// rows_per_split: stored rows per block; vec: 16 when w's base and N are
-// 16-byte aligned, else 4.  Requires N % 4 == 0.
+// x (E, M, K) f32; w (E, K/2, N) uint8 [bits 4] or (E, K, N) int8;
+// scales (E, K/group, N) f16, 4-byte aligned; out (E, M, N) f32; part
+// (E, splits, M, N) f32 when splits > 1; counters: one int per (expert,
+// column tile), zero on entry and left zero; counts: null for one weight
+// (E = 1), else (E,) int32 rows of x to compute per expert, read on the
+// device.  mt: the M tile (1, 2, 4); splits: 1 to 32; rows_per_split:
+// stored rows per block; vec: 16 when w's base and N are 16-byte aligned,
+// else 4.  Requires N % 4 == 0.
 int cim_gemv_cols(const void* x, const void* w, const void* scales,
-                  void* out, void* part, void* counters, int M, int K,
-                  int N, int bits, int group, int mt, int splits,
-                  int rows_per_split, int vec, void* stream) {
-  if (rows_per_split <= 0 || splits <= 0 || splits > MAX_SPLITS)
+                  void* out, void* part, void* counters, const void* counts,
+                  int M, int K, int N, int bits, int group, int mt,
+                  int splits, int rows_per_split, int vec, int experts,
+                  void* stream) {
+  if (rows_per_split <= 0 || splits <= 0 || splits > MAX_SPLITS ||
+      experts <= 0 || experts > 65535 || (experts > 1 && counts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<ColsFn>(
       bits, mt, vec, static_cast<const float*>(x),
       static_cast<const uint8_t*>(w), static_cast<const __half*>(scales),
       static_cast<float*>(out), static_cast<float*>(part),
-      static_cast<int*>(counters), M, K, N, group, rows_per_split, splits,
+      static_cast<int*>(counters), static_cast<const int*>(counts), M, K, N,
+      group, rows_per_split, splits, experts,
       static_cast<cudaStream_t>(stream));
 }
 
 // x (M, K) f32; w (V, K/2) uint8 [bits 4] or (V, K) int8; scales
 // (V, K/group) f16; out (M, V) f32.  vec: 16 when w's base and row
 // length are 16-byte aligned, else 4 (the row length a multiple of 4);
-// blocks: the persistent grid, at most ceil(V / 64).
+// vb: vocab rows a tile, 8, 16, 32 or 64; blocks: the persistent grid,
+// at most ceil(V / vb).
 int cim_gemv_rows(const void* x, const void* w, const void* scales,
                   void* out, int M, int K, int V, int bits, int group,
-                  int mt, int vec, int blocks, void* stream) {
-  if (blocks <= 0 || blocks > cdiv(V, TBL_VB))
+                  int mt, int vec, int blocks, int vb, void* stream) {
+  if (vb < TBL_R || vb > TBL_VB || vb % TBL_R || (vb & (vb - 1)) ||
+      blocks <= 0 || blocks > cdiv(V, vb))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<RowsFn>(
       bits, mt, vec, static_cast<const float*>(x),
       static_cast<const uint8_t*>(w), static_cast<const __half*>(scales),
-      static_cast<float*>(out), M, K, V, group, blocks,
+      static_cast<float*>(out), M, K, V, group, blocks, vb,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -13,7 +13,8 @@
 // What bounds it on an H100: bytes, the K/V rows up to pos, which all qpk
 // query rows of the group reuse.  The design is the paged kernel's
 // (split_decode.cuh) without the table:
-//   * grid (bg, n_split): each block folds `chunk` keys of one row, from a
+//   * grid (bg, n_split, z): each block folds `chunk` keys of one row for
+//     up to 8 of its query heads (z = 2 at 16 heads per kv head), from a
 //     shape-only host plan (kernels/split_decode.py), so a device `pos`
 //     needs no sync and the launch can be captured in a graph; a block
 //     whose keys lie past pos, or before the window, writes an empty
@@ -31,9 +32,13 @@
 
 namespace {
 
-// Grid: (bg, n_split).  q, out: (bg, qpk, hd) f32; k, v: (bg, S, hd).
+// Grid: (bg, n_split, ceil(qpk / 8)): block z takes query heads [8 z,
+// 8 z + 8) of its row.  q, out: (bg, qpk, hd) f32; k, v: (bg, S, hd).
+// Launch bounds: at least 3 blocks an SM (up to 170 registers).  With no
+// minimum ptxas held some instantiations at 80-128 registers and spilled
+// (int8 hd 128 once the query-group axis came in); with 3 none spills.
 template <typename T, int HD>
-__global__ void __launch_bounds__(split::THREADS)
+__global__ void __launch_bounds__(split::THREADS, 3)
 flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ pos_ptr,
                     int pos_val, float* __restrict__ out,
@@ -51,11 +56,12 @@ flash_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   }
   const long long row0 = static_cast<long long>(row) * S;
   auto row_of = [=](int t) { return row0 + t; };
-  const size_t head = static_cast<size_t>(row) * QPK * HD;
+  const int r0 = blockIdx.z * split::QMAX;     // this block's query heads
+  const size_t head = (static_cast<size_t>(row) * QPK + r0) * HD;
   split::fold<T, HD, false>(q + head, k, v, nullptr, nullptr, row_of,
                             max(s * chunk, lo), min((s + 1) * chunk, hi),
-                            empty, QPK, scale, cap, out + head, part, row, s,
-                            n_split);
+                            empty, min(split::QMAX, QPK - r0), scale, cap,
+                            out + head, part, row, s, n_split, QPK, r0);
 }
 
 template <typename T>
@@ -87,14 +93,14 @@ const char* flash_decode_error_string(int err) {
 
 // kv_kind: 0 = f32 cache, 1 = bf16 cache.  pos_ptr: a device int32, or
 // null to use pos_val.  part: scratch of bg * n_split * qpk * (hd + 2)
-// f32 (unused when n_split == 1).  qpk <= 8; hd in {16, 32, 64, 128, 256}.
+// f32 (unused when n_split == 1).  qpk <= 16; hd in {16, 32, 64, 128, 256}.
 int flash_decode(const void* q, const void* k, const void* v,
                  const void* pos_ptr, int pos_val, void* out, void* part,
                  int BG, int S, int QPK, int HD, int chunk, int n_split,
                  int kv_kind, int window, float cap, float scale,
                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (QPK < 1 || QPK > split::QMAX || n_split < 1 ||
+  if (QPK < 1 || QPK > split::QPK_MAX || n_split < 1 ||
       n_split > split::MAX_SPLITS)
     return cudaErrorInvalidValue;
   switch (kv_kind) {

@@ -10,8 +10,11 @@
 // query head of the group reuses.  At qpk = 8 the f32 products come
 // close too (16 FMA-flops per INT8 byte), so overhead instructions count.
 // The design (split_decode.cuh):
-//   * grid (b * g, n_split): each block folds `chunk` keys of one (lane,
-//     kv head), a whole number of pages; n_split and chunk come from the
+//   * grid (b * g, n_split, z): each block folds `chunk` keys of one
+//     (lane, kv head) for up to 8 of its query heads (z = 2 at qwen3-moe's
+//     16 heads per kv head: each block reads the split's K/V rows, the
+//     second from L2), a whole number of pages; n_split and chunk come
+//     from the
 //     host's shape-only plan (kernels/split_decode.py), so the wrapper
 //     never reads `lengths` and the launch can be captured in a graph.  A
 //     block whose keys lie past the lane's length, or before its sliding
@@ -32,11 +35,16 @@
 
 namespace {
 
-// Grid: (b * g, n_split).  q, out: (b, g, qpk, hd) f32; pools (n_pages,
+// Grid: (b * g, n_split, ceil(qpk / 8)): block z takes query heads
+// [8 z, 8 z + 8) of its (lane, kv head).  q, out: (b, g, qpk, hd) f32;
+// pools (n_pages,
 // ps, g, hd); scales (n_pages, ps, g) f16 when QUANT; tables (b,
 // max_pages) int32; lengths (b,) int32 including the current token.
+// Launch bounds: at least 3 blocks an SM (up to 170 registers).  With no
+// minimum ptxas held some instantiations at 80-128 registers and spilled
+// (int8 hd 128 once the query-group axis came in); with 3 none spills.
 template <typename T, int HD, bool QUANT>
-__global__ void __launch_bounds__(split::THREADS)
+__global__ void __launch_bounds__(split::THREADS, 3)
 decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
               const T* __restrict__ vp, const __half* __restrict__ ks,
               const __half* __restrict__ vs, const int* __restrict__ tables,
@@ -58,11 +66,12 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ kp,
     const int pg = t / PS;
     return (static_cast<long long>(tab[pg]) * PS + (t - pg * PS)) * G + gi;
   };
-  const size_t head = static_cast<size_t>(row) * QPK * HD;
+  const int r0 = blockIdx.z * split::QMAX;     // this block's query heads
+  const size_t head = (static_cast<size_t>(row) * QPK + r0) * HD;
   split::fold<T, HD, QUANT>(q + head, kp, vp, ks, vs, row_of,
                             max(s * chunk, lo), min((s + 1) * chunk, hi),
-                            empty, QPK, scale, cap, out + head, part, row, s,
-                            n_split);
+                            empty, min(split::QMAX, QPK - r0), scale, cap,
+                            out + head, part, row, s, n_split, QPK, r0);
 }
 
 template <typename T, bool QUANT>
@@ -97,7 +106,7 @@ const char* paged_flash_decode_error_string(int err) {
 
 // kv_kind: 0 = f32 pools, 1 = bf16 pools, 2 = int8 pools with f16 scales.
 // part: scratch of b * g * n_split * qpk * (hd + 2) f32 (unused when
-// n_split == 1).  qpk <= 8; hd in {16, 32, 64, 128, 256}.
+// n_split == 1).  qpk <= 16; hd in {16, 32, 64, 128, 256}.
 int paged_flash_decode(const void* q, const void* kp, const void* vp,
                        const void* ks, const void* vs, const void* tables,
                        const void* lengths, void* out, void* part, int B,
@@ -105,7 +114,7 @@ int paged_flash_decode(const void* q, const void* kp, const void* vp,
                        int chunk, int n_split, int kv_kind, int window,
                        float cap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (QPK < 1 || QPK > split::QMAX || n_split < 1 ||
+  if (QPK < 1 || QPK > split::QPK_MAX || n_split < 1 ||
       n_split > split::MAX_SPLITS)
     return cudaErrorInvalidValue;
   switch (kv_kind) {

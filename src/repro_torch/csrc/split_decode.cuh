@@ -1,9 +1,12 @@
 // Split-KV ("flash-decoding") attention, shared by paged_flash_decode.cu,
 // flash_decode.cu and paged_flash_verify.cu.
 //
-// A call's grid is (rows, n_split): a row is one (lane, kv head) with its
-// query rows (qpk heads; s * qpk for a verify window), and split s folds
-// keys [s * chunk, (s + 1) * chunk) of it.  The visible keys of a
+// A call's grid is (rows, n_split, z): a row is one (lane, kv head) with
+// its query rows (qpk heads; s * qpk for a verify window), split s folds
+// keys [s * chunk, (s + 1) * chunk) of it, and z counts the blocks that
+// share a (row, split) by groups of query rows (a one-token row of qpk >
+// QMAX heads: block z holds heads [QMAX z, QMAX z + QMAX), and each reads
+// the split's K/V rows for its own group).  The visible keys of a
 // one-token row are one interval [lo, hi); each kernel supplies that
 // interval and how key t's K/V row is found (`row_of`, a row index into
 // (rows, hd) pools, and its scale when QUANT).  The pieces here:
@@ -42,7 +45,10 @@ using attn::NEG_INF;
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int QMAX = 8;                 // query rows per kv head, at most
+constexpr int QMAX = 8;                 // query rows a warp holds
+constexpr int QPK_MAX = 16;             // query heads per kv head, at most
+                                        //   (one-token kernels: QPK_MAX /
+                                        //   QMAX blocks a (row, split))
 constexpr int MAX_SPLITS = 256;         // splits per row, at most
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -238,36 +244,46 @@ __device__ __forceinline__ void tile_fold(
 }
 
 // One block: fold keys [kbeg, kend) of row `row` (split `split` of
-// n_split) into the block's partial, or into the output when n_split == 1.
+// n_split) for nq <= QMAX of its R query rows, rows [r0, r0 + nq), into
+// the block's partial, or into the output when n_split == 1.
 // zero_scores: the row sees no key, so every key counts with score 0.
 // row_of(t): row index of key t in the pools (and in the scale pools).
-// qh, out_h: this row's (qpk, HD) query and output; part: the scratch.
+// qh, out_h: the block's (nq, HD) query rows and output; part: the
+// scratch, R partial rows per (row, split).
 template <typename T, int HD, bool QUANT, typename RowOf>
 __device__ __forceinline__ void fold(
     const float* __restrict__ qh, const T* __restrict__ kp,
     const T* __restrict__ vp, const __half* __restrict__ ks,
     const __half* __restrict__ vs, RowOf row_of, int kbeg, int kend,
-    bool zero_scores, int qpk, float scale, float cap,
+    bool zero_scores, int nq, float scale, float cap,
     float* __restrict__ out_h, float* __restrict__ part, int row,
-    int split, int n_split) {
+    int split, int n_split, int R, int r0) {
   using S = Shape<T, HD>;
   constexpr int KT = S::KT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t n_part = static_cast<size_t>(gridDim.x) * n_split * qpk;
-  float* ml = part + n_part * HD;                  // (rows, n_split, qpk, 2)
-  const size_t pidx = (static_cast<size_t>(row) * n_split + split) * qpk;
+  // where this block's partial rows go: (rows, n_split, R, HD) then
+  // (rows, n_split, R, 2); computed where they are written, so nothing
+  // of it stays live across the walk
+  auto part_row = [&]() {
+    return (static_cast<size_t>(row) * n_split + split) * R + r0;
+  };
+  auto part_ml = [&]() {
+    return part + static_cast<size_t>(gridDim.x) * n_split * R * HD;
+  };
 
   if (kbeg >= kend) {                 // nothing of this row in this split
     if (n_split > 1) {
-      for (int r = tid; r < qpk; r += THREADS) {
+      float* ml = part_ml();
+      const size_t pidx = part_row();
+      for (int r = tid; r < nq; r += THREADS) {
         ml[(pidx + r) * 2] = NEG_INF;
         ml[(pidx + r) * 2 + 1] = 0.f;
       }
     } else {
-      for (int i = tid; i < qpk * HD; i += THREADS) out_h[i] = 0.f;
+      for (int i = tid; i < nq * HD; i += THREADS) out_h[i] = 0.f;
     }
     return;
   }
@@ -321,7 +337,7 @@ __device__ __forceinline__ void fold(
   float ks_cur = 1.f, vs_cur = 1.f, ks_nxt = 1.f, vs_nxt = 1.f;
   if (warp < n_tiles) stage(warp, 0, ks_cur, vs_cur);  // first tile in
   for (int i = tid; i < QMAX * HD; i += THREADS)      //   flight under q
-    q_s[i] = i < qpk * HD ? qh[i] : 0.f;
+    q_s[i] = i < nq * HD ? qh[i] : 0.f;
   __syncthreads();                    // q_s is in place
   int it = 0;
   for (int tile = warp; tile < n_tiles; tile += WARPS, ++it) {
@@ -375,7 +391,9 @@ __device__ __forceinline__ void fold(
         wm[2 * QMAX + r * HD + d0 + i] = acc[r][i];
   }
   __syncthreads();
-  for (int i = tid; i < qpk * HD; i += THREADS) {
+  float* ml = part_ml();
+  const size_t pidx = part_row();
+  for (int i = tid; i < nq * HD; i += THREADS) {
     const int r = i / HD;
     const int d = i - r * HD;
     const float* w0 = reinterpret_cast<const float*>(smem + QMAX * HD * 4);
@@ -486,14 +504,15 @@ int launch_grid(Kernel kern, dim3 grid, int threads, int smem, int& limit,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The one-token kernels: grid (rows, n_split) of THREADS threads, qpk
-// partial rows per grid row.
+// The one-token kernels: grid (rows, n_split, ceil(qpk / QMAX)) of
+// THREADS threads, qpk partial rows per grid row.
 template <typename T, int HD, typename Kernel, typename... Args>
 int launch(Kernel kern, int rows, int n_split, int qpk, float* part,
            float* out, cudaStream_t st, Args... args) {
   static int limit = 0;               // the opt-in is set on first use
-  return launch_grid(kern, dim3(rows, n_split), THREADS, Shape<T, HD>::SMEM,
-                     limit, qpk, 1, qpk, HD, part, out, st, args...);
+  return launch_grid(kern, dim3(rows, n_split, (qpk + QMAX - 1) / QMAX),
+                     THREADS, Shape<T, HD>::SMEM, limit, qpk, 1, qpk, HD,
+                     part, out, st, args...);
 }
 
 // Dispatch a runtime head dim onto the instantiated ones.

@@ -9,7 +9,12 @@ bounds it and how.  It takes both serve-path layouts:
   * axis=-2 `(K/2, N)` (or `(K, N)` INT8) projections, scales
     `(K/group, N)`: q/k/v/o, `w_down`;
   * axis=-1 `(V, K/2)` tied embedding table, scales `(V, K/group)`:
-    the logits head, out[m, v] = x[m] . table[v].
+    the logits head, out[m, v] = x[m] . table[v];
+  * an axis=-2 stack of E such projections, `(E, K/2, N)` with scales
+    `(E, K/group, N)`: MoE's experts.  x is `(E, C, K)` (each expert's
+    capacity of C rows) and a device `int32` count of the rows each
+    expert holds goes with it; the kernel reads the count itself, skips
+    an expert with none and leaves rows past it unread and unwritten.
 
 Any group dividing K works (qwen2.5-3b's `w_down` has groups of 86,
 which the Pallas kernel's `block_k % group` rule could not take).
@@ -26,7 +31,7 @@ on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,10 +45,12 @@ from .split_decode import H100_SMS, sm_count
 TN = 64                     # columns per block, (K/2, N) layout
 LANES = 32                  # row-lanes per block, each a K sub-range
 WARPS = 8                   # warps per (K/2, N) block
-MAX_SPLITS = 16             # K splits of a column tile, at most
+MAX_SPLITS = 32             # K splits of a column tile, at most
+WAVE_SPLITS = 16            # ... while they only fill the wave
 MAX_TILES = 4096            # arrival counters kept per device
 BLOCKS_PER_SM = 2           # (K/2, N) blocks that fit on an SM at once
-TBL_VB = 64                 # vocab rows per table tile
+TBL_VB = 64                 # vocab rows per table tile, at most
+TBL_R = 8                   # vocab rows per warp: the least tile
 M_TILES = (1, 2, 4)         # instantiated M tiles
 SMEM_MAX = 226 * 1024       # dynamic shared memory per block, at most
 
@@ -52,7 +59,7 @@ class Plan(NamedTuple):
     mt: int                 # M tile: rows of x a block holds at once
     splits: int             # K splits of a column tile (1 for the table)
     rows: int               # stored rows per split (vocab rows per tile
-                            # for the table)
+                            # for the table: 64, or fewer for wide rows)
     blocks: int             # grid size
 
 
@@ -69,19 +76,39 @@ def split_plan(layout: str, m: int, stored_rows: int, n: int, bits: int,
                n_sms: int = H100_SMS) -> Plan:
     """The launch of one call, from shapes alone.  layout "cols": a
     (stored_rows, n) projection in column tiles of TN, K split over up
-    to MAX_SPLITS blocks (a power of two, at least LANES stored rows
+    to WAVE_SPLITS blocks (a power of two, at least LANES stored rows
     each) while tiles x splits fits the one wave of two blocks per SM,
-    and further while a block's slice would not fit its shared memory
-    (`_slice_fits`); "table": (n, stored_rows) rows in tiles of TBL_VB,
-    one persistent block per SM, no split."""
+    and further, up to MAX_SPLITS, while a block's slice would not fit
+    its shared memory (`_slice_fits`); "table": (n, stored_rows) rows in
+    tiles of TBL_VB, one persistent block per SM, no split (`table_rows`
+    halves the tile where the weight's rows are too wide)."""
     if bits not in (4, 8) or layout not in ("cols", "table"):
         raise ValueError(f"split_plan: layout {layout!r}, bits {bits}")
     mt = m_tile(m)
     if layout == "table":
         return Plan(mt, 1, TBL_VB, max(1, min(_cdiv(n, TBL_VB), n_sms)))
+    return _cols_plan(m, stored_rows, n, bits, n_sms, 1)
+
+
+def stack_plan(m: int, stored_rows: int, n: int, bits: int, experts: int,
+               n_sms: int = H100_SMS) -> Plan:
+    """The launch of one expert-stack call, from shapes alone: the
+    "cols" plan of one expert's (stored_rows, n) weight at M = m (its
+    capacity), with the experts' blocks counted towards the wave (E x
+    tiles fills the card on its own, so K splits only where a slice
+    would not fit); blocks counts one expert's."""
+    if bits not in (4, 8) or experts < 1:
+        raise ValueError(f"stack_plan: bits {bits}, experts {experts}")
+    return _cols_plan(m, stored_rows, n, bits, n_sms, experts)
+
+
+def _cols_plan(m: int, stored_rows: int, n: int, bits: int, n_sms: int,
+               units: int) -> Plan:
+    mt = m_tile(m)
     tiles = _cdiv(n, TN)
     splits = 1
-    while (splits < MAX_SPLITS and tiles * splits * 2 <= BLOCKS_PER_SM * n_sms
+    while (splits < WAVE_SPLITS
+           and units * tiles * splits * 2 <= BLOCKS_PER_SM * n_sms
            and stored_rows >= 2 * splits * LANES):
         splits *= 2
     rows = _cdiv(_cdiv(stored_rows, splits), LANES) * LANES
@@ -94,6 +121,18 @@ def split_plan(layout: str, m: int, stored_rows: int, n: int, bits: int,
     return Plan(mt, splits, rows, tiles * splits)
 
 
+def table_rows(plan: Plan, k: int, n: int, bits: int, group: int,
+               n_sms: int = H100_SMS) -> Plan:
+    """A table plan with its tile of vocab rows halved (64 -> 32, 16, 8)
+    while one weight buffer, its scales and x do not fit shared memory
+    (64 rows of 4608 B are 295 KB: gemma2-27b's INT8 table takes 32)."""
+    vb = plan.rows
+    while vb > TBL_R and _table_smem(k, bits, group, plan.mt, 1,
+                                     vb) > SMEM_MAX:
+        vb //= 2
+    return Plan(plan.mt, 1, vb, max(1, min(_cdiv(n, vb), n_sms)))
+
+
 def _slice_fits(rows: int, m: int, mt: int, bits: int) -> bool:
     """Whether a (K/2, N) block over `rows` stored rows fits SMEM_MAX,
     with scales counted as if in groups of LANES (the plan reads no
@@ -102,11 +141,12 @@ def _slice_fits(rows: int, m: int, mt: int, bits: int) -> bool:
     return smem_bytes("cols", plan, m, 0, bits, LANES) <= SMEM_MAX
 
 
-def _table_smem(k, bits, group, mt, nbuf):
-    """A table block with nbuf weight buffers (`rows_smem`)."""
+def _table_smem(k, bits, group, mt, nbuf, vb=TBL_VB):
+    """A table block with nbuf weight buffers of vb rows
+    (`rows_smem`)."""
     kp = k // (2 if bits == 4 else 1)
-    wbuf = _cdiv(TBL_VB * kp + 16, 16) * 16
-    return (nbuf * wbuf + _cdiv(nbuf * TBL_VB * (k // group) * 2, 16) * 16
+    wbuf = _cdiv(vb * kp + 16, 16) * 16
+    return (nbuf * wbuf + _cdiv(nbuf * vb * (k // group) * 2, 16) * 16
             + mt * _cdiv(k, 32) * 128)
 
 
@@ -123,9 +163,9 @@ def smem_bytes(layout: str, plan: Plan, m: int, k: int, bits: int,
                 + WARPS * plan.mt * TN * 4
                 + (_cdiv(plan.rows * rpp, group) + 1) * TN * 2)
     # two weight buffers (the next tile loads under this one) if they fit
-    two = _table_smem(k, bits, group, plan.mt, 2)
+    two = _table_smem(k, bits, group, plan.mt, 2, plan.rows)
     return two if two <= SMEM_MAX else _table_smem(k, bits, group,
-                                                    plan.mt, 1)
+                                                    plan.mt, 1, plan.rows)
 
 
 def lane_rows(plan, split: int, stored_rows: int, lanes: int = LANES):
@@ -140,7 +180,8 @@ def lane_rows(plan, split: int, stored_rows: int, lanes: int = LANES):
 
 
 def cim_gemv_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """The plain PyTorch version: the fused grouped contraction."""
+    """The plain PyTorch version: the fused grouped contraction (for a
+    stack, expert by expert, as `ref_qmatmul_fused` with a lead dim)."""
     return ref_qmatmul_fused(x, w, out_dtype=torch.float32)
 
 
@@ -200,10 +241,11 @@ def _lib():
     lib = _build.load("cim_gemv")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cim_gemv_cols.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                      i, i, i, p]
+        lib.cim_gemv_cols.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                      i, i, i, i, i, p]
         lib.cim_gemv_cols.restype = i
-        lib.cim_gemv_rows.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.cim_gemv_rows.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                      p]
         lib.cim_gemv_rows.restype = i
         lib.cim_gemv_error_string.argtypes = [i]
         lib.cim_gemv_error_string.restype = ctypes.c_char_p
@@ -227,16 +269,18 @@ def _counters(device: torch.device, kernel: str = "cim_gemv"
     return t
 
 
-def _check_packed(w: QTensor, k: int) -> int:
-    """Validate a 2D QTensor against x's K; returns the stored row
-    length along K (K/2 for INT4, K for INT8)."""
+def _check_packed(w: QTensor, k: int, ndim: int = 2) -> int:
+    """Validate a 2D QTensor (or, ndim = 3, an expert stack) against
+    x's K; returns the stored row length along K (K/2 for INT4, K for
+    INT8)."""
     want = torch.uint8 if w.bits == 4 else torch.int8
     if w.bits not in (4, 8) or w.data.dtype != want:
         raise ValueError(f"cim_gemv: bits={w.bits} with data {w.data.dtype}")
     if w.scales.dtype != torch.float16:
         raise ValueError(f"cim_gemv: scales must be f16, got {w.scales.dtype}")
-    if w.data.ndim != 2 or w.scales.ndim != 2:
-        raise ValueError("cim_gemv: takes a 2D (per-layer) packed weight")
+    if w.data.ndim != ndim or w.scales.ndim != ndim:
+        raise ValueError("cim_gemv: takes a 2D (per-layer) packed weight "
+                         "or a 3D (per-layer) expert stack with counts")
     if not (w.data.is_contiguous() and w.scales.is_contiguous()):
         raise ValueError("cim_gemv: packed data and scales must be contiguous")
     if k % w.group:
@@ -250,13 +294,23 @@ def vec_bytes(w: QTensor, row_bytes: int) -> int:
     return 16 if w.data.data_ptr() % 16 == 0 and row_bytes % 16 == 0 else 4
 
 
-def cim_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+def cim_gemv(x: torch.Tensor, w: QTensor,
+             counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (M, K) f32; w: a 2D packed QTensor in either layout.
-    Returns (M, N) f32 (N = V for the axis=-1 table)."""
+    Returns (M, N) f32 (N = V for the axis=-1 table).
+
+    With `counts`: x (E, C, K) f32, w an (E, K/2, N) stack, counts (E,)
+    int32 on x's device, the rows of each expert's C to compute (at most
+    C).  Returns (E, C, N) f32 whose rows past an expert's count are
+    unspecified on the card (the plain version computes every row)."""
     if not isinstance(w, QTensor):
         raise TypeError("cim_gemv takes a QTensor weight")
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    tensors = [x] + ([counts] if counts is not None else [])
+    if all(t.device.type == "cpu" for t in tensors) \
+            and w.device.type == "cpu":
         return cim_gemv_plain(x, w)
+    if counts is not None:
+        return _stack(x, w, counts)
     if x.device.type != "cuda" or w.device != x.device \
             or w.scales.device != x.device:
         raise ValueError(f"cim_gemv: x on {x.device}, weight on "
@@ -292,6 +346,8 @@ def cim_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     if m == 0:
         return out
     plan = split_plan(layout, m, stored, n, w.bits, sm_count(x.device))
+    if layout == "table":
+        plan = table_rows(plan, k, n, w.bits, w.group, sm_count(x.device))
     smem = smem_bytes(layout, plan, m, k, w.bits, w.group)
     if smem > SMEM_MAX:
         raise ValueError(f"cim_gemv: a {layout} block of this weight needs "
@@ -309,13 +365,69 @@ def cim_gemv(x: torch.Tensor, w: QTensor) -> torch.Tensor:
         err = lib.cim_gemv_cols(
             x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
             out.data_ptr(), part.data_ptr() if part is not None else None,
-            _counters(x.device).data_ptr(), m, k, n, w.bits, w.group,
-            plan.mt, plan.splits, plan.rows, vec, stream)
+            _counters(x.device).data_ptr(), None, m, k, n, w.bits, w.group,
+            plan.mt, plan.splits, plan.rows, vec, 1, stream)
     else:
         err = lib.cim_gemv_rows(
             x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
             out.data_ptr(), m, k, n, w.bits, w.group, plan.mt, vec,
-            plan.blocks, stream)
+            plan.blocks, plan.rows, stream)
+    if err:
+        raise RuntimeError("cim_gemv launch failed: "
+                           + lib.cim_gemv_error_string(err).decode())
+    cim_gemv.launches += 1
+    return out
+
+
+def _stack(x: torch.Tensor, w: QTensor, counts: torch.Tensor
+           ) -> torch.Tensor:
+    """The expert-stack launch: one kernel, grid (tiles, splits, E)."""
+    if x.device.type != "cuda" or w.device != x.device \
+            or w.scales.device != x.device or counts.device != x.device:
+        raise ValueError(f"cim_gemv: x on {x.device}, stack on "
+                         f"{w.data.device}, counts on {counts.device}")
+    if x.dtype != torch.float32 or x.ndim != 3 or not x.is_contiguous():
+        raise ValueError("cim_gemv: a stack's x must be a contiguous (E, C, "
+                         f"K) f32 tensor, got {tuple(x.shape)} {x.dtype}")
+    e, c, k = x.shape
+    stored = _check_packed(w, k, ndim=3)
+    if w.axis != -2:
+        raise ValueError(f"cim_gemv: a stack takes axis=-2, got {w.axis}")
+    n = w.data.shape[2]
+    if w.data.shape[:2] != (e, stored) or w.scales.shape != (
+            e, k // w.group, n):
+        raise ValueError(f"cim_gemv: stack {tuple(w.data.shape)} / scales "
+                         f"{tuple(w.scales.shape)} vs x {tuple(x.shape)}")
+    if n % 4:
+        raise ValueError(f"cim_gemv: N={n} must be a multiple of 4")
+    if counts.dtype != torch.int32 or counts.shape != (e,) \
+            or not counts.is_contiguous():
+        raise ValueError(f"cim_gemv: counts must be ({e},) int32")
+    if w.scales.data_ptr() % 4:
+        raise ValueError("cim_gemv: scales must start on a 4-byte boundary")
+    out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
+    if c == 0 or e == 0:
+        return out
+    plan = stack_plan(c, stored, n, w.bits, e, sm_count(x.device))
+    smem = smem_bytes("cols", plan, c, k, w.bits, w.group)
+    if smem > SMEM_MAX:
+        raise ValueError(f"cim_gemv: a stack block of this weight needs "
+                         f"{smem} B of shared memory, over {SMEM_MAX}")
+    if plan.splits > 1 and e * _cdiv(n, TN) > MAX_TILES:
+        raise ValueError(f"cim_gemv: {e} experts x {_cdiv(n, TN)} column "
+                         f"tiles are more than the {MAX_TILES} arrival "
+                         "counters")
+    vec = vec_bytes(w, n)
+    count_dequant("fused_dequant")
+    lib = _lib()
+    part = (torch.empty(e * plan.splits * c * n, dtype=torch.float32,
+                        device=x.device) if plan.splits > 1 else None)
+    err = lib.cim_gemv_cols(
+        x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        _counters(x.device).data_ptr(), counts.data_ptr(), c, k, n, w.bits,
+        w.group, plan.mt, plan.splits, plan.rows, vec, e,
+        _build.stream_handle())
     if err:
         raise RuntimeError("cim_gemv launch failed: "
                            + lib.cim_gemv_error_string(err).decode())

@@ -9,9 +9,10 @@ across blocks from a shape-only plan (`split_decode.plan_splits`); each
 block folds its keys with an online softmax in f32 and masks its own
 ragged edge, so any cache length S is taken (the TPU kernel needed S to
 be a multiple of its 512-key block), and a second launch merges the
-splits in a fixed order.  f32 and bf16 caches, a sliding window and a
-softcap.  `pos` is a Python int or a 0-d int32 tensor on the card,
-which the kernel reads itself (no host sync).  When no key is visible
+splits in a fixed order; up to 16 query heads a row, 8 a block.  f32
+and bf16 caches, a sliding window and a softcap.  `pos` is a Python int
+or a 0-d int32 tensor on the card, which the kernel reads itself (no
+host sync).  When no key is visible
 (pos < 0, or a window past the cache) the result is the mean of V over
 all S keys, as the TPU kernel and the plain version give.
 
@@ -54,9 +55,12 @@ def _lib():
     return lib
 
 
-def plan(bg: int, S: int, n_sms: int = split_decode.H100_SMS):
-    """(n_split, chunk) of a call over `bg` rows of S keys."""
-    return split_decode.plan_splits(bg, S, 16, n_sms)
+def plan(bg: int, S: int, n_sms: int = split_decode.H100_SMS,
+         qpk: int = 1):
+    """(n_split, chunk) of a call over `bg` rows of S keys, each row
+    weighed by its blocks of query heads."""
+    return split_decode.plan_splits(bg * split_decode.q_groups(qpk), S, 16,
+                                    n_sms)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,7 +103,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bg == 0:
         return out
     S = k.shape[1]
-    n_split, chunk = plan(bg, S, split_decode.sm_count(q.device))
+    n_split, chunk = plan(bg, S, split_decode.sm_count(q.device), qpk)
     part = split_decode.scratch(bg, n_split, qpk, hd, q.device)
     lib = _lib()
     err = lib.flash_decode(

@@ -59,6 +59,18 @@ def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     return out.reshape(*lead, n).to(x.dtype)
 
 
+def expert_qmatmul(x: torch.Tensor, w: Any, counts: torch.Tensor
+                   ) -> torch.Tensor:
+    """x (E, C, K) against an expert stack (E, K, N) -> (E, C, N): a
+    packed stack goes to `cim_gemv`'s stack layout, which computes only
+    the first counts[e] rows of expert e on the card (the rest are
+    unspecified there); a float stack is one batched product, as the
+    JAX package's einsum."""
+    if not isinstance(w, QTensor):
+        return torch.einsum("ecd,edf->ecf", x, w.to(x.dtype))
+    return cim_gemv(x.contiguous(), w, counts).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: Any, w_up: Any) -> torch.Tensor:
     """silu(x @ Wg) * (x @ Wu): the fused kernel for packed weights, two
     matrix products for float ones."""

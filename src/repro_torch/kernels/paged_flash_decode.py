@@ -7,7 +7,8 @@ token per lane) and `paged_flash_verify` (a speculative-decode window of
 kernel (`csrc/paged_flash_decode.cu` on `csrc/split_decode.cuh`) is bound
 by the bytes of the K/V rows a lane owns.  It splits each (lane, kv
 head)'s keys across blocks by whole pages, from a shape-only plan
-(`split_decode.plan_splits`); each block folds its pages with an online
+(`split_decode.plan_splits`), and its query heads over blocks of 8 (up
+to 16 heads per kv head); each block folds its pages with an online
 softmax in f32, and a second launch merges the splits in a fixed order.
 It also takes f32 and bf16 pools, a sliding window and a softcap.  A
 lane with `length == 0` (an inactive padding lane) gets the mean of V
@@ -151,7 +152,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     ps, max_pages = k_pages.shape[1], tables.shape[1]
     n_split, chunk = decode_plan(b, g, max_pages, ps,
-                                 split_decode.sm_count(q.device))
+                                 split_decode.sm_count(q.device), qpk)
     part = split_decode.scratch(b * g, n_split, qpk, hd, q.device)
     _launch("paged_flash_decode",
             (b, g, qpk, hd, ps, max_pages, chunk, n_split), q, k_pages,
@@ -162,11 +163,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def decode_plan(b: int, g: int, max_pages: int, page_size: int,
-                n_sms: int = split_decode.H100_SMS):
+                n_sms: int = split_decode.H100_SMS, qpk: int = 1):
     """(n_split, chunk) of a `paged_flash_decode` call: splits of whole
-    pages over the `max_pages * page_size` keys a lane may hold."""
-    return split_decode.plan_splits(b * g, max_pages * page_size,
-                                    page_size, n_sms)
+    pages over the `max_pages * page_size` keys a lane may hold, each
+    (lane, kv head) weighed by its blocks of query heads."""
+    return split_decode.plan_splits(b * g * split_decode.q_groups(qpk),
+                                    max_pages * page_size, page_size, n_sms)
 
 
 def verify_plan(b: int, g: int, s: int, qpk: int, max_pages: int,

@@ -21,36 +21,48 @@ def ref_qmatmul_fused(x: torch.Tensor, w, out_dtype=None) -> torch.Tensor:
     """x @ W with W held as integers end to end: per-group partial sums
     contracted against the f16 scales, never the float weight.
 
-    Layouts: 2D (K, N) axis=-2 projections, and the axis=-1 (V, K) tied
-    embedding table contracted over K for logits (x @ table.T).  Shapes
-    come from the data tensors.  (The (E, K, N) expert-stack layout of
-    the JAX oracle belongs to MoE, which this port does not serve yet.)
+    Layouts: 2D (K, N) axis=-2 projections, the axis=-1 (V, K) tied
+    embedding table contracted over K for logits (x @ table.T), and the
+    (E, K, N) expert stack, whose lead dim pairs with x's: x (E, ..., K)
+    -> (E, ..., N), contracted one expert at a time (a full-width stack
+    unpacked at once would be E x K x N f32).  Shapes come from the data
+    tensors.
     """
     out_dtype = out_dtype or x.dtype
     if not isinstance(w, QTensor):
         return torch.matmul(x, w.to(x.dtype)).to(out_dtype)
     count_dequant("fused_dequant")
     g = w.group
-    q = int_weight(w)
     xf = x.to(torch.float32)
-    sf = w.scales.to(torch.float32)
     if w.axis == -1:
+        q = int_weight(w)
         V, K = q.shape[-2], q.shape[-1]
         xg = xf.reshape(*x.shape[:-1], K // g, g)
         qg = q.reshape(V, K // g, g).to(torch.float32)
         partial = torch.einsum("...ag,vag->...av", xg, qg)
-        out = torch.einsum("...av,va->...v", partial, sf)
+        out = torch.einsum("...av,va->...v", partial, w.scales.float())
         return out.to(out_dtype)
-    if w.axis != -2 or q.ndim != 2:
+    if w.axis != -2 or w.data.ndim not in (2, 3):
         raise NotImplementedError(
-            f"ref_qmatmul_fused: layout axis={w.axis}, ndim={q.ndim} "
-            "(expert stacks) is not in this port yet")
+            f"ref_qmatmul_fused: layout axis={w.axis}, ndim={w.data.ndim}")
+    if w.data.ndim == 2:
+        return _grouped(xf, int_weight(w), w.scales, g).to(out_dtype)
+    if x.shape[0] != w.data.shape[0]:
+        raise ValueError(f"ref_qmatmul_fused: x {tuple(x.shape)} against a "
+                         f"stack of {w.data.shape[0]}")
+    return torch.stack([_grouped(xf[e], int_weight(w[e]), w.scales[e], g)
+                        for e in range(w.data.shape[0])]).to(out_dtype)
+
+
+def _grouped(xf: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+             g: int) -> torch.Tensor:
+    """f32 x (..., K) against int values q (K, N) in groups of g along K,
+    each group's partial sum scaled by its f16 scale row."""
     K, N = q.shape
-    xg = xf.reshape(*x.shape[:-1], K // g, g)
+    xg = xf.reshape(*xf.shape[:-1], K // g, g)
     qg = q.reshape(K // g, g, N).to(torch.float32)
     partial = torch.einsum("...ag,agn->...an", xg, qg)
-    out = torch.einsum("...an,an->...n", partial, sf)
-    return out.to(out_dtype)
+    return torch.einsum("...an,an->...n", partial, scales.to(torch.float32))
 
 
 def ref_swiglu_qgemv(x: torch.Tensor, w_gate, w_up) -> torch.Tensor:

@@ -4,10 +4,11 @@ split plans, the kernels' shared-memory sizes, the partials' scratch,
 and the key ranges each split folds, in plain Python the CPU tests
 reach.
 
-A call's grid is (rows, n_split), a row being one (lane, kv head); a
-verify call adds a third axis over groups of its s * qpk query rows when
-they are more than one block holds.  The plans depend only on shapes
-(rows, query rows, the keys a row may hold, the page size, the SM
+A call's grid is (rows, n_split, z), a row being one (lane, kv head) and
+z the blocks over groups of its query rows: a one-token call takes up to
+QMAX query heads a block (z = 2 at 16 heads per kv head), a verify call
+up to VERIFY_WARPS * QMAX of its s * qpk rows.  The plans depend only on
+shapes (rows, query rows, the keys a row may hold, the page size, the SM
 count), never on `lengths` or `pos`, which live on the card: the
 wrapper makes no host sync, and the launch can be captured in a CUDA
 graph.
@@ -18,7 +19,9 @@ from typing import Dict, Tuple
 
 import torch
 
-QMAX = 8                    # query rows per kv head a block holds
+QMAX = 8                    # query rows a warp holds (a one-token
+                            # block: QMAX query heads of its kv head)
+QPK_MAX = 16                # query heads per kv head, at most
 HEAD_DIMS = (16, 32, 64, 128, 256)
 WARPS = 4
 MIN_KEYS = 16               # a split folds at least this many keys
@@ -161,10 +164,16 @@ def verify_smem_bytes(elem_bytes: int, hd: int, warps: int) -> int:
             + warps * kt * QMAX * 4)
 
 
+def q_groups(qpk: int) -> int:
+    """Blocks a one-token (row, split) takes: query heads in groups of
+    QMAX."""
+    return _cdiv(max(1, qpk), QMAX)
+
+
 def check_shape(name: str, qpk: int, hd: int) -> None:
     """Raise on a (qpk, hd) the kernels are not instantiated for."""
-    if not 1 <= qpk <= QMAX or hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: qpk {qpk} (1..{QMAX}) and hd {hd} "
+    if not 1 <= qpk <= QPK_MAX or hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: qpk {qpk} (1..{QPK_MAX}) and hd {hd} "
                          f"({HEAD_DIMS}) are what the kernel takes")
 
 

@@ -9,6 +9,10 @@
   python -m repro_torch.launch.serve --arch gemma3-4b --smoke \
       --device cpu --spec ngram     # also gemma2-27b, phi3-medium-14b
   python -m repro_torch.launch.serve --arch gemma2-27b --layers 4   # card
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+      --smoke --device cpu [--spec ngram]      # Mixture-of-Experts
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
+      --layers 4                               # card: full width, 4 layers
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -69,8 +73,8 @@ def build_draft(cfg, device):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
-                    help="qwen2.5-3b, gemma3-4b, gemma2-27b or "
-                         "phi3-medium-14b")
+                    help="qwen2.5-3b, gemma3-4b, gemma2-27b, "
+                         "phi3-medium-14b or qwen3-moe-235b-a22b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = full)")

@@ -1,5 +1,6 @@
 from .common import ParamSpec, init_params, tree_to
-from .config import ModelConfig
+from .config import ModelConfig, MoEConfig
 from .model import DecoderLM
 
-__all__ = ["DecoderLM", "ModelConfig", "ParamSpec", "init_params", "tree_to"]
+__all__ = ["DecoderLM", "ModelConfig", "MoEConfig", "ParamSpec",
+           "init_params", "tree_to"]

@@ -1,5 +1,6 @@
-"""Norms and the dense transformer block over a paged KV pool (PyTorch
-port of the dense serve path of `repro.models.blocks`)."""
+"""Norms and the transformer block (dense or MoE FFN) over a paged KV
+pool (PyTorch port of the dense / moe serve path of
+`repro.models.blocks`)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -9,7 +10,7 @@ import torch
 from .attention import PageRows, Rope, gqa_paged_step, gqa_specs
 from .common import ParamSpec, rms_norm
 from .config import ModelConfig
-from .ffn import dense_ffn, dense_ffn_specs
+from .ffn import dense_ffn, dense_ffn_specs, ffn_forward, ffn_specs
 
 Params = Dict[str, Any]
 
@@ -24,9 +25,14 @@ def apply_norm(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
                     scale_plus_one=cfg.rms_scale_plus_one)
 
 
-def transformer_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def transformer_block_specs(cfg: ModelConfig, dense_ffn_override: int = 0
+                            ) -> Dict[str, Any]:
+    """dense_ffn_override: a dense FFN of this width in place of the
+    config's (MoE models' leading dense layers)."""
     sp = {"ln_attn": norm_specs(cfg), "attn": gqa_specs(cfg),
-          "ln_ffn": norm_specs(cfg), "ffn": dense_ffn_specs(cfg)}
+          "ln_ffn": norm_specs(cfg),
+          "ffn": (dense_ffn_specs(cfg, dense_ffn_override)
+                  if dense_ffn_override else ffn_specs(cfg))}
     if cfg.post_block_norm:
         sp["post_attn"] = norm_specs(cfg)
         sp["post_ffn"] = norm_specs(cfg)
@@ -38,11 +44,13 @@ def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             tables: torch.Tensor, lengths: torch.Tensor,
                             n_new: torch.Tensor, rows: PageRows, rope: Rope,
                             is_local: bool = False,
+                            dense_override: bool = False,
                             verify: bool = False) -> torch.Tensor:
     """Decode / chunked-prefill / verify block (x: (b, s, d)); writes
     this layer's new K/V rows into `cache` in place.  With
     `post_block_norm` each branch's output is normed before the
-    residual add."""
+    residual add; `dense_override` runs the dense FFN of a MoE model's
+    leading layers."""
     h = apply_norm(p["ln_attn"], cfg, x)
     a = gqa_paged_step(p["attn"], cfg, h, cache, tables, lengths, n_new,
                        rows, rope, is_local=is_local, verify=verify)
@@ -50,7 +58,8 @@ def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
         a = apply_norm(p["post_attn"], cfg, a)
     x = x + a
     h = apply_norm(p["ln_ffn"], cfg, x)
-    f = dense_ffn(p["ffn"], cfg, h)
+    f = dense_ffn(p["ffn"], cfg, h) if dense_override \
+        else ffn_forward(p["ffn"], cfg, h)
     if cfg.post_block_norm:
         f = apply_norm(p["post_ffn"], cfg, f)
     return x + f

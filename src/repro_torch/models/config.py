@@ -1,11 +1,12 @@
 """Model configuration (PyTorch port of `repro.models.config`).
 
 The same fields and defaults as the JAX `ModelConfig`, with dtypes held
-as strings and resolved to torch dtypes on demand.  The per-family
-sub-configs (`mla`, `moe`, `ssm`, `zamba`) are carried only so that a
-model asking for them is rejected by name: this port serves the dense
-GQA family (SwiGLU or gated GELU FFNs, sliding-window / global layer
-alternation, softcaps, QK-norm, post-block norms).
+as strings and resolved to torch dtypes on demand, and the same
+`MoEConfig`.  The other per-family sub-configs (`mla`, `ssm`, `zamba`)
+are carried only so that a model asking for them is rejected by name:
+this port serves the dense GQA family (SwiGLU or gated GELU FFNs,
+sliding-window / global layer alternation, softcaps, QK-norm, post-block
+norms) and its Mixture-of-Experts variant.
 """
 from __future__ import annotations
 
@@ -16,6 +17,19 @@ from typing import Any, Optional
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 64           # routed experts
+    top_k: int = 6
+    n_shared_experts: int = 2
+    d_ff_expert: int = 1408
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    dispatch: str = "gather"      # gather | onehot (the same kept slots)
+    first_dense_layers: int = 0   # deepseek: layer 0 is dense FFN
+    first_dense_d_ff: int = 0
 
 
 @dataclass(frozen=True)
@@ -58,7 +72,7 @@ class ModelConfig:
     logit_dtype: str = "float32"
 
     mla: Optional[Any] = None
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[Any] = None
     zamba: Optional[Any] = None
 

@@ -1,17 +1,38 @@
-"""Dense feed-forward (PyTorch port of `repro.models.ffn`'s dense path):
-fused SwiGLU, or gated / plain GELU-family FFNs.  Mixture-of-Experts is
-not in this port yet."""
+"""Feed-forward layers (PyTorch port of `repro.models.ffn`'s serve path):
+the dense FFN (fused SwiGLU, or gated / plain GELU-family) and
+Mixture-of-Experts.
+
+MoE routes each token to its top-k experts and packs the chosen (token,
+expert) slots into per-expert buffers of a fixed capacity, dropping
+what overflows, as the JAX package's drop-on-overflow dispatches do:
+`_moe_gather` and `_moe_onehot` keep the same slots (an expert's slots
+ranked in flattened (token, k) order, the first `cap` kept), and
+`_moe_onehot_grouped` ranks them within groups of GROUP_TOKENS tokens
+with a capacity per group.  The port runs one sort-based dispatch for
+all three (`dispatch_slots`), at static shapes with no host read, so a
+step stays capturable in a CUDA graph.  Expert weights are packed
+`(E, K/2, N)` stacks; each projection over them is one `cim_gemv` call
+in its stack layout, which computes only the rows an expert holds.
+"""
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels.ops import expert_qmatmul
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.kernels.ops import swiglu
 
 from .common import ACTIVATIONS, ParamSpec
 from .config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+GROUP_TOKENS = 512      # the JAX package's GShard group: with the onehot
+                        # dispatch, a call of more (and a multiple of)
+                        # 512 tokens has a capacity per group
 
 
 def dense_ffn_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
@@ -22,8 +43,7 @@ def dense_ffn_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
     return sp
 
 
-def dense_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
+def dense_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated SiLU is the fused SwiGLU (one pass over the packed gate/up
     weights); every other activation takes the unfused route, one
     `cim_gemv` call per packed projection, as the JAX package does."""
@@ -33,3 +53,135 @@ def dense_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     up = qmm(x, p["w_up"])
     h = act(qmm(x, p["w_gate"])) * up if cfg.ffn_gated else act(up)
     return qmm(h, p["w_down"])
+
+
+# ----------------------------------------------------------------------------
+# MoE
+# ----------------------------------------------------------------------------
+def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.moe
+    d, fe, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    sp = {"router": ParamSpec((d, E), scale=1.0 / math.sqrt(d)),
+          "we_gate": ParamSpec((E, d, fe)),
+          "we_up": ParamSpec((E, d, fe)),
+          "we_down": ParamSpec((E, fe, d))}
+    if m.n_shared_experts > 0:
+        fs = fe * m.n_shared_experts
+        sp["ws_gate"] = ParamSpec((d, fs))
+        sp["ws_up"] = ParamSpec((d, fs))
+        sp["ws_down"] = ParamSpec((fs, d))
+    return sp
+
+
+def _router(p: Params, cfg: ModelConfig, xf: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xf: (T, d) -> (weights (T, k) f32, expert ids (T, k) int64).  The
+    top k by a stable descending sort: among equal probabilities the
+    lower expert id comes first, as `lax.top_k` breaks ties
+    (`torch.topk` does not promise an order)."""
+    logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    w, ids = vals[:, :k], idx[:, :k]
+    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
+    return w, ids
+
+
+def capacity(cfg: ModelConfig, T: int) -> Tuple[int, int]:
+    """(groups, capacity per group) of a call over T tokens: one group
+    of T tokens, or with the onehot dispatch T / GROUP_TOKENS groups when
+    T is a multiple of GROUP_TOKENS above it (JAX's grouped dispatch)."""
+    m = cfg.moe
+    groups = (T // GROUP_TOKENS if m.dispatch == "onehot"
+              and T > GROUP_TOKENS and T % GROUP_TOKENS == 0 else 1)
+    tokens = T // groups
+    return groups, max(8, int(math.ceil(tokens * m.top_k / m.n_experts
+                                        * m.capacity_factor)))
+
+
+def dispatch_slots(ids: torch.Tensor, n_experts: int, cap: int,
+                   groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each (token, k) slot goes, from the router's ids (T, k).
+
+    Slots are ranked within their (group, expert) in flattened (token,
+    k) order (a stable sort by key); the first `cap` of each are kept.
+    Expert e's buffer holds C = groups * cap rows, its kept slots
+    packed from row 0 group by group, so its rows [0, counts[e]) are
+    exactly the kept ones.  Returns (slot (T * k,) int64: the row of the
+    flat (E * C + 1) buffer, E * C (a sentinel) for a dropped slot;
+    counts (E,) int32).  No host read: `scatter_add_` counts, where
+    `bincount` would sync."""
+    T, k = ids.shape
+    n, E = T * k, n_experts
+    dev = ids.device
+    flat = ids.reshape(n).long()
+    pos = torch.arange(n, device=dev)
+    key = (pos // (n // groups)) * E + flat            # (group, expert)
+    order = torch.argsort(key, stable=True)
+    per_key = torch.zeros(groups * E, dtype=torch.long, device=dev)
+    per_key.scatter_add_(0, key, torch.ones_like(key))
+    first = torch.cumsum(per_key, 0) - per_key
+    rank = torch.empty_like(pos).scatter_(0, order, pos - first[key[order]])
+    kept = per_key.clamp(max=cap).reshape(groups, E)
+    before = (torch.cumsum(kept, 0) - kept).reshape(-1)  # earlier groups
+    C = groups * cap
+    slot = torch.where(rank < cap, flat * C + before[key] + rank,
+                       torch.full_like(flat, E * C))
+    return slot, kept.sum(0).to(torch.int32)
+
+
+def _expert_ffn(p: Params, cfg: ModelConfig, xe: torch.Tensor,
+                counts: torch.Tensor) -> torch.Tensor:
+    """xe: (E, C, d) -> (E, C, d), the JAX order: act(x Wg) * (x Wu),
+    then Wd, three products over the stacks (not the fused SwiGLU).  On
+    the card rows past counts[e] are not computed."""
+    act = ACTIVATIONS[cfg.ffn_act]
+    h = act(expert_qmatmul(xe, p["we_gate"], counts)) \
+        * expert_qmatmul(xe, p["we_up"], counts)
+    return expert_qmatmul(h, p["we_down"], counts)
+
+
+def moe_routed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The routed experts of every token of x (b, s, d): route, pack into
+    the experts' buffers, run them, gather the kept slots back and sum
+    them weighted.  Every one of the b * s rows is routed, padding rows
+    and idle lanes included, in the JAX engine's flattened order, so
+    they take capacity as they do there."""
+    m = cfg.moe
+    b, s, d = x.shape
+    T, k, E = b * s, m.top_k, m.n_experts
+    groups, cap = capacity(cfg, T)
+    xf = x.reshape(T, d)
+    w, ids = _router(p, cfg, xf)
+    slot, counts = dispatch_slots(ids, E, cap, groups)
+    C = groups * cap
+    buf = torch.zeros(E * C + 1, d, dtype=x.dtype, device=x.device)
+    buf.index_copy_(0, slot, xf[:, None].expand(T, k, d).reshape(T * k, d))
+    ye = _expert_ffn(p, cfg, buf[:E * C].view(E, C, d), counts)
+    # only kept rows are gathered: rows past an expert's count hold
+    # whatever the card left there; a dropped slot reads the zero row
+    ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
+    out = (ye[slot] * w.reshape(T * k, 1).to(x.dtype)).reshape(T, k, d)
+    return out.sum(dim=1).reshape(b, s, d)
+
+
+def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Routed experts plus, when the config has them, the shared experts:
+    three packed products (not the fused SwiGLU), as the JAX package."""
+    out = moe_routed(p, cfg, x)
+    if cfg.moe.n_shared_experts > 0:
+        act = ACTIVATIONS[cfg.ffn_act]
+        out = out + qmm(act(qmm(x, p["ws_gate"])) * qmm(x, p["ws_up"]),
+                        p["ws_down"])
+    return out
+
+
+def ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return moe_specs(cfg) if cfg.moe is not None else dense_ffn_specs(cfg)
+
+
+def ffn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.moe is not None:
+        return moe_ffn(p, cfg, x)
+    return dense_ffn(p, cfg, x)

@@ -1,7 +1,8 @@
-"""Decoder-only LM, dense GQA family (PyTorch port of the serve path of
-`repro.models.model.DecoderLM`): SwiGLU or gated GELU FFNs, tied or
-untied heads, and gemma's features (sliding-window / global layers,
-attention and final softcaps, QK-norm, post-block norms, scaled
+"""Decoder-only LM, the dense and MoE GQA families (PyTorch port of the
+serve path of `repro.models.model.DecoderLM`): SwiGLU or gated GELU
+FFNs or routed experts (with shared experts and leading dense layers),
+tied or untied heads, and gemma's features (sliding-window / global
+layers, attention and final softcaps, QK-norm, post-block norms, scaled
 embeddings, a second RoPE base for local layers).
 
     model  = DecoderLM(cfg)
@@ -12,11 +13,12 @@ embeddings, a second RoPE base for local layers).
     logits, cache = model.paged_verify_step(...)     # speculative verify
 
 Parameters keep the JAX package's tree and stacked-layer layout
-(`blocks` leaves carry a leading layer dim), so `repro_torch.convert`
-carries weights across leaf for leaf.  The paged KV pools keep the
-stacked `(L, n_pages, page_size, g, hd)` layout and are updated in
-place.  Other families and attention flavors raise NotImplementedError
-(`_unsupported` names what is not ported yet).
+(`blocks` leaves carry a leading layer dim; a MoE model's leading dense
+layers are `first_blocks`, with their own `attn_first` pools), so
+`repro_torch.convert` carries weights across leaf for leaf.  The paged KV
+pools keep the stacked `(L, n_pages, page_size, g, hd)` layout and are
+updated in place.  Other families and attention flavors raise
+NotImplementedError (`_unsupported` names what is not ported yet).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ Params = Dict[str, Any]
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
     out = []
-    if cfg.family != "dense" or cfg.moe is not None:
+    if cfg.family not in ("dense", "moe"):
         out.append(f"family {cfg.family!r}")
     if cfg.attn_kind != "gqa" or cfg.mla is not None:
         out.append(f"attention {cfg.attn_kind!r}")
@@ -58,7 +60,7 @@ class DecoderLM:
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense GQA "
+                f"{cfg.name}: the PyTorch port serves dense and MoE GQA "
                 f"decoders only; not yet ported: {', '.join(bad)}")
         self.cfg = cfg
         # the embedding scale rounded to the embeddings' dtype first, as
@@ -68,9 +70,13 @@ class DecoderLM:
         root = math.sqrt(cfg.d_model)
         self._embed_scale = {dt: float(torch.tensor(root, dtype=dt))
                              for dt in (torch.float32, torch.bfloat16)}
-        self._local = [cfg.is_local_layer(i) for i in range(cfg.n_layers)]
-        self._layers_of = None      # (blocks dict, per-layer views)
-        self._layers: List[Params] = []
+        self.n_first = (cfg.moe.first_dense_layers
+                        if cfg.moe is not None else 0)
+        # per-layer window flags of `blocks`, which start at layer
+        # n_first; the leading dense layers are global
+        self._local = [cfg.is_local_layer(i)
+                       for i in range(self.n_first, cfg.n_layers)]
+        self._views: Dict[str, Any] = {}   # name -> (stacked tree, views)
 
     # ------------------------------------------------------------------
     def param_specs(self) -> Params:
@@ -81,8 +87,13 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             sp["head"] = ParamSpec((cfg.d_model, cfg.vocab))
         sp["ln_final"] = norm_specs(cfg)
+        if self.n_first:
+            sp["first_blocks"] = stack_specs(
+                transformer_block_specs(
+                    cfg, dense_ffn_override=cfg.moe.first_dense_d_ff),
+                self.n_first)
         sp["blocks"] = stack_specs(transformer_block_specs(cfg),
-                                   cfg.n_layers)
+                                   cfg.n_layers - self.n_first)
         return sp
 
     # ------------------------------------------------------------------
@@ -115,18 +126,22 @@ class DecoderLM:
             logits = softcap(logits, cfg.final_softcap)
         return logits
 
-    def _layer_params(self, blocks: Params) -> List[Params]:
-        """Per-layer views of the stacked `blocks` tree, built once per
-        parameter tree (views share storage; no copy)."""
-        if self._layers_of is not blocks:
+    def _layer_params(self, params: Params, name: str) -> List[Params]:
+        """Per-layer views of the stacked tree `params[name]` (`blocks`
+        or `first_blocks`), built once per parameter tree (views share
+        storage; no copy)."""
+        stacked = params[name]
+        seen = self._views.get(name)
+        if seen is None or seen[0] is not stacked:
             def take(tree, i):
                 if isinstance(tree, dict):
                     return {k: take(v, i) for k, v in tree.items()}
                 return tree[i]
-            self._layers = [take(blocks, i)
-                            for i in range(self.cfg.n_layers)]
-            self._layers_of = blocks
-        return self._layers
+            n = self.n_first if name == "first_blocks" \
+                else self.cfg.n_layers - self.n_first
+            seen = self._views[name] = (stacked,
+                                        [take(stacked, i) for i in range(n)])
+        return seen[1]
 
     # ------------------------------------------------------------------
     def serve_step(self, params: Params, cache: Dict[str, Any],
@@ -167,7 +182,7 @@ class DecoderLM:
     def supports_paged(self) -> bool:
         """Every layer keeps paged KV (no recurrent state), so prefix
         sharing and speculative rollback apply."""
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense", "moe")
 
     def _paged_forward(self, params, cache, inputs, tables, lengths, n_new,
                        verify: bool):
@@ -179,14 +194,21 @@ class DecoderLM:
         # dump page of `page_rows`
         rows = page_rows(tables, lengths, n_new, s, pools["k"].shape[2],
                          dump_page=pools["k"].shape[1] - 1)
-        ropes = rope_by_theta(cfg, rows.slots, self._local)
-        for i, layer_p in enumerate(self._layer_params(params["blocks"])):
-            layer_cache = {k: v[i] for k, v in pools.items()}
-            local = self._local[i]
-            h = transformer_block_paged(
-                layer_p, cfg, h, layer_cache, tables, lengths, n_new, rows,
-                ropes[layer_theta(cfg, local)], is_local=local,
-                verify=verify)
+        ropes = rope_by_theta(cfg, rows.slots,
+                              [False] * self.n_first + self._local)
+        # MoE models' leading dense layers (global, dense FFN), then the
+        # stack, whose window flags start at layer n_first
+        stages = [("first_blocks", "attn_first", [False] * self.n_first,
+                   True), ("blocks", "attn", self._local, False)]
+        for name, pool_name, flags, dense in stages:
+            if not flags:
+                continue
+            for i, layer_p in enumerate(self._layer_params(params, name)):
+                layer_cache = {k: v[i] for k, v in cache[pool_name].items()}
+                h = transformer_block_paged(
+                    layer_p, cfg, h, layer_cache, tables, lengths, n_new,
+                    rows, ropes[layer_theta(cfg, flags[i])],
+                    is_local=flags[i], dense_override=dense, verify=verify)
         return self._logits(params, h), cache
 
     # ------------------------------------------------------------------
@@ -196,14 +218,18 @@ class DecoderLM:
         sequence via block tables: (L, n_pages + 1, ...), page `n_pages`
         being the dump page no table names (`attention.page_rows`)."""
         one = paged_cache_spec(self.cfg, n_pages, page_size, kv_dtype)
-        return {"attn": {k: v.stacked(self.cfg.n_layers)
-                         for k, v in one.items()}}
+        out = {"attn": {k: v.stacked(self.cfg.n_layers - self.n_first)
+                        for k, v in one.items()}}
+        if self.n_first:
+            out["attn_first"] = {k: v.stacked(self.n_first)
+                                 for k, v in one.items()}
+        return out
 
     def decode_state_specs(self, max_batch: int, n_pages: int,
                            page_size: int,
                            kv_dtype: torch.dtype = torch.bfloat16) -> Any:
-        """{"paged": KV page pools, "arena": {}} — the dense family keeps
-        no per-lane recurrent state."""
+        """{"paged": KV page pools, "arena": {}} — the dense and MoE
+        families keep no per-lane recurrent state."""
         return {"paged": self.paged_cache_specs(n_pages, page_size,
                                                 kv_dtype),
                 "arena": {}}

@@ -44,10 +44,11 @@ cover the jitted dispatch, the port's include the device's work.
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
 versions of the kernels, run eagerly).  Not in this port yet, and
 refused when asked for: tensor parallelism and replicas (`ServeConfig`),
-recurrent families and their StateArena, MoE and MLA models
-(`DecoderLM`).  Sliding-window / softcap models (gemma2, gemma3) are
-served like any dense model; `kv_dtype="auto"` gives them INT8 pools
-too, as in the JAX engine (only MLA's latent pools fall back there).
+recurrent families and their StateArena, MLA models (`DecoderLM`).
+Sliding-window / softcap models (gemma2, gemma3) and MoE models
+(qwen3-moe) are served like any dense model; `kv_dtype="auto"` gives
+them INT8 pools too, as in the JAX engine (only MLA's latent pools fall
+back there).
 """
 from __future__ import annotations
 

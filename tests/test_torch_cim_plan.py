@@ -167,19 +167,22 @@ def _family_calls(cfg):
 
 @pytest.mark.parametrize("arch_id,bits", [
     ("gemma3-4b", 4), ("gemma3-4b", 8), ("gemma2-27b", 4),
-    ("phi3-medium-14b", 4), ("phi3-medium-14b", 8)])
+    ("gemma2-27b", 8), ("phi3-medium-14b", 4), ("phi3-medium-14b", 8)])
 @pytest.mark.parametrize("m", M_SENT + (256,))
 def test_plan_takes_every_call_of_the_window_families_and_phi3(arch_id,
                                                                 bits, m):
     """At full width: a shared-memory size the card holds for every call
     (gemma2-27b's w_down, K = 36864, takes 16 splits where one wave
-    would give it 1), splits covering K once.  gemma2-27b at INT8 is
-    not taken: its table rows (4.6 KB) and w_down slices outgrow a
-    block's shared memory, and the wrapper raises."""
+    would give it 1, and 32 at INT8 once M > 4), splits covering K
+    once; gemma2-27b's INT8 table (4608 B rows) in tiles of 32 rows, as
+    the wrapper plans it (`table_rows`, with the exact group)."""
     cfg = get_config(arch_id)
     for name, layout, k, n, group in _family_calls(cfg):
         stored = k // 2 if bits == 4 else k
         plan = cg.split_plan(layout, m, stored, n, bits, 132)
+        if layout == "table":
+            plan = cg.table_rows(plan, k, n, bits, group, 132)
+            assert plan.blocks == min(132, -(-n // plan.rows))
         smem = cg.smem_bytes(layout, plan, m, k, bits, group)
         assert smem <= cg.SMEM_MAX, (name, m, plan, smem)
         if layout == "cols":
@@ -189,7 +192,43 @@ def test_plan_takes_every_call_of_the_window_families_and_phi3(arch_id,
                 <= plan.splits * plan.rows
     if arch_id == "gemma2-27b" and bits == 4 and m >= 4:
         assert cg.split_plan("cols", m, 18432, 4608, 4, 132).splits == 16
+    if arch_id == "gemma2-27b" and bits == 8:
+        assert cg.split_plan("cols", m, 36864, 4608, 8, 132).splits == (
+            32 if m > 4 else 16)
+        assert cg.table_rows(cg.split_plan("table", m, 4608, 256000, 8,
+                                           132), 4608, 256000, 8, 96).rows \
+            == 32
 
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("c", (1, 4, 8, 20, 64))
+def test_stack_plan_takes_qwen3_moe_calls(bits, c):
+    """qwen3-moe's expert stacks at capacity C (8 in a decode step and in
+    a 64-token prefill chunk): gate/up 4096 -> 1536 (groups of 128),
+    down 1536 -> 4096 (groups of 96).  A block fits shared memory, K is
+    covered once, the experts alone fill the wave (no split for it), and
+    when K is split the (expert, tile) arrival counters fit."""
+    cfg = get_config("qwen3-moe-235b-a22b")
+    E, fe, d = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
+    for k, n in ((d, fe), (fe, d)):
+        group = _pick_group(k, 128, 16)
+        assert group == (128 if k == d else 96)
+        stored = k // 2 if bits == 4 else k
+        plan = cg.stack_plan(c, stored, n, bits, E, 132)
+        assert plan.mt == min(4, c)
+        assert cg.smem_bytes("cols", plan, c, k, bits, group) <= cg.SMEM_MAX
+        assert plan.splits <= cg.MAX_SPLITS
+        assert (plan.splits - 1) * plan.rows < stored \
+            <= plan.splits * plan.rows
+        assert plan.splits == 1 or cg._slice_fits(
+            plan.rows * 2, c, plan.mt, bits) is False
+        if plan.splits > 1:
+            assert E * -(-n // cg.TN) <= cg.MAX_TILES
+        rows = [p for sp in range(plan.splits)
+                for b, e in cg.lane_rows(plan, sp, stored)
+                for p in range(b, e)]
+        assert rows == list(range(stored))
+    assert cg.stack_plan(8, 2048, 1536, 4, E, 132).splits == 2
 
 def test_cols_constants_mirror_the_source():
     """The host's mirrors equal the constants of csrc/cim_gemv.cu."""
@@ -200,3 +239,6 @@ def test_cols_constants_mirror_the_source():
     const = dict(re.findall(r"^constexpr int (\w+) = (\d+);", src, re.M))
     assert (int(const["MAX_SPLITS"]), int(const["THREADS"]) // 8) == \
         (cg.MAX_SPLITS, cg.LANES)
+    # the table's least tile (a warp's rows) and its largest, 8 warps of it
+    assert int(const["TBL_R"]) == cg.TBL_R
+    assert cg.TBL_R * int(const["TBL_THREADS"]) // 32 == cg.TBL_VB

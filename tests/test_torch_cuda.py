@@ -488,8 +488,8 @@ def test_wrappers_raise_instead_of_falling_back(device):
         flash_decode(qd, kv.half(), kv.half(), 5)
     with pytest.raises(ValueError):                  # k on the CPU
         flash_decode(qd, kv.cpu(), kv, 5)
-    with pytest.raises(ValueError):                  # qpk above 8
-        flash_decode(torch.randn(2, 9, 32, device=device), kv, kv, 5)
+    with pytest.raises(ValueError):                  # qpk above 16
+        flash_decode(torch.randn(2, 17, 32, device=device), kv, kv, 5)
     with pytest.raises(ValueError):                  # hd 48: no kernel
         kv48 = torch.randn(2, 64, 48, device=device)
         flash_decode(torch.randn(2, 4, 48, device=device), kv48, kv48, 5)
@@ -700,6 +700,147 @@ def test_gemma3_smoke_decode_replay_equals_eager(device):
     from repro_torch.serve import StepRunner
     cfg = get_smoke_config("gemma3-4b").replace(dtype="float32",
                                                 remat=False)
+    model = DecoderLM(cfg)
+    params = quantize_params(init_params(
+        model.param_specs(), torch.Generator(device=device).manual_seed(0),
+        device, torch.float32), 4, 16)
+    pools = {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                      for k, v in model.paged_cache_specs(
+                          8, 16, torch.int8)["attn"].items()}}
+    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
+    runner = StepRunner(device)
+    tok = (np.arange(32, dtype=np.int32).reshape(2, 16) * 7) % cfg.vocab
+    runner(model.serve_step, params, pools, tok, tables,
+           np.zeros(2, np.int32), np.array([16, 12], np.int32))
+    args = (tok[:, :1].copy(), tables, np.array([16, 12], np.int32),
+            np.ones(2, np.int32))
+    eager = runner(model.serve_step, params, pools, *args).clone()
+    reset_launch_counts()
+    logits = runner(model.serve_step, params, pools, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager)
+    L = cfg.n_layers
+    assert launch_counts() == {"cim_gemv": 7 * L + 1, "swiglu_qgemv": 0,
+                               "paged_flash_decode": L,
+                               "paged_flash_verify": 0, "flash_decode": 0}
+
+
+# ----------------------------------------------------------------------------
+# MoE: the expert-stack layout, 16 query heads per kv head, gemma2 at INT8
+# ----------------------------------------------------------------------------
+def _stack(device, bits, E, k, n, group, seed=31):
+    g = _gen(seed)
+    w = quantize(torch.randn(E, k, n, generator=g, device=device) * 0.05,
+                 bits, group, axis=1)
+    return g, w
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k,n,group", [(4096, 1536, 128),   # gate / up
+                                       (1536, 4096, 96)])   # down
+def test_cim_gemv_stack_matches_plain_on_counted_rows(device, bits, k, n,
+                                                      group):
+    """qwen3-moe's stacks, 128 experts, capacity 8: counts 0, 1, 8 and
+    others.  Rows under each count equal the plain version; the rows past
+    a count are not read (NaN in x there changes nothing); a second call
+    is bitwise equal."""
+    E, C = 128, 8
+    g, w = _stack(device, bits, E, k, n, group)
+    x = torch.randn(E, C, k, generator=g, device=device)
+    counts = torch.randint(0, C + 1, (E,), generator=g, device=device)
+    counts[:4] = torch.tensor([0, 1, 8, 3], device=device)
+    counts = counts.int()
+    rows = torch.arange(C, device=device)[None, :] < counts[:, None]
+    x = torch.where(rows[..., None], x, float("nan"))
+    ref = cim_gemv_plain(torch.nan_to_num(x), w)
+    out = cim_gemv(x, w, counts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[rows]).all()
+    _close(out[rows], ref[rows])
+    assert torch.equal(out[rows], cim_gemv(x, w, counts)[rows])
+
+
+def test_cim_gemv_stack_all_experts_and_one_launch(device):
+    """Every expert at full capacity (a prefill chunk that crowds all
+    128), INT4; one call is one kernel, counted once."""
+    E, C = 128, 8
+    g, w = _stack(device, 4, E, 4096, 1536, 128, seed=32)
+    x = torch.randn(E, C, 4096, generator=g, device=device)
+    counts = torch.full((E,), C, dtype=torch.int32, device=device)
+    reset_launch_counts()
+    out = cim_gemv(x, w, counts)
+    assert launch_counts()["cim_gemv"] == 1
+    _close(out, cim_gemv_plain(x, w))
+
+
+@pytest.mark.parametrize("pools", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("qpk", [16, 12])
+def test_paged_decode_at_16_query_heads_per_kv_head(device, pools, qpk):
+    """qwen3-moe's attention: 4 kv heads of 16 query heads, hd 128 (and a
+    ragged 12): two blocks a (row, split); split edges, length 0."""
+    q, kp, vp, tables, lengths, ks, vs = _paged(device, pools, b=4, g=4,
+                                                qpk=qpk, seed=33)
+    lengths[3] = 0
+    args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    out = paged_flash_decode(*args)
+    _close(out, paged_decode_plain(*args))
+    assert torch.equal(out, paged_flash_decode(*args))
+
+
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_verify_at_16_query_heads_per_kv_head(device, s):
+    """s * qpk = 80 rows at s = 5: two blocks of rows (z = 2)."""
+    _, kp, vp, tables, lengths, ks, vs = _paged(device, "int8", b=4, g=4,
+                                                qpk=16, seed=34)
+    q = torch.randn(4, s, 4, 16, 128, generator=_gen(35), device=device)
+    args = (q, kp, vp, tables, (lengths - s).clamp(min=0), 0, 0.0, ks, vs)
+    out = paged_flash_verify(*args)
+    _close(out, paged_verify_plain(*args))
+    assert torch.equal(out, paged_flash_verify(*args))
+
+
+def test_flash_decode_at_16_query_heads(device):
+    g = _gen(36)
+    q = torch.randn(8, 16, 128, generator=g, device=device)
+    k = torch.randn(8, 1000, 128, generator=g, device=device)
+    v = torch.randn(8, 1000, 128, generator=g, device=device)
+    for pos in (999, 517, -1):
+        out = flash_decode(q, k, v, pos)
+        _close(out, flash_decode_plain(q, k, v, pos))
+
+
+@pytest.mark.parametrize("m", [4, 20, 64])
+@pytest.mark.parametrize("layout,k,n,group", [
+    ("cols", 36864, 4608, 96),     # gemma2-27b w_down at INT8: 32 splits
+    ("table", 4608, 2050, 96),     # its table's rows (4608 B), 32 a tile
+])
+def test_cim_gemv_gemma2_int8_widths(device, m, layout, k, n, group):
+    g = _gen(37)
+    x = torch.randn(m, k, generator=g, device=device)
+    if layout == "cols":
+        w = quantize(torch.randn(k, n, generator=g, device=device), 8,
+                     group)
+    else:
+        w = quantize(torch.randn(n, k, generator=g, device=device), 8,
+                     group, axis=1)
+    out = cim_gemv(x, w)
+    _close(out, cim_gemv_plain(x, w))
+    assert torch.equal(out, cim_gemv(x, w))
+
+
+def test_qwen3_moe_smoke_decode_replay_equals_eager(device):
+    """qwen3-moe-smoke (routed experts through the stack layout, QK-norm,
+    8 query heads per kv head), INT4 weights, INT8 KV: a captured decode
+    step replays bitwise equal to the eager call and counts 4 + 3
+    cim_gemv calls a layer plus the head."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.quant.ptq import quantize_params
+    from repro_torch.serve import StepRunner
+    cfg = get_smoke_config("qwen3-moe-235b-a22b").replace(
+        dtype="float32", remat=False)
     model = DecoderLM(cfg)
     params = quantize_params(init_params(
         model.param_specs(), torch.Generator(device=device).manual_seed(0),

@@ -26,7 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.models.attention import _page_scatter as jax_page_scatter
 
-from repro_torch.models import DecoderLM, ModelConfig, init_params
+from repro_torch.models import DecoderLM, ModelConfig, MoEConfig, init_params
 from repro_torch.models import attention as tattn
 from repro_torch.models import model as tmodel
 from repro_torch.quant.ptq import quantize_params
@@ -49,6 +49,13 @@ GEMMA = dict(SMOKE, name="graphs-gemma", n_layers=3, qkv_bias=False,
              qk_norm=True, rope_theta=1e6, rope_theta_local=1e4,
              attn_softcap=1.0, final_softcap=2.0, post_block_norm=True,
              rms_scale_plus_one=True, embed_scale=True)
+# MoE: routed experts (the onehot dispatch's slots, capacity 8 a step),
+# a shared expert and a leading dense layer with its own pools
+MOE = dict(SMOKE, name="graphs-moe", family="moe", n_layers=3,
+           qkv_bias=False, qk_norm=True,
+           moe=MoEConfig(n_experts=8, top_k=2, n_shared_experts=1,
+                         d_ff_expert=96, dispatch="onehot",
+                         first_dense_layers=1, first_dense_d_ff=128))
 KV = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32}
 _MODELS = {}
 
@@ -67,9 +74,10 @@ def _model(arch, precision):
 
 
 def _pools(model, n_pages, ps, kv):
-    return {"attn": {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in
-                     model.paged_cache_specs(n_pages, ps, KV[kv])
-                     ["attn"].items()}}
+    return {name: {k: torch.zeros(v.shape, dtype=v.dtype)
+                   for k, v in pools.items()}
+            for name, pools in model.paged_cache_specs(n_pages, ps,
+                                                       KV[kv]).items()}
 
 
 # ----------------------------------------------------------------------------
@@ -112,12 +120,14 @@ STEPS = [("serve_step", 8), ("serve_step", 1), ("paged_verify_step", 5),
 
 
 @pytest.mark.parametrize("arch,precision,kv", [
-    (SMOKE, "int4", "int8"), (DRAFT, "fp", "bf16"), (GEMMA, "int4", "int8")])
+    (SMOKE, "int4", "int8"), (DRAFT, "fp", "bf16"), (GEMMA, "int4", "int8"),
+    (MOE, "int4", "int8"), (MOE, "fp", "bf16")])
 @pytest.mark.parametrize("fn,s", STEPS)
 def test_steps_are_capturable(fn, s, arch, precision, kv):
     """The engine's steps (int4 weights, int8 KV), a draft model's (float
-    weights, bf16 KV) and a gemma-style model's, with an empty lane
-    beside two live ones."""
+    weights, bf16 KV), a gemma-style model's and a MoE model's (the
+    router's sort, the dispatch's counts and scatters, the expert-stack
+    products), with an empty lane beside two live ones."""
     model, params = _model(arch, precision)
     pools = _pools(model, 12, 4, kv)
     tables = torch.tensor([[0, 0, 0, 0], [3, 7, 0, 9], [5, 1, 2, 4]],

@@ -196,3 +196,56 @@ def test_merge_skips_empty_partials_and_reads_no_garbage():
              torch.full((1, 2, 4), float("nan")))
     out = ref_merge_partials([(m, l, acc), empty])
     torch.testing.assert_close(out, acc / l[..., None])
+
+
+# ----------------------------------------------------------------------------
+# 16 query heads per kv head (qwen3-moe): two blocks of 8 a (row, split)
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("pool", ["int8", "f32"])
+@pytest.mark.parametrize("qpk", [16, 12])
+def test_paged_qpk16_groups_of_8_match_pallas(pool, qpk):
+    """qpk 16 (and a ragged 12): the kernel's z blocks each take 8 query
+    heads of a (lane, kv head) over the same splits.  The plain partials
+    of each group of 8 heads, merged in split order and put side by
+    side, equal the Pallas kernel (interpret mode) at the whole qpk and
+    the whole plain version; the plan weighs each row by its 2 blocks."""
+    b, g, hd, ps, max_pages = 3, 2, 32, 8, 9
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((b, g, qpk, hd)).astype(np.float32)
+    k, v, ks, vs = _pools(rng, pool, b, g, hd, ps, max_pages)
+    tables = rng.permutation(b * max_pages).reshape(b, max_pages).astype(
+        np.int32)
+    n_split, chunk = decode_plan(b, g, max_pages, ps, qpk=qpk)
+    assert (n_split, chunk) == sd.plan_splits(b * g * 2, max_pages * ps, ps)
+    assert sd.q_groups(qpk) == 2
+    lengths = np.array([2 * chunk + 1, 5, 0], np.int32)
+    quant = pool == "int8"
+    pallas = np.asarray(pl_paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(lengths), interpret=True,
+        k_scales=jnp.asarray(ks) if quant else None,
+        v_scales=jnp.asarray(vs) if quant else None))
+    sc = (torch.from_numpy(ks), torch.from_numpy(vs)) if quant else \
+        (None, None)
+    pools = (torch.from_numpy(k), torch.from_numpy(v),
+             torch.from_numpy(tables), torch.from_numpy(lengths))
+    merged = []
+    for z in range(sd.q_groups(qpk)):
+        qz = torch.from_numpy(q[:, :, 8 * z:8 * z + 8].copy())
+        parts = [ref_paged_decode_partials(
+            qz, *pools, s * chunk, min((s + 1) * chunk, max_pages * ps), 0,
+            0.0, *sc) for s in range(n_split)]
+        merged.append(ref_merge_partials(parts))
+    merged = torch.cat(merged, dim=2).numpy()
+    whole = paged_flash_decode(torch.from_numpy(q), *pools, 0, 0.0,
+                               *sc).numpy()
+    np.testing.assert_allclose(merged, pallas, atol=1e-5)
+    np.testing.assert_allclose(merged, whole, atol=1e-5)
+
+
+def test_qpk_bounds_and_flash_plan_weigh_query_groups():
+    sd.check_shape("paged_flash_decode", 16, 128)
+    with pytest.raises(ValueError):
+        sd.check_shape("paged_flash_decode", 17, 128)
+    assert fd_plan(8, 1024, qpk=16) == sd.plan_splits(16, 1024, 16)
+    assert fd_plan(8, 1024) == fd_plan(8, 1024, qpk=8)
