@@ -114,7 +114,26 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      and w_down (M = 4, 20, 64), and times 4 layers of the stack calls
      (decode and a 64-token chunk) and of the qpk-16 attention; phase 6
      holds a 2-layer full-width copy against the CPU.
- 10. summary: a `{"kernels": [...]}` line, the card line, and last
+ 10. deepseek-v2-lite-16b at full width and 8 layers (layer 0 dense,
+     then 7 MoE layers of 64 experts, top 6, two shared; MLA, kv_lora
+     512; INT4, groups of 114 on layer 0's w_down and 88 on the experts'
+     down; kv_dtype "auto", pinned to bf16 latent pools): a wave of 4
+     requests as CUDA graphs and eagerly, streams compared, launches
+     equal to per-call counts x calls (a decode step: 68 cim_gemv and 1
+     swiglu_qgemv; MLA's attention is plain PyTorch, its w_uk / w_uv
+     dequantized in the step, as the JAX package does), the eager run's
+     experts kept per layer and slots dropped; n-gram speculation (k =
+     4) against none, streams compared; a profiled decode and verify
+     step by kernel beside its bound, with the MLA attention of all 8
+     layers timed on its own beside its bound; peak memory while drawing
+     and resident.  Phase 2 holds, before it, cim_gemv at every
+     deepseek projection (w_dkv's 576 columns, groups of 114 and 88, the
+     102400-wide head) at M = 1, 4, 20, 64, the 64-expert stacks (counts
+     0 / 1 / 8 / all full), swiglu_qgemv at 2048 -> 10944 (a half-full
+     last column tile), and times layer 0's two calls, the MLA
+     projections and the stacks of a decode step; phase 6 holds a
+     2-layer full-width copy (1 dense + 1 MoE layer) against the CPU.
+ 11. summary: a `{"kernels": [...]}` line, the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -886,23 +905,27 @@ def phase_kernels(model, params, device, checks: Checks):
 
 def step_launches(cfg, s: int, verify: bool = False, packed: bool = True):
     """Kernel launches of one model step call of width s (its graph
-    holds the same): packed weights go to cim_gemv / swiglu_qgemv (a
-    gated SiLU FFN is one swiglu_qgemv call and w_down; any other FFN
-    one cim_gemv call per projection; a MoE layer's routed experts three
-    calls in the stack layout, its shared experts three more), a decode
-    step's attention to paged_flash_decode, a verify window's to
-    paged_flash_verify."""
+    holds the same): packed weights go to cim_gemv / swiglu_qgemv (GQA's
+    q/k/v/o, MLA's wq/w_dkv/wo, not its absorbed w_uk/w_uv; a gated SiLU
+    FFN is one swiglu_qgemv call and w_down; any other FFN one cim_gemv
+    call per projection; a MoE layer's routed experts three calls in the
+    stack layout, its shared experts three more), a GQA decode step's
+    attention to paged_flash_decode, a verify window's to
+    paged_flash_verify (MLA's attention is plain PyTorch)."""
     L = cfg.n_layers
     m = cfg.moe
+    mla = cfg.attn_kind == "mla"
     n_dense = m.first_dense_layers if m is not None else L
     fused = cfg.ffn_gated and cfg.ffn_act == "silu"
     dense_cim = 1 if fused else 3 if cfg.ffn_gated else 2
     moe_cim = 3 + (3 if m is not None and m.n_shared_experts else 0)
-    cim = 4 * L + n_dense * dense_cim + (L - n_dense) * moe_cim + 1
+    cim = ((3 if mla else 4) * L + n_dense * dense_cim
+           + (L - n_dense) * moe_cim + 1)
     return {"cim_gemv": cim if packed else 0,
             "swiglu_qgemv": n_dense if packed and fused else 0,
-            "paged_flash_decode": L if s == 1 else 0,
-            "paged_flash_verify": L if verify else 0, "flash_decode": 0}
+            "paged_flash_decode": L if s == 1 and not mla else 0,
+            "paged_flash_verify": L if verify and not mla else 0,
+            "flash_decode": 0}
 
 
 def expected_launches(cfg, prefill: int, decode: int, verify: int = 0,
@@ -962,8 +985,9 @@ def replay_check(label, eng, fn, shape, iters: int = 20) -> float:
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
-        snaps.append((logits.clone(), [v[:, :-1].clone() for v in
-                                       eng.cache.pools["attn"].values()]))
+        snaps.append((logits.clone(), [v[:, :-1].clone()
+                                       for pools in eng.cache.pools.values()
+                                       for v in pools.values()]))
     same_logits = torch.equal(snaps[0][0], snaps[1][0])
     same_pools = all(torch.equal(a, b) for a, b in zip(snaps[0][1],
                                                        snaps[1][1]))
@@ -1311,9 +1335,11 @@ def top2_gap(model, params, device, tokens):
     import torch
     n, ps = len(tokens), 16
     pages = -(-n // ps)
-    cache = {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
-                      for k, v in model.paged_cache_specs(
-                          pages, ps, torch.int8)["attn"].items()}}
+    kv = torch.bfloat16 if model.cfg.attn_kind == "mla" else torch.int8
+    cache = {name: {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                    for k, v in pools.items()}
+             for name, pools in model.paged_cache_specs(pages, ps,
+                                                        kv).items()}
     logits, _ = model.serve_step(
         params, cache, {"tokens": torch.tensor(tokens[None], device=device)},
         torch.arange(pages, dtype=torch.int32, device=device)[None],
@@ -1820,11 +1846,14 @@ def step_bounds(model, params, b: int, s: int, lens, expert_counts=None):
     window rows see, q in and out; 2 flops per weight and row, 4 per
     visible key, query head and head dim.  A MoE layer's stacks count
     the experts with rows in this step (`expert_counts`: per layer, the
-    rows of each expert, from the router) and their counted rows."""
+    rows of each expert, from the router) and their counted rows, and
+    its shared experts as three projections; leading dense layers
+    (`first_blocks`) count as dense.  MLA's attention is not a kernel:
+    `mla_attention_cost` counts it."""
     cfg = model.cfg
     L, g, qpk, hd = cfg.n_layers, cfg.n_kv_heads, cfg.q_per_kv(), cfg.hd()
     M = b * s
-    blocks = params["blocks"]
+    mla = cfg.attn_kind == "mla"
     cost = {"cim_gemv": [0, 0], "swiglu_qgemv": [0, 0]}
 
     def add(kernel, ws):
@@ -1835,24 +1864,33 @@ def step_bounds(model, params, b: int, s: int, lens, expert_counts=None):
                             + 4 * M * (k + n))
         cost[kernel][1] += 2 * M * k * n * len(ws)
     fused = cfg.ffn_gated and cfg.ffn_act == "silu"
-    for i in range(L):
-        for k in ("wq", "wk", "wv", "wo"):
-            add("cim_gemv", [blocks["attn"][k][i]])
-        if cfg.moe is not None:
-            cb, cf = stack_cost([blocks["ffn"][k][i] for k in
-                                 ("we_gate", "we_up", "we_down")],
-                                expert_counts[i])
-            cost["cim_gemv"][0] += cb
-            cost["cim_gemv"][1] += cf
-            continue
-        for k in blocks["ffn"]:
-            if not fused or k == "w_down":
-                add("cim_gemv", [blocks["ffn"][k][i]])
-        if fused:
-            add("swiglu_qgemv", [blocks["ffn"][k][i]
-                                 for k in ("w_gate", "w_up")])
+    projections = ("wq", "w_dkv", "wo") if mla else ("wq", "wk", "wv", "wo")
+    for name, n, dense in (("first_blocks", model.n_first, True),
+                           ("blocks", L - model.n_first, False)):
+        for i in range(n):
+            blocks = params[name]
+            for k in projections:
+                add("cim_gemv", [blocks["attn"][k][i]])
+            if cfg.moe is not None and not dense:
+                cb, cf = stack_cost([blocks["ffn"][k][i] for k in
+                                     ("we_gate", "we_up", "we_down")],
+                                    expert_counts[i])
+                cost["cim_gemv"][0] += cb
+                cost["cim_gemv"][1] += cf
+                for k in ("ws_gate", "ws_up", "ws_down"):
+                    if k in blocks["ffn"]:
+                        add("cim_gemv", [blocks["ffn"][k][i]])
+                continue
+            for k in blocks["ffn"]:
+                if not fused or k == "w_down":
+                    add("cim_gemv", [blocks["ffn"][k][i]])
+            if fused:
+                add("swiglu_qgemv", [blocks["ffn"][k][i]
+                                     for k in ("w_gate", "w_up")])
     add("cim_gemv", [params["embed"] if cfg.tie_embeddings
                      else params["head"]])
+    if mla:
+        return cost
     kv_rows = keys = 0
     for i in range(L):
         win = cfg.local_window if cfg.is_local_layer(i) else 0
@@ -2160,9 +2198,13 @@ def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
     else:
         b, max_pages = 2, 8
         plan = [(16, [16, 11]), (1, [1, 1])]
-    caches = {d: {"attn": {k: torch.zeros(v.shape, dtype=v.dtype, device=d)
-                           for k, v in model.paged_cache_specs(
-                               b * max_pages, 16, torch.int8)["attn"].items()}}
+    # INT8 pools, but MLA's latent pools, which stay float (bf16, as its
+    # engine resolves kv_dtype "auto")
+    kv = torch.bfloat16 if cfg.attn_kind == "mla" else torch.int8
+    caches = {d: {name: {k: torch.zeros(v.shape, dtype=v.dtype, device=d)
+                         for k, v in pools.items()}
+                  for name, pools in model.paged_cache_specs(
+                      b * max_pages, 16, kv).items()}
               for d in devs}
     g = torch.Generator().manual_seed(3)
     lengths = torch.zeros(b, dtype=torch.int32)
@@ -2259,6 +2301,43 @@ def stack_cost(ws, counts):
     return nbytes, flops
 
 
+def check_stacks(checks, gen, device, bits, E, C, shapes, tag=""):
+    """cim_gemv's expert-stack layout against its plain version on the
+    counted rows, every call twice (bitwise equal): E experts of
+    capacity C, counts 0, 1, C and others, then every expert full; x
+    rows past a count hold NaN, which must not reach a counted row.
+    `shapes`: (what, K, N, group) of each stack.  Logs each plan."""
+    import torch
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              smem_bytes, stack_plan)
+    from repro_torch.kernels.split_decode import sm_count
+    for what, k, n, group in shapes:
+        w = random_stack(gen, device, bits, E, k, n, group)
+        x = torch.randn(E, C, k, generator=gen, device=device)
+        ref = cim_gemv_plain(x, w)
+        mixed = torch.randint(0, C + 1, (E,), generator=gen,
+                              device=device).int()
+        mixed[:4] = torch.tensor([0, 1, C, 3], device=device)
+        full = torch.full((E,), C, dtype=torch.int32, device=device)
+        for cname, counts in ((f"counts 0/1/{C}/mixed", mixed),
+                              (f"all {E} experts full", full)):
+            rows = torch.arange(C, device=device)[None] < counts[:, None]
+            xn = torch.where(rows[..., None], x, float("nan"))
+            label = (f"{tag}stack int{bits} {what} {k}->{n} g{group} E={E} "
+                     f"C={C} {cname}")
+            out = cim_gemv(xn, w, counts)
+            checks.compare("cim_gemv", label, out[rows], ref[rows])
+            checks.repeat("cim_gemv", label, out[rows],
+                          cim_gemv(xn, w, counts)[rows])
+        pl = stack_plan(C, w.data.shape[1], n, bits, E, sm_count(device))
+        log(f"plan cim_gemv {tag}stack int{bits} {what} C={C}: M tile "
+            f"{pl.mt}, {pl.splits} splits of {pl.rows} rows, "
+            f"{pl.blocks} blocks an expert x {E}, "
+            f"{smem_bytes('cols', pl, C, k, bits, group)} B shared "
+            "memory")
+        del w, x, ref
+
+
 def phase_moe_kernels(device, checks: Checks):
     """The kernels at qwen3-moe's new shapes and at gemma2-27b's INT8
     widths against their plain versions, every call twice (bitwise
@@ -2272,7 +2351,7 @@ def phase_moe_kernels(device, checks: Checks):
     import torch
     from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
                                               smem_bytes, split_plan,
-                                              stack_plan, table_rows)
+                                              table_rows)
     from repro_torch.kernels.paged_flash_decode import (decode_plan,
                                                         paged_decode_plain,
                                                         paged_flash_decode,
@@ -2288,31 +2367,7 @@ def phase_moe_kernels(device, checks: Checks):
     shapes = (("gate/up", d, fe, 128), ("down", fe, d, 96))
     timings = {}
     for bits in (4, 8):
-        for what, k, n, group in shapes:
-            w = random_stack(gen, device, bits, E, k, n, group)
-            x = torch.randn(E, C, k, generator=gen, device=device)
-            ref = cim_gemv_plain(x, w)
-            mixed = torch.randint(0, C + 1, (E,), generator=gen,
-                                  device=device).int()
-            mixed[:4] = torch.tensor([0, 1, C, 3], device=device)
-            full = torch.full((E,), C, dtype=torch.int32, device=device)
-            for cname, counts in (("counts 0/1/8/mixed", mixed),
-                                  ("all 128 experts full", full)):
-                rows = torch.arange(C, device=device)[None] < counts[:, None]
-                xn = torch.where(rows[..., None], x, float("nan"))
-                label = (f"stack int{bits} {what} {k}->{n} g{group} E={E} "
-                         f"C={C} {cname}")
-                out = cim_gemv(xn, w, counts)
-                checks.compare("cim_gemv", label, out[rows], ref[rows])
-                checks.repeat("cim_gemv", label, out[rows],
-                              cim_gemv(xn, w, counts)[rows])
-            pl = stack_plan(C, w.data.shape[1], n, bits, E, sms)
-            log(f"plan cim_gemv stack int{bits} {what} C={C}: M tile "
-                f"{pl.mt}, {pl.splits} splits of {pl.rows} rows, "
-                f"{pl.blocks} blocks an expert x {E}, "
-                f"{smem_bytes('cols', pl, C, k, bits, group)} B shared "
-                "memory")
-            del w, x, ref
+        check_stacks(checks, gen, device, bits, E, C, shapes)
     torch.cuda.empty_cache()
 
     # gemma2-27b at INT8: its table (4608 B rows, 32 a tile) and w_down
@@ -2507,15 +2562,244 @@ def step_route_counts(model, params, eng, s: int):
     return rl.counts
 
 
-def phase_qwen3moe(device, card):
-    """qwen3-moe-235b-a22b at full width and 4 layers served by
-    PagedServeEngine as CUDA graphs and eagerly: a wave of 4 requests,
-    streams compared, launches equal to per-call counts x calls (a
-    decode step: 4 x (4 projections + 3 expert stacks) + 1 cim_gemv, 4
-    paged_flash_decode), the experts kept and slots dropped of the eager
-    run; n-gram speculation (k = 4) against no speculation; a profiled
-    decode and verify step split by kernel beside its bound, the stacks'
-    bytes those of the experts the step's router kept."""
+# ---------------------------------------------------------------------------
+# MLA: deepseek-v2-lite-16b at full width, 8 layers
+# ---------------------------------------------------------------------------
+DS_ARCH = "deepseek-v2-lite-16b"
+
+
+def phase_deepseek_kernels(device, checks: Checks):
+    """The GEMV kernels at deepseek-v2-lite-16b's shapes against their
+    plain versions, every call twice (bitwise equal): cim_gemv on MLA's
+    wq (2048 -> 3072), w_dkv (2048 -> 576, nine 64-column tiles) and wo,
+    layer 0's w_down (10944 -> 2048, groups of 114), the shared experts
+    (2048 -> 2816, 2816 -> 2048 in groups of 88) and the untied head
+    (2048 -> 102400) at M = 1, 4, 20, 64; the 64-expert stacks (gate/up
+    2048 -> 1408, down 1408 -> 2048 in groups of 88; capacity 8, counts
+    0 / 1 / 8 / mixed, then all full; NaN rows past a count);
+    swiglu_qgemv 2048 -> 10944 (85.5 column tiles) at M = 1, 4, 20, 64.
+    Then layer 0's two calls, one decode step's MLA projections over 8
+    layers, and 7 layers of stack calls at a decode routing, each
+    beside its bound.  Returns the timings."""
+    import torch
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              smem_bytes, split_plan)
+    from repro_torch.kernels import swiglu_gemv as sw
+    from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
+    from repro_torch.kernels.split_decode import sm_count
+    from repro_torch.quant.qarray import quantize
+
+    gen = torch.Generator(device=device).manual_seed(43)
+    sms = sm_count(device)
+    d, E, C, fe, top_k, L = 2048, 64, 8, 1408, 6, 8
+
+    def packed(k, n, group, bits=4):
+        return quantize(torch.randn(k, n, generator=gen, device=device)
+                        * 0.02, bits, group)
+    ws = {"wq": (d, 3072, 128), "w_dkv": (d, 576, 128), "wo": (d, d, 128),
+          "w_down": (10944, d, 114), "ws_gate": (d, 2816, 128),
+          "ws_down": (2816, d, 88), "head": (d, 102400, 128)}
+    timings = {}
+    for bits in (4, 8):
+        for name, (k, n, group) in ws.items():
+            w = packed(k, n, group, bits)
+            for m in (1, 4, 20, 64):
+                x = torch.randn(m, k, generator=gen, device=device)
+                label = f"deepseek int{bits} {name} {k}->{n} g{group} M={m}"
+                out = cim_gemv(x, w)
+                checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+                checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+                if bits == 4 and m in (4, 20) and name in ("w_down",
+                                                           "w_dkv"):
+                    pl = split_plan("cols", m, w.data.shape[0], n, bits, sms)
+                    log(f"plan cim_gemv deepseek {name} g{group} M={m}: M "
+                        f"tile {pl.mt}, {pl.splits} splits of {pl.rows} "
+                        f"rows, {pl.blocks} blocks, "
+                        f"{smem_bytes('cols', pl, m, k, bits, group)} B "
+                        "shared memory")
+            del w
+        wg, wu = packed(d, 10944, 128, bits), packed(d, 10944, 128, bits)
+        for m in (1, 4, 20, 64):
+            x = torch.randn(m, d, generator=gen, device=device)
+            label = f"deepseek int{bits} gate/up {d}->10944 g128 M={m}"
+            out = swiglu_qgemv(x, wg, wu)
+            checks.compare("swiglu_qgemv", label, out, swiglu_plain(x, wg, wu))
+            checks.repeat("swiglu_qgemv", label, out, swiglu_qgemv(x, wg, wu))
+        pl = sw.split_plan(4, wg.data.shape[0], 10944, bits, 128, sms)
+        log(f"plan swiglu_qgemv deepseek int{bits} 2048->10944 M=4: M tile "
+            f"{pl.mt}, {pl.splits} splits of {pl.rows} rows, {pl.blocks} "
+            f"blocks, {sw.smem_bytes(pl, 4, bits, 128)} B shared memory")
+        del wg, wu
+        check_stacks(checks, gen, device, bits, E, C,
+                     (("gate/up", d, fe, 128), ("down", fe, d, 88)),
+                     tag="deepseek ")
+    torch.cuda.empty_cache()
+
+    # ---- timings, INT4, batch 4 (M = 4) ---------------------------------
+    M = 4
+    w_down = packed(10944, d, 114)
+    wg, wu = packed(d, 10944, 128), packed(d, 10944, 128)
+    xd = torch.randn(M, 10944, generator=gen, device=device)
+    x = torch.randn(M, d, generator=gen, device=device)
+
+    def cost(ws_, m, calls=1):
+        k, n = ws_[0].orig_shape
+        return (sum(w.nbytes_packed() for w in ws_) + 4 * m * (k + n)
+                * calls, 2 * m * k * n * len(ws_))
+    nb, fl = cost([w_down], M)
+    time_calls(timings, "cim_gemv",
+               "deepseek layer 0's w_down, 10944 -> 2048, groups of 114, "
+               "M = 4", lambda fn: fn(xd, w_down), cim_gemv,
+               cim_gemv_plain, nb, fl, key="cim_gemv deepseek w_down g114")
+    nb, fl = cost([wg, wu], M)
+    time_calls(timings, "swiglu_qgemv",
+               "deepseek layer 0's gate/up, 2048 -> 10944 (85.5 column "
+               "tiles), M = 4", lambda fn: fn(x, wg, wu), swiglu_qgemv,
+               swiglu_plain, nb, fl, key="swiglu_qgemv deepseek 10944")
+    del w_down, wg, wu, xd
+    layers = [{nm: packed(k, n, 128) for nm, (k, n, _) in ws.items()
+               if nm in ("wq", "w_dkv", "wo")} for _ in range(L)]
+    nb = fl = 0
+    for lw in layers:
+        for w in lw.values():
+            b_, f_ = cost([w], M)
+            nb, fl = nb + b_, fl + f_
+
+    def proj_step(fn):
+        for lw in layers:
+            fn(x, lw["wq"])
+            fn(x, lw["w_dkv"])
+            fn(x, lw["wo"])
+    time_calls(timings, "cim_gemv",
+               f"deepseek MLA projections of a decode step, {L} layers x "
+               "(wq 2048->3072, w_dkv 2048->576, wo), M = 4", proj_step,
+               cim_gemv, cim_gemv_plain, nb, fl,
+               key="cim_gemv deepseek mla projections")
+    del layers
+    stacks = [{nm: random_stack(gen, device, 4, E, k, n, g)
+               for nm, (k, n, g) in (("we_gate", (d, fe, 128)),
+                                     ("we_up", (d, fe, 128)),
+                                     ("we_down", (fe, d, 88)))}
+              for _ in range(L - 1)]
+    counts = [route_counts(gen, device, E, C, 4, top_k)
+              for _ in range(L - 1)]
+    xs = torch.randn(E, C, d, generator=gen, device=device)
+    hs = torch.randn(E, C, fe, generator=gen, device=device)
+
+    def stack_step(fn):
+        for lw, c in zip(stacks, counts):
+            fn(xs, lw["we_gate"], c)
+            fn(xs, lw["we_up"], c)
+            fn(hs, lw["we_down"], c)
+    nb = fl = 0
+    for lw, c in zip(stacks, counts):
+        cb, cf = stack_cost([lw["we_gate"], lw["we_up"], lw["we_down"]],
+                            c.tolist())
+        nb, fl = nb + cb, fl + cf
+    active = [int((c > 0).sum()) for c in counts]
+    time_calls(timings, "cim_gemv",
+               f"deepseek expert stacks of a decode step, {L - 1} layers x "
+               f"3 calls, INT4, E={E} C={C}, experts with rows per layer "
+               f"{active}", stack_step, lambda x_, w, c: cim_gemv(x_, w, c),
+               lambda x_, w, c: cim_gemv_plain(x_, w), nb, fl,
+               key="cim_gemv deepseek stack decode")
+    del stacks, xs, hs
+    torch.cuda.empty_cache()
+    return timings
+
+
+def mla_attention_cost(model, params, b: int, s: int, lens):
+    """(bytes, flops) of the MLA attention of one batch-b step of width s
+    over every layer, lanes at `lens` keys before it: the latent rows
+    (bf16) each lane's queries see, the packed w_uk and w_uv, q in and
+    the output out (f32); 2 flops per multiply-add of the four products
+    (q_nope W_uk, the latent and RoPE scores, the latent sum, W_uv)."""
+    cfg = model.cfg
+    m, H = cfg.mla, cfg.n_heads
+    r, rd, nope, vd = (m.kv_lora_rank, m.qk_rope_head_dim,
+                       m.qk_nope_head_dim, m.v_head_dim)
+    M = b * s
+    rows = sum(n + s for n in lens)
+    keys = sum(n + j + 1 for n in lens for j in range(s))
+    weights = sum(params[name]["attn"][k][i].nbytes_packed()
+                  for name, n in (("first_blocks", model.n_first),
+                                  ("blocks", cfg.n_layers - model.n_first))
+                  for i in range(n) for k in ("w_uk", "w_uv"))
+    per_layer = (rows * (r + rd) * 2 + M * H * (nope + rd + vd) * 4,
+                 2 * M * H * nope * r + 2 * keys * H * (r + rd)
+                 + 2 * keys * H * r + 2 * M * H * r * vd)
+    return (weights + cfg.n_layers * per_layer[0],
+            cfg.n_layers * per_layer[1])
+
+
+def time_mla_attention(model, params, eng, device, s: int, lens: int = 64):
+    """Device ms of the MLA attention (`attention.mla_attend`: the latent
+    gather, the dequantized w_uk / w_uv, the four products, softmax) of
+    every layer for one batch-4 step of width s on the engine's pools,
+    lanes at `lens` keys, as a CUDA-graph replay and eagerly, beside its
+    bound, and of its dequantization of w_uk / w_uv alone (a graph of
+    those calls).  The profiled step counts these kernels as glue."""
+    import torch
+    from repro_torch.models.attention import mla_attend
+    from repro_torch.quant.qarray import maybe_dequantize
+    cfg = model.cfg
+    m, H = cfg.mla, cfg.n_heads
+    b, mp = eng.max_batch, eng.cache.max_pages
+    gen = torch.Generator(device=device).manual_seed(47)
+    q_nope = torch.randn(b, s, H, m.qk_nope_head_dim, generator=gen,
+                         device=device)
+    q_rope = torch.randn(b, s, H, m.qk_rope_head_dim, generator=gen,
+                         device=device)
+    tables = torch.arange(b * mp, dtype=torch.int32,
+                          device=device).reshape(b, mp)
+    slots = lens + torch.arange(s, device=device)[None].expand(b, s)
+    total = torch.full((b,), lens + s, dtype=torch.int32, device=device)
+    layers = [(lp["attn"], {k: v[i] for k, v in
+                            eng.cache.pools[pool].items()})
+              for name, pool in (("first_blocks", "attn_first"),
+                                 ("blocks", "attn"))
+              for i, lp in enumerate(model._layer_params(params, name))]
+
+    def step():
+        for lp, cache in layers:
+            mla_attend(lp, cfg, q_nope, q_rope, cache, tables, slots, total,
+                       torch.float32)
+
+    def dequantize():
+        for lp, _ in layers:
+            maybe_dequantize(lp["w_uk"])
+            maybe_dequantize(lp["w_uv"])
+    ms = graph_time_ms(step)
+    eager_ms = cuda_time_ms(step, iters=5)
+    deq_ms = graph_time_ms(dequantize)
+    nb, fl = mla_attention_cost(model, params, b, s, [lens] * b)
+    b_ms, b_by = bound(nb, fl)
+    log(f"time mla attention {DS_ARCH} {len(layers)} layers, batch {b}, "
+        f"s={s}, lanes at {lens} keys, {mp * eng.cache.page_size} keys "
+        f"gathered a lane: {ms:.4f} ms (graph replay; eager {eager_ms:.4f} "
+        f"ms), of which dequantizing w_uk / w_uv alone {deq_ms:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}: {nb / 1e6:.2f} MB, "
+        f"{fl / 1e9:.3f} GFLOP), bound share {100 * b_ms / ms:.2f} %")
+    return {"device_ms": ms, "eager_ms": eager_ms, "dequantize_ms": deq_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "bytes": nb, "flops": fl}
+
+
+def phase_moe_serving(device, arch: str, n_layers: int, groups, seed: int,
+                      decode_gemvs=None):
+    """`arch`, a MoE model, at full width and `n_layers` layers (INT4
+    weights drawn from seed 0 on the card, packed in the `groups` given:
+    {name: (path in the parameter tree, group)}; kv_dtype "auto": INT8
+    pools, or MLA's bf16 latent pools) served by PagedServeEngine as CUDA
+    graphs and eagerly: a wave of 4 requests, streams compared, launches
+    equal to per-call counts x calls (`decode_gemvs`: the cim_gemv and
+    swiglu_qgemv calls a decode step must make), the experts kept and
+    slots dropped of the eager run; n-gram speculation (k = 4) against
+    no speculation; a profiled decode and verify step split by kernel
+    beside its bound, the stacks' bytes those of the experts the step's
+    router kept, and for MLA the attention of every layer timed on its
+    own (plain PyTorch, counted as glue in the profile); peak memory
+    while drawing and resident."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2524,37 +2808,51 @@ def phase_qwen3moe(device, card):
     from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
     from repro_torch.spec import SpecConfig
 
-    n_layers = 4
-    cfg = get_config(MOE_ARCH).replace(dtype="float32", remat=False,
-                                       n_layers=n_layers)
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers)
+    mla = cfg.attn_kind == "mla"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, params = build_model(cfg, "int4", 128, device, seed=0)
     torch.cuda.synchronize()
+    draw_peak = torch.cuda.max_memory_allocated() / 1e9
+    resident = torch.cuda.memory_allocated() / 1e9
+    got = {}
+    for name, (path, _) in groups.items():
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        got[name] = leaf.group
     ffn = params["blocks"]["ffn"]
-    groups = {k: params["blocks"]["attn"]["wq"].group if k == "wq"
-              else ffn[k].group for k in ("wq", "we_gate", "we_down")}
-    log(f"{MOE_ARCH} x{n_layers} layers, full width: INT4 weights drawn and "
+    log(f"{arch} x{n_layers} layers, full width: INT4 weights drawn and "
         f"packed on the card in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated (peak "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while drawing); "
-        f"groups {groups}; stacks {tuple(ffn['we_gate'].data.shape)} / "
-        f"{tuple(ffn['we_down'].data.shape)}")
-    if groups != {"wq": 128, "we_gate": 128, "we_down": 96}:
-        fail(f"{MOE_ARCH}: packed in groups {groups}")
+        f"{resident:.2f} GB resident (peak {draw_peak:.2f} GB while "
+        f"drawing); groups {got}; stacks {tuple(ffn['we_gate'].data.shape)}"
+        f" / {tuple(ffn['we_down'].data.shape)}")
+    if got != {name: g for name, (_, g) in groups.items()}:
+        fail(f"{arch}: packed in groups {got}")
     V, n_new = cfg.vocab, 16
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     wave = [rng.integers(0, V, int(n)).astype(np.int32)
             for n in rng.integers(16, 65, size=4)]
     serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
                             max_seq=128, page_size=16, prefill_chunk=16)
+    kv = torch.bfloat16 if mla else torch.int8
+    per_step = step_launches(cfg, 1)
+    if decode_gemvs is not None and (per_step["cim_gemv"],
+                                     per_step["swiglu_qgemv"]) \
+            != decode_gemvs:
+        fail(f"{arch}: {per_step} launches a decode step, expected "
+             f"{decode_gemvs} cim_gemv / swiglu_qgemv calls")
+    used = [k for k, v in per_step.items() if v]
 
     def serve(eager):
         eng = PagedServeEngine(model, params, serve_cfg, device=device,
                                eager=eager)
-        if eng.config.resolved_kv_dtype() != torch.int8:
-            fail(f"{MOE_ARCH}: kv_dtype auto did not resolve to int8")
+        if eng.config.resolved_kv_dtype() != kv:
+            fail(f"{arch}: kv_dtype auto resolved to "
+                 f"{eng.config.resolved_kv_dtype()}, expected {kv}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2573,19 +2871,18 @@ def phase_qwen3moe(device, card):
         if n_tok != 4 * n_new or not all(
                 r.done and all(0 <= t < V for t in r.out_tokens)
                 for r in reqs):
-            fail(f"{MOE_ARCH} ({mode}): {n_tok} tokens, expected "
+            fail(f"{arch} ({mode}): {n_tok} tokens, expected "
                  f"{4 * n_new} in range")
         expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls)
-        log(f"{MOE_ARCH} ({mode}): prompts {[len(r.prompt) for r in reqs]},"
+        log(f"{arch} ({mode}): prompts {[len(r.prompt) for r in reqs]},"
             f" {n_tok} tokens in {run_s:.2f} s; {eng.prefill_calls} "
             f"prefill + {eng.decode_calls} decode calls; decode step wall "
             f"median {float(np.median(ms)):.3f} ms; launches {counts}, "
             f"expected {expect}")
-        if counts != expect or min(counts["cim_gemv"],
-                                   counts["paged_flash_decode"]) <= 0:
-            fail(f"{MOE_ARCH} ({mode}): launches {counts} != {expect}")
+        if counts != expect or min(counts[k] for k in used) <= 0:
+            fail(f"{arch} ({mode}): launches {counts} != {expect}")
         if routes is not None:
-            log(f"{MOE_ARCH} routing (eager run, every layer call): "
+            log(f"{arch} routing (eager run, every MoE layer call): "
                 + json.dumps(routes))
         return dict(eng=eng, reqs=reqs, counts=counts, run_s=run_s,
                     decode_ms=float(np.median(ms)),
@@ -2595,38 +2892,42 @@ def phase_qwen3moe(device, card):
     t_phase = time.perf_counter()
     graph, eager = serve(False), serve(True)
     eng = graph["eng"]
-    check_identity(f"graphs vs eager ({MOE_ARCH})", eager["reqs"],
+    check_identity(f"graphs vs eager ({arch})", eager["reqs"],
                    graph["reqs"], model, params, device)
     name = f"{cfg.name}.serve_step"
-    graphs = check_graphs(MOE_ARCH, eng, {
+    graphs = check_graphs(arch, eng, {
         (name, (4, 16)): step_launches(cfg, 16),
-        (name, (4, 1)): step_launches(cfg, 1)},
-        [(name, (4, 16)), (name, (4, 1))])
-    replay_ms = replay_check(f"{MOE_ARCH} decode", eng, model.serve_step,
+        (name, (4, 1)): per_step}, [(name, (4, 16)), (name, (4, 1))])
+    replay_ms = replay_check(f"{arch} decode", eng, model.serve_step,
                              (4, 1))
     result = {"n_layers": n_layers, "launches": graph["counts"],
               "graphs": graphs, "decode_replay_device_ms": replay_ms,
               "decode_busy_share": replay_ms / graph["decode_ms"],
-              "launches_per_decode_step": step_launches(cfg, 1),
-              "routing_eager_run": eager["routes"]}
+              "launches_per_decode_step": per_step,
+              "routing_eager_run": eager["routes"],
+              "draw_peak_gb": draw_peak, "resident_gb": resident}
     for mode, run in (("graph", graph), ("eager", eager)):
         result[mode] = {"decode_step_ms_median": run["decode_ms"],
                         "ttft_p50_ms": run["ttft_ms"],
                         "max_memory_allocated_gb": run["peak_gb"],
                         "run_s": run["run_s"]}
-    log(f"{MOE_ARCH} decode step: wall median {graph['decode_ms']:.3f} ms "
+    log(f"{arch} decode step: wall median {graph['decode_ms']:.3f} ms "
         f"as graphs (eager {eager['decode_ms']:.3f}), replay {replay_ms:.3f}"
         f" ms on the device, busy {100 * replay_ms / graph['decode_ms']:.1f}"
-        " %")
+        f" %; peak {graph['peak_gb']:.2f} GB serving")
+    glue = " (MLA attention in the glue)" if mla else ""
     counts = step_route_counts(model, params, eng, 1)
     _, modes = profile_step(model, params, eng, device)
     result["decode_step_experts_kept"] = [sum(c > 0 for c in cc)
                                           for cc in counts]
     result["decode_step_split"] = log_step_split(
-        f"{MOE_ARCH} decode step, batch 4, lanes at 64 keys, experts with "
-        f"rows per layer {result['decode_step_experts_kept']}, by kernel",
-        modes, step_bounds(model, params, 4, 1, [64] * 4, counts), False,
-        step_launches(cfg, 1))
+        f"{arch} decode step, batch 4, lanes at 64 keys, experts with "
+        f"rows per layer {result['decode_step_experts_kept']}, by kernel"
+        + glue, modes, step_bounds(model, params, 4, 1, [64] * 4, counts),
+        False, per_step)
+    if mla:
+        result["decode_step_mla_attention"] = time_mla_attention(
+            model, params, eng, device, 1)
     del eager
     eng = None
     graph["eng"] = None
@@ -2647,7 +2948,7 @@ def phase_qwen3moe(device, card):
         counts = launch_counts()
         expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
                                    e.verify_calls)
-        label = f"{MOE_ARCH} " + ("spec ngram k=4" if spec else "no spec")
+        label = f"{arch} " + ("spec ngram k=4" if spec else "no spec")
         ver = [ms for ms, v in steps if v]
         log(f"{label}: {e.prefill_calls} prefill + {e.decode_calls} decode "
             f"+ {e.verify_calls} verify calls; launches {counts}, expected "
@@ -2663,15 +2964,15 @@ def phase_qwen3moe(device, card):
 
     _, base, _, _ = spec_serve(None)
     s_eng, s_reqs, s_counts, s_ms = spec_serve(SpecConfig(k=4))
-    check_identity(f"{MOE_ARCH} spec ngram", base, s_reqs, model, params,
+    check_identity(f"{arch} spec ngram", base, s_reqs, model, params,
                    device)
     verify = (f"{cfg.name}.paged_verify_step", (4, 5))
-    check_graphs(f"{MOE_ARCH} spec ngram", s_eng, {
+    check_graphs(f"{arch} spec ngram", s_eng, {
         (name, (4, 16)): step_launches(cfg, 16),
-        (name, (4, 1)): step_launches(cfg, 1),
+        (name, (4, 1)): per_step,
         verify: step_launches(cfg, 5, verify=True)}, [(name, (4, 16)),
                                                       verify])
-    v_replay = replay_check(f"{MOE_ARCH} spec verify", s_eng,
+    v_replay = replay_check(f"{arch} spec verify", s_eng,
                             model.paged_verify_step, (4, 5))
     v_counts = step_route_counts(model, params, s_eng, 5)
     _, modes = profile_step(model, params, s_eng, device, s=5)
@@ -2682,14 +2983,17 @@ def phase_qwen3moe(device, card):
         "acceptance_rate": s_eng.summary().get("spec_acceptance_rate"),
         "verify_step_experts_kept": kept,
         "verify_step_split": log_step_split(
-            f"{MOE_ARCH} verify step, batch 4, s=5, lanes at 64 keys, "
-            f"experts with rows per layer {kept}, by kernel", modes,
+            f"{arch} verify step, batch 4, s=5, lanes at 64 keys, experts "
+            f"with rows per layer {kept}, by kernel" + glue, modes,
             step_bounds(model, params, 4, 5, [64] * 4, v_counts), True,
             step_launches(cfg, 5, verify=True))}
+    if mla:
+        result["spec_ngram"]["verify_step_mla_attention"] = \
+            time_mla_attention(model, params, s_eng, device, 5)
     result["phase_s"] = time.perf_counter() - t_phase
     del s_eng, model, params
     torch.cuda.empty_cache()
-    log(f"{MOE_ARCH} result " + json.dumps(result))
+    log(f"{arch} result " + json.dumps(result))
     return graph["counts"], s_counts, result
 
 
@@ -2703,6 +3007,10 @@ def main() -> None:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products (MLA's latent sum over bf16 pools) accumulate in f32,
+    # as the CPU's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     device = torch.device("cuda")
     t_all = time.perf_counter()
 
@@ -2740,6 +3048,7 @@ def main() -> None:
     timings = phase_kernels(model, params, device, checks)
     window_timing = phase_family_kernels(device, checks)
     timings.update(phase_moe_kernels(device, checks))
+    timings.update(phase_deepseek_kernels(device, checks))
     by_path = {}
     by_path["decode"], full_result = phase_full_model(model, params, device,
                                                       card)
@@ -2754,6 +3063,7 @@ def main() -> None:
     phase_card_vs_cpu(device, "gemma2-27b")
     phase_card_vs_cpu(device, "phi3-medium-14b")
     phase_card_vs_cpu(device, MOE_ARCH)
+    phase_card_vs_cpu(device, DS_ARCH)
     (by_path["gemma3_decode"], by_path["gemma3_spec_ngram"],
      gemma3_result) = phase_gemma3(device, card)
     short = {}
@@ -2761,7 +3071,18 @@ def main() -> None:
                       ("phi3-medium-14b", "phi3_decode")):
         by_path[key], short[arch] = phase_short_wave(arch, device)
     (by_path["qwen3moe_decode"], by_path["qwen3moe_spec_ngram"],
-     moe_result) = phase_qwen3moe(device, card)
+     moe_result) = phase_moe_serving(device, MOE_ARCH, 4, {
+         "wq": (("blocks", "attn", "wq"), 128),
+         "we_gate": (("blocks", "ffn", "we_gate"), 128),
+         "we_down": (("blocks", "ffn", "we_down"), 96)}, seed=5)
+    (by_path["deepseek_decode"], by_path["deepseek_spec_ngram"],
+     ds_result) = phase_moe_serving(device, DS_ARCH, 8, {
+         "w_down": (("first_blocks", "ffn", "w_down"), 114),
+         "we_down": (("blocks", "ffn", "we_down"), 88),
+         "ws_down": (("blocks", "ffn", "ws_down"), 88),
+         "w_uk": (("blocks", "attn", "w_uk"), 32),
+         "w_dkv": (("blocks", "attn", "w_dkv"), 128)}, seed=6,
+         decode_gemvs=(68, 1))
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -2797,6 +3118,7 @@ def main() -> None:
     log("gemma3-4b summary " + json.dumps(gemma3_result))
     log("gemma2-27b / phi3-medium-14b x4 summary " + json.dumps(short))
     log(f"{MOE_ARCH} x4 summary " + json.dumps(moe_result))
+    log(f"{DS_ARCH} x8 summary " + json.dumps(ds_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,10 @@
       --smoke --device cpu [--spec ngram]      # Mixture-of-Experts
   python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \
       --layers 4                               # card: full width, 4 layers
+  python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+      --smoke --device cpu [--spec ngram|model]   # MLA + MoE
+  python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+      --layers 8                               # card: full width, 8 layers
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -55,7 +59,9 @@ def build_draft(cfg, device):
     """The `--spec model` drafter: one layer of the target's shape at
     half width, float weights drawn on `device` from seed 7.  An explicit
     `head_dim` (gemma, phi3) stays, so the draft's heads keep the
-    target's width; its one layer is local where the target's first is."""
+    target's width; its one layer is local where the target's first is
+    (and a MoE model's leading dense layer where it has one, as for
+    deepseek; MLA's latent widths stay the target's)."""
     import torch
 
     from repro_torch.models import DecoderLM, init_params
@@ -74,7 +80,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
                     help="qwen2.5-3b, gemma3-4b, gemma2-27b, "
-                         "phi3-medium-14b or qwen3-moe-235b-a22b")
+                         "phi3-medium-14b, qwen3-moe-235b-a22b or "
+                         "deepseek-v2-lite-16b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = full)")

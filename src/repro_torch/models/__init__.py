@@ -1,6 +1,6 @@
 from .common import ParamSpec, init_params, tree_to
-from .config import ModelConfig, MoEConfig
+from .config import MLAConfig, ModelConfig, MoEConfig
 from .model import DecoderLM
 
-__all__ = ["DecoderLM", "ModelConfig", "MoEConfig", "ParamSpec",
-           "init_params", "tree_to"]
+__all__ = ["DecoderLM", "MLAConfig", "ModelConfig", "MoEConfig",
+           "ParamSpec", "init_params", "tree_to"]

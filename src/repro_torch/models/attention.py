@@ -1,5 +1,6 @@
-"""GQA attention over a paged KV pool (PyTorch port of the dense serve
-path of `repro.models.attention`).
+"""Attention over a paged KV pool (PyTorch port of the serve path of
+`repro.models.attention`): GQA over K/V pages, and DeepSeek's absorbed
+multi-head latent attention (MLA) over latent pages.
 
 Differences from the JAX package, all PyTorch idiom:
   * the KV pools are updated IN PLACE (`index_copy_` into the layer's
@@ -14,6 +15,14 @@ Differences from the JAX package, all PyTorch idiom:
     the dump page.  The page index is clamped where JAX's gather clamps
     (right-padded prefill slots of a lane near `max_seq` index past
     `max_pages`).
+
+MLA has no Pallas kernel in the JAX package: it gathers the latent pages
+and contracts with einsums, and so does the port, in plain PyTorch.  Its
+`w_dkv`, `wq` and `wo` go through `cim_gemv`.  The absorbed `w_uk` and
+`w_uv` do not: their products contract over the ungrouped axis of a
+weight grouped along the latent rank, so the JAX package dequantizes
+them to bf16 in every step (`maybe_dequantize`) and contracts with
+einsums, outside any kernel; the port does the same.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch
 from repro_torch.kernels.ops import (paged_decode_attention,
                                      paged_verify_attention)
 from repro_torch.kernels.ops import qmatmul as qmm
+from repro_torch.quant.qarray import maybe_dequantize as deq
 
 from .common import ParamSpec, apply_rope, rms_norm, rope_tables, softcap
 from .config import ModelConfig
@@ -51,6 +61,24 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         sp["q_norm"] = ParamSpec((hd,), init="ones")
         sp["k_norm"] = ParamSpec((hd,), init="ones")
     return sp
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamSpec((d, H * qk_dim)),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "ckv_norm": ParamSpec((m.kv_lora_rank,), init="ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H * m.qk_nope_head_dim)),
+        "w_uv": ParamSpec((m.kv_lora_rank, H * m.v_head_dim)),
+        "wo": ParamSpec((H * m.v_head_dim, d)),
+    }
+
+
+def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    return mla_specs(cfg) if cfg.attn_kind == "mla" else gqa_specs(cfg)
 
 
 def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor
@@ -85,12 +113,17 @@ def layer_theta(cfg: ModelConfig, is_local: bool) -> float:
 Rope = Tuple[torch.Tensor, torch.Tensor]
 
 
+def rope_dim(cfg: ModelConfig) -> int:
+    """Dims RoPE rotates: the head dim, or MLA's `qk_rope_head_dim`."""
+    return cfg.mla.qk_rope_head_dim if cfg.attn_kind == "mla" else cfg.hd()
+
+
 def rope_by_theta(cfg: ModelConfig, slots: torch.Tensor,
                   local_flags: Iterable[bool]) -> Dict[float, Rope]:
-    """cos/sin tables (b, s, hd/2) at a step's positions `slots`, once
-    per distinct RoPE base among the layers (one or two), not per
+    """cos/sin tables (b, s, rope_dim/2) at a step's positions `slots`,
+    once per distinct RoPE base among the layers (one or two), not per
     layer."""
-    return {theta: rope_tables(slots, cfg.hd(), theta)
+    return {theta: rope_tables(slots, rope_dim(cfg), theta)
             for theta in {layer_theta(cfg, f) for f in local_flags}}
 
 
@@ -241,6 +274,101 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return qmm(out, p["wo"])
 
 
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An einsum of two operands in their promoted dtype, as `jnp.einsum`
+    promotes (f32 x bf16 -> f32, bf16 x bf16 -> bf16)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def mla_attend(p: Params, cfg: ModelConfig, q_nope: torch.Tensor,
+               q_rope: torch.Tensor, cache: Dict[str, torch.Tensor],
+               tables: torch.Tensor, slots: torch.Tensor,
+               total: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The absorbed latent attention of a step, after its rows are
+    written: q_nope (b, s, H, nope) and the rotated q_rope (b, s, H,
+    rope_d) against every latent row the lanes' tables name.  Returns
+    (b, s, H * v_head_dim), before `wo`.
+
+    Rounds where the JAX package rounds: `w_uk` / `w_uv` dequantized to
+    bf16 (unchanged when float), the scores in f32 against the pools
+    read at the query's dtype, the probabilities cast to the pool dtype
+    for the latent product, whose result is rounded to `out_dtype` (the
+    activations') only after."""
+    m = cfg.mla
+    b, s, H, nope = q_nope.shape
+    r, rope_d, vd = m.kv_lora_rank, m.qk_rope_head_dim, m.v_head_dim
+    c_pool, kr_pool = cache["c_kv"], cache["k_rope"]
+    S = tables.shape[1] * c_pool.shape[1]
+    tl = tables.long()
+    c_all = c_pool[tl].reshape(b, S, r)
+    kr_all = kr_pool[tl].reshape(b, S, rope_d)
+
+    w_uk = deq(p["w_uk"]).reshape(r, H, nope)
+    q_lat = _einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    f32 = torch.float32
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_lat.to(f32),
+                           c_all.to(q_lat.dtype).to(f32))
+              + torch.einsum("bqhr,bkr->bhqk", q_rope.to(f32),
+                             kr_all.to(q_rope.dtype).to(f32)))
+    scores = scores / math.sqrt(nope + rope_d)
+    k_pos = torch.arange(S, device=tables.device)
+    mask = (k_pos[None, None, :] <= slots[:, :, None]) \
+        & (k_pos[None, None, :] < total[:, None, None])          # (b, s, S)
+    scores = scores.masked_fill(~mask[:, None, :, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+
+    o_lat = torch.einsum("bhqk,bkr->bqhr", w.to(c_all.dtype), c_all)
+    w_uv = deq(p["w_uv"]).reshape(r, H, vd)
+    out = _einsum("bqhr,rhv->bqhv", o_lat.to(out_dtype), w_uv)
+    return out.reshape(b, s, H * vd)
+
+
+def mla_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                   cache: Dict[str, torch.Tensor], tables: torch.Tensor,
+                   lengths: torch.Tensor, n_new: torch.Tensor,
+                   rows: PageRows, rope: Rope, is_local: bool = False,
+                   verify: bool = False) -> torch.Tensor:
+    """Paged absorbed-MLA step over this layer's latent pools, written
+    in place: cache {c_kv: (n_pages + 1, ps, r), k_rope: (n_pages + 1,
+    ps, rope_d)}; rope: cos/sin tables (b, s, rope_d/2) at `rows.slots`.
+    Returns the attention output (b, s, d).
+
+    Prefill chunks, decode steps and verify windows take the same path:
+    the latent gather scores every window position under the
+    intra-window causal mask, so `verify` needs no kernel of its own (as
+    in the JAX package; `is_local` and `verify` are unused)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+
+    q = qmm(x, p["wq"]).reshape(b, s, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = qmm(x, p["w_dkv"])
+    c_new = rms_norm(dkv[..., :r], p["ckv_norm"], cfg.norm_eps)
+    kr_new = dkv[..., r:][:, :, None, :]                         # (b,s,1,rd)
+    cos, sin = rope
+    q_rope = apply_rope(q_rope, cos, sin)
+    kr_new = apply_rope(kr_new, cos, sin)
+
+    _page_scatter(cache["c_kv"], c_new, rows)
+    _page_scatter(cache["k_rope"], kr_new[:, :, 0, :], rows)
+    out = mla_attend(p, cfg, q_nope, q_rope, cache, tables, rows.slots,
+                     lengths + n_new, x.dtype)
+    return qmm(out, p["wo"])
+
+
+def attn_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], tables: torch.Tensor,
+                    lengths: torch.Tensor, n_new: torch.Tensor,
+                    rows: PageRows, rope: Rope, is_local: bool = False,
+                    verify: bool = False) -> torch.Tensor:
+    fn = mla_paged_step if cfg.attn_kind == "mla" else gqa_paged_step
+    return fn(p, cfg, x, cache, tables, lengths, n_new, rows, rope,
+              is_local=is_local, verify=verify)
+
+
 def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,
                      dtype: torch.dtype = torch.bfloat16
                      ) -> Dict[str, ParamSpec]:
@@ -248,7 +376,18 @@ def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,
     plus the dump page `n_pages` that takes a step's padding rows
     (`page_rows`).  dtype int8 adds f16 per-(token, kv-head) scale pools
     "k_scale"/"v_scale"; every leaf keeps the page axis first, so page
-    copies move scales with their pages."""
+    copies move scales with their pages.  MLA keeps float latent pools
+    "c_kv" / "k_rope" and refuses int8, as the JAX package does."""
+    if cfg.attn_kind == "mla":
+        if dtype == torch.int8:
+            raise ValueError(
+                "int8 paged KV is not supported for MLA latent pools")
+        m = cfg.mla
+        return {
+            "c_kv": ParamSpec((n_pages + 1, page_size, m.kv_lora_rank),
+                              dtype, init="zeros"),
+            "k_rope": ParamSpec((n_pages + 1, page_size,
+                                 m.qk_rope_head_dim), dtype, init="zeros")}
     kv = ParamSpec((n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd()),
                    dtype, init="zeros")
     spec = {"k": kv, "v": kv}

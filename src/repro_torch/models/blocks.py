@@ -1,13 +1,13 @@
-"""Norms and the transformer block (dense or MoE FFN) over a paged KV
-pool (PyTorch port of the dense / moe serve path of
-`repro.models.blocks`)."""
+"""Norms and the transformer block (GQA or MLA attention, dense or MoE
+FFN) over a paged KV pool (PyTorch port of the dense / moe serve path
+of `repro.models.blocks`)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
 
-from .attention import PageRows, Rope, gqa_paged_step, gqa_specs
+from .attention import PageRows, Rope, attention_specs, attn_paged_step
 from .common import ParamSpec, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, dense_ffn_specs, ffn_forward, ffn_specs
@@ -29,7 +29,7 @@ def transformer_block_specs(cfg: ModelConfig, dense_ffn_override: int = 0
                             ) -> Dict[str, Any]:
     """dense_ffn_override: a dense FFN of this width in place of the
     config's (MoE models' leading dense layers)."""
-    sp = {"ln_attn": norm_specs(cfg), "attn": gqa_specs(cfg),
+    sp = {"ln_attn": norm_specs(cfg), "attn": attention_specs(cfg),
           "ln_ffn": norm_specs(cfg),
           "ffn": (dense_ffn_specs(cfg, dense_ffn_override)
                   if dense_ffn_override else ffn_specs(cfg))}
@@ -47,13 +47,13 @@ def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
                             dense_override: bool = False,
                             verify: bool = False) -> torch.Tensor:
     """Decode / chunked-prefill / verify block (x: (b, s, d)); writes
-    this layer's new K/V rows into `cache` in place.  With
+    this layer's new K/V (or MLA latent) rows into `cache` in place.  With
     `post_block_norm` each branch's output is normed before the
     residual add; `dense_override` runs the dense FFN of a MoE model's
     leading layers."""
     h = apply_norm(p["ln_attn"], cfg, x)
-    a = gqa_paged_step(p["attn"], cfg, h, cache, tables, lengths, n_new,
-                       rows, rope, is_local=is_local, verify=verify)
+    a = attn_paged_step(p["attn"], cfg, h, cache, tables, lengths, n_new,
+                        rows, rope, is_local=is_local, verify=verify)
     if cfg.post_block_norm:
         a = apply_norm(p["post_attn"], cfg, a)
     x = x + a

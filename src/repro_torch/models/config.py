@@ -2,11 +2,12 @@
 
 The same fields and defaults as the JAX `ModelConfig`, with dtypes held
 as strings and resolved to torch dtypes on demand, and the same
-`MoEConfig`.  The other per-family sub-configs (`mla`, `ssm`, `zamba`)
-are carried only so that a model asking for them is rejected by name:
-this port serves the dense GQA family (SwiGLU or gated GELU FFNs,
+`MLAConfig` and `MoEConfig`.  The other per-family sub-configs (`ssm`,
+`zamba`) are carried only so that a model asking for them is rejected by
+name: this port serves the dense family (SwiGLU or gated GELU FFNs,
 sliding-window / global layer alternation, softcaps, QK-norm, post-block
-norms) and its Mixture-of-Experts variant.
+norms) and its Mixture-of-Experts variant, with GQA or multi-head latent
+attention (MLA).
 """
 from __future__ import annotations
 
@@ -17,6 +18,15 @@ from typing import Any, Optional
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    q_lora_rank: int = 0          # 0 = no query compression (V2-Lite)
 
 
 @dataclass(frozen=True)
@@ -71,7 +81,7 @@ class ModelConfig:
     embed_inputs: bool = True
     logit_dtype: str = "float32"
 
-    mla: Optional[Any] = None
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[Any] = None
     zamba: Optional[Any] = None

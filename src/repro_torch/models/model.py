@@ -1,9 +1,10 @@
-"""Decoder-only LM, the dense and MoE GQA families (PyTorch port of the
-serve path of `repro.models.model.DecoderLM`): SwiGLU or gated GELU
-FFNs or routed experts (with shared experts and leading dense layers),
-tied or untied heads, and gemma's features (sliding-window / global
-layers, attention and final softcaps, QK-norm, post-block norms, scaled
-embeddings, a second RoPE base for local layers).
+"""Decoder-only LM, the dense and MoE families (PyTorch port of the
+serve path of `repro.models.model.DecoderLM`): GQA or multi-head latent
+attention (MLA, deepseek), SwiGLU or gated GELU FFNs or routed experts
+(with shared experts and leading dense layers), tied or untied heads,
+and gemma's features (sliding-window / global layers, attention and
+final softcaps, QK-norm, post-block norms, scaled embeddings, a second
+RoPE base for local layers).
 
     model  = DecoderLM(cfg)
     specs  = model.param_specs()                     # ParamSpec tree
@@ -16,8 +17,9 @@ Parameters keep the JAX package's tree and stacked-layer layout
 (`blocks` leaves carry a leading layer dim; a MoE model's leading dense
 layers are `first_blocks`, with their own `attn_first` pools), so
 `repro_torch.convert` carries weights across leaf for leaf.  The paged KV
-pools keep the stacked `(L, n_pages, page_size, g, hd)` layout and are
-updated in place.  Other families and attention flavors raise
+pools keep the stacked `(L, n_pages, page_size, g, hd)` layout (MLA's
+latent pools `(L, n_pages, page_size, r)` and `(L, ..., rope_d)`) and
+are updated in place.  Other families and attention flavors raise
 NotImplementedError (`_unsupported` names what is not ported yet).
 """
 from __future__ import annotations
@@ -44,7 +46,8 @@ def _unsupported(cfg: ModelConfig) -> List[str]:
     out = []
     if cfg.family not in ("dense", "moe"):
         out.append(f"family {cfg.family!r}")
-    if cfg.attn_kind != "gqa" or cfg.mla is not None:
+    if cfg.attn_kind not in ("gqa", "mla") or \
+            (cfg.attn_kind == "mla") != (cfg.mla is not None):
         out.append(f"attention {cfg.attn_kind!r}")
     if cfg.norm_kind != "rms":
         out.append(f"norm {cfg.norm_kind!r}")
@@ -60,8 +63,9 @@ class DecoderLM:
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense and MoE GQA "
-                f"decoders only; not yet ported: {', '.join(bad)}")
+                f"{cfg.name}: the PyTorch port serves dense and MoE "
+                f"decoders (GQA or MLA) only; not yet ported: "
+                f"{', '.join(bad)}")
         self.cfg = cfg
         # the embedding scale rounded to the embeddings' dtype first, as
         # the JAX package multiplies by jnp.asarray(sqrt(d), h.dtype)
@@ -153,9 +157,10 @@ class DecoderLM:
         s > 1 is a chunked batch prefill where lane i consumes n_new[i]
         <= s tokens (lanes with n_new == 0 are padding).  tables: (b,
         max_pages) int32; lengths: (b,) int32 tokens already cached.
-        `cache` ({"attn": {k, v[, k_scale, v_scale]}} stacked over
-        layers) is written in place and returned.  Returns (logits (b, s,
-        vocab) f32, cache); lane i samples from logits[i, n_new[i] - 1].
+        `cache` ({"attn": {k, v[, k_scale, v_scale]}}, MLA's {c_kv,
+        k_rope}, stacked over layers) is written in place and returned.
+        Returns (logits (b, s, vocab) f32, cache); lane i samples from
+        logits[i, n_new[i] - 1].
         """
         return self._paged_forward(params, cache, inputs, tables, lengths,
                                    n_new, verify=False)
@@ -174,8 +179,9 @@ class DecoderLM:
         ..., d_{n_new[i]-1}, pad...]; `lengths` counts tokens already
         cached (this call writes the window's K/V rows, like a prefill
         chunk).  logits[i, j] is the target distribution for the token
-        after window position j.  The same math as `serve_step`; the
-        attention runs the multi-query verify kernel."""
+        after window position j.  The same math as `serve_step`; GQA
+        attention runs the multi-query verify kernel, MLA its latent
+        gather."""
         return self._paged_forward(params, cache, inputs, tables, lengths,
                                    n_new, verify=True)
 
@@ -189,11 +195,12 @@ class DecoderLM:
         cfg = self.cfg
         h = self._embed(params, inputs["tokens"])
         s = h.shape[1]
-        pools = cache["attn"]
-        # stacked (L, n_pages + 1, page_size, ...): the last page is the
-        # dump page of `page_rows`
-        rows = page_rows(tables, lengths, n_new, s, pools["k"].shape[2],
-                         dump_page=pools["k"].shape[1] - 1)
+        # every pool leaf (K/V, scales, MLA's latents) is stacked (L,
+        # n_pages + 1, page_size, ...): the last page is the dump page of
+        # `page_rows`
+        leaf = next(iter(cache["attn"].values()))
+        rows = page_rows(tables, lengths, n_new, s, leaf.shape[2],
+                         dump_page=leaf.shape[1] - 1)
         ropes = rope_by_theta(cfg, rows.slots,
                               [False] * self.n_first + self._local)
         # MoE models' leading dense layers (global, dense FFN), then the

@@ -141,6 +141,12 @@ def dequantize(qt: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     return torch.movedim(w, 0, qt.axis).to(dtype)
 
 
+def maybe_dequantize(w, dtype=torch.bfloat16):
+    """A QTensor dequantized to `dtype` (bf16 by default, as the JAX
+    package's `maybe_dequantize`); a float weight unchanged."""
+    return dequantize(w, dtype) if isinstance(w, QTensor) else w
+
+
 def dequant_rows(qt: QTensor, ids: torch.Tensor, dtype=torch.bfloat16
                  ) -> torch.Tensor:
     """Gather + dequantize rows of an axis=-1-quantized (vocab, d) table:

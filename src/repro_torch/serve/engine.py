@@ -44,14 +44,16 @@ cover the jitted dispatch, the port's include the device's work.
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
 versions of the kernels, run eagerly).  Not in this port yet, and
 refused when asked for: tensor parallelism and replicas (`ServeConfig`),
-recurrent families and their StateArena, MLA models (`DecoderLM`).
-Sliding-window / softcap models (gemma2, gemma3) and MoE models
-(qwen3-moe) are served like any dense model; `kv_dtype="auto"` gives
-them INT8 pools too, as in the JAX engine (only MLA's latent pools fall
-back there).
+recurrent families and their StateArena (`DecoderLM`).
+Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
+and MLA models (deepseek) are served like any dense model;
+`kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
+for MLA, whose latent pools stay float: there "auto" pins bf16 into
+`self.config` and an explicit "int8" raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional
 
@@ -87,6 +89,14 @@ class PagedServeEngine:
                  spec: Optional[Any] = None, device=None,
                  eager: bool = False, clock=time.monotonic):
         config = config if config is not None else ServeConfig()
+        if (config.kv_dtype == "auto"
+                and config.resolved_kv_dtype() == torch.int8
+                and model.cfg.attn_kind == "mla"):
+            # "auto" is the best supported: MLA's latent pools stay float
+            # (attention.paged_cache_spec refuses int8), so it resolves to
+            # bf16, pinned into the config as the JAX engine pins it; an
+            # explicit kv_dtype="int8" raises there
+            config = dataclasses.replace(config, kv_dtype="bf16")
         self.config = config
         self.device = resolve_device(device)
         max_batch, max_seq = config.max_batch, config.max_seq

@@ -242,3 +242,62 @@ def test_cols_constants_mirror_the_source():
     # the table's least tile (a warp's rows) and its largest, 8 warps of it
     assert int(const["TBL_R"]) == cg.TBL_R
     assert cg.TBL_R * int(const["TBL_THREADS"]) // 32 == cg.TBL_VB
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", M_SENT + (256,))
+def test_plan_takes_every_call_of_deepseek(bits, m):
+    """deepseek-v2-lite-16b at full width: MLA's wq (2048 -> 3072),
+    w_dkv (2048 -> 576: nine 64-column tiles) and wo, layer 0's w_down
+    (10944 -> 2048, groups of 114), the shared experts (2048 -> 2816,
+    2816 -> 2048 in groups of 88) and the untied head (2048 -> 102400):
+    a shared-memory size the card holds, K covered once; and the expert
+    stacks (64 experts, capacity 8 at decode, in a 64-row chunk and in
+    a verify window of 20 rows; down in groups of 88)."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    d, mla, moe = cfg.d_model, cfg.mla, cfg.moe
+    H = cfg.n_heads
+    fs = moe.d_ff_expert * moe.n_shared_experts
+    calls = [("wq", d, H * (mla.qk_nope_head_dim + mla.qk_rope_head_dim)),
+             ("w_dkv", d, mla.kv_lora_rank + mla.qk_rope_head_dim),
+             ("wo", H * mla.v_head_dim, d),
+             ("w_down", moe.first_dense_d_ff, d), ("ws_gate", d, fs),
+             ("ws_down", fs, d), ("head", d, cfg.vocab)]
+    for name, k, n in calls:
+        group = _pick_group(k, 128, 16)
+        stored = k // 2 if bits == 4 else k
+        plan = cg.split_plan("cols", m, stored, n, bits, 132)
+        smem = cg.smem_bytes("cols", plan, m, k, bits, group)
+        assert smem <= cg.SMEM_MAX, (name, m, plan, smem)
+        assert plan.splits <= cg.MAX_SPLITS
+        assert (plan.splits - 1) * plan.rows < stored \
+            <= plan.splits * plan.rows
+        assert plan.blocks == -(-n // cg.TN) * plan.splits
+        rows = [p for sp in range(plan.splits)
+                for b, e in cg.lane_rows(plan, sp, stored)
+                for p in range(b, e)]
+        assert rows == list(range(stored)), name
+    assert _pick_group(moe.first_dense_d_ff, 128, 16) == 114
+    assert -(-(mla.kv_lora_rank + mla.qk_rope_head_dim) // cg.TN) == 9
+    E, fe = moe.n_experts, moe.d_ff_expert
+    c = min(m, 8)
+    for k, n in ((d, fe), (fe, d)):
+        group = _pick_group(k, 128, 16)
+        assert group == (128 if k == d else 88)
+        stored = k // 2 if bits == 4 else k
+        plan = cg.stack_plan(c, stored, n, bits, E, 132)
+        assert cg.smem_bytes("cols", plan, c, k, bits, group) <= cg.SMEM_MAX
+        assert (plan.splits - 1) * plan.rows < stored \
+            <= plan.splits * plan.rows
+        if plan.splits > 1:
+            assert E * -(-n // cg.TN) <= cg.MAX_TILES
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,n,group,n_sms", [
+    (4, 10944 // 8, 64, 114, 132),  # deepseek's w_down group of 114
+    (20, 1408, 64, 88, 132),        # its experts' down, groups of 88
+])
+def test_split_order_matches_oracle_deepseek_groups(bits, m, k, n, group,
+                                                    n_sms):
+    test_split_order_matches_oracle_any_group(bits, m, k, n, group, n_sms)

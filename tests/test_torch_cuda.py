@@ -864,3 +864,101 @@ def test_qwen3_moe_smoke_decode_replay_equals_eager(device):
     assert launch_counts() == {"cim_gemv": 7 * L + 1, "swiglu_qgemv": 0,
                                "paged_flash_decode": L,
                                "paged_flash_verify": 0, "flash_decode": 0}
+
+
+# ----------------------------------------------------------------------------
+# MLA: deepseek-v2-lite-16b's widths and its smoke model
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 4, 20, 64])
+@pytest.mark.parametrize("k,n,group", [
+    (10944, 2048, 114),    # layer 0's w_down: groups of 114
+    (2048, 576, 128),      # w_dkv: nine 64-column tiles
+    (2816, 2048, 88),      # the shared experts' down: groups of 88
+])
+def test_cim_gemv_kernel_at_deepseek_widths(device, bits, m, k, n, group):
+    g = _gen(51)
+    x = torch.randn(m, k, generator=g, device=device)
+    w = quantize(torch.randn(k, n, generator=g, device=device) * 0.02, bits,
+                 group)
+    out = cim_gemv(x, w)
+    _close(out, cim_gemv_plain(x, w))
+    assert torch.equal(out, cim_gemv(x, w))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 4, 20, 64])
+def test_swiglu_kernel_at_f_10944(device, bits, m):
+    """deepseek's leading dense layer: 2048 -> 10944, 85.5 column tiles
+    of 128 (the last half full)."""
+    g, wg, wu = _gate_up(device, bits, 2048, 10944, 128)
+    x = torch.randn(m, 2048, generator=g, device=device)
+    out = swiglu_qgemv(x, wg, wu)
+    _close(out, swiglu_plain(x, wg, wu))
+    assert torch.equal(out, swiglu_qgemv(x, wg, wu))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k,n,group", [(2048, 1408, 128),   # gate / up
+                                       (1408, 2048, 88)])   # down
+def test_cim_gemv_stack_at_64_experts(device, bits, k, n, group):
+    """deepseek's stacks, 64 experts, capacity 8, counts 0 / 1 / 8 and
+    others; NaN rows past a count are not read."""
+    E, C = 64, 8
+    g, w = _stack(device, bits, E, k, n, group, seed=52)
+    x = torch.randn(E, C, k, generator=g, device=device)
+    counts = torch.randint(0, C + 1, (E,), generator=g, device=device)
+    counts[:4] = torch.tensor([0, 1, 8, 3], device=device)
+    counts = counts.int()
+    rows = torch.arange(C, device=device)[None, :] < counts[:, None]
+    x = torch.where(rows[..., None], x, float("nan"))
+    ref = cim_gemv_plain(torch.nan_to_num(x), w)
+    out = cim_gemv(x, w, counts)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[rows]).all()
+    _close(out[rows], ref[rows])
+    assert torch.equal(out[rows], cim_gemv(x, w, counts)[rows])
+
+
+def test_deepseek_smoke_decode_replay_equals_eager(device):
+    """deepseek-v2-lite-smoke (MLA over bf16 latent pools, a leading
+    dense layer, routed and shared experts), INT4 weights: a captured
+    decode step replays bitwise equal to the eager call and counts 3
+    MLA projections a layer, layer 0's w_down, 6 expert calls a MoE
+    layer and the head on cim_gemv, one swiglu_qgemv, no attention
+    kernel."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.quant.ptq import quantize_params
+    from repro_torch.serve import StepRunner
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    cfg = get_smoke_config("deepseek-v2-lite-16b").replace(
+        dtype="float32", remat=False)
+    model = DecoderLM(cfg)
+    params = quantize_params(init_params(
+        model.param_specs(), torch.Generator(device=device).manual_seed(0),
+        device, torch.float32), 4, 16)
+    pools = {name: {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
+                    for k, v in p.items()}
+             for name, p in model.paged_cache_specs(8, 16,
+                                                    torch.bfloat16).items()}
+    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
+    runner = StepRunner(device)
+    tok = (np.arange(32, dtype=np.int32).reshape(2, 16) * 7) % cfg.vocab
+    runner(model.serve_step, params, pools, tok, tables,
+           np.zeros(2, np.int32), np.array([16, 12], np.int32))
+    args = (tok[:, :1].copy(), tables, np.array([16, 12], np.int32),
+            np.ones(2, np.int32))
+    eager = runner(model.serve_step, params, pools, *args).clone()
+    reset_launch_counts()
+    logits = runner(model.serve_step, params, pools, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager)
+    assert torch.isfinite(logits).all()
+    L, n_moe = cfg.n_layers, cfg.n_layers - cfg.moe.first_dense_layers
+    assert launch_counts() == {"cim_gemv": 3 * L + 1 + 6 * n_moe + 1,
+                               "swiglu_qgemv": 1, "paged_flash_decode": 0,
+                               "paged_flash_verify": 0, "flash_decode": 0}

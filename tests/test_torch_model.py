@@ -273,8 +273,6 @@ def test_features_outside_the_slice_raise():
     with pytest.raises(NotImplementedError):
         ServeConfig(tp=2)
     with pytest.raises(NotImplementedError):
-        DecoderLM(ModelConfig(**dict(SMOKE, attn_kind="mla")))
-    with pytest.raises(NotImplementedError):
         DecoderLM(ModelConfig(**dict(SMOKE, family="xlstm")))
     with pytest.raises(NotImplementedError):
         DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="layer")))

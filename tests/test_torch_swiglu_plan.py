@@ -173,3 +173,27 @@ def test_plan_takes_phi3_gate_up(bits, m):
     plan = sw.split_plan(m, stored, f, bits, group, 132)
     assert sw.smem_bytes(plan, m, bits, group) <= sw.SMEM_MAX
     assert (plan.splits - 1) * plan.rows < stored <= plan.splits * plan.rows
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", M_SENT)
+def test_plan_takes_deepseek_dense_gate_up(bits, m):
+    """deepseek-v2-lite-16b's leading dense layer (2048 -> 10944, groups
+    of 128): F / TN = 85.5, so the last column tile is half full; a
+    shared-memory size the card holds, K covered once."""
+    cfg = get_config("deepseek-v2-lite-16b")
+    k, f = cfg.d_model, cfg.moe.first_dense_d_ff
+    assert f % sw.TN == sw.TN // 2
+    group = _pick_group(k, 128, 16)
+    stored = k // 2 if bits == 4 else k
+    plan = sw.split_plan(m, stored, f, bits, group, 132)
+    assert sw.smem_bytes(plan, m, bits, group) <= sw.SMEM_MAX
+    assert (plan.splits - 1) * plan.rows < stored <= plan.splits * plan.rows
+    assert plan.blocks == -(-f // sw.TN) * plan.splits
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_split_order_matches_oracle_half_last_tile(bits):
+    """A half-full last column tile (F = 192 = 1.5 tiles, as deepseek's
+    10944 = 85.5 tiles) in the kernel's order of summation."""
+    test_split_order_matches_oracle_any_group(bits, 4, 512, 192, 128, 132)
