@@ -133,7 +133,38 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      last column tile), and times layer 0's two calls, the MLA
      projections and the stacks of a decode step; phase 6 holds a
      2-layer full-width copy (1 dense + 1 MoE layer) against the CPU.
- 11. summary: a `{"kernels": [...]}` line, the card line, and last
+ 11. xlstm-1.3b at full width and depth (48 layers: 42 mLSTM, 6 sLSTM;
+     d 2048; INT4, groups of 64 on the mLSTM's head-wise q/k/v and 105
+     on the sLSTM's ffn_down), seed 7: a wave of 4 requests as CUDA
+     graphs and eagerly, streams compared, launches equal to per-call
+     counts x calls (a decode step: 42 x 6 + 6 x 2 + 1 = 265 cim_gemv,
+     no attention kernel; the q/k/v in cim_gemv's stack layout), the
+     arena's tensors never moved, two replays from one arena state
+     bitwise equal; the wave again in a pool two pages over its prompts,
+     whose preempted lanes snapshot their arena slot to the host and
+     resume from it (each copy timed), streams equal to the unpreempted
+     run; the spec, prefix-cache and fork refusals with the JAX engine's
+     wording; decode step wall median, replay device ms, busy share,
+     `state_bytes`; a profiled decode step by kernel beside each bound
+     and the whole step's bound (weights, float leaves, the arena read
+     and written); peak memory while drawing and resident.
+ 12. zamba2-7b at full width and 27 layers (4 groups of 6 Mamba2 layers,
+     each followed by the shared attention + MLP block with its site's
+     LoRA, then 3 Mamba2 layers; hd 112, 32 / 32 heads; INT4, groups of
+     112; INT8 KV), seed 8: as phase 11, with a decode step of 27 x 2 +
+     4 x 6 + 1 = 79 cim_gemv, 4 swiglu_qgemv and 4 paged_flash_decode,
+     and preempted lanes re-prefilled (no snapshot).
+     Phase 2 holds, before them, cim_gemv at every new projection shape
+     (M = 1, 4, 64: groups of 105, 112, 64 in the head-wise stack; N up
+     to 50304), swiglu_qgemv at 3584 -> 14336 and paged_flash_decode at
+     hd 112 / qpk 1 / 32 kv heads (INT8, bf16, f32 pools; split
+     boundaries, lengths 1 and 0, batch 1 x 4096), and times a zamba
+     decode step's 4 attention and 4 swiglu calls and an xlstm decode
+     step's 126 head-wise stack calls; phase 6 holds a 2-layer xlstm
+     copy (slstm_every 2: one mLSTM, one sLSTM) and a 3-layer zamba copy
+     (shared_every 2: one group and a tail layer) against the CPU, one
+     prefill chunk and two decode steps.
+ 13. summary: a `{"kernels": [...]}` line, the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -911,7 +942,10 @@ def step_launches(cfg, s: int, verify: bool = False, packed: bool = True):
     call per projection; a MoE layer's routed experts three calls in the
     stack layout, its shared experts three more), a GQA decode step's
     attention to paged_flash_decode, a verify window's to
-    paged_flash_verify (MLA's attention is plain PyTorch)."""
+    paged_flash_verify (MLA's attention is plain PyTorch); xlstm and zamba
+    as `recurrent_step_launches`."""
+    if cfg.family in ("xlstm", "zamba"):
+        return recurrent_step_launches(cfg, s, packed)
     L = cfg.n_layers
     m = cfg.moe
     mla = cfg.attn_kind == "mla"
@@ -976,24 +1010,32 @@ def replay_check(label, eng, fn, shape, iters: int = 20) -> float:
     (CUDA events), and two replays on its static inputs bitwise equal
     in logits and in every pool page a table can name: the dump page
     (the last) takes the step's padding rows, several on one row in no
-    fixed order, and is never read.  Direct replays: no launch is
-    counted."""
+    fixed order, and is never read.  A recurrent model's step advances
+    its arena, so both replays start from the same arena state and must
+    leave the same one.  Direct replays: no launch is counted."""
     import torch
     graph, logits = eng.runner.graph_of(fn, shape)
     ms = cuda_time_ms(graph.replay, iters)
+    arena = ([leaf for _, leaf, _ in eng.arena._leaves()]
+             if eng.arena is not None else [])
+    start = [leaf.clone() for leaf in arena]
     snaps = []
     for _ in range(2):
+        for leaf, x in zip(arena, start):
+            leaf.copy_(x)
         graph.replay()
         torch.cuda.synchronize()
         snaps.append((logits.clone(), [v[:, :-1].clone()
                                        for pools in eng.cache.pools.values()
-                                       for v in pools.values()]))
+                                       for v in pools.values()]
+                      + [leaf.clone() for leaf in arena]))
     same_logits = torch.equal(snaps[0][0], snaps[1][0])
     same_pools = all(torch.equal(a, b) for a, b in zip(snaps[0][1],
                                                        snaps[1][1]))
     log(f"check {label} graph {list(shape)}: two replays on the same "
         f"inputs bitwise: logits {'equal' if same_logits else 'DIFFERENT'},"
-        f" pools (but the dump page) {'equal' if same_pools else 'DIFFERENT'}"
+        f" pools (but the dump page){' and arena' if arena else ''} "
+        f"{'equal' if same_pools else 'DIFFERENT'}"
         f"; replay device {ms:.3f} ms")
     if not (same_logits and same_pools):
         fail(f"{label}: two replays of one graph differ")
@@ -1211,7 +1253,7 @@ def phase_full_model(model, params, device, card):
 
 def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     """torch.profiler over a few batch-4 model steps on the engine's
-    pools (lanes at length 64): decode `serve_step` calls for s = 1,
+    pools and arena (lanes at length 64): decode `serve_step` calls for s = 1,
     `paged_verify_step` windows of s tokens otherwise; first eagerly,
     then as replays of a CUDA graph (a `StepRunner` of its own, captured
     before the profile).  Host wall time per step against the device
@@ -1235,10 +1277,10 @@ def profile_step(model, params, eng, device, s: int = 1, steps: int = 3):
     runner = StepRunner(device)
 
     def eager():
-        fn(params, eng.cache.pools, {"tokens": tok}, tables, lengths, n_new)
+        fn(params, eng.state, {"tokens": tok}, tables, lengths, n_new)
 
     def replay():
-        runner(fn, params, eng.cache.pools, *host)
+        runner(fn, params, eng.state, *host)
     names, per_mode = {}, {}
     for mode, step in (("eager", eager), ("graph replay", replay)):
         step()
@@ -1329,17 +1371,29 @@ def device_split(label, step, steps: int = 3) -> None:
                     for nm, (_, v) in zip(names, parts)))
 
 
+def fresh_state(model, b: int, n_pages: int, ps: int, device):
+    """A step's decode state on `device`, zeroed: the paged pools (INT8,
+    or MLA's bf16 latent pools) and, for a recurrent family, the arena's
+    leaves for b lanes, in one dict as the engine hands them over."""
+    import torch
+    from repro_torch.models.common import map_specs
+    kv = torch.bfloat16 if model.cfg.attn_kind == "mla" else torch.int8
+    specs = model.decode_state_specs(b, n_pages, ps, kv)
+    state = {}
+    for half in ("paged", "arena"):
+        state.update(map_specs(lambda s: torch.zeros(
+            s.shape, dtype=s.dtype, device=device), specs[half]))
+    return state
+
+
 def top2_gap(model, params, device, tokens):
     """(gap between the two largest logits after `tokens`, the logit
-    tolerance): one prefill chunk through `serve_step` on a fresh pool."""
+    tolerance): one prefill chunk through `serve_step` on a fresh pool
+    (and arena)."""
     import torch
     n, ps = len(tokens), 16
     pages = -(-n // ps)
-    kv = torch.bfloat16 if model.cfg.attn_kind == "mla" else torch.int8
-    cache = {name: {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
-                    for k, v in pools.items()}
-             for name, pools in model.paged_cache_specs(pages, ps,
-                                                        kv).items()}
+    cache = fresh_state(model, 1, pages, ps, device)
     logits, _ = model.serve_step(
         params, cache, {"tokens": torch.tensor(tokens[None], device=device)},
         torch.arange(pages, dtype=torch.int32, device=device)[None],
@@ -2173,7 +2227,7 @@ def phase_short_wave(arch, device, n_layers: int = 4):
 
 
 def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
-                      **cut):
+                      n_layers: int = 2, decode_steps: int = 1, **cut):
     """A 2-layer full-width copy of `arch` (weights drawn on the card
     from seed 2, copied to the CPU), stepped in lockstep through
     serve_step on the card (kernels) and on the CPU (plain versions):
@@ -2181,14 +2235,17 @@ def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
     one lane past its window instead (cut to 128 keys by the caller:
     past gemma3's 1024 the CPU's plain table contraction over 262144
     rows took 271 s of a chip run), prefilled in chunks of 128, then two
-    decode steps.  Every real row's logits compared."""
+    decode steps.  Every real row's logits compared.  `decode_steps`
+    decode steps follow the chunk; a recurrent family's arena steps with
+    its pools (`n_layers`: 3 for zamba, one Mamba2 group and a tail
+    layer)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_model
     from repro_torch.models.common import tree_to
 
-    cfg = get_config(arch).replace(dtype="float32", remat=False, n_layers=2,
-                                   **cut)
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers, **cut)
     t0 = time.perf_counter()
     model, params = build_model(cfg, "int4", 128, device, seed=2)
     devs = {"cpu": tree_to(params, "cpu"), str(device): params}
@@ -2197,15 +2254,10 @@ def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
         plan = [(128, [128]), (128, [66]), (1, [1]), (1, [1])]
     else:
         b, max_pages = 2, 8
-        plan = [(16, [16, 11]), (1, [1, 1])]
+        plan = [(16, [16, 11])] + [(1, [1, 1])] * decode_steps
     # INT8 pools, but MLA's latent pools, which stay float (bf16, as its
-    # engine resolves kv_dtype "auto")
-    kv = torch.bfloat16 if cfg.attn_kind == "mla" else torch.int8
-    caches = {d: {name: {k: torch.zeros(v.shape, dtype=v.dtype, device=d)
-                         for k, v in pools.items()}
-                  for name, pools in model.paged_cache_specs(
-                      b * max_pages, 16, kv).items()}
-              for d in devs}
+    # engine resolves kv_dtype "auto"); a recurrent family's arena too
+    caches = {d: fresh_state(model, b, b * max_pages, 16, d) for d in devs}
     g = torch.Generator().manual_seed(3)
     lengths = torch.zeros(b, dtype=torch.int32)
     err = tol_min = 0.0
@@ -2240,10 +2292,11 @@ def phase_card_vs_cpu(device, arch: str = "qwen2.5-3b", long_lane=False,
         n_clear += int(clear.sum())
         n_agree += int((got.argmax(-1) == ref.argmax(-1))[clear].sum())
         lengths = lengths + nn
-    log(f"card vs CPU, {arch} 2 layers at full width"
+    log(f"card vs CPU, {arch} {n_layers} layers at full width"
         + (f" ({', '.join(f'{k}={v}' for k, v in cut.items())})" if cut
            else "")
-        + f", local layers {[cfg.is_local_layer(i) for i in range(2)]}: "
+        + f", local layers "
+        f"{[cfg.is_local_layer(i) for i in range(n_layers)]}: "
         f"{len(plan)} steps, lanes to {lengths.tolist()} keys, {n_rows} "
         f"rows; max logit diff {err:.3e} (smallest step tol "
         f"{tol_min:.3e}); argmax agrees on {n_agree}/{n_clear} rows with a "
@@ -2997,7 +3050,559 @@ def phase_moe_serving(device, arch: str, n_layers: int, groups, seed: int,
     return graph["counts"], s_counts, result
 
 
+# ---------------------------------------------------------------------------
+# the recurrent and hybrid families: xlstm-1.3b and zamba2-7b
+# ---------------------------------------------------------------------------
+XLSTM_ARCH, ZAMBA_ARCH = "xlstm-1.3b", "zamba2-7b"
+
+
+def recurrent_step_launches(cfg, s: int, packed: bool = True):
+    """Kernel launches of one serve_step call of xlstm or zamba, at any
+    width s (the cells run their projections over the whole chunk):
+    xlstm's mLSTM layers up_proj, w_o, down_proj and three head-wise
+    stack calls (q/k/v), its sLSTM layers ffn_up and ffn_down (w_gates
+    and r_gates are float); zamba's Mamba2 layers in_proj and out_proj,
+    each shared-block invocation q/k/v/o, the LoRA out_proj and w_down on
+    cim_gemv, gate/up on swiglu_qgemv and, in a decode step, its
+    attention on paged_flash_decode; the head."""
+    L = cfg.n_layers
+    if cfg.family == "xlstm":
+        groups = L // cfg.ssm.slstm_every
+        cim, sw, attn = 6 * (L - groups) + 2 * groups + 1, 0, 0
+    else:
+        groups = L // cfg.zamba.shared_every
+        cim, sw, attn = 2 * L + 6 * groups + 1, groups, groups
+    return {"cim_gemv": cim if packed else 0,
+            "swiglu_qgemv": sw if packed else 0,
+            "paged_flash_decode": attn if s == 1 else 0,
+            "paged_flash_verify": 0, "flash_decode": 0}
+
+
+def float_pools(gen, device, dtype, b, max_pages, g, hd, ps=16):
+    """One layer's f32 or bf16 K/V pools and shuffled tables, as
+    `int8_pools` returns them (no scales)."""
+    import torch
+    n_pages = b * max_pages
+    k, v = (torch.randn(n_pages, ps, g, hd, generator=gen, device=device
+                        ).to(dtype) for _ in range(2))
+    tables = torch.randperm(n_pages, generator=gen, device=device
+                            ).reshape(b, max_pages).int()
+    return k, v, None, None, tables
+
+
+def phase_recurrent_kernels(device, checks: Checks):
+    """The kernels at xlstm-1.3b's and zamba2-7b's shapes against their
+    plain versions, every call twice (bitwise equal): cim_gemv on xlstm's
+    up_proj (2048 -> 8192), w_o (4096^2), down_proj, ffn_up (2048 ->
+    5460), ffn_down (2730 -> 2048 in odd groups of 105) and head (2048
+    -> 50304), the mLSTM's head-wise q/k/v as a 4-expert stack (1024 ->
+    1024, groups of 64, every row counted), zamba's in_proj (3584 ->
+    14576), out_proj (7168 -> 3584), q/k/v/o and the LoRA out_proj
+    (3584^2, groups of 112), w_down and head (3584 -> 32000), at M = 1,
+    4 and 64; swiglu_qgemv at 3584 -> 14336 in groups of 112;
+    paged_flash_decode at hd 112, one query head per kv head, 32 kv
+    heads, on INT8, bf16 and f32 pools, at its split boundaries, length
+    1 and 0, and batch 1 over 4096 keys.  Then the 4 attention calls and
+    the 4 swiglu_qgemv calls of a zamba decode step (batch 4), the 4
+    attention calls at batch 1 over 4096 keys, and the 126 head-wise
+    stack calls of an xlstm decode step, each beside its bound.
+    Returns the timings."""
+    import torch
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              smem_bytes, split_plan,
+                                              stack_plan)
+    from repro_torch.kernels.paged_flash_decode import (decode_plan,
+                                                        paged_decode_plain,
+                                                        paged_flash_decode)
+    from repro_torch.kernels.split_decode import sm_count
+    from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
+    from repro_torch.quant.qarray import quantize
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(53)
+    sms = sm_count(device)
+
+    def packed(k, n, group, bits=4):
+        return quantize(torch.randn(k, n, generator=gen, device=device)
+                        * 0.02, bits, group)
+    shapes = {"xlstm up_proj": (2048, 8192, 128),
+              "xlstm w_o": (4096, 4096, 128),
+              "xlstm down_proj": (4096, 2048, 128),
+              "xlstm ffn_up": (2048, 5460, 128),
+              "xlstm ffn_down": (2730, 2048, 105),
+              "xlstm head": (2048, 50304, 128),
+              "zamba in_proj": (3584, 14576, 112),
+              "zamba out_proj": (7168, 3584, 112),
+              "zamba q/k/v/o lora_out": (3584, 3584, 112),
+              "zamba w_down": (14336, 3584, 128),
+              "zamba head": (3584, 32000, 112)}
+    for name, (k, n, group) in shapes.items():
+        w = packed(k, n, group)
+        for m in (1, 4, 64):
+            x = torch.randn(m, k, generator=gen, device=device)
+            label = f"{name} {k}->{n} g{group} M={m}"
+            out = cim_gemv(x, w)
+            checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+            checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+        if name in ("xlstm ffn_down", "zamba in_proj", "zamba out_proj"):
+            pl = split_plan("cols", 4, w.data.shape[0], n, 4, sms)
+            log(f"plan cim_gemv {name} g{group} M=4: M tile {pl.mt}, "
+                f"{pl.splits} splits of {pl.rows} rows, {pl.blocks} "
+                f"blocks, {smem_bytes('cols', pl, 4, k, 4, group)} B "
+                "shared memory")
+        del w
+    stack = quantize(torch.randn(4, 1024, 1024, generator=gen,
+                                 device=device) * 0.02, 4, 64, axis=1)
+    for m in (1, 4, 64):
+        x = torch.randn(4, m, 1024, generator=gen, device=device)
+        counts = torch.full((4,), m, dtype=torch.int32, device=device)
+        label = f"xlstm mLSTM q/k/v stack 4 x 1024->1024 g64 rows={m}"
+        out = cim_gemv(x, stack, counts)
+        checks.compare("cim_gemv", label, out, cim_gemv_plain(x, stack))
+        checks.repeat("cim_gemv", label, out, cim_gemv(x, stack, counts))
+    pl = stack_plan(4, 512, 1024, 4, 4, sms)
+    log(f"plan cim_gemv mLSTM q/k/v stack rows=4: M tile {pl.mt}, "
+        f"{pl.splits} splits of {pl.rows} rows, {pl.blocks} blocks an "
+        "expert")
+    wg, wu = packed(3584, 14336, 112), packed(3584, 14336, 112)
+    for m in (1, 4, 64):
+        x = torch.randn(m, 3584, generator=gen, device=device)
+        label = f"zamba shared gate/up 3584->14336 g112 M={m}"
+        out = swiglu_qgemv(x, wg, wu)
+        checks.compare("swiglu_qgemv", label, out, swiglu_plain(x, wg, wu))
+        checks.repeat("swiglu_qgemv", label, out, swiglu_qgemv(x, wg, wu))
+
+    g, hd, ps = 32, 112, 16
+    for pool in ("int8", "bf16", "f32"):
+        for b, max_pages in ((4, 64), (1, 256)):
+            kp, vp, ks, vs, tables = (
+                int8_pools(gen, device, b, max_pages, g, hd) if pool == "int8"
+                else float_pools(gen, device, {"bf16": torch.bfloat16,
+                                               "f32": torch.float32}[pool],
+                                 b, max_pages, g, hd))
+            q = torch.randn(b, g, 1, hd, generator=gen, device=device)
+            if b == 4:
+                _, chunk = decode_plan(b, g, max_pages, ps, sms, 1)
+                lens = [chunk, chunk + 1, 1, 0]
+            else:
+                lens = [max_pages * ps]
+            lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+            args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+            label = f"hd 112 qpk 1 g 32 {pool} lengths {lens}"
+            out = paged_flash_decode(*args)
+            checks.compare("paged_flash_decode", label, out,
+                           paged_decode_plain(*args))
+            checks.repeat("paged_flash_decode", label, out,
+                          paged_flash_decode(*args))
+    del kp, vp, ks, vs
+
+    # ---- timings: batch 4 ----------------------------------------------
+    timings = {}
+    L, b = 4, 4
+    for b, max_pages, lens in ((4, 64, [1024, 777, 301, 45]),
+                               (1, 256, [4096])):
+        pools = [int8_pools(gen, device, b, max_pages, g, hd)
+                 for _ in range(L)]
+        q = torch.randn(b, g, 1, hd, generator=gen, device=device)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+
+        def pd_step(fn, pools=pools, q=q, lengths=lengths):
+            for kp, vp, ks, vs, tables in pools:
+                fn(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+        tokens = sum(lens)
+        n_split, chunk = decode_plan(b, g, max_pages, ps, sms, 1)
+        log(f"plan paged_flash_decode hd 112 qpk 1 b={b} g={g} max_pages="
+            f"{max_pages}: n_split {n_split}, chunk {chunk} keys")
+        time_calls(timings, "paged_flash_decode",
+                   f"zamba2-7b decode attention, {L} calls, batch {b}, g=32 "
+                   f"qpk=1 hd=112, INT8, lengths {lens}", pd_step,
+                   paged_flash_decode, paged_decode_plain,
+                   L * (tokens * g * (2 * hd + 4) + 2 * q.numel() * 4
+                        + b * (max_pages + 1) * 4),
+                   L * tokens * g * hd * 4,
+                   key=f"paged_flash_decode hd112 batch {b}")
+        del pools
+    M = 4
+    x = torch.randn(M, 3584, generator=gen, device=device)
+
+    def sw_step(fn):
+        for _ in range(4):       # the one shared MLP, invoked 4 times
+            fn(x, wg, wu)
+    time_calls(timings, "swiglu_qgemv",
+               "zamba2-7b shared gate/up of a decode step, 4 calls of "
+               "3584 -> 14336 (groups of 112), M = 4", sw_step,
+               swiglu_qgemv, swiglu_plain,
+               4 * (wg.nbytes_packed() + wu.nbytes_packed()
+                    + 4 * M * (3584 + 14336)),
+               4 * 2 * 2 * M * 3584 * 14336, key="swiglu_qgemv zamba")
+    del wg, wu
+    stacks = [quantize(torch.randn(4, 1024, 1024, generator=gen,
+                                   device=device) * 0.02, 4, 64, axis=1)
+              for _ in range(42 * 3)]
+    xs = torch.randn(4, M, 1024, generator=gen, device=device)
+    counts = torch.full((4,), M, dtype=torch.int32, device=device)
+
+    def st_step(fn):
+        for w in stacks:
+            fn(xs, w, counts)
+    time_calls(timings, "cim_gemv",
+               "xlstm-1.3b head-wise q/k/v of a decode step, 42 layers x 3 "
+               "stack calls of 4 heads x 1024 -> 1024 (groups of 64), 4 "
+               "rows", st_step, lambda x_, w, c: cim_gemv(x_, w, c),
+               lambda x_, w, c: cim_gemv_plain(x_, w),
+               sum(w.nbytes_packed() for w in stacks)
+               + len(stacks) * 4 * 4 * M * 2048,
+               len(stacks) * 4 * 2 * M * 1024 * 1024,
+               key="cim_gemv xlstm head-wise stacks")
+    del stacks
+    torch.cuda.empty_cache()
+    log(f"xlstm / zamba kernel checks and timings in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return timings
+
+
+def recurrent_step_bounds(model, params, b: int, lens):
+    """{kernel: (bytes, flops)} of one batch-b decode step of xlstm or
+    zamba, lanes at `lens` keys before it (zamba's attention), and the
+    whole step's: each packed weight and scale read once a use (zamba's
+    shared block is read again by each of its invocations), each call's
+    activations in and out; the float leaves the step reads (the
+    sLSTM's w_gates / r_gates, norms, convs, LoRA factors); the arena
+    read and written once; the logits out."""
+    from repro_torch.quant.qarray import QTensor
+    cfg = model.cfg
+    M = b
+    cost = {"cim_gemv": [0, 0], "swiglu_qgemv": [0, 0],
+            "paged_flash_decode": [0, 0]}
+    floats = [0]
+
+    def use(leaf, times=1):
+        if not isinstance(leaf, QTensor):
+            floats[0] += times * leaf.numel() * leaf.element_size()
+            return
+        e = leaf.data.shape[0] if leaf.data.ndim == 3 else 1
+        k, n = leaf.orig_shape[-2:]
+        cost["cim_gemv"][0] += times * (leaf.nbytes_packed()
+                                        + 4 * e * M * (k + n))
+        cost["cim_gemv"][1] += times * 2 * e * M * k * n
+
+    def layers(tree, depth):
+        views = [tree]
+        for _ in range(depth):
+            views = [_take_layer(v, i) for v in views
+                     for i in range(_lead_dim(v))]
+        return views
+
+    def walk(tree, times=1):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                walk(v, times)
+        else:
+            use(tree, times)
+    for name, depth in (("mlstm", 2), ("slstm", 1), ("mamba", 2),
+                        ("mamba_tail", 1), ("lora", 1)):
+        if name in params:
+            for layer in layers(params[name], depth):
+                walk(layer)
+    walk({k: v for k, v in params.items()
+          if k not in ("mlstm", "slstm", "mamba", "mamba_tail", "lora",
+                       "embed", "shared")})
+    n_groups = model.n_paged_layers()
+    if n_groups:
+        shared = params["shared"]
+        walk({k: v for k, v in shared.items() if k != "ffn"}, n_groups)
+        walk(shared["ffn"]["w_down"], n_groups)
+        wg, wu = shared["ffn"]["w_gate"], shared["ffn"]["w_up"]
+        k, n = wg.orig_shape
+        cost["swiglu_qgemv"] = [
+            n_groups * (wg.nbytes_packed() + wu.nbytes_packed()
+                        + 4 * M * (k + n)), n_groups * 4 * M * k * n]
+        scfg = model.cfg.replace(d_ff=cfg.zamba.shared_d_ff)
+        g, hd = scfg.n_kv_heads, scfg.hd()
+        rows = sum(n_len + 1 for n_len in lens)
+        cost["paged_flash_decode"] = [
+            n_groups * (rows * g * (2 * hd + 4) + 2 * M * g * hd * 4),
+            n_groups * rows * g * hd * 4]
+    arena = sum(leaf.numel() * leaf.element_size()
+                for leaf in _tensors(model.arena_state_specs(b)))
+    total = (sum(v[0] for v in cost.values()) + floats[0] + 2 * arena
+             + 4 * M * cfg.vocab)
+    return ({k: tuple(v) for k, v in cost.items() if v[0]},
+            {"bytes": total, "packed_and_activations": sum(
+                v[0] for v in cost.values()), "float_leaves": floats[0],
+             "arena": arena, "flops": sum(v[1] for v in cost.values())})
+
+
+def _lead_dim(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _take_layer(tree, i):
+    if isinstance(tree, dict):
+        return {k: _take_layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _tensors(specs):
+    """Stand-ins with numel() / element_size() for a ParamSpec tree."""
+    import math as _m
+
+    import torch
+
+    class _Leaf:
+        def __init__(self, sp):
+            self.n = _m.prod(sp.shape)
+            self.e = torch.empty(0, dtype=sp.dtype).element_size()
+
+        def numel(self):
+            return self.n
+
+        def element_size(self):
+            return self.e
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            out.append(_Leaf(t))
+    walk(specs)
+    return out
+
+
+def phase_recurrent_serving(device, arch: str, n_layers: int, seed: int,
+                            groups, decode_launches):
+    """`arch` (xlstm-1.3b or zamba2-7b) at full width and `n_layers`
+    layers (INT4 weights drawn from seed 0 on the card, packed in the
+    `groups` given; INT8 pools for zamba's shared attention) served by
+    PagedServeEngine: a wave of 4 requests as CUDA graphs and eagerly,
+    streams compared, launches equal to per-call counts x calls
+    (`decode_launches`: (cim_gemv, swiglu_qgemv, paged_flash_decode) of
+    a decode step), graphs captured once, two replays from the same
+    arena state bitwise equal; the same wave in a pool too small for it
+    (pure recurrent: preempted lanes snapshot their arena slot to the
+    host and resume from it, each copy timed; hybrid: they re-prefill),
+    streams equal to the unpreempted run; the spec, prefix-cache and
+    fork refusals with JAX's wording; a profiled decode step by kernel
+    beside each bound and the whole step's bound (weights, the arena
+    read and written); peak memory while drawing and resident."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+    from repro_torch.serve.engine import capability_error
+    from repro_torch.spec import SpecConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params = build_model(cfg, "int4", 128, device, seed=0)
+    torch.cuda.synchronize()
+    draw_peak = torch.cuda.max_memory_allocated() / 1e9
+    resident = torch.cuda.memory_allocated() / 1e9
+    got = {}
+    for name, (path, _) in groups.items():
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        got[name] = leaf.group
+    log(f"{arch} x{n_layers} layers, full width: INT4 weights drawn and "
+        f"packed on the card in {time.perf_counter() - t0:.1f} s, "
+        f"{resident:.2f} GB resident (peak {draw_peak:.2f} GB while "
+        f"drawing); groups {got}; groups, layers a group, tail "
+        f"{model._groups()}")
+    if got != {name: g for name, (_, g) in groups.items()}:
+        fail(f"{arch}: packed in groups {got}")
+    per_step = step_launches(cfg, 1)
+    if (per_step["cim_gemv"], per_step["swiglu_qgemv"],
+            per_step["paged_flash_decode"]) != decode_launches:
+        fail(f"{arch}: {per_step} launches a decode step, expected "
+             f"{decode_launches}")
+    used = [k for k, v in per_step.items() if v]
+    V, n_new = cfg.vocab, 16
+    rng = np.random.default_rng(seed)
+    wave = [rng.integers(0, V, int(n)).astype(np.int32)
+            for n in rng.integers(16, 65, size=4)]
+    serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                            max_seq=128, page_size=16, prefill_chunk=16)
+
+    def serve(eager, n_pages=None):
+        eng = PagedServeEngine(model, params, dataclasses.replace(
+            serve_cfg, n_pages=n_pages), device=device, eager=eager)
+        if eng.prefix is not None or eng.arena is None:
+            fail(f"{arch}: prefix cache {eng.prefix}, arena {eng.arena}")
+        ptrs = [leaf.data_ptr() for _, leaf, _ in eng.arena._leaves()]
+        copies = {"save": [], "restore": []}
+        for op in copies:
+            orig = getattr(eng.arena, f"{op}_lane")
+
+            def timed(*a, orig=orig, op=op):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = orig(*a)
+                torch.cuda.synchronize()
+                copies[op].append((time.perf_counter() - t) * 1e3)
+                return out
+            setattr(eng.arena, f"{op}_lane", timed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t_run = time.perf_counter()
+        reqs, ms, m = run_wave(eng, wave, n_new, 0)
+        run_s = time.perf_counter() - t_run
+        for op in copies:           # the timed wrappers out again: they
+            delattr(eng.arena, f"{op}_lane")  # close a cycle over the arena
+        counts = launch_counts()
+        mode = ("eager" if eager else "graph") + (
+            f", {n_pages} pages" if n_pages else "")
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        if n_tok != 4 * n_new or not all(
+                r.done and all(0 <= t < V for t in r.out_tokens)
+                for r in reqs):
+            fail(f"{arch} ({mode}): {n_tok} tokens, expected "
+                 f"{4 * n_new} in range")
+        expect = expected_launches(cfg, eng.prefill_calls, eng.decode_calls)
+        preempts = sum(e["kind"] == "preempt"
+                       for e in eng.recorder.snapshot())
+        log(f"{arch} ({mode}): prompts {[len(r.prompt) for r in reqs]}, "
+            f"{n_tok} tokens in {run_s:.2f} s; {eng.prefill_calls} prefill "
+            f"+ {eng.decode_calls} decode calls; {preempts} preemptions, "
+            f"{len(copies['save'])} snapshots; decode step wall median "
+            f"{float(np.median(ms)):.3f} ms; launches {counts}, expected "
+            f"{expect}")
+        if counts != expect or min(counts[k] for k in used) <= 0:
+            fail(f"{arch} ({mode}): launches {counts} != {expect}")
+        if [leaf.data_ptr() for _, leaf, _ in eng.arena._leaves()] != ptrs:
+            fail(f"{arch} ({mode}): an arena leaf moved")
+        return dict(eng=eng, reqs=reqs, counts=counts, run_s=run_s,
+                    decode_ms=float(np.median(ms)), preempts=preempts,
+                    ttft_ms=m["ttft_p50_s"] * 1e3, copies=copies,
+                    state_bytes=m["state_bytes"],
+                    occupancy_peak=m["state_slot_occupancy_peak"],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    graph, eager = serve(False), serve(True)
+    eng = graph["eng"]
+    check_identity(f"graphs vs eager ({arch})", eager["reqs"],
+                   graph["reqs"], model, params, device)
+    eager["eng"] = None
+    name = f"{cfg.name}.serve_step"
+    graphs = check_graphs(arch, eng, {
+        (name, (4, 16)): step_launches(cfg, 16),
+        (name, (4, 1)): per_step}, [(name, (4, 16)), (name, (4, 1))])
+    replay_ms = replay_check(f"{arch} decode", eng, model.serve_step,
+                             (4, 1))
+    state_bytes = eng.arena.state_bytes()
+    if graph["state_bytes"] != state_bytes:
+        fail(f"{arch}: summary state_bytes {graph['state_bytes']} != "
+             f"{state_bytes}")
+    result = {"n_layers": n_layers, "launches": graph["counts"],
+              "graphs": graphs, "decode_replay_device_ms": replay_ms,
+              "decode_busy_share": replay_ms / graph["decode_ms"],
+              "launches_per_decode_step": per_step,
+              "state_bytes": state_bytes,
+              "state_slot_occupancy_peak": graph["occupancy_peak"],
+              "draw_peak_gb": draw_peak, "resident_gb": resident}
+    for mode, run in (("graph", graph), ("eager", eager)):
+        result[mode] = {"decode_step_ms_median": run["decode_ms"],
+                        "ttft_p50_ms": run["ttft_ms"],
+                        "max_memory_allocated_gb": run["peak_gb"],
+                        "run_s": run["run_s"]}
+    log(f"{arch} decode step: wall median {graph['decode_ms']:.3f} ms as "
+        f"graphs (eager {eager['decode_ms']:.3f}), replay {replay_ms:.3f} "
+        f"ms on the device, busy {100 * replay_ms / graph['decode_ms']:.1f}"
+        f" %; arena {state_bytes / 1e9:.4f} GB at 4 lanes; peak "
+        f"{graph['peak_gb']:.2f} GB serving")
+
+    _, modes = profile_step(model, params, eng, device)
+    bounds, whole = recurrent_step_bounds(model, params, 4, [64] * 4)
+    result["decode_step_split"] = log_step_split(
+        f"{arch} decode step, batch 4, lanes at 64 keys, by kernel", modes,
+        bounds, False, per_step)
+    w_ms, w_by = bound(whole["bytes"], whole["flops"])
+    replay_dev = sum(modes["graph replay"][0].values()) / 1e3
+    result["decode_step_bound"] = dict(whole, bound_ms=w_ms, bound_by=w_by,
+                                       profiled_replay_device_ms=replay_dev)
+    log(f"{arch} decode step bound: {whole['bytes'] / 1e9:.3f} GB = packed "
+        f"weights and activations {whole['packed_and_activations'] / 1e9:.3f}"
+        f" + float leaves {whole['float_leaves'] / 1e9:.3f} + the arena "
+        f"{whole['arena'] / 1e9:.3f} read and written; {w_ms:.4f} ms "
+        f"({w_by}) against {replay_dev:.3f} ms of profiled replay "
+        f"({100 * w_ms / replay_dev:.1f} %)")
+    del graph["eng"], eng
+    torch.cuda.empty_cache()
+
+    # the same wave in a pool too small for it: every lane needs one page
+    # more than its prompt, and two pages are spare
+    pages = sum(-(-len(p) // 16) for p in wave) + 2
+    tight = serve(False, n_pages=pages)
+    if tight["preempts"] <= 0:
+        fail(f"{arch}: no lane was preempted in {pages} pages")
+    pure = model.n_paged_layers() == 0
+    if pure != (len(tight["copies"]["save"]) > 0) or (
+            not pure and not any(r.prompt_folded for r in tight["reqs"])):
+        fail(f"{arch}: {len(tight['copies']['save'])} snapshots with "
+             f"{model.n_paged_layers()} paged layers")
+    check_identity(f"{arch} preempted ({pages} pages) vs not",
+                   graph["reqs"], tight["reqs"], model, params, device)
+    snap = tight["copies"]
+    result["preemption"] = {
+        "n_pages": pages, "preemptions": tight["preempts"],
+        "snapshots": len(snap["save"]),
+        "snapshot_ms": snap["save"], "restore_ms": snap["restore"],
+        "lane_bytes": state_bytes // 4, "decode_step_ms_median":
+            tight["decode_ms"], "run_s": tight["run_s"]}
+    if snap["save"]:
+        log(f"{arch} preemption: {len(snap['save'])} lane snapshots of "
+            f"{state_bytes / 4e9:.4f} GB to the host, "
+            f"{float(np.median(snap['save'])):.2f} ms median "
+            f"({state_bytes / 4 / (np.median(snap['save']) * 1e-3) / 1e9:.2f}"
+            f" GB/s); {len(snap['restore'])} restores "
+            f"{float(np.median(snap['restore'])):.2f} ms median")
+    tight["eng"] = None
+
+    # the capabilities a recurrent model refuses, with JAX's wording
+    small = dataclasses.replace(serve_cfg, max_batch=1, max_seq=32)
+    refusals = {}
+    for cap in ("speculative-decoding", "prefix-cache", "parallel-sampling"):
+        try:
+            if cap == "speculative-decoding":
+                PagedServeEngine(model, params, small, spec=SpecConfig(k=4),
+                                 device=device)
+            elif cap == "prefix-cache":
+                PagedServeEngine(model, params, dataclasses.replace(
+                    small, prefix_cache=True), device=device)
+            else:
+                e = PagedServeEngine(model, params, small, device=device)
+                parent = ServeRequest(prompt=wave[0][:8])
+                e.submit(parent)
+                e.submit(ServeRequest(prompt=wave[0][:8], fork_from=parent))
+            fail(f"{arch}: {cap} was not refused")
+        except ValueError as err:
+            if str(err) != capability_error(model, cap):
+                fail(f"{arch}: {cap} refused with {err!r}")
+            refusals[cap] = str(err)
+    log(f"{arch} refusals: " + "; ".join(refusals.values()))
+    result["phase_s"] = time.perf_counter() - t_phase
+    del model, params
+    torch.cuda.empty_cache()
+    log(f"{arch} result " + json.dumps(result))
+    return graph["counts"], result
+
+
 def main() -> None:
+    import dataclasses
+
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -3034,7 +3639,7 @@ def main() -> None:
     log_ptxas(ptxas)
     from repro_torch.kernels.split_decode import smem_bytes
     log("split-KV block shared memory: " + ", ".join(
-        f"{n} hd {hd} {smem_bytes(e, hd)} B" for hd in (128, 256)
+        f"{n} hd {hd} {smem_bytes(e, hd)} B" for hd in (112, 128, 256)
         for n, e in (("int8", 1), ("bf16", 2), ("f32", 4))))
 
     t0 = time.perf_counter()
@@ -3049,6 +3654,7 @@ def main() -> None:
     window_timing = phase_family_kernels(device, checks)
     timings.update(phase_moe_kernels(device, checks))
     timings.update(phase_deepseek_kernels(device, checks))
+    timings.update(phase_recurrent_kernels(device, checks))
     by_path = {}
     by_path["decode"], full_result = phase_full_model(model, params, device,
                                                       card)
@@ -3064,6 +3670,12 @@ def main() -> None:
     phase_card_vs_cpu(device, "phi3-medium-14b")
     phase_card_vs_cpu(device, MOE_ARCH)
     phase_card_vs_cpu(device, DS_ARCH)
+    from repro_torch.configs import get_config
+    xcfg, zcfg = get_config(XLSTM_ARCH), get_config(ZAMBA_ARCH)
+    phase_card_vs_cpu(device, XLSTM_ARCH, decode_steps=2,
+                      ssm=dataclasses.replace(xcfg.ssm, slstm_every=2))
+    phase_card_vs_cpu(device, ZAMBA_ARCH, n_layers=3, decode_steps=2,
+                      zamba=dataclasses.replace(zcfg.zamba, shared_every=2))
     (by_path["gemma3_decode"], by_path["gemma3_spec_ngram"],
      gemma3_result) = phase_gemma3(device, card)
     short = {}
@@ -3083,6 +3695,20 @@ def main() -> None:
          "w_uk": (("blocks", "attn", "w_uk"), 32),
          "w_dkv": (("blocks", "attn", "w_dkv"), 128)}, seed=6,
          decode_gemvs=(68, 1))
+    by_path["xlstm_decode"], xlstm_result = phase_recurrent_serving(
+        device, XLSTM_ARCH, 48, seed=7, groups={
+            "mlstm wq": (("mlstm", "cell", "wq"), 64),
+            "mlstm up_proj": (("mlstm", "cell", "up_proj"), 128),
+            "slstm ffn_down": (("slstm", "cell", "ffn_down"), 105),
+            "head": (("head",), 128)}, decode_launches=(265, 0, 0))
+    by_path["zamba_decode"], zamba_result = phase_recurrent_serving(
+        device, ZAMBA_ARCH, 27, seed=8, groups={
+            "in_proj": (("mamba", "cell", "in_proj"), 112),
+            "out_proj": (("mamba", "cell", "out_proj"), 112),
+            "shared wq": (("shared", "attn", "wq"), 112),
+            "lora out_proj": (("lora", "out_proj"), 112),
+            "shared w_down": (("shared", "ffn", "w_down"), 128),
+            "head": (("head",), 112)}, decode_launches=(79, 4, 4))
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -3119,6 +3745,8 @@ def main() -> None:
     log("gemma2-27b / phi3-medium-14b x4 summary " + json.dumps(short))
     log(f"{MOE_ARCH} x4 summary " + json.dumps(moe_result))
     log(f"{DS_ARCH} x8 summary " + json.dumps(ds_result))
+    log(f"{XLSTM_ARCH} x48 summary " + json.dumps(xlstm_result))
+    log(f"{ZAMBA_ARCH} x27 summary " + json.dumps(zamba_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

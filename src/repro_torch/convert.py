@@ -4,8 +4,12 @@ Input: a nested dict of numpy arrays, the JAX parameter tree with every
 array turned into numpy by the caller.  A quantized leaf arrives as a
 dict with exactly the keys {data, scales, bits, group, axis, orig_shape}
 (the fields of `repro.quant.qarray.QTensor`); its packed bytes and f16
-scales come over byte for byte.  This module imports no JAX: the
-`jax -> numpy` step belongs to the caller (the tests do it).
+scales come over byte for byte, at any number of stacked leading dims:
+a doubly stacked leaf such as the mLSTM's head-wise `wq`, (groups,
+slstm_every - 1, nh, dh, dh) packed along dh into (groups, ..., nh,
+dh / 2, dh) bytes, keeps its negative `axis`, and indexing the QTensor
+(`qt[g][j]`) gives a layer's (nh, dh / 2, dh) stack.  This module imports
+no JAX: the `jax -> numpy` step belongs to the caller (the tests do it).
 """
 from __future__ import annotations
 

@@ -93,7 +93,8 @@ const char* flash_decode_error_string(int err) {
 
 // kv_kind: 0 = f32 cache, 1 = bf16 cache.  pos_ptr: a device int32, or
 // null to use pos_val.  part: scratch of bg * n_split * qpk * (hd + 2)
-// f32 (unused when n_split == 1).  qpk <= 16; hd in {16, 32, 64, 128, 256}.
+// f32 (unused when n_split == 1).  qpk <= 16; hd in {16, 32, 64, 112, 128,
+// 256}.
 int flash_decode(const void* q, const void* k, const void* v,
                  const void* pos_ptr, int pos_val, void* out, void* part,
                  int BG, int S, int QPK, int HD, int chunk, int n_split,

@@ -325,7 +325,7 @@ const char* paged_flash_verify_error_string(int err) {
 
 // kv_kind: 0 = f32 pools, 1 = bf16 pools, 2 = int8 pools with f16 scales.
 // part: scratch of b * g * n_split * s * qpk * (hd + 2) f32 (unused when
-// n_split == 1).  hd in {16, 32, 64, 128, 256}.
+// n_split == 1).  hd in {16, 32, 64, 112, 128, 256} (`split::by_hd`).
 int paged_flash_verify(const void* q, const void* kp, const void* vp,
                        const void* ks, const void* vs, const void* tables,
                        const void* lengths, void* out, void* part, int B,

@@ -14,7 +14,7 @@
 //     `tile_scores` (lane j of a key group computes q . k for key j over
 //     its share of hd, the groups sum by warp shuffles) and `tile_fold`
 //     (the online softmax, its max over the tile by shuffles too, then
-//     p . v, each lane owning hd / 32 dims of the (QMAX, hd)
+//     p . v, each lane owning ceil(hd / 32) dims of the (QMAX, hd)
 //     accumulator); the state stays in registers;
 //   * the one-token walk (`fold`): each of the block's 4 warps stages its
 //     own tiles (K and V rows, 16-byte cp.async chunks into a double
@@ -61,17 +61,23 @@ struct Shape {
   static constexpr int KT = ROW <= 256 ? 16 : (ROW <= 512 ? 8 : 4);
   static constexpr int PARTS = 32 / KT;  // lanes that share one key's q . k
   static constexpr int DP = HD / PARTS;  // dims of q . k per lane
-  static constexpr int VB = DP * static_cast<int>(sizeof(T)) < 16
-      ? DP * static_cast<int>(sizeof(T)) : 16;
+  // bytes per load of a lane's DP dims: the largest of 16 / 8 / 4 that
+  // divides them, so the loads tile them (hd 112 int8: 56 B in 8s)
+  static constexpr int DPB = DP * static_cast<int>(sizeof(T));
+  static constexpr int VB = DPB % 16 == 0 ? 16 : (DPB % 8 == 0 ? 8 : 4);
   static constexpr int VE = VB / static_cast<int>(sizeof(T));  // per load
-  static constexpr int HDL = HD >= 32 ? HD / 32 : 1;  // p . v dims per lane
+  // p . v dims per lane: ceil(HD / 32), lanes past HD / HDL idle (hd 112:
+  // 28 lanes of 4 dims)
+  static constexpr int HDL = (HD + 31) / 32;
   static constexpr int CPR = ROW / 16;  // 16-byte chunks per row
   static constexpr int STAGE = 2 * KT * RS;            // K + V tile, bytes
   static constexpr int WARP_SMEM = 2 * STAGE + KT * QMAX * 4;
   static constexpr int SMEM = QMAX * HD * 4 + WARPS * WARP_SMEM;
   static_assert(HD % 16 == 0 && HD <= 256, "hd: a multiple of 16, <= 256");
   static_assert(ROW % 16 == 0, "rows are whole 16-byte chunks");
-  static_assert(VE % 4 == 0, "q . k runs on float4 pieces of q");
+  static_assert(VE % 4 == 0 && DP % VE == 0,
+                "q . k runs on float4 pieces of q that tile DP");
+  static_assert(HD % HDL == 0, "p . v: whole lanes of HDL dims");
   // the warp's merge area (m, l, acc) reuses its stage buffers
   static_assert(QMAX * (HD + 2) * 4 <= 2 * STAGE, "merge area");
 };
@@ -522,6 +528,7 @@ int by_hd(int hd, Args... args) {
     case 16: return Fn<16>::run(args...);
     case 32: return Fn<32>::run(args...);
     case 64: return Fn<64>::run(args...);
+    case 112: return Fn<112>::run(args...);
     case 128: return Fn<128>::run(args...);
     case 256: return Fn<256>::run(args...);
     default: return static_cast<int>(cudaErrorInvalidValue);

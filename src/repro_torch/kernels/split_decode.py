@@ -22,7 +22,7 @@ import torch
 QMAX = 8                    # query rows a warp holds (a one-token
                             # block: QMAX query heads of its kv head)
 QPK_MAX = 16                # query heads per kv head, at most
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)   # the source's `by_hd`
 WARPS = 4
 MIN_KEYS = 16               # a split folds at least this many keys
 VERIFY_MIN_KEYS = 32        # a verify split, at least (two INT8 tiles)

@@ -17,6 +17,16 @@
       --smoke --device cpu [--spec ngram|model]   # MLA + MoE
   python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
       --layers 8                               # card: full width, 8 layers
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke \
+      --device cpu                             # recurrent: mLSTM + sLSTM
+  python -m repro_torch.launch.serve --arch zamba2-7b --smoke \
+      --device cpu                             # hybrid: Mamba2 + shared attn
+  python -m repro_torch.launch.serve --arch zamba2-7b --layers 27   # card
+
+Recurrent and hybrid families (xlstm, zamba) keep per-lane state in the
+engine's StateArena: `--spec` on them is a capability error, and
+`--no-prefix-cache` is implied (`check_capabilities`), as in the JAX
+launcher.
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -31,6 +41,29 @@ import time
 from collections import Counter
 
 import numpy as np
+
+
+def check_capabilities(model, spec_mode: str, no_prefix_cache: bool):
+    """Validate the capability flags against the model's decode-state
+    layout; returns the `prefix_cache` flag for `PagedServeEngine`.
+
+    Prefix sharing and speculative decoding operate on attention KV
+    pages only.  A model with recurrent state layers cannot rewind or
+    adopt that state, so `--spec` raises a ValueError naming the
+    capability, and the prefix cache is turned off (`--no-prefix-cache`
+    implied) rather than erroring: there is no affirmative prefix flag
+    to contradict."""
+    from repro_torch.serve.engine import capability_error
+    if model.supports_paged():
+        return not no_prefix_cache
+    if spec_mode != "off":
+        raise ValueError(f"--spec {spec_mode}: "
+                         + capability_error(model, "speculative-decoding"))
+    if not no_prefix_cache:
+        print(f"[serve] family {model.cfg.family!r} has recurrent state "
+              "layers: --no-prefix-cache implied (prefix sharing is an "
+              "attention-only capability)")
+    return False
 
 
 def build_model(cfg, precision: str, group: int, device, seed: int = 0):
@@ -80,8 +113,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
                     help="qwen2.5-3b, gemma3-4b, gemma2-27b, "
-                         "phi3-medium-14b, qwen3-moe-235b-a22b or "
-                         "deepseek-v2-lite-16b")
+                         "phi3-medium-14b, qwen3-moe-235b-a22b, "
+                         "deepseek-v2-lite-16b, xlstm-1.3b or zamba2-7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0 = full)")
@@ -133,6 +166,9 @@ def main(argv=None):
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
     group = 16 if args.smoke else 128
+    from repro_torch.models import DecoderLM
+    prefix_cache = check_capabilities(DecoderLM(cfg), args.spec,
+                                      args.no_prefix_cache)
     t0 = time.perf_counter()
     model, params = build_model(cfg, args.precision, group, device,
                                 args.seed)
@@ -145,7 +181,7 @@ def main(argv=None):
         precision=args.precision, kv_dtype=args.kv_dtype, quant_group=group,
         max_batch=args.batch, max_seq=args.max_seq,
         page_size=args.page_size, n_pages=args.pages or None,
-        prefix_cache=not args.no_prefix_cache, seed=args.seed)
+        prefix_cache=prefix_cache, seed=args.seed)
     spec_cfg = None
     if args.spec != "off":
         from repro_torch.spec import SpecConfig

@@ -1,6 +1,7 @@
 from .common import ParamSpec, init_params, tree_to
-from .config import MLAConfig, ModelConfig, MoEConfig
+from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig, ZambaConfig
 from .model import DecoderLM
 
 __all__ = ["DecoderLM", "MLAConfig", "ModelConfig", "MoEConfig",
-           "ParamSpec", "init_params", "tree_to"]
+           "ParamSpec", "SSMConfig", "ZambaConfig", "init_params",
+           "tree_to"]

@@ -81,13 +81,21 @@ def attention_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return mla_specs(cfg) if cfg.attn_kind == "mla" else gqa_specs(cfg)
 
 
-def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor
+def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+         lora: Params = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v of x; with `lora` (zamba's per-site deltas) each adds
+    (x @ lora_a) @ lora_b to its packed product, the linear identity of
+    JAX's x @ (W + lora_a @ lora_b), which never materializes W."""
     b, s, _ = x.shape
     hd = cfg.hd()
     q = qmm(x, p["wq"])
     k = qmm(x, p["wk"])
     v = qmm(x, p["wv"])
+    if lora is not None:
+        q = q + qmm(qmm(x, lora["lora_a_q"]), lora["lora_b_q"])
+        k = k + qmm(qmm(x, lora["lora_a_k"]), lora["lora_b_k"])
+        v = v + qmm(qmm(x, lora["lora_a_v"]), lora["lora_b_v"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -181,7 +189,8 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                    cache: Dict[str, torch.Tensor], tables: torch.Tensor,
                    lengths: torch.Tensor, n_new: torch.Tensor,
                    rows: PageRows, rope: Rope, is_local: bool = False,
-                   verify: bool = False) -> torch.Tensor:
+                   verify: bool = False, lora: Params = None
+                   ) -> torch.Tensor:
     """Chunked prefill / decode against this layer's paged KV pools.
 
     x: (b, s, d) — s == 1 is decode, s > 1 a right-padded prefill chunk
@@ -202,12 +211,13 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     verify=True (speculative decode) sends an s > 1 window through the
     multi-query verify kernel — one pass over the lane's pages scores
     all s positions — instead of the chunk path's page gather.  Same
-    math: the intra-window causal mask is identical."""
+    math: the intra-window causal mask is identical.  `lora`: zamba's
+    per-site q/k/v deltas (`_qkv`)."""
     b, s, _ = x.shape
     hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
     ps = cache["k"].shape[1]
     S = tables.shape[1] * ps
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, lora)
 
     cos, sin = rope                                              # (b, s, hd/2)
     q = apply_rope(q, cos, sin)
@@ -363,10 +373,13 @@ def attn_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     cache: Dict[str, torch.Tensor], tables: torch.Tensor,
                     lengths: torch.Tensor, n_new: torch.Tensor,
                     rows: PageRows, rope: Rope, is_local: bool = False,
-                    verify: bool = False) -> torch.Tensor:
-    fn = mla_paged_step if cfg.attn_kind == "mla" else gqa_paged_step
-    return fn(p, cfg, x, cache, tables, lengths, n_new, rows, rope,
-              is_local=is_local, verify=verify)
+                    verify: bool = False, lora: Params = None
+                    ) -> torch.Tensor:
+    if cfg.attn_kind == "mla":
+        return mla_paged_step(p, cfg, x, cache, tables, lengths, n_new,
+                              rows, rope, is_local=is_local, verify=verify)
+    return gqa_paged_step(p, cfg, x, cache, tables, lengths, n_new, rows,
+                          rope, is_local=is_local, verify=verify, lora=lora)
 
 
 def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,

@@ -1,16 +1,23 @@
-"""Norms and the transformer block (GQA or MLA attention, dense or MoE
-FFN) over a paged KV pool (PyTorch port of the dense / moe serve path
-of `repro.models.blocks`)."""
+"""Norms and the blocks of every family (PyTorch port of the serve path
+of `repro.models.blocks`): the transformer block (GQA or MLA attention,
+dense or MoE FFN) over a paged KV pool; xLSTM's mLSTM and sLSTM blocks
+and zamba's Mamba2 blocks over per-lane recurrent state; zamba's SHARED
+attention + MLP block, invoked after every `shared_every` Mamba2 layers
+with per-site LoRA deltas on q/k/v and a gated output projection."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
 
+from repro_torch.kernels.ops import qmatmul as qmm
+
 from .attention import PageRows, Rope, attention_specs, attn_paged_step
 from .common import ParamSpec, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, dense_ffn_specs, ffn_forward, ffn_specs
+from .ssm import (mamba2_serve_step, mamba2_specs, mlstm_serve_step,
+                  mlstm_specs, slstm_serve_step, slstm_specs)
 
 Params = Dict[str, Any]
 
@@ -63,3 +70,80 @@ def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.post_block_norm:
         f = apply_norm(p["post_ffn"], cfg, f)
     return x + f
+
+
+# ----------------------------------------------------------------------------
+# xLSTM and Mamba2 blocks: pre-norm, residual, per-lane state in place
+# ----------------------------------------------------------------------------
+def mlstm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": norm_specs(cfg), "cell": mlstm_specs(cfg)}
+
+
+def slstm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": norm_specs(cfg), "cell": slstm_specs(cfg)}
+
+
+def mamba_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": norm_specs(cfg), "cell": mamba2_specs(cfg)}
+
+
+def mlstm_block_serve(p, cfg, x, cache, valid, n_new):
+    return x + mlstm_serve_step(p["cell"], cfg, apply_norm(p["ln"], cfg, x),
+                                cache, valid, n_new)
+
+
+def slstm_block_serve(p, cfg, x, cache, valid):
+    return x + slstm_serve_step(p["cell"], cfg, apply_norm(p["ln"], cfg, x),
+                                cache, valid)
+
+
+def mamba_block_serve(p, cfg, x, cache, valid, n_new):
+    return x + mamba2_serve_step(p["cell"], cfg,
+                                 apply_norm(p["ln"], cfg, x), cache, valid,
+                                 n_new)
+
+
+# ----------------------------------------------------------------------------
+# zamba's shared attention + MLP block
+# ----------------------------------------------------------------------------
+def zamba_shared_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The shared block's config: the shared FFN width, no MoE."""
+    return cfg.replace(d_ff=cfg.zamba.shared_d_ff, moe=None)
+
+
+def zamba_shared_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The SHARED attention + MLP block (one copy for the whole model)."""
+    shared_cfg = zamba_shared_cfg(cfg)
+    return {"ln_attn": norm_specs(cfg), "attn": attention_specs(shared_cfg),
+            "ln_ffn": norm_specs(cfg), "ffn": dense_ffn_specs(shared_cfg)}
+
+
+def zamba_lora_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """Per-invocation LoRA deltas on q/k/v + output gate projection."""
+    d, hd, r = cfg.d_model, cfg.hd(), cfg.zamba.lora_rank
+    sp = {}
+    for nm, out_dim in (("q", cfg.n_heads * hd), ("k", cfg.n_kv_heads * hd),
+                        ("v", cfg.n_kv_heads * hd)):
+        sp[f"lora_a_{nm}"] = ParamSpec((d, r))
+        sp[f"lora_b_{nm}"] = ParamSpec((r, out_dim), init="zeros")
+    sp["out_proj"] = ParamSpec((d, d))
+    return sp
+
+
+def zamba_shared_block_paged(shared: Params, lora: Params, cfg: ModelConfig,
+                             x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                             tables: torch.Tensor, lengths: torch.Tensor,
+                             n_new: torch.Tensor, rows: PageRows,
+                             rope: Rope) -> torch.Tensor:
+    """One invocation of the shared block against its paged KV pools (the
+    `transformer_block_paged` contract): attention with this site's LoRA
+    deltas (`attention._qkv`: x W + (x A) B on the packed W, where JAX
+    adds A B to a bf16 dequantized W), its output through the site's
+    `out_proj`, then the shared SwiGLU MLP."""
+    shared_cfg = zamba_shared_cfg(cfg)
+    h = apply_norm(shared["ln_attn"], cfg, x)
+    a = attn_paged_step(shared["attn"], shared_cfg, h, cache, tables,
+                        lengths, n_new, rows, rope, lora=lora)
+    x = x + qmm(a, lora["out_proj"])
+    h = apply_norm(shared["ln_ffn"], cfg, x)
+    return x + dense_ffn(shared["ffn"], shared_cfg, h)

@@ -25,6 +25,7 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # None => 1/sqrt(fan_in)
+    lane_axis: Optional[int] = None  # a decode-state leaf's per-lane axis
 
     def fan_in(self) -> int:
         if len(self.shape) <= 1:
@@ -47,8 +48,10 @@ class ParamSpec:
         return (x * std).to(self.dtype)
 
     def stacked(self, n: int) -> "ParamSpec":
-        """Prepend a stacked-layers dim."""
-        return dataclasses.replace(self, shape=(n, *self.shape))
+        """Prepend a stacked-layers dim (the lane axis moves with it)."""
+        lane = None if self.lane_axis is None else self.lane_axis + 1
+        return dataclasses.replace(self, shape=(n, *self.shape),
+                                   lane_axis=lane)
 
 
 def map_specs(fn: Callable[[ParamSpec], Any], tree: Tree) -> Tree:

@@ -2,18 +2,18 @@
 
 The same fields and defaults as the JAX `ModelConfig`, with dtypes held
 as strings and resolved to torch dtypes on demand, and the same
-`MLAConfig` and `MoEConfig`.  The other per-family sub-configs (`ssm`,
-`zamba`) are carried only so that a model asking for them is rejected by
-name: this port serves the dense family (SwiGLU or gated GELU FFNs,
-sliding-window / global layer alternation, softcaps, QK-norm, post-block
-norms) and its Mixture-of-Experts variant, with GQA or multi-head latent
-attention (MLA).
+`MLAConfig`, `MoEConfig`, `SSMConfig` and `ZambaConfig`.  This port
+serves the dense family (SwiGLU or gated GELU FFNs, sliding-window /
+global layer alternation, softcaps, QK-norm, post-block norms) and its
+Mixture-of-Experts variant, with GQA or multi-head latent attention
+(MLA), and the recurrent families: xLSTM (mLSTM + sLSTM) and zamba
+(Mamba2 with a shared attention + MLP block).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
@@ -40,6 +40,30 @@ class MoEConfig:
     dispatch: str = "gather"      # gather | onehot (the same kept slots)
     first_dense_layers: int = 0   # deepseek: layer 0 is dense FFN
     first_dense_d_ff: int = 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    # mamba2
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64            # mamba2 head dim (d_inner / n_heads)
+    chunk: int = 256
+    # xlstm
+    mlstm_heads: int = 4
+    slstm_every: int = 8          # 7:1 mLSTM:sLSTM -> one sLSTM per 8 layers
+    time_chunk: int = 64
+    proj_factor_mlstm: float = 2.0
+    proj_factor_slstm: float = 4.0 / 3.0
+    conv_width: int = 4
+
+
+@dataclass(frozen=True)
+class ZambaConfig:
+    shared_every: int = 6         # shared attn+MLP invoked every 6 mamba layers
+    lora_rank: int = 64
+    shared_d_ff: int = 14336
 
 
 @dataclass(frozen=True)
@@ -83,8 +107,8 @@ class ModelConfig:
 
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
-    ssm: Optional[Any] = None
-    zamba: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
+    zamba: Optional[ZambaConfig] = None
 
     dtype: str = "bfloat16"
     remat: bool = True

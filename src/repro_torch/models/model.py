@@ -1,10 +1,13 @@
-"""Decoder-only LM, the dense and MoE families (PyTorch port of the
-serve path of `repro.models.model.DecoderLM`): GQA or multi-head latent
-attention (MLA, deepseek), SwiGLU or gated GELU FFNs or routed experts
-(with shared experts and leading dense layers), tied or untied heads,
-and gemma's features (sliding-window / global layers, attention and
-final softcaps, QK-norm, post-block norms, scaled embeddings, a second
-RoPE base for local layers).
+"""Decoder-only LM (PyTorch port of the serve path of
+`repro.models.model.DecoderLM`) for every family the JAX engine serves:
+dense and MoE decoders (GQA or multi-head latent attention (MLA,
+deepseek), SwiGLU or gated GELU FFNs or routed experts with shared
+experts and leading dense layers, tied or untied heads, and gemma's
+features: sliding-window / global layers, attention and final softcaps,
+QK-norm, post-block norms, scaled embeddings, a second RoPE base for
+local layers), xLSTM (groups of mLSTM blocks closed by an sLSTM block)
+and zamba (groups of Mamba2 blocks, each followed by a shared attention
++ MLP block with per-site LoRA, then trailing Mamba2 blocks).
 
     model  = DecoderLM(cfg)
     specs  = model.param_specs()                     # ParamSpec tree
@@ -15,12 +18,16 @@ RoPE base for local layers).
 
 Parameters keep the JAX package's tree and stacked-layer layout
 (`blocks` leaves carry a leading layer dim; a MoE model's leading dense
-layers are `first_blocks`, with their own `attn_first` pools), so
-`repro_torch.convert` carries weights across leaf for leaf.  The paged KV
-pools keep the stacked `(L, n_pages, page_size, g, hd)` layout (MLA's
-latent pools `(L, n_pages, page_size, r)` and `(L, ..., rope_d)`) and
-are updated in place.  Other families and attention flavors raise
-NotImplementedError (`_unsupported` names what is not ported yet).
+layers are `first_blocks`, with their own `attn_first` pools; xLSTM's
+`mlstm` stack is doubly stacked, (groups, slstm_every - 1, ...), as
+zamba's `mamba` is (groups, shared_every, ...)), so `repro_torch.convert`
+carries weights across leaf for leaf.  The decode state is the JAX
+engine's, updated in place: paged KV pools `(L, n_pages + 1, page_size,
+g, hd)` (MLA's latent pools `(L, n_pages + 1, page_size, r)` and `(L,
+..., rope_d)`; zamba's at the shared block's shape, one per group) and
+per-lane recurrent leaves (`arena_state_specs`), flattened into one
+cache dict.  What is not ported raises NotImplementedError
+(`_unsupported` names it).
 """
 from __future__ import annotations
 
@@ -34,18 +41,29 @@ from repro_torch.quant.qarray import QTensor, dequant_rows
 
 from .attention import layer_theta, page_rows, paged_cache_spec, \
     rope_by_theta
-from .blocks import apply_norm, norm_specs, transformer_block_paged, \
-    transformer_block_specs
+from .blocks import (apply_norm, mamba_block_serve, mamba_block_specs,
+                     mlstm_block_serve, mlstm_block_specs, norm_specs,
+                     slstm_block_serve, slstm_block_specs,
+                     transformer_block_paged, transformer_block_specs,
+                     zamba_lora_specs, zamba_shared_block_paged,
+                     zamba_shared_cfg, zamba_shared_specs)
 from .common import ACTIVATIONS, ParamSpec, softcap, stack_specs
 from .config import ModelConfig
+from .ssm import mamba2_cache_spec, mlstm_cache_spec, slstm_cache_spec
 
 Params = Dict[str, Any]
+
+FAMILIES = ("dense", "moe", "xlstm", "zamba")
 
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
     out = []
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         out.append(f"family {cfg.family!r}")
+    elif cfg.family in ("xlstm", "zamba") and cfg.ssm is None:
+        out.append(f"family {cfg.family!r} without an SSMConfig")
+    elif cfg.family == "zamba" and cfg.zamba is None:
+        out.append("family 'zamba' without a ZambaConfig")
     if cfg.attn_kind not in ("gqa", "mla") or \
             (cfg.attn_kind == "mla") != (cfg.mla is not None):
         out.append(f"attention {cfg.attn_kind!r}")
@@ -58,14 +76,26 @@ def _unsupported(cfg: ModelConfig) -> List[str]:
     return out
 
 
+def _lead(tree: Any) -> int:
+    """The leading (stacked) dim of a tree's leaves."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def _take(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port serves dense and MoE "
-                f"decoders (GQA or MLA) only; not yet ported: "
-                f"{', '.join(bad)}")
+                f"{cfg.name}: the PyTorch port cannot serve this config; "
+                f"not ported: {', '.join(bad)}")
         self.cfg = cfg
         # the embedding scale rounded to the embeddings' dtype first, as
         # the JAX package multiplies by jnp.asarray(sqrt(d), h.dtype)
@@ -80,7 +110,18 @@ class DecoderLM:
         # n_first; the leading dense layers are global
         self._local = [cfg.is_local_layer(i)
                        for i in range(self.n_first, cfg.n_layers)]
-        self._views: Dict[str, Any] = {}   # name -> (stacked tree, views)
+        self._views: Dict[Any, Any] = {}   # key -> (stacked tree, views)
+
+    def _groups(self):
+        """(groups, layers per group, trailing layers) of a recurrent
+        family: xLSTM's groups hold slstm_every - 1 mLSTM layers and one
+        sLSTM layer; zamba's shared_every Mamba2 layers and one shared
+        block invocation, then n_layers mod shared_every Mamba2 layers."""
+        cfg = self.cfg
+        per = (cfg.ssm.slstm_every if cfg.family == "xlstm"
+               else cfg.zamba.shared_every)
+        n_groups = cfg.n_layers // per
+        return n_groups, per, cfg.n_layers - n_groups * per
 
     # ------------------------------------------------------------------
     def param_specs(self) -> Params:
@@ -91,6 +132,24 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             sp["head"] = ParamSpec((cfg.d_model, cfg.vocab))
         sp["ln_final"] = norm_specs(cfg)
+        if cfg.family == "xlstm":
+            n_groups, per, tail = self._groups()
+            if tail:
+                raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is "
+                                 f"not a multiple of slstm_every {per}")
+            sp["mlstm"] = stack_specs(
+                stack_specs(mlstm_block_specs(cfg), per - 1), n_groups)
+            sp["slstm"] = stack_specs(slstm_block_specs(cfg), n_groups)
+            return sp
+        if cfg.family == "zamba":
+            n_groups, per, tail = self._groups()
+            sp["mamba"] = stack_specs(
+                stack_specs(mamba_block_specs(cfg), per), n_groups)
+            if tail:
+                sp["mamba_tail"] = stack_specs(mamba_block_specs(cfg), tail)
+            sp["shared"] = zamba_shared_specs(cfg)
+            sp["lora"] = stack_specs(zamba_lora_specs(cfg), n_groups)
+            return sp
         if self.n_first:
             sp["first_blocks"] = stack_specs(
                 transformer_block_specs(
@@ -130,22 +189,24 @@ class DecoderLM:
             logits = softcap(logits, cfg.final_softcap)
         return logits
 
-    def _layer_params(self, params: Params, name: str) -> List[Params]:
-        """Per-layer views of the stacked tree `params[name]` (`blocks`
-        or `first_blocks`), built once per parameter tree (views share
-        storage; no copy)."""
-        stacked = params[name]
-        seen = self._views.get(name)
-        if seen is None or seen[0] is not stacked:
-            def take(tree, i):
-                if isinstance(tree, dict):
-                    return {k: take(v, i) for k, v in tree.items()}
-                return tree[i]
-            n = self.n_first if name == "first_blocks" \
-                else self.cfg.n_layers - self.n_first
-            seen = self._views[name] = (stacked,
-                                        [take(stacked, i) for i in range(n)])
+    def _stack_views(self, tree: Any, key: Any, depth: int = 1) -> List:
+        """Per-layer views of the stacked `tree` (params or a cache
+        leaf group), `depth` stacked dims deep (lists of lists for a
+        doubly stacked tree), built once per tree (views share storage;
+        no copy)."""
+        seen = self._views.get(key)
+        if seen is None or seen[0] is not tree:
+            def split(t, d):
+                n = _lead(t)
+                parts = [_take(t, i) for i in range(n)]
+                return parts if d == 1 else [split(x, d - 1) for x in parts]
+            seen = self._views[key] = (tree, split(tree, depth))
         return seen[1]
+
+    def _layer_params(self, params: Params, name: str) -> List[Params]:
+        """Per-layer views of `params[name]` (`blocks` or
+        `first_blocks`)."""
+        return self._stack_views(params[name], name)
 
     # ------------------------------------------------------------------
     def serve_step(self, params: Params, cache: Dict[str, Any],
@@ -161,9 +222,66 @@ class DecoderLM:
         k_rope}, stacked over layers) is written in place and returned.
         Returns (logits (b, s, vocab) f32, cache); lane i samples from
         logits[i, n_new[i] - 1].
+
+        A recurrent family's cache also holds its per-lane state leaves
+        (`arena_state_specs`; row i of a leaf's lane axis is lane i),
+        advanced in place under the (b, s) validity mask from `n_new`:
+        masked positions update nothing, so lanes enter and leave the
+        batch at any chunk boundary.  Logits of masked positions are
+        unspecified.
         """
-        return self._paged_forward(params, cache, inputs, tables, lengths,
-                                   n_new, verify=False)
+        cfg = self.cfg
+        if self.supports_paged():
+            return self._paged_forward(params, cache, inputs, tables,
+                                       lengths, n_new, verify=False)
+        h = self._embed(params, inputs["tokens"])
+        s = h.shape[1]
+        valid = torch.arange(s, device=h.device)[None, :] < n_new[:, None]
+        if cfg.family == "xlstm":
+            h = self._serve_xlstm(params, h, cache, valid, n_new)
+        else:
+            h = self._serve_zamba(params, h, cache, tables, lengths, n_new,
+                                  valid)
+        return self._logits(params, h), cache
+
+    def _serve_xlstm(self, params, h, cache, valid, n_new):
+        mlstm = self._stack_views(params["mlstm"], "mlstm", 2)
+        slstm = self._stack_views(params["slstm"], "slstm")
+        mc = self._stack_views(cache["mlstm"], ("state", "mlstm"), 2)
+        sc = self._stack_views(cache["slstm"], ("state", "slstm"))
+        for g in range(len(slstm)):
+            for lp, c in zip(mlstm[g], mc[g]):
+                h = mlstm_block_serve(lp, self.cfg, h, c, valid, n_new)
+            h = slstm_block_serve(slstm[g], self.cfg, h, sc[g], valid)
+        return h
+
+    def _serve_zamba(self, params, h, cache, tables, lengths, n_new, valid):
+        cfg = self.cfg
+        n_groups = self.n_paged_layers()
+        if n_groups:
+            shared_cfg = zamba_shared_cfg(cfg)
+            leaf = cache["attn"]["k"]          # (groups, n_pages + 1, ps,
+            rows = page_rows(tables, lengths, n_new, h.shape[1],  # g, hd)
+                             leaf.shape[2], dump_page=leaf.shape[1] - 1)
+            rope = rope_by_theta(shared_cfg, rows.slots, [False])[
+                layer_theta(shared_cfg, False)]
+            mamba = self._stack_views(params["mamba"], "mamba", 2)
+            lora = self._stack_views(params["lora"], "lora")
+            mc = self._stack_views(cache["mamba"], ("state", "mamba"), 2)
+            ac = self._stack_views(cache["attn"], ("state", "attn"))
+            for g in range(n_groups):
+                for lp, c in zip(mamba[g], mc[g]):
+                    h = mamba_block_serve(lp, cfg, h, c, valid, n_new)
+                h = zamba_shared_block_paged(params["shared"], lora[g], cfg,
+                                             h, ac[g], tables, lengths,
+                                             n_new, rows, rope)
+        if "mamba_tail" in params:
+            tail = self._stack_views(params["mamba_tail"], "mamba_tail")
+            tc = self._stack_views(cache["mamba_tail"],
+                                   ("state", "mamba_tail"))
+            for lp, c in zip(tail, tc):
+                h = mamba_block_serve(lp, cfg, h, c, valid, n_new)
+        return h
 
     # the attention-only name the speculative drafter calls; every family
     # this port serves is paged, so it is `serve_step` itself
@@ -186,13 +304,35 @@ class DecoderLM:
                                    n_new, verify=True)
 
     def supports_paged(self) -> bool:
-        """Every layer keeps paged KV (no recurrent state), so prefix
-        sharing and speculative rollback apply."""
+        """True when EVERY decode-state layer is paged attention KV: the
+        full paged feature set (prefix sharing, fork / copy-on-write,
+        speculative decoding) applies.  Families with recurrent per-lane
+        state (xlstm, zamba) serve through the same engine with those
+        capabilities off: adopting or rolling back attention pages
+        cannot adopt or roll back a recurrent state."""
         return self.cfg.family in ("dense", "moe")
+
+    def has_recurrent_state(self) -> bool:
+        """Any layer carrying constant-size per-lane recurrent state
+        (conv buffers, SSM / LSTM cells), served from a `StateArena`."""
+        return self.cfg.family in ("xlstm", "zamba")
+
+    def n_paged_layers(self) -> int:
+        """Attention layers backed by paged KV pools in `serve_step`
+        (zamba: one shared-block invocation per Mamba2 group)."""
+        cfg = self.cfg
+        if cfg.family in ("dense", "moe"):
+            return cfg.n_layers
+        if cfg.family == "zamba":
+            return self._groups()[0]
+        return 0
 
     def _paged_forward(self, params, cache, inputs, tables, lengths, n_new,
                        verify: bool):
         cfg = self.cfg
+        if not self.supports_paged():
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} has no "
+                             "paged verify / paged-only step")
         h = self._embed(params, inputs["tokens"])
         s = h.shape[1]
         # every pool leaf (K/V, scales, MLA's latents) is stacked (L,
@@ -223,20 +363,68 @@ class DecoderLM:
                           kv_dtype: torch.dtype = torch.bfloat16) -> Any:
         """Per-layer page pools stacked over layers, shared by every
         sequence via block tables: (L, n_pages + 1, ...), page `n_pages`
-        being the dump page no table names (`attention.page_rows`)."""
-        one = paged_cache_spec(self.cfg, n_pages, page_size, kv_dtype)
-        out = {"attn": {k: v.stacked(self.cfg.n_layers - self.n_first)
+        being the dump page no table names (`attention.page_rows`).
+        zamba's pools are one per Mamba2 group at the shared block's
+        shape; families without attention layers (xlstm, pure-Mamba2
+        zamba) return {}: their decode state is all in the arena."""
+        cfg = self.cfg
+        n_attn = self.n_paged_layers()
+        if n_attn == 0:
+            return {}
+        if cfg.family == "zamba":
+            one = paged_cache_spec(zamba_shared_cfg(cfg), n_pages,
+                                   page_size, kv_dtype)
+            return {"attn": {k: v.stacked(n_attn) for k, v in one.items()}}
+        one = paged_cache_spec(cfg, n_pages, page_size, kv_dtype)
+        out = {"attn": {k: v.stacked(n_attn - self.n_first)
                         for k, v in one.items()}}
         if self.n_first:
             out["attn_first"] = {k: v.stacked(self.n_first)
                                  for k, v in one.items()}
         return out
 
+    def arena_state_specs(self, batch: int) -> Any:
+        """ParamSpec tree of the recurrent per-lane decode state of a
+        `batch`-lane StateArena ({} for attention-only families).  Each
+        leaf's `lane_axis` is the axis whose row i is lane i (behind the
+        stacked layer dims).  The conv ring buffers hold raw activation
+        projections and start at the dtype the serve cells promote them
+        to, as in JAX."""
+        cfg = self.cfg
+        act = cfg.activation_dtype()
+
+        def promoted(one):
+            return {k: ParamSpec(v.shape, torch.promote_types(v.dtype, act),
+                                 init="zeros", lane_axis=v.lane_axis)
+                    for k, v in one.items()}
+        if cfg.family == "xlstm":
+            n_groups, per, _ = self._groups()
+            m_one = promoted(mlstm_cache_spec(cfg, batch))
+            s_one = promoted(slstm_cache_spec(cfg, batch))
+            return {"mlstm": {k: v.stacked(per - 1).stacked(n_groups)
+                              for k, v in m_one.items()},
+                    "slstm": {k: v.stacked(n_groups)
+                              for k, v in s_one.items()}}
+        if cfg.family == "zamba":
+            n_groups, per, tail = self._groups()
+            one = promoted(mamba2_cache_spec(cfg, batch))
+            out = {}
+            if n_groups:
+                out["mamba"] = {k: v.stacked(per).stacked(n_groups)
+                                for k, v in one.items()}
+            if tail:
+                out["mamba_tail"] = {k: v.stacked(tail)
+                                     for k, v in one.items()}
+            return out
+        return {}
+
     def decode_state_specs(self, max_batch: int, n_pages: int,
                            page_size: int,
                            kv_dtype: torch.dtype = torch.bfloat16) -> Any:
-        """{"paged": KV page pools, "arena": {}} — the dense and MoE
-        families keep no per-lane recurrent state."""
+        """{"paged": KV page pools ({} without attention layers),
+        "arena": per-lane recurrent state, batch = max_batch ({} for the
+        dense and MoE families)}.  The engine allocates both and hands
+        `serve_step` one dict of their leaves."""
         return {"paged": self.paged_cache_specs(n_pages, page_size,
                                                 kv_dtype),
-                "arena": {}}
+                "arena": self.arena_state_specs(max_batch)}

@@ -1,0 +1,347 @@
+"""Recurrent-state blocks (PyTorch port of the serve path of
+`repro.models.ssm`): Mamba2, and xLSTM's mLSTM and sLSTM.
+
+Only the serving step is ported.  `*_serve_step(p, cfg, x, cache,
+valid[, n_new])` advances up to s tokens per lane in one call (a chunked
+prefill, or s == 1 batched decode): x (b, s, d), valid (b, s) with lane
+i's first n_new[i] positions valid (the cells with a conv take n_new
+too).  A lane's state after the call is
+the state after feeding its valid tokens one at a time; masked
+positions update nothing, so one lane's padding never reaches another
+lane's state (the engine's continuous-batching contract).
+
+Differences from the JAX package:
+  * the state is written IN PLACE into the caller's views of the
+    `StateArena` leaves, where JAX returns new arrays.  A masked
+    position keeps its lane's state bit for bit by folding the mask into
+    the update's coefficients (decay 1, input 0) instead of a `where`
+    and a copy, so a step reads and writes each large state leaf in
+    place (Mamba2's SSM state, the mLSTM's matrix memory C);
+  * what does not depend on the recurrent state runs over (b, s) at
+    once, before the loop over s: the causal conv over concat(conv
+    state, x), the mLSTM's q/k/v and gates, the sLSTM's x @ w_gates.
+    Valid positions are a prefix of each lane (right-padded chunks), so
+    for them this is JAX's arithmetic up to sum order; padding positions
+    compute values no valid position reads, as in JAX.  The new conv
+    state is the last k - 1 rows after each lane's valid ones (a lane
+    with n_new == 0 keeps its own);
+  * the mLSTM's head-wise q/k/v, (nh, dh, dh) and packed, go to
+    `cim_gemv`'s expert-stack layout with the heads as the experts (x
+    (nh, b * s, dh), every row counted), where JAX dequantizes them to
+    bf16 in every step (`maybe_dequantize`); the port's weights are the
+    exact INT4 values times their f16 scales.
+
+Numerics copied from JAX: `jax.nn.softplus` is logaddexp(x, 0)
+(`softplus` here; torch's own has a threshold shortcut), `jax.nn.gelu`
+the tanh form, the mLSTM's log f = -softplus(-f) and den = max(|n.q|,
+exp(-m)), the sLSTM's per-head gate means and max(n, 1e-6), Mamba2's
+A = -exp(a_log) and softplus(dt + dt_bias) in f32 and its gated RMSNorm.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.ops import expert_qmatmul
+from repro_torch.kernels.ops import qmatmul as qmm
+from repro_torch.quant.qarray import QTensor
+
+from .common import ACTIVATIONS, ParamSpec, rms_norm, swish
+from .config import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+State = Dict[str, torch.Tensor]
+
+F32 = torch.float32
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as `jax.nn.softplus` computes it: logaddexp(x, 0)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype, as `jnp` promotes a float product."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
+
+
+def _conv_prefix(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor, n_new: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The depthwise causal conv of every position of a chunk.
+
+    conv: (b, k - 1, c) the lane's last k - 1 inputs; x: (b, s, c) the
+    chunk; w: (k, c); b: (c,).  Returns (the conv at each position,
+    before the activation, (b, s, c) in the promoted dtype; the new
+    state, the k - 1 rows after each lane's n_new valid ones).  The
+    taps sum in f32 in tap order."""
+    k, s = w.shape[0], x.shape[1]
+    dt = torch.promote_types(torch.promote_types(conv.dtype, x.dtype),
+                             w.dtype)
+    buf = torch.cat([conv.to(dt), x.to(dt)], dim=1)          # (b, k-1+s, c)
+    wf = w.to(F32)
+    acc = buf[:, 0:s].to(F32) * wf[0]
+    for i in range(1, k):
+        acc = acc + buf[:, i:i + s].to(F32) * wf[i]
+    out = (acc + b.to(F32)).to(dt)
+    idx = n_new.long()[:, None] + torch.arange(k - 1, device=x.device)
+    new = buf.gather(1, idx[..., None].expand(-1, -1, buf.shape[-1]))
+    return out, new
+
+
+def _lane_spec(shape, dtype=F32) -> ParamSpec:
+    """A decode-state leaf of one layer: lane axis first, zeros."""
+    return ParamSpec(tuple(shape), dtype, init="zeros", lane_axis=0)
+
+
+# ============================================================================
+# Mamba2
+# ============================================================================
+def mamba2_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = int(s.expand * cfg.d_model)
+    return d_inner, d_inner // s.head_dim, s.d_state
+
+
+def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    s, d = cfg.ssm, cfg.d_model
+    di, nh, ds = mamba2_dims(cfg)
+    conv_dim = di + 2 * ds                       # x + B + C (single group)
+    return {
+        "in_proj": ParamSpec((d, 2 * di + 2 * ds + nh)),
+        "conv_w": ParamSpec((s.d_conv, conv_dim),
+                            scale=1.0 / math.sqrt(s.d_conv)),
+        "conv_b": ParamSpec((conv_dim,), init="zeros"),
+        "a_log": ParamSpec((nh,), init="zeros"),
+        "d_skip": ParamSpec((nh,), init="ones"),
+        "dt_bias": ParamSpec((nh,), init="zeros"),
+        "norm": ParamSpec((di,), init="ones"),
+        "out_proj": ParamSpec((di, d)),
+    }
+
+
+def mamba2_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      cache: State, valid: torch.Tensor,
+                      n_new: torch.Tensor) -> torch.Tensor:
+    """Masked multi-token Mamba2 step; cache {state (b, nh, hd, ds) f32,
+    conv (b, d_conv - 1, conv_dim)} is advanced in place.  Returns
+    (b, s, d)."""
+    b, s, _ = x.shape
+    di, nh, ds = mamba2_dims(cfg)
+    hd = cfg.ssm.head_dim
+
+    proj = qmm(x, p["in_proj"])
+    z = proj[..., :di]
+    xbc = proj[..., di:2 * di + 2 * ds]
+    dt = softplus(proj[..., 2 * di + 2 * ds:].to(F32)
+                  + p["dt_bias"].to(F32))                   # (b, s, nh)
+    A = -torch.exp(p["a_log"].to(F32))
+    xc, conv = _conv_prefix(cache["conv"], xbc, p["conv_w"], p["conv_b"],
+                            n_new)
+    xc = swish(xc)
+    xs = xc[..., :di].reshape(b, s, nh, hd)
+    B = xc[..., di:di + ds].to(F32)
+    C = xc[..., di + ds:].to(F32)
+    # a masked position decays by 1 and takes no input: the state stays
+    dA = torch.where(valid[..., None], torch.exp(dt * A), 1.0)
+    u = torch.where(valid[..., None, None], dt[..., None] * xs.to(F32), 0.0)
+    d_skip = p["d_skip"].to(x.dtype)[None, :, None]
+    state = cache["state"]
+    ys = []
+    for t in range(s):
+        state.mul_(dA[:, t, :, None, None])
+        state.addcmul_(u[:, t, :, :, None], B[:, t, None, None, :])
+        y = torch.matmul(state, C[:, t, None, :, None])[..., 0]
+        ys.append(y.to(x.dtype) + xs[:, t] * d_skip)
+    cache["conv"].copy_(conv)
+    y = torch.stack(ys, dim=1).reshape(b, s, di)
+    y = rms_norm(y * swish(z), p["norm"], cfg.norm_eps)
+    return qmm(y, p["out_proj"])
+
+
+def mamba2_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
+    di, nh, ds = mamba2_dims(cfg)
+    return {"state": _lane_spec((batch, nh, cfg.ssm.head_dim, ds)),
+            "conv": _lane_spec((batch, cfg.ssm.d_conv - 1, di + 2 * ds),
+                               torch.bfloat16)}
+
+
+# ============================================================================
+# mLSTM (xLSTM matrix-memory block)
+# ============================================================================
+def mlstm_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    di = int(s.proj_factor_mlstm * cfg.d_model)
+    return di, s.mlstm_heads, di // s.mlstm_heads
+
+
+def mlstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    s, d = cfg.ssm, cfg.d_model
+    di, nh, dh = mlstm_dims(cfg)
+    return {
+        "up_proj": ParamSpec((d, 2 * di)),
+        "conv_w": ParamSpec((s.conv_width, di),
+                            scale=1.0 / math.sqrt(s.conv_width)),
+        "conv_b": ParamSpec((di,), init="zeros"),
+        "wq": ParamSpec((nh, dh, dh)),             # head-wise (block
+        "wk": ParamSpec((nh, dh, dh)),             #   diagonal) q/k/v
+        "wv": ParamSpec((nh, dh, dh)),
+        "w_if": ParamSpec((di, 2 * nh), scale=1.0 / math.sqrt(di)),
+        "b_if": ParamSpec((2 * nh,), init="zeros"),
+        "w_o": ParamSpec((di, di)),
+        "hnorm": ParamSpec((di,), init="ones"),
+        "down_proj": ParamSpec((di, d)),
+    }
+
+
+def headwise(xh: torch.Tensor, w) -> torch.Tensor:
+    """x (nh, T, dh) against a head-wise weight (nh, dh, dh) -> (nh, T,
+    dh) in x's dtype: a packed weight is one `cim_gemv` call in its
+    stack layout, each head an expert holding all T rows; a float one is
+    a batched product, as JAX's einsum."""
+    if isinstance(w, QTensor):
+        nh, T = xh.shape[0], xh.shape[1]
+        counts = torch.full((nh,), T, dtype=torch.int32, device=xh.device)
+        return expert_qmatmul(xh, w, counts)
+    return expert_qmatmul(xh, w, None)
+
+
+def mlstm_qkvif(p: Params, cfg: ModelConfig, xc: torch.Tensor):
+    """q, k, v (b, s, nh, dh) f32 and the raw input / forget gates (b,
+    s, nh) f32 of every position of the conv output xc (b, s, di), as
+    JAX's `_mlstm_qkvif`: the head-wise products in xc's dtype, k scaled
+    by 1/sqrt(dh) there."""
+    di, nh, dh = mlstm_dims(cfg)
+    b, s, _ = xc.shape
+    xh = xc.reshape(b * s, nh, dh).transpose(0, 1).contiguous()
+
+    def heads(w, scale=None):
+        out = headwise(xh, w).to(xc.dtype)
+        if scale is not None:
+            out = out / scale
+        return out.transpose(0, 1).reshape(b, s, nh, dh).to(F32)
+    q, k, v = heads(p["wq"]), heads(p["wk"], math.sqrt(dh)), heads(p["wv"])
+    gates = (_mm(xc, p["w_if"]) + p["b_if"]).to(F32)
+    return q, k, v, gates[..., :nh], gates[..., nh:]
+
+
+def mlstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     cache: State, valid: torch.Tensor,
+                     n_new: torch.Tensor) -> torch.Tensor:
+    """Masked multi-token mLSTM step; cache {C (b, nh, dh, dh), n (b, nh,
+    dh), m (b, nh) f32, conv (b, conv_width - 1, di)} is advanced in
+    place.  C is scaled by the forget gate and takes the rank-1 input in
+    place (`mul_`, `addcmul_`), then read once for h.  Returns (b, s,
+    d)."""
+    b, s, _ = x.shape
+    di, nh, dh = mlstm_dims(cfg)
+    up = qmm(x, p["up_proj"])
+    x_m, z = up[..., :di], up[..., di:]
+    o = torch.sigmoid(qmm(x_m, p["w_o"]))
+    xc, conv = _conv_prefix(cache["conv"], x_m, p["conv_w"], p["conv_b"],
+                            n_new)
+    q, k, v, i_raw, f_raw = mlstm_qkvif(p, cfg, swish(xc))
+    log_f = -softplus(-f_raw)                           # log sigmoid(f)
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    hs = []
+    for t in range(s):
+        vt = valid[:, t, None]
+        m_new = torch.maximum(log_f[:, t] + m, i_raw[:, t])
+        i_p = torch.exp(i_raw[:, t] - m_new)
+        f_p = torch.exp(log_f[:, t] + m - m_new)
+        # a masked position: forget gate 1, input 0
+        fe = torch.where(vt, f_p, 1.0)[..., None]
+        iv = torch.where(vt[..., None], i_p[..., None] * v[:, t], 0.0)
+        ik = torch.where(vt[..., None], i_p[..., None] * k[:, t], 0.0)
+        C.mul_(fe[..., None]).addcmul_(iv[..., :, None],
+                                       k[:, t, :, None, :])
+        n.mul_(fe).add_(ik)
+        m.copy_(torch.where(vt, m_new, m))
+        num = torch.matmul(C, q[:, t, ..., None])[..., 0]
+        den = torch.maximum((n * q[:, t]).sum(-1).abs(), torch.exp(-m_new))
+        hs.append(num / den[..., None])
+    cache["conv"].copy_(conv)
+    h = torch.stack(hs, dim=1).reshape(b, s, di).to(x.dtype)
+    h = rms_norm(h, p["hnorm"], cfg.norm_eps) * o
+    return qmm(h * swish(z), p["down_proj"])
+
+
+def mlstm_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
+    di, nh, dh = mlstm_dims(cfg)
+    return {"C": _lane_spec((batch, nh, dh, dh)),
+            "n": _lane_spec((batch, nh, dh)),
+            "m": _lane_spec((batch, nh)),
+            "conv": _lane_spec((batch, cfg.ssm.conv_width - 1, di),
+                               torch.bfloat16)}
+
+
+# ============================================================================
+# sLSTM (xLSTM scalar-memory block with recurrent gating)
+# ============================================================================
+def slstm_dims(cfg: ModelConfig):
+    nh = cfg.ssm.mlstm_heads
+    return cfg.d_model, nh, cfg.d_model // nh
+
+
+def slstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, nh, dh = slstm_dims(cfg)
+    f_up = int(cfg.ssm.proj_factor_slstm * d)
+    return {
+        "w_gates": ParamSpec((d, 4 * d)),
+        "r_gates": ParamSpec((nh, dh, 4 * dh), scale=1.0 / math.sqrt(dh)),
+        "b_gates": ParamSpec((4 * d,), init="zeros"),
+        "gnorm": ParamSpec((d,), init="ones"),
+        "ffn_up": ParamSpec((d, 2 * f_up)),
+        "ffn_down": ParamSpec((f_up, d)),
+    }
+
+
+def slstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     cache: State, valid: torch.Tensor) -> torch.Tensor:
+    """Masked multi-token sLSTM step; cache {c, n, h (b, d), m (b, nh)}
+    f32 is advanced in place.  x @ w_gates runs over (b, s) at once; the
+    recurrent h_prev @ r_gates stays in the loop; the gated GELU FFN runs
+    over (b, s).  Returns (b, s, d)."""
+    b, s, d = x.shape
+    _, nh, dh = slstm_dims(cfg)
+    gx = _mm(x.to(F32), p["w_gates"]) + p["b_gates"].to(F32)  # (b, s, 4d)
+    r = p["r_gates"].to(F32)
+    c, n, h, m = (cache[k] for k in ("c", "n", "h", "m"))
+    hs = []
+    for t in range(s):
+        rec = torch.matmul(h.reshape(b, nh, dh).transpose(0, 1), r)
+        g = gx[:, t] + rec.transpose(0, 1).reshape(b, 4 * d)
+        zr, ir, fr, orr = g.split(d, dim=-1)
+        ir_h = ir.reshape(b, nh, dh).mean(-1)         # per-head scalar gates
+        fr_h = fr.reshape(b, nh, dh).mean(-1)
+        m_new = torch.maximum(fr_h + m, ir_h)
+        i_p = torch.exp(ir_h - m_new)[..., None]
+        f_p = torch.exp(fr_h + m - m_new)[..., None]
+        c_new = f_p * c.reshape(b, nh, dh) + i_p * torch.tanh(zr).reshape(
+            b, nh, dh)
+        n_new_ = f_p * n.reshape(b, nh, dh) + i_p
+        h_new = torch.sigmoid(orr) * (
+            c_new / torch.clamp_min(n_new_, 1e-6)).reshape(b, d)
+        vt = valid[:, t, None]
+        c = torch.where(vt, c_new.reshape(b, d), c)
+        n = torch.where(vt, n_new_.reshape(b, d), n)
+        h = torch.where(vt, h_new, h)
+        m = torch.where(vt, m_new, m)
+        hs.append(h_new)
+    for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
+        cache[key].copy_(val)
+    y = torch.stack(hs, dim=1).to(x.dtype)
+    y = rms_norm(y, p["gnorm"], cfg.norm_eps)
+    up = qmm(y, p["ffn_up"])
+    f_up = up.shape[-1] // 2
+    y = ACTIVATIONS["gelu"](up[..., :f_up]) * up[..., f_up:]
+    return qmm(y, p["ffn_down"])
+
+
+def slstm_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
+    d, nh, _ = slstm_dims(cfg)
+    return {"c": _lane_spec((batch, d)), "n": _lane_spec((batch, d)),
+            "h": _lane_spec((batch, d)), "m": _lane_spec((batch, nh))}

@@ -13,10 +13,21 @@
                                             cancel, fork
   telemetry  (telemetry.Telemetry)        — TTFT/TPOT/queue percentiles
 
+The decode state is the JAX engine's unified per-layer state: attention
+layers keep paged KV pages, recurrent layers (Mamba2 conv + SSM state,
+m/sLSTM cells) fixed per-lane slots in a `StateArena` (serve/state.py).
+Both go to `DecoderLM.serve_step` as one dict of their leaves, so
+admission, chunked prefill, sampling, deadlines and preemption are the
+same for every family; hybrid zamba keeps paged attention pools and
+arena slots in one lane.  For a family with no attention layer (xlstm)
+`PagedKVCache` holds no pools and serves only as the token-budget
+ledger that gates admission, growth and preemption.
+
 Every step runs at most one chunked batch-prefill call (b = max_batch,
 s = prefill_chunk) and one decode call (b = max_batch, s = 1) through
-`DecoderLM.serve_step`, which writes the KV pools in place.  Greedy
-lanes take an argmax on the device; only (b,) tokens cross to the host.
+`DecoderLM.serve_step`, which writes the KV pools and the arena in
+place.  Greedy lanes take an argmax on the device; only (b,) tokens
+cross to the host.
 Built with a `repro_torch.spec.SpecConfig`, the decode call becomes one
 `paged_verify_step` (b = max_batch, s = k + 1) that verifies a drafted
 window and emits a variable number of tokens per lane (speculative
@@ -41,10 +52,17 @@ verify logits) reach the host.  A replayed CUDA graph runs
 asynchronously until that copy, so unlike the JAX engine's spans, which
 cover the jitted dispatch, the port's include the device's work.
 
+Prefix caching, forks (parallel sampling) and speculative decoding act
+on attention KV pages alone: a model with recurrent state layers cannot
+adopt, clone or roll back that state, so asking for one raises a
+ValueError naming the capability (`capability_error`, JAX's wording);
+`prefix_cache=None` means on iff the model is fully paged.  A preempted
+pure-recurrent lane snapshots its arena slot to the host and resumes
+from it; a hybrid lane re-prefills (prompt + generated), as in JAX.
+
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
 versions of the kernels, run eagerly).  Not in this port yet, and
-refused when asked for: tensor parallelism and replicas (`ServeConfig`),
-recurrent families and their StateArena (`DecoderLM`).
+refused when asked for: tensor parallelism and replicas (`ServeConfig`).
 Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
 and MLA models (deepseek) are served like any dense model;
 `kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
@@ -74,7 +92,22 @@ from .paged_cache import PagedKVCache
 from .prefix import PrefixIndex
 from .sampling import SamplingParams, processed_probs, sample_tokens
 from .scheduler import Scheduler, ServeRequest
+from .state import StateArena
 from .telemetry import Telemetry
+
+# attention-only capability guards: one message source for the engine
+# and the launcher, so the policy and its wording cannot drift apart
+_CAPABILITY_REASONS = {
+    "speculative-decoding": "verify/rollback cannot rewind",
+    "prefix-cache": "page adoption cannot reproduce",
+    "parallel-sampling": "forked KV pages cannot clone",
+}
+
+
+def capability_error(model, capability: str) -> str:
+    return (f"capability {capability!r} requires a paged-attention-only "
+            f"model; family {model.cfg.family!r} carries recurrent "
+            f"per-lane state that {_CAPABILITY_REASONS[capability]}")
 
 
 def _has_qtensor(tree: Any) -> bool:
@@ -105,15 +138,18 @@ class PagedServeEngine:
             raise ValueError(f"max_seq {max_seq} must be a multiple of "
                              f"page_size {page_size}")
         if spec is not None and not model.supports_paged():
-            raise ValueError(
-                f"{model.cfg.name}: speculative decoding needs a model "
-                "whose every layer keeps paged KV (rollback trims pages)")
+            raise ValueError(capability_error(model,
+                                              "speculative-decoding"))
+        prefix_cache = config.prefix_cache
+        if prefix_cache is None:        # auto: on iff fully paged
+            prefix_cache = model.supports_paged()
+        elif prefix_cache and not model.supports_paged():
+            raise ValueError(capability_error(model, "prefix-cache"))
         params = tree_to(params, self.device)
         if config.quantized() and not _has_qtensor(params):
             # the precision field is authoritative: quantize float params
             params = quantize_params(params, bits=config.weight_bits(),
                                      group=config.quant_group)
-        prefix_cache = config.prefix_cache is not False   # default on
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -128,6 +164,16 @@ class PagedServeEngine:
         self.cache = PagedKVCache(model, n_pages, page_size, max_seq,
                                   kv_dtype, specs=state_specs["paged"],
                                   device=self.device)
+        self.arena: Optional[StateArena] = (
+            StateArena(model, max_batch, specs=state_specs["arena"],
+                       device=self.device)
+            if model.has_recurrent_state() else None)
+        # what every step call reads and writes in place: the pools, and
+        # the arena's leaves beside them (their keys are disjoint); one
+        # dict for the engine's life, as the captured graphs hold it
+        self.state = self.cache.pools
+        if self.arena is not None:
+            self.state = {**self.cache.pools, **self.arena.state}
         self.prefix: Optional[PrefixIndex] = None
         if prefix_cache:
             self.prefix = PrefixIndex(self.cache.allocator, page_size)
@@ -180,6 +226,9 @@ class PagedServeEngine:
         return self.n_running > 0 or self.scheduler.n_queued > 0
 
     def submit(self, req: ServeRequest) -> None:
+        if req.fork_from is not None and not self.model.supports_paged():
+            raise ValueError(capability_error(self.model,
+                                              "parallel-sampling"))
         now = self._clock()
         req.eid = self._next_eid      # rid is the caller's label and may
         self._next_eid += 1           # collide; eid keys cache/telemetry
@@ -190,13 +239,15 @@ class PagedServeEngine:
 
     def cancel(self, eid: int) -> bool:
         """Abort a submitted request wherever it is — queued,
-        mid-prefill, mid-decode, or preempted.  Frees its KV pages
-        (decref: pages shared with the prefix trie or a fork survive)
-        and its lane.  False when `eid` is unknown or already done."""
+        mid-prefill, mid-decode, or preempted (its arena snapshot dies
+        with it).  Frees its KV pages (decref: pages shared with the
+        prefix trie or a fork survive) and its lane.  False when `eid`
+        is unknown or already done."""
         now = self._clock()
         queued = self.scheduler.cancel(eid)
         if queued is not None:
             queued.done = True
+            queued.saved_state = None
             self.telemetry.cancel(eid, now)
             self._event("cancel", eid=eid, rid=queued.trace_id,
                         where="queued")
@@ -232,11 +283,11 @@ class PagedServeEngine:
                   lengths: np.ndarray, n_new: np.ndarray,
                   step_fn=None) -> torch.Tensor:
         """One model step call (`serve_step` unless `step_fn` is given)
-        through the runner; the pools are updated in place.  The logits
-        are the step's static output: every use of them ends before the
-        next call of the same step."""
+        through the runner; the pools and the arena are updated in
+        place.  The logits are the step's static output: every use of
+        them ends before the next call of the same step."""
         return self.runner(step_fn or self.model.serve_step, self.params,
-                           self.cache.pools, tokens, tables, lengths, n_new)
+                           self.state, tokens, tables, lengths, n_new)
 
     def _tables(self) -> np.ndarray:
         tab = np.zeros((self.max_batch, self.cache.max_pages), np.int32)
@@ -312,17 +363,28 @@ class PagedServeEngine:
             self._free_lane(lane, req.eid)
 
     def _preempt(self, lane: int) -> None:
-        """Pool exhausted: evict this lane and requeue it with (prompt +
-        generated since the last fold) as its new prompt; its pages are
-        rebuilt by prefill when they free up."""
+        """Pool exhausted: evict this lane and requeue it.
+
+        A pure-recurrent family snapshots the lane's arena slot to the
+        host (constant size, exact) and resumes from it on re-admission
+        without re-prefilling a token.  A family with attention layers
+        loses its KV pages, so it requeues with (prompt + generated since
+        the last fold) as its new prompt and rebuilds by prefill (a
+        hybrid's restored Mamba2 state would be advanced twice by that
+        rebuild, hence no snapshot)."""
         req = self.lanes[lane]
         self._event("preempt", eid=req.eid, rid=req.trace_id, lane=lane,
                     tokens=len(req.out_tokens))
-        req.prompt = np.concatenate(
-            [np.asarray(req.prompt, np.int32),
-             np.asarray(req.out_tokens[req.prompt_folded:], np.int32)])
-        req.prompt_folded = len(req.out_tokens)
-        req.prefill_done = 0
+        if self.arena is not None and self.model.n_paged_layers() == 0:
+            req.saved_state = self.arena.save_lane(lane)
+            req.saved_length = self.cache.seqs[req.eid].length
+            req.saved_prefill_done = req.prefill_done
+        else:
+            req.prompt = np.concatenate(
+                [np.asarray(req.prompt, np.int32),
+                 np.asarray(req.out_tokens[req.prompt_folded:], np.int32)])
+            req.prompt_folded = len(req.out_tokens)
+            req.prefill_done = 0
         req.fork_from = None
         req.forked_tokens = 0
         self._free_lane(lane, req.eid)
@@ -348,6 +410,16 @@ class PagedServeEngine:
                         prompt_len=req.prompt_len,
                         prefix_cached=req.prefix_cached,
                         resumed=req.saved_state is not None)
+            if self.arena is not None:
+                if req.saved_state is not None:
+                    # a resumed preemption: the host snapshot goes back
+                    # and the lane picks up exactly where it left off
+                    self.arena.restore_lane(lane, req.saved_state)
+                    self.cache.seqs[req.eid].length = req.saved_length
+                    req.prefill_done = req.saved_prefill_done
+                    req.saved_state = None
+                else:       # a fresh admission never inherits a dead
+                    self.arena.reset_lane(lane)     # lane's state
             if req.fork_from is not None:
                 self.telemetry.fork(req.forked_tokens)
             elif self.prefix is not None:
@@ -371,9 +443,14 @@ class PagedServeEngine:
                                     n=evicted - self._evict_seen)
         self._cow_seen = self.cache.cow_copies
         self._evict_seen = evicted
+        # arena slots are engine lanes 1:1, so slot fill is running lanes
+        # over max_batch, sampled only when an arena exists
+        state_occ = (self.n_running / self.max_batch
+                     if self.arena is not None else None)
         self.telemetry.step(self.cache.occupancy(), self.n_running,
                             decode_s=decode_s, prefill_s=prefill_s,
                             decode_lanes=decode_lanes,
+                            state_occupancy=state_occ,
                             family=self.model.cfg.family)
 
     def _prefill_phase(self) -> float:
@@ -616,6 +693,8 @@ class PagedServeEngine:
         s["kv_pages_shared"] = float(self.cache.pages_shared)
         if self.spec is not None:
             s["spec_k_now"] = float(self.spec.current_k())
+        if self.arena is not None:
+            s["state_bytes"] = float(self.arena.state_bytes())
         if self.prefix is not None:
             s["prefix_pages_resident"] = float(self.prefix.n_pages)
             s["prefix_pages_evicted"] = float(self.prefix.pages_evicted)

@@ -20,8 +20,13 @@ replayed after:
     (sampled, copied to the host) before it calls again.
   * Params and pools are captured by address.  They stay the same
     tensors: the KV pools are allocated once and written in place
-    (`PagedKVCache`).  A call with other params or pools for a captured
-    (fn, shape) raises.
+    (`PagedKVCache`), and so are a recurrent model's per-lane state
+    leaves (`StateArena`), which the engine hands over in one dict with
+    the pools (`engine.state`): the step writes them with `copy_` and
+    in-place ops, and the engine's lane ops (reset, snapshot restore)
+    write their rows in place between calls, so a replay reads and
+    advances the same arena.  A call with other params or pools for a
+    captured (fn, shape) raises.
   * The first call of a shape runs the step eagerly on the runner's side
     stream and returns that result.  This warm-up builds the kernels,
     sets their shared-memory opt-ins and allocates `cim_gemv`'s arrival

@@ -301,3 +301,81 @@ def test_plan_takes_every_call_of_deepseek(bits, m):
 def test_split_order_matches_oracle_deepseek_groups(bits, m, k, n, group,
                                                     n_sms):
     test_split_order_matches_oracle_any_group(bits, m, k, n, group, n_sms)
+
+
+# ----------------------------------------------------------------------------
+# the recurrent families: xlstm-1.3b and zamba2-7b
+# ----------------------------------------------------------------------------
+def _recurrent_calls(arch_id):
+    """(name, K, N, group) of every (K/2, N) cim_gemv call of xlstm-1.3b
+    or zamba2-7b at full width, with the groups `_pick_group` gives."""
+    cfg = get_config(arch_id)
+    d = cfg.d_model
+    if cfg.family == "xlstm":
+        di = int(cfg.ssm.proj_factor_mlstm * d)
+        f_up = int(cfg.ssm.proj_factor_slstm * d)
+        calls = [("up_proj", d, 2 * di), ("w_o", di, di),
+                 ("down_proj", di, d), ("ffn_up", d, 2 * f_up),
+                 ("ffn_down", f_up, d), ("head", d, cfg.vocab)]
+    else:
+        di = cfg.ssm.expand * d
+        ds, nh = cfg.ssm.d_state, di // cfg.ssm.head_dim
+        qkv = cfg.n_heads * cfg.hd()
+        calls = [("in_proj", d, 2 * di + 2 * ds + nh), ("out_proj", di, d),
+                 ("wq", d, qkv), ("wo", qkv, d), ("lora_out_proj", d, d),
+                 ("w_down", cfg.zamba.shared_d_ff, d),
+                 ("head", d, cfg.vocab)]
+    return [(n, k, nn, _pick_group(k, 128, 16)) for n, k, nn in calls]
+
+
+@pytest.mark.parametrize("arch_id", ["xlstm-1.3b", "zamba2-7b"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", M_SENT + (256,))
+def test_plan_takes_every_call_of_the_recurrent_families(arch_id, bits, m):
+    """At full width, every call fits the card's shared memory and its
+    splits cover K once: xlstm's up_proj (2048 -> 8192), w_o (4096^2),
+    down_proj, ffn_up (2048 -> 5460), ffn_down (2730 -> 2048 in odd
+    groups of 105) and head (2048 -> 50304); zamba's in_proj (3584 ->
+    14576), out_proj (7168 -> 3584), q/k/v/o and the LoRA out_proj
+    (3584^2), w_down (14336 -> 3584) and head (3584 -> 32000), groups of
+    112 on K = 3584 and 7168.  And the mLSTM's head-wise q/k/v as an
+    expert stack: 4 heads of 1024 -> 1024 in groups of 64, capacity m."""
+    calls = _recurrent_calls(arch_id)
+    groups = {n: g for n, _, _, g in calls}
+    if arch_id == "xlstm-1.3b":
+        assert groups["ffn_down"] == 105 and groups["up_proj"] == 128
+    else:
+        assert groups["in_proj"] == groups["out_proj"] == 112
+        assert groups["w_down"] == 128
+    for name, k, n, group in calls:
+        assert n % 4 == 0, name
+        stored = k // 2 if bits == 4 else k
+        plan = cg.split_plan("cols", m, stored, n, bits, 132)
+        assert cg.smem_bytes("cols", plan, m, k, bits, group) <= \
+            cg.SMEM_MAX, (name, m, plan)
+        rows = [p for sp in range(plan.splits)
+                for b, e in cg.lane_rows(plan, sp, stored)
+                for p in range(b, e)]
+        assert rows == list(range(stored)), name
+    if arch_id == "xlstm-1.3b":
+        assert _pick_group(1024, 128, 16) == 64
+        stored = 512 if bits == 4 else 1024
+        plan = cg.stack_plan(m, stored, 1024, bits, 4, 132)
+        assert plan.mt == cg.m_tile(m)
+        assert cg.smem_bytes("cols", plan, m, 1024, bits, 64) <= \
+            cg.SMEM_MAX
+        assert (plan.splits - 1) * plan.rows < stored \
+            <= plan.splits * plan.rows
+        if plan.splits > 1:
+            assert 4 * -(-1024 // cg.TN) <= cg.MAX_TILES
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,n,group,n_sms", [
+    (4, 2730, 64, 105, 132),   # xlstm's ffn_down: odd groups of 105
+    (1, 3584, 64, 112, 132),   # zamba's K = 3584 in groups of 112
+    (4, 1024, 64, 64, 132),    # the mLSTM's head-wise q/k/v
+])
+def test_split_order_matches_oracle_recurrent_groups(bits, m, k, n, group,
+                                                     n_sms):
+    test_split_order_matches_oracle_any_group(bits, m, k, n, group, n_sms)

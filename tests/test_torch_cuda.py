@@ -962,3 +962,160 @@ def test_deepseek_smoke_decode_replay_equals_eager(device):
     assert launch_counts() == {"cim_gemv": 3 * L + 1 + 6 * n_moe + 1,
                                "swiglu_qgemv": 1, "paged_flash_decode": 0,
                                "paged_flash_verify": 0, "flash_decode": 0}
+
+
+# ----------------------------------------------------------------------------
+# the recurrent and hybrid families: xlstm-1.3b and zamba2-7b
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("pools", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("b,max_pages", [(4, 64), (1, 256), (2, 5)])
+def test_paged_decode_at_head_dim_112(device, pools, b, max_pages):
+    """zamba2-7b's shared attention: 32 kv heads of one query head each,
+    hd 112 (a lane's p . v dims are ceil(112 / 32) = 4, 28 lanes busy;
+    int8 q . k in 8-byte loads): lengths on and one past a split
+    boundary, 1 and 0; batch 1 over 256 pages; bitwise twice."""
+    q, kp, vp, tables, _, ks, vs = _paged(device, pools, b=b, g=32, qpk=1,
+                                          hd=112, max_pages=max_pages,
+                                          seed=61)
+    chunk, lens = _split_lengths(b, 32, max_pages, kp.shape[1])
+    if b == 1:
+        lens = [max_pages * kp.shape[1]]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=device)
+    args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    out = paged_flash_decode(*args)
+    _close(out, paged_decode_plain(*args))
+    assert torch.equal(out, paged_flash_decode(*args))
+
+
+@pytest.mark.parametrize("s", [1, 5])
+def test_paged_verify_and_flash_decode_at_head_dim_112(device, s):
+    """The two kernels sharing `split_decode.cuh` take hd 112 too (one
+    HEAD_DIMS list): verify windows of lanes at 0, 1 and past a page;
+    flash_decode over a contiguous cache."""
+    _, kp, vp, tables, _, ks, vs = _paged(device, "int8", b=4, g=32, qpk=1,
+                                          hd=112, max_pages=8, seed=62)
+    q = torch.randn(4, s, 32, 1, 112, generator=_gen(63), device=device)
+    lengths = torch.tensor([0, 1, 37, 128 - s], dtype=torch.int32,
+                           device=device)
+    args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    out = paged_flash_verify(*args)
+    _close(out, paged_verify_plain(*args))
+    assert torch.equal(out, paged_flash_verify(*args))
+    gen = _gen(64)
+    qf = torch.randn(8, 1, 112, generator=gen, device=device)
+    k = torch.randn(8, 300, 112, generator=gen, device=device)
+    v = torch.randn(8, 300, 112, generator=gen, device=device)
+    _close(flash_decode(qf, k, v, 211), flash_decode_plain(qf, k, v, 211))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 4, 64])
+@pytest.mark.parametrize("k,n,group", [
+    (2048, 8192, 128),     # xlstm up_proj
+    (4096, 4096, 128),     # xlstm w_o
+    (2048, 5460, 128),     # xlstm ffn_up
+    (2730, 2048, 105),     # xlstm ffn_down: odd groups of 105
+    (2048, 50304, 128),    # xlstm head
+    (3584, 14576, 112),    # zamba in_proj
+    (7168, 3584, 112),     # zamba out_proj
+    (3584, 3584, 112),     # zamba q/k/v/o and the LoRA out_proj
+    (3584, 32000, 112),    # zamba head
+])
+def test_cim_gemv_kernel_at_recurrent_widths(device, bits, m, k, n, group):
+    g = _gen(65)
+    w = quantize(torch.randn(k, n, generator=g, device=device) * 0.02,
+                 bits, group)
+    x = torch.randn(m, k, generator=g, device=device)
+    out = cim_gemv(x, w)
+    _close(out, cim_gemv_plain(x, w))
+    assert torch.equal(out, cim_gemv(x, w))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("rows", [1, 4, 64])
+def test_cim_gemv_stack_takes_the_mlstm_head_wise_projections(device, bits,
+                                                             rows):
+    """xlstm-1.3b's q/k/v: 4 heads of (1024, 1024) in groups of 64, each
+    head an expert holding every row (counts all full)."""
+    g, w = _stack(device, bits, 4, 1024, 1024, 64, seed=66)
+    x = torch.randn(4, rows, 1024, generator=g, device=device)
+    counts = torch.full((4,), rows, dtype=torch.int32, device=device)
+    out = cim_gemv(x, w, counts)
+    _close(out, cim_gemv_plain(x, w))
+    assert torch.equal(out, cim_gemv(x, w, counts))
+
+
+@pytest.mark.parametrize("m", [1, 4, 20])
+def test_swiglu_kernel_at_zamba_width(device, m):
+    g = _gen(67)
+    wg = quantize(torch.randn(3584, 14336, generator=g, device=device)
+                  * 0.02, 4, 112)
+    wu = quantize(torch.randn(3584, 14336, generator=g, device=device)
+                  * 0.02, 4, 112)
+    x = torch.randn(m, 3584, generator=g, device=device)
+    out = swiglu_qgemv(x, wg, wu)
+    _close(out, swiglu_plain(x, wg, wu))
+    assert torch.equal(out, swiglu_qgemv(x, wg, wu))
+
+
+@pytest.mark.parametrize("arch,per_step", [
+    # 3 mLSTM layers x (up, w_o, down + 3 head-wise stack calls), the
+    # sLSTM layer's ffn_up / ffn_down, the head
+    ("xlstm-1.3b", {"cim_gemv": 3 * 6 + 2 + 1, "swiglu_qgemv": 0,
+                    "paged_flash_decode": 0}),
+    # 5 Mamba2 layers x (in_proj, out_proj), 2 shared-block invocations
+    # x (q, k, v, o, LoRA out_proj, w_down), the head
+    ("zamba2-7b", {"cim_gemv": 5 * 2 + 2 * 6 + 1, "swiglu_qgemv": 2,
+                   "paged_flash_decode": 2}),
+])
+def test_recurrent_smoke_decode_replay_equals_eager(device, arch, per_step):
+    """The smoke config, INT4 (xlstm's at d_model 96: at 64 its sLSTM
+    ffn_up has 170 columns, which cim_gemv refuses, N % 4): a captured
+    decode step, replayed from the same arena state as its eager call,
+    gives bitwise the same logits and the same new state; the arena's
+    tensors keep their addresses; the launches of one call are the ones
+    listed."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.common import map_specs
+    from repro_torch.quant.ptq import quantize_params
+    from repro_torch.serve import StepRunner
+    cfg = get_smoke_config(arch).replace(dtype="float32", remat=False)
+    if cfg.family == "xlstm":
+        cfg = cfg.replace(d_model=96)
+    model = DecoderLM(cfg)
+    params = quantize_params(init_params(
+        model.param_specs(), torch.Generator(device=device).manual_seed(0),
+        device, torch.float32), 4, 16)
+    specs = model.decode_state_specs(2, 8, 16, torch.int8)
+    state = {}
+    for half in ("paged", "arena"):
+        state.update(map_specs(lambda s: torch.zeros(
+            s.shape, dtype=s.dtype, device=device), specs[half]))
+
+    def leaves(t):
+        return ([x for v in t.values() for x in leaves(v)]
+                if isinstance(t, dict) else [t])
+    ptrs = [x.data_ptr() for x in leaves(state)]
+    tables = np.arange(8, dtype=np.int32).reshape(2, 4)
+    runner = StepRunner(device)
+    tok = (np.arange(32, dtype=np.int32).reshape(2, 16) * 7) % cfg.vocab
+    runner(model.serve_step, params, state, tok, tables,
+           np.zeros(2, np.int32), np.array([16, 12], np.int32))
+    args = (tok[:, :1].copy(), tables, np.array([16, 12], np.int32),
+            np.ones(2, np.int32))
+    before = [x.clone() for x in leaves(state)]
+    eager = runner(model.serve_step, params, state, *args).clone()
+    after = [x.clone() for x in leaves(state)]
+    for x, b in zip(leaves(state), before):
+        x.copy_(b)
+    reset_launch_counts()
+    logits = runner(model.serve_step, params, state, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager) and torch.isfinite(logits).all()
+    assert all(torch.equal(x, a) for x, a in zip(leaves(state), after))
+    assert [x.data_ptr() for x in leaves(state)] == ptrs
+    got = launch_counts()
+    assert {k: got[k] for k in per_step} == per_step

@@ -490,7 +490,10 @@ def test_spec_refused_for_unknown_drafter_or_unpaged_model():
         PagedServeEngine(tm, tp, ServeConfig(**GEOM),
                          spec=SpecConfig(drafter="tree"), device="cpu")
     unpaged = types.SimpleNamespace(cfg=tm.cfg, supports_paged=lambda: False)
-    with pytest.raises(ValueError, match="paged KV"):
+    # the JAX engine's wording (`capability_error`): the capability, and
+    # that it needs a paged-attention-only model
+    with pytest.raises(ValueError, match="'speculative-decoding' requires "
+                                         "a paged-attention-only model"):
         PagedServeEngine(unpaged, tp, ServeConfig(**GEOM), spec=SpecConfig(),
                          device="cpu")
 

@@ -249,3 +249,95 @@ def test_qpk_bounds_and_flash_plan_weigh_query_groups():
         sd.check_shape("paged_flash_decode", 17, 128)
     assert fd_plan(8, 1024, qpk=16) == sd.plan_splits(16, 1024, 16)
     assert fd_plan(8, 1024) == fd_plan(8, 1024, qpk=8)
+
+
+# ----------------------------------------------------------------------------
+# head_dim 112 at one query head per kv head (zamba2-7b's shared attention)
+# ----------------------------------------------------------------------------
+def _shape(elem: int, hd: int) -> dict:
+    """`Shape<T, HD>` of csrc/split_decode.cuh in Python, with its
+    static_asserts: the one place the CPU can check that a head dim
+    instantiates (no compiler here)."""
+    row = hd * elem
+    kt = 16 if row <= 256 else (8 if row <= 512 else 4)
+    parts = 32 // kt
+    dp = hd // parts
+    dpb = dp * elem
+    vb = 16 if dpb % 16 == 0 else (8 if dpb % 8 == 0 else 4)
+    ve = vb // elem
+    hdl = -(-hd // 32)
+    stage = 2 * kt * (row + 16)
+    assert hd % 16 == 0 and hd <= 256 and row % 16 == 0
+    assert ve % 4 == 0 and dp % ve == 0 and hd % hdl == 0
+    assert sd.QMAX * (hd + 2) * 4 <= 2 * stage
+    # each lane's loads start on their own size: K rows padded to 16 B
+    assert (row + 16) % 16 == 0 and (dp * elem) % vb == 0
+    return dict(kt=kt, dp=dp, vb=vb, ve=ve, hdl=hdl,
+                smem=sd.QMAX * hd * 4 + sd.WARPS * (2 * stage
+                                                    + kt * sd.QMAX * 4))
+
+
+def test_head_dims_mirror_the_sources_by_hd():
+    """HEAD_DIMS is the list of `by_hd`'s cases, which all three split-KV
+    kernels dispatch through; every one instantiates (`_shape`) and the
+    host's shared-memory mirror equals the source's SMEM."""
+    from repro_torch.kernels import _build
+    import re
+    src = (_build.CSRC / "split_decode.cuh").read_text()
+    body = src[src.index("int by_hd(int hd"):]
+    cases = tuple(int(c) for c in re.findall(r"case (\d+): return Fn<\1>",
+                                             body[:body.index("default")]))
+    assert cases == sd.HEAD_DIMS and 112 in cases
+    for hd in sd.HEAD_DIMS:
+        for elem in (1, 2, 4):
+            assert sd.smem_bytes(elem, hd) == _shape(elem, hd)["smem"]
+
+
+def test_head_dim_112_shape():
+    """At hd 112 a lane holds ceil(112 / 32) = 4 dims of p . v (28 lanes
+    busy, 4 idle), and int8's 56 bytes of q . k per lane load in 8-byte
+    pieces (16 would run past the lane's dims); f32 and bf16 keep 16."""
+    assert _shape(1, 112) == dict(kt=16, dp=56, vb=8, ve=8, hdl=4,
+                                  smem=38400)
+    assert _shape(2, 112)["vb"] == 16 and _shape(2, 112)["kt"] == 16
+    assert _shape(4, 112)["vb"] == 16 and _shape(4, 112)["kt"] == 8
+    assert _shape(4, 112)["smem"] == 64000
+    sd.check_shape("paged_flash_decode", 1, 112)
+    with pytest.raises(ValueError):
+        sd.check_shape("paged_flash_decode", 1, 96)
+
+
+@pytest.mark.parametrize("pool", ["int8", "bf16", "f32"])
+def test_paged_hd112_qpk1_merged_partials_match_pallas(pool):
+    """32 kv heads of one query head, hd 112, as the plan splits zamba2's
+    decode call: the plain partials merged in split order equal the
+    Pallas kernel (interpret mode) and the whole plain version, for
+    lanes on and past a split boundary, at length 1 and at 0."""
+    b, g, hd, ps, max_pages = 4, 32, 112, 16, 8
+    rng = np.random.default_rng(17)
+    q = rng.standard_normal((b, g, 1, hd)).astype(np.float32)
+    k, v, ks, vs = _pools(rng, pool, b, g, hd, ps, max_pages)
+    tables = rng.permutation(b * max_pages).reshape(b, max_pages).astype(
+        np.int32)
+    n_split, chunk = decode_plan(b, g, max_pages, ps, qpk=1)
+    assert n_split > 1 and sd.q_groups(1) == 1
+    lengths = np.array([chunk, chunk + 1, 1, 0], np.int32)
+    quant = pool == "int8"
+    pallas = np.asarray(pl_paged_flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+        jnp.asarray(lengths), interpret=True,
+        k_scales=jnp.asarray(ks) if quant else None,
+        v_scales=jnp.asarray(vs) if quant else None))
+    sc = (torch.from_numpy(ks), torch.from_numpy(vs)) if quant else \
+        (None, None)
+    pools = (torch.from_numpy(k), torch.from_numpy(v),
+             torch.from_numpy(tables), torch.from_numpy(lengths))
+    parts = [ref_paged_decode_partials(
+        torch.from_numpy(q), *pools, s * chunk,
+        min((s + 1) * chunk, max_pages * ps), 0, 0.0, *sc)
+        for s in range(n_split)]
+    merged = ref_merge_partials(parts).numpy()
+    whole = paged_flash_decode(torch.from_numpy(q), *pools, 0, 0.0,
+                               *sc).numpy()
+    np.testing.assert_allclose(merged, pallas, atol=1e-5)
+    np.testing.assert_allclose(merged, whole, atol=1e-5)
