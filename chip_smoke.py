@@ -164,7 +164,33 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      copy (slstm_every 2: one mLSTM, one sLSTM) and a 3-layer zamba copy
      (shared_every 2: one group and a tail layer) against the CPU, one
      prefill chunk and two decode steps.
- 13. summary: a `{"kernels": [...]}` line, the card line, and last
+ 13. gateway and fleet: qwen2.5-3b at full width and depth (phase 1's
+     weights) behind the port's `Gateway` over a `FleetRouter` of two
+     replicas sharing the card and one copy of the packed weights (each
+     its own KV pool, CUDA graphs, stream and driver thread; policy
+     "prefix"), over loopback HTTP/SSE.  Waves of 16 requests (16-64
+     prompt tokens, 16 new, greedy): a warm-up wave, a timed wave, the
+     main wave (four with n = 2 through KV forks, one client hanging up
+     after 4 tokens, then two repeated prompts that must route by prefix
+     affinity), a profiled wave (the device's busy share), then the timed
+     wave's shape on one replica, and a deterministic 429 with
+     Retry-After (both drivers parked, one sample admitted each).  The
+     waves' clients run in a process of their own.  Every
+     completed stream must equal one engine serving the same prompts
+     offline on the card, each fork its primary; every KV page of both
+     replicas free (or reclaimable in the prefix trie) at the end; each
+     replica's launches (its driver thread's counts) equal its steps
+     times the per-step counts; every step captured once; no dead
+     replica; /metrics lists both replicas with decode tokens, /healthz
+     200.  Printed, not gated: TTFT p50/p95 through the gateway against
+     offline, tokens/s with 1 and 2 replicas, the busy share, the
+     gateway thread's CPU ms per token, the drift audit's ratio.
+     Phase 2 holds, before it, cim_gemv at N = 1, 3, 6, 170 and 171
+     (rows off 4-byte boundaries: byte copies; odd N: scale rows too),
+     INT4 and INT8, both layouts, M = 1, 4, 20 with K split over several
+     blocks, and serves the xlstm smoke config (its ffn_up has 170
+     columns) on the card against the CPU.
+ 14. summary: a `{"kernels": [...]}` line, the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -3600,6 +3626,541 @@ def phase_recurrent_serving(device, arch: str, n_layers: int, seed: int,
     return graph["counts"], result
 
 
+# ---------------------------------------------------------------------------
+# cim_gemv at any N, and the xlstm smoke config on the card
+# ---------------------------------------------------------------------------
+RAGGED_N = (1, 3, 6, 170, 171)
+
+
+def phase_ragged_kernels(device, checks: Checks) -> None:
+    """cim_gemv on weights whose N is not a multiple of 4 (their rows do
+    not start on 4-byte boundaries: the byte-copy instantiation; an odd
+    N's scale rows not either), INT4 and INT8, the (K/2, N) layout and a
+    3-expert stack, M = 1, 4, 20, at K = 2048 (a column tile split over
+    several blocks), every call twice (bitwise equal); then the xlstm
+    smoke config (its sLSTM ffn_up has 170 columns) served on the card as
+    CUDA graphs, its greedy streams against the CPU's on the same
+    weights."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.cim_gemv import (cim_gemv, cim_gemv_plain,
+                                              split_plan, stack_plan,
+                                              vec_bytes)
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.common import tree_to
+    from repro_torch.quant.ptq import quantize_params
+    from repro_torch.quant.qarray import quantize
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(61)
+    k = 2048
+    for bits in (4, 8):
+        stored = k // (2 if bits == 4 else 1)
+        for n in RAGGED_N:
+            w = quantize(torch.randn(k, n, generator=gen, device=device)
+                         * 0.02, bits, 128)
+            ws = quantize(torch.randn(3, k, n, generator=gen, device=device)
+                          * 0.02, bits, 128, axis=1)
+            for m in (1, 4, 20):
+                plan = split_plan("cols", m, stored, n, bits)
+                if plan.splits < 2:
+                    fail(f"cim_gemv N={n}: plan {plan} has one split")
+                x = torch.randn(m, k, generator=gen, device=device)
+                label = (f"N={n} int{bits} M={m} vec "
+                         f"{vec_bytes(w, n)} splits {plan.splits}")
+                out = cim_gemv(x, w)
+                checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+                checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+                xs = torch.randn(3, m, k, generator=gen, device=device)
+                counts = torch.tensor([m, 0, max(1, m // 2)],
+                                      dtype=torch.int32, device=device)
+                ref = cim_gemv_plain(xs, ws)
+                out = cim_gemv(xs, ws, counts)
+                splan = stack_plan(m, stored, n, bits, 3)
+                slabel = (f"stack 3x N={n} int{bits} M={m} counts "
+                          f"{counts.tolist()} splits {splan.splits}")
+                rows = torch.arange(m, device=device)[None, :] \
+                    < counts[:, None]
+                checks.compare("cim_gemv", slabel, out[rows], ref[rows])
+                checks.repeat("cim_gemv", slabel, out[rows],
+                              cim_gemv(xs, ws, counts)[rows])
+    log(f"cim_gemv at N in {list(RAGGED_N)}: {len(RAGGED_N) * 2 * 3 * 2} "
+        f"checks in {time.perf_counter() - t_phase:.1f} s")
+
+    # the xlstm smoke config, whose ffn_up is (K, 170), on the card
+    cfg = get_smoke_config(XLSTM_ARCH).replace(dtype="float32", remat=False)
+    model = DecoderLM(cfg)
+    params = quantize_params(init_params(
+        model.param_specs(), torch.Generator().manual_seed(0), "cpu",
+        torch.float32), 4, 16)
+    ffn_up = params["slstm"]["cell"]["ffn_up"]
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in (5, 19, 33)]
+    runs = {}
+    for dev in ("cpu", device):
+        eng = PagedServeEngine(model, tree_to(params, dev), ServeConfig(
+            precision="int4", max_batch=4, max_seq=64, page_size=16),
+            device=dev)
+        reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=8, rid=i)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        runs[str(dev)] = (eng, reqs)
+    eng, reqs = runs[str(device)]
+    if not eng.runner.graphs or not all(st["captured"]
+                                        for st in eng.runner.steps()):
+        fail(f"xlstm smoke on the card: steps not captured: "
+             f"{eng.runner.steps()}")
+    if any(len(r.out_tokens) != 8 for r in reqs):
+        fail("xlstm smoke on the card: a request ended early")
+    check_identity("xlstm smoke config, card vs CPU", runs["cpu"][1], reqs,
+                   model, tree_to(params, device), device)
+    log(f"xlstm smoke config ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"ffn_up {tuple(ffn_up.data.shape)} packed, vec "
+        f"{vec_bytes(ffn_up[0], ffn_up.data.shape[-1])}) served on the "
+        f"card as CUDA graphs: {sum(len(r.out_tokens) for r in reqs)} "
+        "tokens")
+
+
+# ---------------------------------------------------------------------------
+# the streaming gateway and fleet router: 2 replicas sharing the card
+# ---------------------------------------------------------------------------
+class GatewayThread:
+    """A `Gateway` serving on its own thread's event loop (the main
+    thread's loop checks /metrics and drives the 429), its CPU time read
+    per thread."""
+
+    def __init__(self, router, **kw):
+        import asyncio
+        import threading
+
+        from repro_torch.api import Gateway
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="gateway-loop", daemon=True)
+        self.thread.start()
+        self.gw = Gateway(router, **kw)
+        self.router = router
+        self.host, self.port = self.call(self.gw.start())
+
+    def call(self, coro, timeout: float = 600.0):
+        import asyncio
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def cpu_s(self) -> float:
+        return time.clock_gettime(time.pthread_getcpuclockid(
+            self.thread.ident))
+
+    def stop(self) -> None:
+        self.call(self.gw.stop())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+
+
+async def http(host, port, method, path, body=None):
+    """One HTTP/1.1 request to the gateway: (status, headers, body)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), head.decode("latin-1").lower(), rest
+
+
+async def sse_completion(host, port, body, disconnect_after=None):
+    """POST /v1/completions and read its SSE stream as it arrives:
+    {index: tokens}, finish reasons, seconds to the first token event,
+    seconds to the end; with `disconnect_after`, hang up once that many
+    tokens arrived."""
+    import asyncio
+    from repro_torch.api.protocol import iter_sse
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    status = int(head.split()[1])
+    toks, fins, first, buf, raw = {}, {}, None, b"", b""
+    while status == 200:
+        chunk = await reader.read(65536)
+        if not chunk:
+            break
+        raw += chunk
+        buf += chunk
+        while b"\n\n" in buf:
+            block, buf = buf.split(b"\n\n", 1)
+            for e in iter_sse(block + b"\n\n"):
+                if "token" in e:
+                    first = first or time.perf_counter() - t0
+                    toks.setdefault(e["index"], []).append(e["token"])
+                elif "finish_reason" in e:
+                    fins[e["index"]] = e["finish_reason"]
+        if disconnect_after and sum(map(len, toks.values())) \
+                >= disconnect_after:
+            writer.close()
+            return dict(status=status, toks=toks, fins=fins, ttft_s=first,
+                        dur_s=time.perf_counter() - t0, disconnected=True)
+    writer.close()
+    if status == 200 and b"data: [DONE]" not in raw:
+        status = -1                         # a stream cut short
+    return dict(status=status, toks=toks, fins=fins, ttft_s=first,
+                dur_s=time.perf_counter() - t0, disconnected=False)
+
+
+def client_main(host: str, port: int) -> None:
+    """`chip_smoke.py --client HOST PORT`: the gateway waves' clients, in
+    a process of their own (as real clients are), so they share no
+    interpreter lock with the gateway and the engines.  Reads {"bodies",
+    "disconnect"} as JSON on stdin, sends every body at once, prints
+    {"results", "wall_s"} as JSON."""
+    import asyncio
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    job = json.loads(sys.stdin.read())
+    drop = set(job["disconnect"])
+
+    async def run():
+        return await asyncio.gather(*[
+            sse_completion(host, port, b,
+                           disconnect_after=4 if i in drop else None)
+            for i, b in enumerate(job["bodies"])])
+    t0 = time.perf_counter()
+    results = asyncio.run(run())
+    print(json.dumps({"results": results,
+                      "wall_s": time.perf_counter() - t0}))
+
+
+def gateway_wave(gwt, bodies, disconnect=()):
+    """Send every body at once from a client process; returns (results,
+    the wave's wall s as the clients saw it, the gateway thread's CPU s
+    over the wave)."""
+    cpu0 = gwt.cpu_s()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--client",
+         gwt.host, str(gwt.port)],
+        input=json.dumps({"bodies": bodies,
+                          "disconnect": sorted(disconnect)}),
+        capture_output=True, text=True, timeout=600)
+    cpu = gwt.cpu_s() - cpu0
+    if proc.returncode != 0:
+        fail(f"gateway client process: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    results = out["results"]
+    for r in results:
+        r["toks"] = {int(k): v for k, v in r["toks"].items()}
+        r["fins"] = {int(k): v for k, v in r["fins"].items()}
+    for i, r in enumerate(results):
+        if r["status"] != 200:
+            fail(f"gateway request {i}: status {r['status']}")
+    return results, out["wall_s"], cpu
+
+
+def quantiles(xs, qs=(50, 95)):
+    import numpy as np
+    return [float(np.percentile(xs, q)) for q in qs]
+
+
+def phase_gateway(model, params, device, card):
+    """Phase 13: qwen2.5-3b at full width and depth behind the port's
+    `Gateway` over a `FleetRouter` of two replicas sharing the card and
+    one copy of phase 1's packed weights (each its own KV pool, CUDA
+    graphs, stream and driver thread), over loopback HTTP/SSE.  Returns
+    the path's launch counts and the result."""
+    import asyncio
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.kernels import (launch_counts, reset_launch_counts,
+                                     thread_launch_counts)
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    scfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                       max_seq=128, page_size=16, prefill_chunk=16,
+                       replicas=2, policy="prefix")
+    rng = np.random.default_rng(14)
+    n_new = 16
+
+    def prompts(n):
+        return [rng.integers(0, cfg.vocab, int(k)).astype(np.int32)
+                for k in rng.integers(16, 65, size=n)]
+    waves = {w: prompts(n) for w, n in (("warm", 8), ("thr2", 16),
+                                        ("main", 14), ("busy", 16),
+                                        ("thr1", 16))}
+
+    # the reference: one engine serving every wave offline on the card
+    t0 = time.perf_counter()
+    off = PagedServeEngine(model, params, scfg, device=device)
+    ref, off_ttft, off_tps = {}, {}, {}
+    for name, wave in waves.items():
+        t_wave = time.perf_counter()
+        batch, _, m = run_wave(off, wave, n_new, 0)
+        off_tps[name] = (sum(len(r.out_tokens) for r in batch)
+                         / (time.perf_counter() - t_wave))
+        for r in batch:
+            ref[r.prompt.tobytes()] = list(r.out_tokens)
+        off_ttft[name] = (m["ttft_p50_s"] * 1e3, m["ttft_p95_s"] * 1e3)
+    log(f"gateway reference: {len(ref)} prompts served offline on the "
+        f"card in {time.perf_counter() - t0:.1f} s; the 16-request waves, "
+        f"all submitted at once to one engine: TTFT p50/p95 "
+        f"{off_ttft['thr2'][0]:.2f} / {off_ttft['thr2'][1]:.2f} ms, "
+        f"{off_tps['thr2']:.1f} and {off_tps['thr1']:.1f} tokens/s")
+    del off
+    torch.cuda.empty_cache()
+
+    engines = [PagedServeEngine(model, params, scfg, device=device)
+               for _ in range(2)]
+    leaf = params["blocks"]["attn"]["wq"].data
+    if any(e.params["blocks"]["attn"]["wq"].data.data_ptr()
+           != leaf.data_ptr() for e in engines):
+        fail("gateway replicas do not share the packed weights")
+    if engines[0].stream == engines[1].stream:
+        fail("gateway replicas share a CUDA stream")
+    calls0 = [(e.prefill_calls, e.decode_calls) for e in engines]
+
+    def body(p, **kw):
+        return {"prompt": [int(t) for t in p], "max_tokens": n_new, **kw}
+
+    def check_streams(label, wave, results):
+        for p, r in zip(wave, results):
+            want = ref[p.tobytes()]
+            for idx, got in r["toks"].items():
+                if r["disconnected"]:
+                    if got != want[:len(got)]:
+                        fail(f"{label}: disconnected stream {got} is not a "
+                             f"prefix of {want}")
+                elif got != want:
+                    fail(f"{label}: stream {idx} {got} != offline {want}")
+            if not r["disconnected"] and (
+                    set(r["fins"].values()) != {"length"}):
+                fail(f"{label}: finish reasons {r['fins']}")
+
+    # two replicas: reset the counts just before driving the path
+    reset_launch_counts()
+    router = FleetRouter(engines)
+    gwt = GatewayThread(router)
+    drivers = [rep.driver._thread for rep in router.replicas]
+    res, _, _ = gateway_wave(gwt, [body(p) for p in waves["warm"]])
+    check_streams("gateway warm-up wave", waves["warm"], res)
+    thr2, wall2, cpu2 = gateway_wave(gwt, [body(p) for p in waves["thr2"]])
+    check_streams("gateway 2-replica wave", waves["thr2"], thr2)
+    # the main wave: n = 2 on requests 0-3 (forks), a disconnect at 4
+    # tokens on request 13, then two repeats of earlier prompts (prefix
+    # affinity)
+    main = waves["main"]
+    bodies = [body(p, n=2) if i < 4 else body(p) for i, p in
+              enumerate(main)]
+    hits0 = router.policy.hits
+    res, _, _ = gateway_wave(gwt, bodies, disconnect={13})
+    check_streams("gateway main wave", main, res)
+    for i in range(4):
+        if res[i]["toks"].get(1) != res[i]["toks"].get(0):
+            fail(f"gateway: fork of request {i} {res[i]['toks'].get(1)} != "
+                 f"its primary {res[i]['toks'].get(0)}")
+    if not res[13]["disconnected"]:
+        fail("gateway: the disconnecting client read its whole stream")
+    again = [p for p in main[4:13] if len(p) > 16][:2]
+    rep_res, _, _ = gateway_wave(gwt, [body(p) for p in again])
+    check_streams("gateway repeated prompts", again, rep_res)
+    hits = router.policy.hits - hits0
+    if hits < 2:
+        fail(f"gateway: {hits} prefix-affinity hits for 2 repeated prompts")
+
+    # the busy share of two replicas on the card, a profiled wave
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        busy_res, wall_b, _ = gateway_wave(
+            gwt, [body(p) for p in waves["busy"]])
+        torch.cuda.synchronize()
+    check_streams("gateway profiled wave", waves["busy"], busy_res)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    union, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    busy_share = union / (wall_b * 1e6) if spans else None
+
+    # the end state of both replicas, then /metrics, /healthz, /debug/slo
+    audit = [rep.driver.call(lambda e: (
+        e.cache.n_free_or_cached(), e.cache.allocator.n_pages,
+        e.cache.allocator.n_free, e.n_running, e.scheduler.n_queued,
+        e.telemetry.cancelled)).result(60) for rep in router.replicas]
+    st_m, _, raw_m = asyncio.run(http(gwt.host, gwt.port, "GET",
+                                      "/metrics"))
+    st_h, _, raw_h = asyncio.run(http(gwt.host, gwt.port, "GET",
+                                      "/healthz"))
+    st_s, _, raw_s = asyncio.run(http(gwt.host, gwt.port, "GET",
+                                      "/debug/slo"))
+    metrics, slo = json.loads(raw_m), json.loads(raw_s)
+    dead = [rep.id for rep in router.replicas
+            if not rep.alive or rep.error is not None]
+    counts = launch_counts()
+    per_rep = []
+    for rep, t, (p0, d0) in zip(router.replicas, drivers, calls0):
+        eng = rep.engine
+        got = thread_launch_counts(t)
+        want = expected_launches(cfg, eng.prefill_calls - p0,
+                                 eng.decode_calls - d0)
+        per_rep.append({"replica": rep.id,
+                        "prefill_calls": eng.prefill_calls - p0,
+                        "decode_calls": eng.decode_calls - d0,
+                        "launches": got, "expected": want})
+        if got != want:
+            fail(f"gateway replica {rep.id}: launches {got} != expected "
+                 f"{want}")
+    gwt.stop()
+    log(f"gateway launches per replica (driver threads): "
+        + json.dumps(per_rep))
+    if dead:
+        fail(f"gateway: dead replicas {dead}")
+    if counts != {k: sum(r["launches"][k] for r in per_rep)
+                  for k in counts}:
+        fail(f"gateway: process launches {counts} are not the replicas' "
+             f"sum")
+    name = f"{cfg.name}.serve_step"
+    for i, eng in enumerate(engines):
+        check_graphs(f"gateway replica {i}", eng, {
+            (name, (4, 16)): step_launches(cfg, 16),
+            (name, (4, 1)): step_launches(cfg, 1)},
+            [(name, (4, 16)), (name, (4, 1))])
+    for i, (fc, n_pages, n_free, running, queued, cancelled) in \
+            enumerate(audit):
+        if (fc, running, queued) != (n_pages, 0, 0):
+            fail(f"gateway replica {i}: pages free or cached {fc} of "
+                 f"{n_pages}, {running} running, {queued} queued")
+    if sum(a[5] for a in audit) < 1:
+        fail("gateway: the disconnect cancelled nothing")
+    reps = metrics["fleet"]["replicas"]
+    decoded = {k: r["snapshot"].get("decode_tokens", 0.0)
+               for k, r in reps.items()}
+    if st_m != 200 or sorted(reps) != ["0", "1"] or min(
+            decoded.values()) <= 0 or any("engine" not in r
+                                          for r in reps.values()):
+        fail(f"gateway /metrics: status {st_m}, decode tokens per replica "
+             f"{decoded}")
+    if st_h != 200 or not json.loads(raw_h)["ok"]:
+        fail(f"gateway /healthz: {st_h} {raw_h[:200]!r}")
+    if st_s != 200:
+        fail(f"gateway /debug/slo: {st_s}")
+
+    # one replica: the same traffic shape on replica 0 alone
+    gw1 = GatewayThread(FleetRouter(engines[:1]))
+    thr1, wall1, cpu1 = gateway_wave(gw1, [body(p) for p in waves["thr1"]])
+    check_streams("gateway 1-replica wave", waves["thr1"], thr1)
+    gw1.stop()
+
+    # load shedding: both drivers parked, one sample admitted each, the
+    # third request 429s with Retry-After
+    sat = FleetRouter(engines, max_pending=1)
+    gws = GatewayThread(sat)
+    gates = [threading.Event(), threading.Event()]
+    accepted = threading.Event()
+    orig = sat.dispatch
+
+    def dispatch(rep, reqs, on_done):
+        fut = orig(rep, reqs, on_done)
+        if sat.counters["dispatched"] >= 2:
+            accepted.set()
+        return fut
+    sat.dispatch = dispatch
+    try:
+        for rep, gate in zip(sat.replicas, gates):
+            rep.driver.call(lambda e, g=gate: g.wait(120))
+
+        async def shed():
+            first = [asyncio.ensure_future(http(
+                gws.host, gws.port, "POST", "/v1/completions",
+                body(waves["warm"][i]))) for i in range(2)]
+            loop = asyncio.get_running_loop()
+            if not await loop.run_in_executor(None, accepted.wait, 120):
+                fail("gateway saturation: the first two requests were "
+                     "not admitted")
+            third = await http(gws.host, gws.port, "POST",
+                               "/v1/completions", body(waves["warm"][2]))
+            for g in gates:
+                g.set()
+            return await asyncio.gather(*first), third
+        firsts, third = asyncio.run(shed())
+    finally:
+        for g in gates:
+            g.set()
+    gws.stop()
+    if [f[0] for f in firsts] != [200, 200] or third[0] != 429 \
+            or "retry-after:" not in third[1]:
+        fail(f"gateway saturation: statuses {[f[0] for f in firsts]}, "
+             f"then {third[0]} ({third[1]!r})")
+    retry = third[1].split("retry-after:")[1].split("\r\n")[0].strip()
+
+    tok2 = sum(len(t) for r in thr2 for t in r["toks"].values())
+    tok1 = sum(len(t) for r in thr1 for t in r["toks"].values())
+    tokb = sum(len(t) for r in busy_res for t in r["toks"].values())
+    ttft2 = quantiles([r["ttft_s"] * 1e3 for r in thr2])
+    ttft1 = quantiles([r["ttft_s"] * 1e3 for r in thr1])
+    drift = {rid: {k: d.get(k) for k in ("sim_measured_ratio",
+                                         "sim_drift_ratio",
+                                         "sim_drift_ticks")}
+             for rid, d in slo["drift"].items()}
+    agg = metrics["engine"]
+    result = {
+        "card": card, "replicas": 2, "policy": "prefix", "layers":
+        cfg.n_layers, "requests_per_wave": 16, "new_tokens": n_new,
+        "ttft_ms_p50_p95_gateway_2_replicas": ttft2,
+        "ttft_ms_p50_p95_gateway_1_replica": ttft1,
+        "ttft_ms_p50_p95_offline_same_prompts": list(off_ttft["thr2"]),
+        "tokens_per_s_offline_one_engine": [off_tps["thr2"],
+                                            off_tps["thr1"]],
+        "ttft_ms_p50_p95_engine_side_fleet": [
+            (agg.get("ttft_p50_s") or float("nan")) * 1e3,
+            (agg.get("ttft_p95_s") or float("nan")) * 1e3],
+        "tokens_per_s_2_replicas": tok2 / wall2,
+        "tokens_per_s_1_replica": tok1 / wall1,
+        "wall_s_2_replicas": wall2, "wall_s_1_replica": wall1,
+        "device_busy_share_2_replicas": busy_share,
+        "profiled_wave_wall_s": wall_b,
+        "profiled_wave_tokens_per_s": tokb / wall_b,
+        "gateway_host_ms_per_token_2_replicas": cpu2 * 1e3 / tok2,
+        "gateway_host_ms_per_token_1_replica": cpu1 * 1e3 / tok1,
+        "drift": drift, "prefix_hits_repeats": hits,
+        "decode_tokens_per_replica": decoded,
+        "retry_after_s": retry, "launches_per_replica": per_rep,
+        "pages_end": [list(a[:3]) for a in audit],
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"gateway ({card}): qwen2.5-3b x{cfg.n_layers}, 2 replicas on one "
+        f"card: TTFT p50/p95 {ttft2[0]:.2f} / {ttft2[1]:.2f} ms through the "
+        f"gateway (1 replica {ttft1[0]:.2f} / {ttft1[1]:.2f}; offline, all "
+        f"submitted at once, {off_ttft['thr2'][0]:.2f} / "
+        f"{off_ttft['thr2'][1]:.2f}); {tok2 / wall2:.1f} tokens/s with 2 "
+        f"replicas, {tok1 / wall1:.1f} with 1 (one engine offline "
+        f"{off_tps['thr2']:.1f} / {off_tps['thr1']:.1f}); device busy "
+        + (f"{100 * busy_share:.1f} %" if busy_share is not None
+           else "not measured (no CUDA events)")
+        + f" with 2; gateway thread {cpu2 * 1e3 / tok2:.3f} ms CPU per "
+        f"token; drift sim/measured {json.dumps(drift)}; 429 Retry-After "
+        f"{retry} s")
+    log("gateway result " + json.dumps(result))
+    return counts, result
+
+
 def main() -> None:
     import dataclasses
 
@@ -3655,12 +4216,15 @@ def main() -> None:
     timings.update(phase_moe_kernels(device, checks))
     timings.update(phase_deepseek_kernels(device, checks))
     timings.update(phase_recurrent_kernels(device, checks))
+    phase_ragged_kernels(device, checks)
     by_path = {}
     by_path["decode"], full_result = phase_full_model(model, params, device,
                                                       card)
     by_path["spec_ngram"], spec_result = phase_spec(model, params, device)
     by_path["decode_attention"] = phase_decode_attention(model.cfg, device,
                                                          checks)
+    by_path["gateway"], gateway_result = phase_gateway(model, params, device,
+                                                       card)
     del model, params
     torch.cuda.empty_cache()
     phase_card_vs_cpu(device)
@@ -3747,6 +4311,7 @@ def main() -> None:
     log(f"{DS_ARCH} x8 summary " + json.dumps(ds_result))
     log(f"{XLSTM_ARCH} x48 summary " + json.dumps(xlstm_result))
     log(f"{ZAMBA_ARCH} x27 summary " + json.dumps(zamba_result))
+    log("gateway summary " + json.dumps(gateway_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -3757,4 +4322,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--client"]:
+        client_main(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

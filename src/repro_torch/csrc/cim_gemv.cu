@@ -19,9 +19,13 @@
 //      slice of the packed weight into shared memory with 16-byte
 //      cp.async.cg (4-byte cp.async.ca in a second instantiation of the
 //      same kernel, for weights whose base or row stride is not 16-byte
-//      aligned), in memory order, in STEPS commit groups, and computes on
-//      each group as it lands.  x and the scales go first, in their own
-//      4-byte cp.async group, so they do not queue behind the weight.  In
+//      aligned; plain byte copies in a third, (K/2, N) layout only, for
+//      rows that do not start on 4-byte boundaries: N % 4 != 0), in
+//      memory order, in STEPS commit groups, and computes on each group
+//      as it lands.  x and the scales go first, in their own 4-byte
+//      cp.async group (an odd N's scale rows one f16 at a time), so they
+//      do not queue behind the weight.  Columns past N are neither
+//      loaded nor stored.  In
 //      flight per SM: two (K/2, N) slices of 23-81 KB, or a table tile of
 //      64 KB, against the ~25 KB that 3.35 TB/s x ~1 us of latency / 132
 //      SMs asks for.
@@ -231,11 +235,17 @@ cols_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
   // first commit group: x of the first M tile and the slice's scales
   // (columns 2 t, 2 t + 1 of each of its groups, t < TN / 2)
   stage_x(0, 0);
-  if (tid < TN / 2 && tile * TN + 2 * tid < N)
+  if ((N & 1) == 0) {                      // rows of scales 4-byte aligned
+    if (tid < TN / 2 && tile * TN + 2 * tid < N)
+      for (int gg = 0; gg < ng; ++gg)
+        qgemv::cp4(s_s + gg * TN + 2 * tid,
+                   scales + static_cast<size_t>(g0 + gg) * N + tile * TN +
+                       2 * tid);
+  } else if (tid < TN && tile * TN + tid < N) {  // odd N: one by one
     for (int gg = 0; gg < ng; ++gg)
-      qgemv::cp4(s_s + gg * TN + 2 * tid,
-                 scales + static_cast<size_t>(g0 + gg) * N + tile * TN +
-                     2 * tid);
+      s_s[gg * TN + tid] =
+          scales[static_cast<size_t>(g0 + gg) * N + tile * TN + tid];
+  }
   qgemv::cp_commit();
   // then the slice in STEPS groups of row rounds: round i is row
   // rl * PL + i of every row-lane, whose 16-byte chunks go to consecutive
@@ -714,18 +724,25 @@ int run_rows(const float* x, const uint8_t* w, const __half* s, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dispatch runtime (bits, mt, vec) onto the instantiated kernels.
-template <template <int, int, int> class Fn, typename... Args>
-int dispatch(int bits, int mt, int vec, Args... args) {
+// Dispatch runtime (bits, mt, vec) onto the instantiated kernels; the
+// byte copies (vec 1) only for the (K/2, N) layout.
 #define CIM_CASE(B, T, W)                                  \
   if (bits == B && mt == T && vec == W) return Fn<B, T, W>::run(args...);
+template <template <int, int, int> class Fn, typename... Args>
+int dispatch(int bits, int mt, int vec, Args... args) {
   CIM_CASE(4, 1, 16) CIM_CASE(4, 2, 16) CIM_CASE(4, 4, 16)
   CIM_CASE(4, 1, 4) CIM_CASE(4, 2, 4) CIM_CASE(4, 4, 4)
   CIM_CASE(8, 1, 16) CIM_CASE(8, 2, 16) CIM_CASE(8, 4, 16)
   CIM_CASE(8, 1, 4) CIM_CASE(8, 2, 4) CIM_CASE(8, 4, 4)
-#undef CIM_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
+template <template <int, int, int> class Fn, typename... Args>
+int dispatch_cols(int bits, int mt, int vec, Args... args) {
+  CIM_CASE(4, 1, 1) CIM_CASE(4, 2, 1) CIM_CASE(4, 4, 1)
+  CIM_CASE(8, 1, 1) CIM_CASE(8, 2, 1) CIM_CASE(8, 4, 1)
+  return dispatch<Fn>(bits, mt, vec, args...);
+}
+#undef CIM_CASE
 
 template <int B, int T, int W>
 struct ColsFn {
@@ -753,7 +770,7 @@ const char* cim_gemv_error_string(int err) {
 // (E = 1), else (E,) int32 rows of x to compute per expert, read on the
 // device.  mt: the M tile (1, 2, 4); splits: 1 to 32; rows_per_split:
 // stored rows per block; vec: 16 when w's base and N are 16-byte aligned,
-// else 4.  Requires N % 4 == 0.
+// 4 when both are 4-byte aligned, else 1 (byte copies).  Any N.
 int cim_gemv_cols(const void* x, const void* w, const void* scales,
                   void* out, void* part, void* counters, const void* counts,
                   int M, int K, int N, int bits, int group, int mt,
@@ -762,7 +779,7 @@ int cim_gemv_cols(const void* x, const void* w, const void* scales,
   if (rows_per_split <= 0 || splits <= 0 || splits > MAX_SPLITS ||
       experts <= 0 || experts > 65535 || (experts > 1 && counts == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<ColsFn>(
+  return dispatch_cols<ColsFn>(
       bits, mt, vec, static_cast<const float*>(x),
       static_cast<const uint8_t*>(w), static_cast<const __half*>(scales),
       static_cast<float*>(out), static_cast<float*>(part),

@@ -45,17 +45,24 @@ __device__ __forceinline__ void cp_wait_dyn(int n) {
 
 // One 16-byte chunk of a packed row, of which `avail` bytes exist (the
 // rest is left unwritten).  VEC = 16: one copy, the caller guarantees 16
-// aligned bytes; VEC = 4: four 4-byte copies, each only if it exists.
+// aligned bytes; VEC = 4: four 4-byte copies, each only if it exists;
+// VEC = 1: plain byte loads and stores, for rows that do not start on
+// 4-byte boundaries (N % 4 != 0).  The byte stores are done when the
+// copy returns, so the barrier after the next cp_wait covers them too.
 template <int VEC>
 __device__ __forceinline__ void copy_chunk(unsigned char* dst,
                                            const uint8_t* src, int avail) {
-  static_assert(VEC == 16 || VEC == 4, "16- or 4-byte copies");
+  static_assert(VEC == 16 || VEC == 4 || VEC == 1,
+                "16-, 4- or 1-byte copies");
   if constexpr (VEC == 16) {
     cp16(dst, src);
-  } else {
+  } else if constexpr (VEC == 4) {
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       if (4 * q < avail) cp4(dst + 4 * q, src + 4 * q);
+  } else {
+    const int n = avail < 16 ? avail : 16;
+    for (int q = 0; q < n; ++q) dst[q] = __ldg(src + q);
   }
 }
 

@@ -21,9 +21,12 @@ which the Pallas kernel's `block_k % group` rule could not take).
 
 One call is one kernel launch.  The host plan (`split_plan`) reads
 shapes only, and the per-tile arrival counters the kernel leaves zeroed
-are kept once per device, so a call makes no host sync and allocates
-nothing but its output and workspace: it can be captured in a CUDA
-graph.  The counters belong to one stream.
+are kept once per (device, stream), so a call makes no host sync and
+allocates nothing but its output and workspace: it can be captured in a
+CUDA graph, and two engines stepping at once on two streams of one card
+never share counters.  Any N: a (K/2, N) weight whose rows do not start
+on 4-byte boundaries (N % 4 != 0) is copied byte by byte into shared
+memory, and only the scale copies of an odd N lose their 4-byte pieces.
 
 On a CPU tensor the wrapper runs the plain version (`ref_qmatmul_fused`);
 on a CUDA tensor it launches the kernel or raises.
@@ -38,6 +41,7 @@ import torch
 from repro_torch.quant.qarray import QTensor, count_dequant, int_weight
 
 from . import _build
+from .launches import launched
 from .ref import ref_qmatmul_fused
 from .split_decode import H100_SMS, sm_count
 
@@ -253,18 +257,23 @@ def _lib():
     return lib
 
 
-_COUNTERS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+_COUNTERS: Dict[Tuple[str, torch.device, int], torch.Tensor] = {}
 
 
-def _counters(device: torch.device, kernel: str = "cim_gemv"
-              ) -> torch.Tensor:
-    """`kernel`'s per-device arrival counters of the column tiles, zeroed
-    once; every call leaves them zero.  Each kernel has its own.  They
-    belong to one stream: two calls running at once on two streams must
-    not share them."""
-    t = _COUNTERS.get((kernel, device))
+def _counters(device: torch.device, kernel: str = "cim_gemv",
+              stream: Optional[int] = None) -> torch.Tensor:
+    """`kernel`'s arrival counters of the column tiles for launches on
+    `stream` (a `cudaStream_t` handle, the current stream by default),
+    zeroed once; every call leaves them zero.  Each (kernel, device,
+    stream) has its own: two calls running at once on two streams (two
+    engine replicas on one card) never share them, and a CUDA graph
+    keeps those of the stream it was captured on, whose replays run one
+    after another on the replaying engine's stream."""
+    if stream is None:
+        stream = _build.stream_handle()
+    t = _COUNTERS.get((kernel, device, stream))
     if t is None:
-        t = _COUNTERS[kernel, device] = torch.zeros(
+        t = _COUNTERS[kernel, device, stream] = torch.zeros(
             MAX_TILES, dtype=torch.int32, device=device)
     return t
 
@@ -288,10 +297,22 @@ def _check_packed(w: QTensor, k: int, ndim: int = 2) -> int:
     return k // 2 if w.bits == 4 else k
 
 
+def _check_scales(w: QTensor, n: int) -> None:
+    """Scales are copied in 4-byte pieces, but a (K/2, N) weight's of an
+    odd N (`n`; 0 for the table), one f16 at a time."""
+    if n % 2 == 0 and w.scales.data_ptr() % 4:
+        raise ValueError("cim_gemv: scales must start on a 4-byte boundary")
+
+
 def vec_bytes(w: QTensor, row_bytes: int) -> int:
     """16 when every packed row starts on a 16-byte boundary (the kernel
-    copies 16-byte chunks), else 4 (the 4-byte instantiation)."""
-    return 16 if w.data.data_ptr() % 16 == 0 and row_bytes % 16 == 0 else 4
+    copies 16-byte chunks), 4 when every row starts on a 4-byte one (the
+    4-byte instantiation), else 1 (byte copies: a (K/2, N) weight with N
+    not a multiple of 4)."""
+    for vec in (16, 4):
+        if w.data.data_ptr() % vec == 0 and row_bytes % vec == 0:
+            return vec
+    return 1
 
 
 def cim_gemv(x: torch.Tensor, w: QTensor,
@@ -320,25 +341,23 @@ def cim_gemv(x: torch.Tensor, w: QTensor,
                          f"got {tuple(x.shape)} {x.dtype}")
     m, k = x.shape
     stored = _check_packed(w, k)
-    if w.scales.data_ptr() % 4:            # copied in 4-byte pieces
-        raise ValueError("cim_gemv: scales must start on a 4-byte boundary")
     if w.axis == -2:
         if w.data.shape[0] != stored or w.scales.shape != (
                 k // w.group, w.data.shape[1]):
             raise ValueError(f"cim_gemv: data {tuple(w.data.shape)} / scales "
                              f"{tuple(w.scales.shape)} do not match K={k}")
         n = w.data.shape[1]
-        if n % 4:
-            raise ValueError(f"cim_gemv: N={n} must be a multiple of 4")
+        _check_scales(w, n)
         layout, row_bytes = "cols", n
     elif w.axis == -1:
         n = w.data.shape[0]
         if w.data.shape[1] != stored or w.scales.shape != (n, k // w.group):
             raise ValueError(f"cim_gemv: table {tuple(w.data.shape)} / "
                              f"scales {tuple(w.scales.shape)} vs K={k}")
-        if stored % 4:
-            raise ValueError(f"cim_gemv: table row of {stored} bytes must "
-                             "be a multiple of 4")
+        _check_scales(w, 0)
+        if stored % 4 or w.data.data_ptr() % 4:
+            raise ValueError(f"cim_gemv: table rows of {stored} bytes must "
+                             "start on 4-byte boundaries")
         layout, row_bytes = "table", stored
     else:
         raise ValueError(f"cim_gemv: layout axis={w.axis}")
@@ -365,8 +384,9 @@ def cim_gemv(x: torch.Tensor, w: QTensor,
         err = lib.cim_gemv_cols(
             x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
             out.data_ptr(), part.data_ptr() if part is not None else None,
-            _counters(x.device).data_ptr(), None, m, k, n, w.bits, w.group,
-            plan.mt, plan.splits, plan.rows, vec, 1, stream)
+            _counters(x.device, stream=stream).data_ptr(), None, m, k, n,
+            w.bits, w.group, plan.mt, plan.splits, plan.rows, vec, 1,
+            stream)
     else:
         err = lib.cim_gemv_rows(
             x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
@@ -375,7 +395,7 @@ def cim_gemv(x: torch.Tensor, w: QTensor,
     if err:
         raise RuntimeError("cim_gemv launch failed: "
                            + lib.cim_gemv_error_string(err).decode())
-    cim_gemv.launches += 1
+    launched(cim_gemv)
     return out
 
 
@@ -398,13 +418,10 @@ def _stack(x: torch.Tensor, w: QTensor, counts: torch.Tensor
             e, k // w.group, n):
         raise ValueError(f"cim_gemv: stack {tuple(w.data.shape)} / scales "
                          f"{tuple(w.scales.shape)} vs x {tuple(x.shape)}")
-    if n % 4:
-        raise ValueError(f"cim_gemv: N={n} must be a multiple of 4")
     if counts.dtype != torch.int32 or counts.shape != (e,) \
             or not counts.is_contiguous():
         raise ValueError(f"cim_gemv: counts must be ({e},) int32")
-    if w.scales.data_ptr() % 4:
-        raise ValueError("cim_gemv: scales must start on a 4-byte boundary")
+    _check_scales(w, n)
     out = torch.empty((e, c, n), dtype=torch.float32, device=x.device)
     if c == 0 or e == 0:
         return out
@@ -420,18 +437,19 @@ def _stack(x: torch.Tensor, w: QTensor, counts: torch.Tensor
     vec = vec_bytes(w, n)
     count_dequant("fused_dequant")
     lib = _lib()
+    stream = _build.stream_handle()
     part = (torch.empty(e * plan.splits * c * n, dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
     err = lib.cim_gemv_cols(
         x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
         out.data_ptr(), part.data_ptr() if part is not None else None,
-        _counters(x.device).data_ptr(), counts.data_ptr(), c, k, n, w.bits,
-        w.group, plan.mt, plan.splits, plan.rows, vec, e,
-        _build.stream_handle())
+        _counters(x.device, stream=stream).data_ptr(), counts.data_ptr(), c,
+        k, n, w.bits, w.group, plan.mt, plan.splits, plan.rows, vec, e,
+        stream)
     if err:
         raise RuntimeError("cim_gemv launch failed: "
                            + lib.cim_gemv_error_string(err).decode())
-    cim_gemv.launches += 1
+    launched(cim_gemv)
     return out
 
 

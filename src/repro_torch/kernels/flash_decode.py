@@ -28,6 +28,7 @@ from typing import Union
 import torch
 
 from . import _build, split_decode
+from .launches import launched
 from .ref import ref_flash_decode
 
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1}
@@ -114,7 +115,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err:
         raise RuntimeError("flash_decode launch failed: "
                            + lib.flash_decode_error_string(err).decode())
-    flash_decode.launches += 1
+    launched(flash_decode)
     return out
 
 

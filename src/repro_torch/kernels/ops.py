@@ -10,12 +10,14 @@ leaves them to XLA.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.quant.qarray import QTensor
 
+from . import launches
 from .cim_gemv import cim_gemv
 from .flash_decode import flash_decode
 from .paged_flash_decode import paged_flash_decode, paged_flash_verify
@@ -29,22 +31,31 @@ KERNELS = {"cim_gemv": cim_gemv, "swiglu_qgemv": swiglu_qgemv,
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last reset (CPU calls never count; a
-    CUDA graph's kernels count once per replay)."""
+    """Kernel launches since the last reset, in the whole process (CPU
+    calls never count; a CUDA graph's kernels count once per replay)."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def thread_launch_counts(thread: Optional[threading.Thread] = None
+                         ) -> Dict[str, int]:
+    """Kernel launches since the last reset on one thread (the calling
+    one by default): an engine replica's are its driver thread's."""
+    tally = launches.thread_counts(thread)
+    return {name: tally.get(name, 0) for name in KERNELS}
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    launches.reset(KERNELS.values())
 
 
 def add_launches(counts: Dict[str, int]) -> None:
-    """Count launches no wrapper call made: a CUDA graph replay runs the
-    kernels its capture recorded, and a capture runs none of the
-    launches its wrapper calls counted (`serve.graphs.StepRunner`)."""
+    """Count launches no wrapper call made, on the calling thread: a
+    CUDA graph replay runs the kernels its capture recorded, and a
+    capture runs none of the launches its wrapper calls counted
+    (`serve.graphs.StepRunner`)."""
     for name, n in counts.items():
-        KERNELS[name].launches += n
+        if n:
+            launches.launched(KERNELS[name], n)
 
 
 def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:

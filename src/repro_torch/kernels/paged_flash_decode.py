@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 
 from . import _build, split_decode
+from .launches import launched
 from .ref import ref_paged_decode, ref_paged_verify
 
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -158,7 +159,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
             (b, g, qpk, hd, ps, max_pages, chunk, n_split), q, k_pages,
             v_pages, tables, lengths, out, window, attn_cap, k_scales,
             v_scales, part)
-    paged_flash_decode.launches += 1
+    launched(paged_flash_decode)
     return out
 
 
@@ -217,7 +218,7 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
             (b, s, g, qpk, hd, ps, max_pages, chunk, n_split), q, k_pages,
             v_pages, tables, lengths, out, window, attn_cap, k_scales,
             v_scales, part)
-    paged_flash_verify.launches += 1
+    launched(paged_flash_verify)
     return out
 
 

@@ -11,9 +11,9 @@ bounds it and how.  Same layout and group rules as `cim_gemv`'s
 One call is one kernel launch: K is split across the blocks of a column
 tile and the last block to arrive sums the splits in order and applies
 the SiLU * mul epilogue.  The host plan (`split_plan`) reads shapes only
-and the arrival counters are kept per device (`cim_gemv._counters`,
-this kernel's own array), so a call makes no host sync and can be
-captured in a CUDA graph.  The counters belong to one stream.
+and the arrival counters are kept per (device, stream)
+(`cim_gemv._counters`, this kernel's own arrays), so a call makes no
+host sync and can be captured in a CUDA graph.
 
 On a CPU tensor the wrapper runs the plain version (`ref_swiglu_qgemv`);
 on a CUDA tensor it launches the kernel or raises.
@@ -28,6 +28,7 @@ import torch
 from repro_torch.quant.qarray import QTensor, count_dequant
 
 from . import _build
+from .launches import launched
 from .cim_gemv import (MAX_TILES, _check_packed, _counters, m_tile,
                        split_order_sum, vec_bytes)
 from .ref import ref_swiglu_qgemv
@@ -197,21 +198,25 @@ def swiglu_qgemv(x: torch.Tensor, w_gate: QTensor, w_up: QTensor
         raise ValueError(f"swiglu_qgemv: F={f} has more column tiles than "
                          f"the {MAX_TILES} arrival counters")
     vec = min(vec_bytes(w_gate, f), vec_bytes(w_up, f))
+    if vec < 4:
+        raise ValueError("swiglu_qgemv: packed rows must start on 4-byte "
+                         "boundaries")
     count_dequant("fused_dequant")
     part = (torch.empty(plan.splits * 2 * m * f, dtype=torch.float32,
                         device=x.device) if plan.splits > 1 else None)
     lib = _lib()
+    stream = _build.stream_handle()
     err = lib.swiglu_qgemv(
         x.data_ptr(), w_gate.data.data_ptr(), w_gate.scales.data_ptr(),
         w_up.data.data_ptr(), w_up.scales.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None,
-        _counters(x.device, "swiglu_qgemv").data_ptr(), m, k, f,
+        _counters(x.device, "swiglu_qgemv", stream).data_ptr(), m, k, f,
         w_gate.bits, w_gate.group, plan.mt, plan.splits, plan.rows,
-        vec, _build.stream_handle())
+        vec, stream)
     if err:
         raise RuntimeError("swiglu_qgemv launch failed: "
                            + lib.swiglu_gemv_error_string(err).decode())
-    swiglu_qgemv.launches += 1
+    launched(swiglu_qgemv)
     return out
 
 

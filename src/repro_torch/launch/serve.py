@@ -22,11 +22,21 @@
   python -m repro_torch.launch.serve --arch zamba2-7b --smoke \
       --device cpu                             # hybrid: Mamba2 + shared attn
   python -m repro_torch.launch.serve --arch zamba2-7b --layers 27   # card
+  python -m repro_torch.launch.serve --gateway --replicas 2 \
+      --policy prefix --port 8151          # HTTP/SSE gateway, 2 replicas
 
 Recurrent and hybrid families (xlstm, zamba) keep per-lane state in the
 engine's StateArena: `--spec` on them is a capability error, and
 `--no-prefix-cache` is implied (`check_capabilities`), as in the JAX
 launcher.
+
+`--gateway` serves HTTP instead of the offline request sweep, as the
+JAX launcher does: SSE streaming `POST /v1/completions`, `GET /metrics`
+(`?format=prometheus` too), `/healthz`, `/debug/trace` and `/debug/slo`
+until Ctrl-C, over `--replicas` engines behind a `FleetRouter`
+(`--policy`, `--max-pending` per replica, `--slo` burn-rate alerting).
+The replicas share one card and one copy of the packed weights; each
+has its own KV pool, CUDA graphs, stream and driver thread.
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -109,6 +119,38 @@ def build_draft(cfg, device):
                               dtype_override=torch.float32)
 
 
+def serve_gateway(args, model, eng, spec_cfg, device) -> None:
+    """Serve HTTP over `args.replicas` engines until Ctrl-C.  The
+    replicas share `eng`'s packed weights (one copy on the card); each
+    gets its own KV pool, CUDA graphs, stream and driver thread."""
+    import asyncio
+    import sys
+
+    from repro_torch.api import Gateway
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.serve import PagedServeEngine
+
+    engines = [eng] + [PagedServeEngine(model, eng.params, eng.config,
+                                        spec=spec_cfg, device=device)
+                       for _ in range(args.replicas - 1)]
+    router = FleetRouter(engines)
+    access_log = (sys.stderr if args.access_log == "-"
+                  else args.access_log)
+    slos = slo_policy = None
+    if args.slo is not None:
+        from repro_torch.obs.slo import DEFAULT_SLOS, BurnRatePolicy
+        slos = list(args.slo) or list(DEFAULT_SLOS)
+        slo_policy = BurnRatePolicy(timescale=args.slo_timescale)
+        print(f"[serve] SLOs: {', '.join(slos)} "
+              f"(timescale {args.slo_timescale:g}, GET /debug/slo)")
+    gw = Gateway(router, access_log=access_log, slos=slos,
+                 slo_policy=slo_policy)
+    try:
+        asyncio.run(gw.serve_forever(args.host, args.port))
+    except KeyboardInterrupt:
+        print("[api] gateway stopped")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
@@ -121,8 +163,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the plain "
                          "versions of the kernels)")
-    ap.add_argument("--precision", default="int4",
-                    choices=["fp", "int8", "int4"])
+    ap.add_argument("--precision", default=None,
+                    choices=["fp", "int8", "int4"],
+                    help="serving precision (ServeConfig.precision): "
+                         "int4 is the paper's CIM operating point "
+                         "(default)")
+    ap.add_argument("--quant", default=None,
+                    choices=["bf16", "int8", "int4"],
+                    help="DEPRECATED alias for --precision "
+                         "(bf16 maps to fp)")
     ap.add_argument("--kv-dtype", default="auto",
                     choices=["auto", "bf16", "f32", "int8"])
     ap.add_argument("--requests", type=int, default=6)
@@ -149,7 +198,61 @@ def main(argv=None):
                     help="record request/engine spans in the in-memory "
                          "tracer and print their counts (equivalent to "
                          "REPRO_TRACE=1)")
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve HTTP instead of the offline request "
+                         "sweep: SSE streaming POST /v1/completions + "
+                         "GET /metrics until Ctrl-C")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8151)
+    ap.add_argument("--max-pending", type=int, default=32,
+                    help="gateway backpressure: samples in flight PER "
+                         "REPLICA before new requests shed fleet-wide "
+                         "with 429 + Retry-After")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind the "
+                         "gateway (same model, one card, shared "
+                         "weights; --gateway mode only)")
+    ap.add_argument("--policy", default="least-loaded",
+                    choices=["rr", "least-loaded", "prefix"],
+                    help="fleet dispatch policy: rr cycles replicas, "
+                         "least-loaded follows pending depth + KV "
+                         "occupancy, prefix routes repeated prompts to "
+                         "the replica holding their committed KV pages")
+    ap.add_argument("--slo", default=None, nargs="*", metavar="SPEC",
+                    help="enable the SLO engine (--gateway mode): pass "
+                         "spec strings like 'ttft_p95_s < 0.5' "
+                         "'error_rate < 0.01', or no specs for the "
+                         "defaults; burn-rate alerts + per-replica "
+                         "drift audit served at GET /debug/slo")
+    ap.add_argument("--slo-timescale", type=float, default=1.0,
+                    help="compress the SRE burn-rate windows by this "
+                         "factor (1/600 maps the 1h page window to 6 s)")
+    ap.add_argument("--access-log", default=None, metavar="PATH",
+                    help="append one structured JSON line per gateway "
+                         "request (rid, replica, policy, status, ttft, "
+                         "tokens) to PATH ('-' for stderr)")
     args = ap.parse_args(argv)
+
+    # --quant predates ServeConfig; keep it working as an alias
+    precision = args.precision
+    if args.quant is not None:
+        if precision is not None:
+            raise SystemExit("pass --precision or --quant, not both")
+        import warnings
+        warnings.warn("--quant is deprecated; use --precision "
+                      "(bf16 -> fp)", DeprecationWarning)
+        precision = {"bf16": "fp", "int8": "int8",
+                     "int4": "int4"}[args.quant]
+    if precision is None:
+        precision = "int4"          # the paper's operating point
+    if args.replicas < 1:
+        raise SystemExit(f"--replicas {args.replicas}: need at least 1")
+    if args.replicas > 1 and not args.gateway:
+        raise SystemExit("--replicas > 1 requires --gateway (the offline "
+                         "sweep runs one engine)")
+    if args.slo is not None and not args.gateway:
+        raise SystemExit("--slo requires --gateway (burn-rate alerting "
+                         "evaluates the live serving loop)")
 
     if args.trace:
         from repro_torch.obs import get_tracer
@@ -170,18 +273,18 @@ def main(argv=None):
     prefix_cache = check_capabilities(DecoderLM(cfg), args.spec,
                                       args.no_prefix_cache)
     t0 = time.perf_counter()
-    model, params = build_model(cfg, args.precision, group, device,
-                                args.seed)
+    model, params = build_model(cfg, precision, group, device, args.seed)
     setup_s = time.perf_counter() - t0
 
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
                for n in rng.integers(4, 17, size=args.requests)]
     serve_cfg = ServeConfig(
-        precision=args.precision, kv_dtype=args.kv_dtype, quant_group=group,
+        precision=precision, kv_dtype=args.kv_dtype, quant_group=group,
         max_batch=args.batch, max_seq=args.max_seq,
         page_size=args.page_size, n_pages=args.pages or None,
-        prefix_cache=prefix_cache, seed=args.seed)
+        prefix_cache=prefix_cache, seed=args.seed, replicas=args.replicas,
+        policy=args.policy, max_pending=args.max_pending)
     spec_cfg = None
     if args.spec != "off":
         from repro_torch.spec import SpecConfig
@@ -196,13 +299,16 @@ def main(argv=None):
                                   autok=args.spec_autok)
     eng = PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
                            device=device)
+    if args.gateway:
+        serve_gateway(args, model, eng, spec_cfg, device)
+        return eng, []
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     reqs = [ServeRequest(prompt=p, max_new_tokens=args.tokens, rid=i,
                          sampling=sampling) for i, p in enumerate(prompts)]
     eng.run(reqs)
     m = eng.summary()
-    print(f"[serve] {cfg.name} x{cfg.n_layers} layers, {args.precision} "
+    print(f"[serve] {cfg.name} x{cfg.n_layers} layers, {precision} "
           f"weights, kv {eng.config.as_dict()['kv_dtype_resolved']}, "
           f"setup {setup_s:.1f} s")
     print(f"[serve] {int(m['tokens'])} tokens, "

@@ -136,7 +136,7 @@ class EnergyMeter:
         self.prefill_j = 0.0
         self.sim_s = 0.0
         self.decode_sim_s = 0.0     # decode-only modeled time: the
-        # predicted clock the JAX package's drift audit holds
+        # predicted clock the drift auditor (obs/drift.py) holds
         # against Telemetry.decode_s — prefill must not blur it
         self.decode_tokens = 0
         self.prefill_tokens = 0

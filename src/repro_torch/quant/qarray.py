@@ -16,8 +16,10 @@ float weight in both packages gives equal bytes.
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,21 +28,37 @@ INT4_GROUP = 128
 # Call counters.  `full_dequant` counts whole-weight float
 # materializations (the serve path must keep it at 0); `fused_dequant`
 # counts group-scale applications that never build the float weight
-# (fused plain versions, the CUDA kernels, embedding row gathers).
+# (fused plain versions, the CUDA kernels, embedding row gathers).  Kept
+# for the process and for each thread (engine replicas dequantize on
+# their own driver threads), under one lock.
 _COUNTERS = {"full_dequant": 0, "fused_dequant": 0}
+_THREAD_COUNTERS: "weakref.WeakKeyDictionary[threading.Thread, dict]" = \
+    weakref.WeakKeyDictionary()
+_LOCK = threading.Lock()
 
 
 def count_dequant(kind: str = "full_dequant") -> None:
-    _COUNTERS[kind] += 1
+    with _LOCK:
+        _COUNTERS[kind] += 1
+        mine = _THREAD_COUNTERS.setdefault(threading.current_thread(),
+                                           dict.fromkeys(_COUNTERS, 0))
+        mine[kind] += 1
 
 
-def dequant_counters() -> dict:
-    return dict(_COUNTERS)
+def dequant_counters(thread: Optional[threading.Thread] = None) -> dict:
+    """The process's counts, or `thread`'s when given."""
+    with _LOCK:
+        if thread is None:
+            return dict(_COUNTERS)
+        return dict(_THREAD_COUNTERS.get(thread,
+                                         dict.fromkeys(_COUNTERS, 0)))
 
 
 def reset_dequant_counters() -> None:
-    for k in _COUNTERS:
-        _COUNTERS[k] = 0
+    with _LOCK:
+        for k in _COUNTERS:
+            _COUNTERS[k] = 0
+        _THREAD_COUNTERS.clear()
 
 
 @dataclass

@@ -1,5 +1,5 @@
 from .config import ServeConfig
-from .engine import PagedServeEngine
+from .engine import PagedServeEngine, Request, ServeEngine
 from .graphs import StepRunner
 from .paged_cache import BlockAllocator, OutOfPagesError, PagedKVCache
 from .prefix import PrefixIndex
@@ -9,6 +9,7 @@ from .state import StateArena
 from .telemetry import Telemetry
 
 __all__ = ["BlockAllocator", "OutOfPagesError", "PagedKVCache",
-           "PagedServeEngine", "PrefixIndex", "SamplingParams", "Scheduler",
+           "PagedServeEngine", "PrefixIndex", "Request", "SamplingParams",
+           "Scheduler", "ServeEngine",
            "ServeConfig", "ServeRequest", "StateArena", "StepRunner",
            "Telemetry", "processed_probs", "sample_tokens"]

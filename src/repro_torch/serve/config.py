@@ -13,9 +13,16 @@ port of `repro.serve.config`).
   "bf16" | "f32"  float pools
   "int8"  per-token INT8 K/V with f16 scale pages beside the block table
 
-`tp` and `replicas` keep their fields so configs read the same in both
-packages, but this port serves one engine on one device: anything else
-raises NotImplementedError.
+One frozen object flows launcher -> Gateway -> FleetRouter -> Replica
+-> PagedServeEngine, as in the JAX package.  `replicas`, `policy` and
+`max_pending` shape the fleet behind the gateway (`repro_torch.fleet`):
+the replicas share one card and one copy of the packed weights, each
+with its own KV pool, CUDA graphs and stream.  `tp` keeps its field so
+configs read the same in both packages, but tensor parallelism is not
+in this port yet: tp > 1 raises NotImplementedError.
+
+The resolved config is reported verbatim under `/metrics` (key
+"config").
 """
 from __future__ import annotations
 
@@ -46,7 +53,11 @@ class ServeConfig:
     seed: int = 0
     prefix_cache: Optional[bool] = None   # None -> on
 
+    # fleet shape
     replicas: int = 1
+    policy: str = "least-loaded"
+    max_pending: int = 32
+
     tp: int = 1
 
     def __post_init__(self):
@@ -61,10 +72,10 @@ class ServeConfig:
         if self.tp < 1 or self.replicas < 1:
             raise ValueError(f"tp and replicas must be >= 1, got "
                              f"tp={self.tp}, replicas={self.replicas}")
-        if self.tp > 1 or self.replicas > 1:
+        if self.tp > 1:
             raise NotImplementedError(
-                "tensor parallelism and engine replicas are not in the "
-                f"PyTorch port yet (tp={self.tp}, replicas={self.replicas})")
+                f"tensor parallelism is not in the PyTorch port yet "
+                f"(tp={self.tp})")
 
     # -- resolution ------------------------------------------------------
     def quantized(self) -> bool:
@@ -82,6 +93,7 @@ class ServeConfig:
                 "int8": torch.int8}[kv]
 
     def as_dict(self) -> dict:
+        """JSON-safe resolved view (what `/metrics` reports)."""
         d = dataclasses.asdict(self)
         d["kv_dtype_resolved"] = str(self.resolved_kv_dtype()).replace(
             "torch.", "")

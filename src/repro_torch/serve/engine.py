@@ -61,18 +61,29 @@ pure-recurrent lane snapshots its arena slot to the host and resumes
 from it; a hybrid lane re-prefills (prompt + generated), as in JAX.
 
 Runs on CUDA unless the caller passes `device="cpu"` (the plain PyTorch
-versions of the kernels, run eagerly).  Not in this port yet, and
-refused when asked for: tensor parallelism and replicas (`ServeConfig`).
+versions of the kernels, run eagerly).  On the card each engine owns a
+CUDA stream (`self.stream`) and runs every step on it, so engines that
+share the card (fleet replicas, one driver thread each) never wait for
+each other's work: a phase that must see its device work done
+synchronizes that stream, not the device.  Not in this port yet, and
+refused when asked for: tensor parallelism (`ServeConfig.tp`).
 Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
 and MLA models (deepseek) are served like any dense model;
 `kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
 for MLA, whose latent pools stay float: there "auto" pins bf16 into
 `self.config` and an explicit "int8" raises.
+
+`ServeEngine` + `Request` remain as the seed-API shim over this engine,
+and the engine's pre-`ServeConfig` keyword arguments (`max_batch=...,
+kv_dtype=...`) keep working with a `DeprecationWarning`, as in the JAX
+package.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -110,6 +121,31 @@ def capability_error(model, capability: str) -> str:
             f"per-lane state that {_CAPABILITY_REASONS[capability]}")
 
 
+_UNSET = object()
+_legacy_warned = False      # deprecation shim warns once per process
+
+_KV_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32",
+                   torch.int8: "int8"}
+
+
+def _config_from_legacy(max_batch, max_seq, page_size, n_pages,
+                        prefill_chunk, kv_dtype, eos_id, seed,
+                        prefix_cache) -> ServeConfig:
+    """Map the pre-ServeConfig kwargs onto a ServeConfig (fp precision:
+    the old engine always served float weights)."""
+    kv = "bf16" if kv_dtype is _UNSET else _KV_DTYPE_NAMES[kv_dtype]
+    return ServeConfig(
+        precision="fp", kv_dtype=kv,
+        max_batch=8 if max_batch is _UNSET else max_batch,
+        max_seq=256 if max_seq is _UNSET else max_seq,
+        page_size=16 if page_size is _UNSET else page_size,
+        n_pages=None if n_pages is _UNSET else n_pages,
+        prefill_chunk=16 if prefill_chunk is _UNSET else prefill_chunk,
+        eos_id=None if eos_id is _UNSET else eos_id,
+        seed=0 if seed is _UNSET else seed,
+        prefix_cache=None if prefix_cache is _UNSET else prefix_cache)
+
+
 def _has_qtensor(tree: Any) -> bool:
     if isinstance(tree, dict):
         return any(_has_qtensor(v) for v in tree.values())
@@ -119,9 +155,34 @@ def _has_qtensor(tree: Any) -> bool:
 class PagedServeEngine:
     def __init__(self, model, params: Any,
                  config: Optional[ServeConfig] = None, *,
+                 max_batch=_UNSET, max_seq=_UNSET, page_size=_UNSET,
+                 n_pages=_UNSET, prefill_chunk=_UNSET, kv_dtype=_UNSET,
+                 eos_id=_UNSET, seed=_UNSET, prefix_cache=_UNSET,
                  spec: Optional[Any] = None, device=None,
                  eager: bool = False, clock=time.monotonic):
-        config = config if config is not None else ServeConfig()
+        legacy = {k: v for k, v in [
+            ("max_batch", max_batch), ("max_seq", max_seq),
+            ("page_size", page_size), ("n_pages", n_pages),
+            ("prefill_chunk", prefill_chunk), ("kv_dtype", kv_dtype),
+            ("eos_id", eos_id), ("seed", seed),
+            ("prefix_cache", prefix_cache)] if v is not _UNSET}
+        if config is None:
+            if legacy:
+                global _legacy_warned
+                if not _legacy_warned:
+                    _legacy_warned = True
+                    warnings.warn(
+                        "PagedServeEngine(max_batch=..., kv_dtype=..., ...)"
+                        " kwargs are deprecated; pass a"
+                        " serve.ServeConfig instead",
+                        DeprecationWarning, stacklevel=2)
+            config = _config_from_legacy(
+                max_batch, max_seq, page_size, n_pages, prefill_chunk,
+                kv_dtype, eos_id, seed, prefix_cache)
+        elif legacy:
+            raise ValueError(
+                "pass either a ServeConfig or legacy kwargs, not both: "
+                + ", ".join(sorted(legacy)))
         if (config.kv_dtype == "auto"
                 and config.resolved_kv_dtype() == torch.int8
                 and model.cfg.attn_kind == "mla"):
@@ -196,6 +257,12 @@ class PagedServeEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
         self.runner = StepRunner(self.device, eager=eager)
+        # the engine's own stream: every step runs on it, after the work
+        # that built the pools and the arena on the caller's stream
+        self.stream: Optional[torch.cuda.Stream] = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self.prefill_calls = 0      # model step calls, by phase
         self.decode_calls = 0
         self.verify_calls = 0
@@ -392,6 +459,13 @@ class PagedServeEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> None:
+        if self.stream is None:
+            self._step()
+            return
+        with torch.cuda.stream(self.stream):     # this engine's stream
+            self._step()
+
+    def _step(self) -> None:
         now = self._clock()
 
         def _reject(r: ServeRequest) -> None:
@@ -488,8 +562,8 @@ class PagedServeEngine:
             idx = torch.from_numpy(np.maximum(n_new - 1, 0).astype(np.int64))
             last = logits[torch.arange(self.max_batch), idx.to(logits.device)]
             nxt = self._sample_rows(last)
-        elif logits.is_cuda:
-            torch.cuda.synchronize(logits.device)
+        elif self.stream is not None:     # this engine's work only
+            self.stream.synchronize()
         dt = time.monotonic() - t0
         now = self._clock()
         chunk_rids = [self.lanes[i].trace_id for i in pre]
@@ -705,3 +779,67 @@ class PagedServeEngine:
         s = self.telemetry
         return s.decode_tokens / s.decode_s if s.decode_s else 0.0
 
+
+
+# ============================================================================
+# legacy compatibility shim
+# ============================================================================
+@dataclass
+class Request:
+    """Legacy request (seed API); prefer scheduler.ServeRequest."""
+    prompt: np.ndarray
+    max_new_tokens: int = 32
+    rid: int = 0
+    out_tokens: List[int] = field(default_factory=list)
+    done: bool = False
+
+
+class ServeEngine:
+    """Seed-API shim over the paged runtime, as the JAX package's: every
+    token-input family routes to `PagedServeEngine` (n_slots ->
+    max_batch, worst-case page count so old workloads can never run out
+    of pages), float weights and bf16 KV pools.  `device` as for
+    `PagedServeEngine`."""
+
+    def __init__(self, model, params: Any, n_slots: int = 4,
+                 max_seq: int = 256, greedy: bool = True,
+                 sampling: Optional[SamplingParams] = None, *,
+                 device=None):
+        self.model = model
+        self.params = params
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.greedy = greedy
+        self.sampling = sampling
+        # largest page size dividing max_seq (any max_seq works, as
+        # the seed API allowed; page_size 1 = one token per page)
+        page_size = next(p for p in (16, 8, 4, 2, 1)
+                         if max_seq % p == 0)
+        self.engine = PagedServeEngine(
+            model, params, ServeConfig(
+                precision="fp", kv_dtype="bf16", max_batch=n_slots,
+                max_seq=max_seq, page_size=page_size,
+                prefill_chunk=min(16, max_seq)), device=device)
+        self.stats: Dict[str, float] = {"tokens": 0, "steps": 0,
+                                        "decode_s": 0.0}
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        sampling = self.sampling if self.sampling is not None else \
+            SamplingParams(temperature=0.0 if self.greedy else 1.0)
+        sreqs = [ServeRequest(prompt=np.asarray(r.prompt, np.int32),
+                              max_new_tokens=r.max_new_tokens,
+                              rid=i, sampling=sampling)
+                 for i, r in enumerate(requests)]
+        self.engine.run(sreqs)
+        for r, sr in zip(requests, sreqs):
+            r.out_tokens = sr.out_tokens
+            r.done = sr.done
+        t = self.engine.telemetry
+        self.stats = {"tokens": t.tokens, "steps": t.steps,
+                      "decode_tokens": t.decode_tokens,
+                      "decode_s": t.decode_s}
+        return requests
+
+    def throughput(self) -> float:
+        n = self.stats.get("decode_tokens", self.stats["tokens"])
+        return n / self.stats["decode_s"] if self.stats["decode_s"] else 0.0

@@ -36,7 +36,15 @@ replayed after:
   * Kernel launches (`kernels.launch_counts`): a wrapper counts its
     launch when it is called, which under a graph happens only at
     capture.  The runner takes the capture's counts back and adds them
-    again on every replay, so the counts are the kernels that ran.
+    again on every replay, so the counts are the kernels that ran.  It
+    reads the capturing thread's own counts
+    (`kernels.thread_launch_counts`): another engine stepping on another
+    thread meanwhile adds nothing to a capture's.
+  * Engines that share a card (fleet replicas, one driver thread each)
+    capture one at a time: a per-device lock covers the warm-up and the
+    capture, and the capture is `thread_local`, so another thread's
+    replays, allocations and stream syncs meanwhile do not invalidate
+    it.
   * No fallback: on a CUDA device a capture or replay that fails
     raises.  The card runs the steps eagerly only when the caller asks
     (`eager=True`).  On the CPU the steps run eagerly through the same
@@ -44,6 +52,7 @@ replayed after:
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
@@ -51,7 +60,17 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import add_launches, launch_counts
+from repro_torch.kernels.ops import add_launches, thread_launch_counts
+
+_CAPTURE_LOCKS: Dict[torch.device, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
+
+
+def _capture_lock(device: torch.device) -> threading.Lock:
+    """The lock that lets one `StepRunner` at a time capture on
+    `device`."""
+    with _LOCKS_GUARD:
+        return _CAPTURE_LOCKS.setdefault(device, threading.Lock())
 
 
 @dataclass
@@ -125,26 +144,28 @@ class StepRunner:
         return st.logits
 
     def _capture(self, st: _Step) -> torch.Tensor:
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
-            logits = st.run()                  # the warm-up is this call
-        logits.record_stream(cur)
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
-                st.logits = st.run()
-            st.launches = {k: n - before[k]
-                           for k, n in launch_counts().items()}
-        finally:                               # the capture ran nothing
-            add_launches({k: before[k] - n
-                          for k, n in launch_counts().items()})
-        st.graph = graph
-        cur.wait_stream(self._stream)
-        st.capture_s = time.perf_counter() - t0
+        with _capture_lock(self.device):
+            t0 = time.perf_counter()
+            cur = torch.cuda.current_stream(self.device)
+            self._stream.wait_stream(cur)
+            with torch.cuda.stream(self._stream):
+                logits = st.run()              # the warm-up is this call
+            logits.record_stream(cur)
+            before = thread_launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=self._stream,
+                                      capture_error_mode="thread_local"):
+                    st.logits = st.run()
+                st.launches = {k: n - before[k]
+                               for k, n in thread_launch_counts().items()}
+            finally:                           # the capture ran nothing
+                add_launches({k: before[k] - n
+                              for k, n in thread_launch_counts().items()})
+            st.graph = graph
+            cur.wait_stream(self._stream)
+            st.capture_s = time.perf_counter() - t0
         return logits
 
     def steps(self) -> List[Dict[str, Any]]:

@@ -462,9 +462,9 @@ def test_wrappers_raise_instead_of_falling_back(device):
         cim_gemv(torch.randn(2, 256, device=device).bfloat16(), w)
     with pytest.raises(ValueError):
         cim_gemv(torch.randn(2, 256), w)            # x on the CPU
-    w6 = quantize(torch.randn(256, 126, device=device), 4, 128)
-    with pytest.raises(ValueError):                  # N not a multiple of 4
-        cim_gemv(torch.randn(2, 256, device=device), w6)
+    tbl = quantize(torch.randn(126, 256, device=device), 4, 128, axis=1)
+    with pytest.raises(ValueError):                  # table rows off 4 B
+        cim_gemv(torch.randn(2, 256, device=device), _at_offset(tbl, 2))
     q, kp, vp, tables, lengths, ks, vs = _verify(device, "int8", 2)
     with pytest.raises(ValueError):                  # lengths on the CPU
         paged_flash_verify(q, kp, vp, tables, lengths.cpu(), 0, 0.0, ks, vs)
@@ -1060,8 +1060,9 @@ def test_swiglu_kernel_at_zamba_width(device, m):
 
 @pytest.mark.parametrize("arch,per_step", [
     # 3 mLSTM layers x (up, w_o, down + 3 head-wise stack calls), the
-    # sLSTM layer's ffn_up / ffn_down, the head
-    ("xlstm-1.3b", {"cim_gemv": 3 * 6 + 2 + 1, "swiglu_qgemv": 0,
+    # sLSTM layer's ffn_up (its ffn_down, K = 85, has no group dividing
+    # K and stays float, as in the JAX package), the head
+    ("xlstm-1.3b", {"cim_gemv": 3 * 6 + 1 + 1, "swiglu_qgemv": 0,
                     "paged_flash_decode": 0}),
     # 5 Mamba2 layers x (in_proj, out_proj), 2 shared-block invocations
     # x (q, k, v, o, LoRA out_proj, w_down), the head
@@ -1069,12 +1070,11 @@ def test_swiglu_kernel_at_zamba_width(device, m):
                    "paged_flash_decode": 2}),
 ])
 def test_recurrent_smoke_decode_replay_equals_eager(device, arch, per_step):
-    """The smoke config, INT4 (xlstm's at d_model 96: at 64 its sLSTM
-    ffn_up has 170 columns, which cim_gemv refuses, N % 4): a captured
-    decode step, replayed from the same arena state as its eager call,
-    gives bitwise the same logits and the same new state; the arena's
-    tensors keep their addresses; the launches of one call are the ones
-    listed."""
+    """The smoke config, INT4 (xlstm's sLSTM ffn_up has 170 columns: the
+    kernel's byte copies, N % 4 != 0): a captured decode step, replayed
+    from the same arena state as its eager call, gives bitwise the same
+    logits and the same new state; the arena's tensors keep their
+    addresses; the launches of one call are the ones listed."""
     import numpy as np
 
     from repro_torch.configs import get_smoke_config
@@ -1083,8 +1083,6 @@ def test_recurrent_smoke_decode_replay_equals_eager(device, arch, per_step):
     from repro_torch.quant.ptq import quantize_params
     from repro_torch.serve import StepRunner
     cfg = get_smoke_config(arch).replace(dtype="float32", remat=False)
-    if cfg.family == "xlstm":
-        cfg = cfg.replace(d_model=96)
     model = DecoderLM(cfg)
     params = quantize_params(init_params(
         model.param_specs(), torch.Generator(device=device).manual_seed(0),
@@ -1119,3 +1117,229 @@ def test_recurrent_smoke_decode_replay_equals_eager(device, arch, per_step):
     assert [x.data_ptr() for x in leaves(state)] == ptrs
     got = launch_counts()
     assert {k: got[k] for k in per_step} == per_step
+
+
+# ----------------------------------------------------------------------------
+# cim_gemv at any N (a ragged last column group, byte copies)
+# ----------------------------------------------------------------------------
+def _ragged_weight(device, bits, layout, k, n, group, e=3, seed=41):
+    g = _gen(seed)
+    if layout == "cols":
+        return quantize(torch.randn(k, n, generator=g, device=device), bits,
+                        group)
+    return quantize(torch.randn(e, k, n, generator=g, device=device), bits,
+                    group, axis=1)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 4, 20])
+@pytest.mark.parametrize("n", [1, 3, 6, 170, 171])
+@pytest.mark.parametrize("layout", ["cols", "stack"])
+def test_cim_gemv_kernel_at_any_n(device, bits, m, n, layout):
+    """N not a multiple of 4 (odd N too: scale rows not 4-byte aligned),
+    K = 2048 so a column tile splits K over several blocks, both layouts;
+    bitwise repeatable; the split plan has more than one split."""
+    from repro_torch.kernels.cim_gemv import split_plan, stack_plan
+    k = 2048
+    w = _ragged_weight(device, bits, layout, k, n, 128)
+    stored = k // (2 if bits == 4 else 1)
+    g = _gen(42)
+    if layout == "cols":
+        x = torch.randn(m, k, generator=g, device=device)
+        assert split_plan("cols", m, stored, n, bits).splits > 1
+        assert vec_bytes(w, n) == (16 if n % 16 == 0 else
+                                   4 if n % 4 == 0 else 1)
+        out = cim_gemv(x, w)
+        _close(out, cim_gemv_plain(x, w))
+        assert torch.equal(out, cim_gemv(x, w))
+        return
+    e = w.data.shape[0]
+    x = torch.randn(e, m, k, generator=g, device=device)
+    counts = torch.tensor([m, 0, max(1, m // 2)], dtype=torch.int32,
+                          device=device)
+    assert stack_plan(m, stored, n, bits, e).splits >= 1
+    out = cim_gemv(x, w, counts)
+    ref = cim_gemv_plain(x, w)
+    torch.cuda.synchronize()
+    for ei, c in enumerate(counts.tolist()):
+        if c:
+            _close(out[ei, :c], ref[ei, :c])
+    assert torch.equal(out[0], cim_gemv(x, w, counts)[0])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cim_gemv_kernel_on_weights_off_4_bytes(device, bits, offset):
+    """A packed weight whose base is not 4-byte aligned (N % 4 == 0):
+    the byte-copy instantiation."""
+    g = _gen(43)
+    w = quantize(torch.randn(2048, 256, generator=g, device=device), bits,
+                 128)
+    wo = _at_offset(w, offset)
+    assert vec_bytes(wo, 256) == 1
+    x = torch.randn(4, 2048, generator=g, device=device)
+    _close(cim_gemv(x, wo), cim_gemv_plain(x, w))
+
+
+# ----------------------------------------------------------------------------
+# engines sharing the card: streams, captures, counts, arrival counters
+# ----------------------------------------------------------------------------
+def _small_model(device):
+    from repro_torch.models import DecoderLM, ModelConfig, init_params
+    from repro_torch.models.common import tree_to
+    from repro_torch.quant.ptq import quantize_params
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=688, vocab=512,
+                      head_dim=64, qkv_bias=True, dtype="float32")
+    model = DecoderLM(cfg)
+    params = tree_to(quantize_params(init_params(
+        model.param_specs(), torch.Generator().manual_seed(0), "cpu",
+        torch.float32), 4, 128), device)
+    return model, params
+
+
+def _engine(model, params, device):
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+    return PagedServeEngine(model, params, ServeConfig(
+        precision="int4", max_batch=4, max_seq=64, page_size=16),
+        device=device)
+
+
+def _requests(seed, n=6):
+    import numpy as np
+
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(prompt=rng.integers(0, 512, int(ln)).astype(
+        np.int32), max_new_tokens=10, rid=i)
+        for i, ln in enumerate(rng.integers(5, 40, size=n))]
+
+
+def _run_threads(jobs):
+    """Run each job on its own thread, all released at once; re-raise
+    the first error.  Returns each job's thread."""
+    import threading
+    start = threading.Barrier(len(jobs))
+    errors = []
+
+    def wrap(job):
+        start.wait(30)
+        try:
+            job()
+        except BaseException as e:      # the test re-raises it
+            errors.append(e)
+    threads = [threading.Thread(target=wrap, args=(j,)) for j in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    return threads
+
+
+def _per_call(model, s):
+    L = model.cfg.n_layers
+    return {"cim_gemv": 5 * L + 1, "swiglu_qgemv": L,
+            "paged_flash_decode": L if s == 1 else 0,
+            "paged_flash_verify": 0, "flash_decode": 0}
+
+
+def _expected(model, eng):
+    pre, dec = _per_call(model, 16), _per_call(model, 1)
+    return {k: pre[k] * eng.prefill_calls + dec[k] * eng.decode_calls
+            for k in pre}
+
+
+def test_two_engines_on_two_threads_give_their_solo_streams(device):
+    """Two engines sharing one copy of the weights step at once on two
+    threads, as CUDA graphs on their own streams: each gives the streams
+    it gives alone, each thread's launch counts are exactly its engine's
+    calls times the per-call counts, every step was captured once."""
+    from repro_torch.kernels import thread_launch_counts
+    model, params = _small_model(device)
+    solo = []
+    for seed in (1, 2):
+        reqs = _requests(seed)
+        _engine(model, params, device).run(reqs)
+        solo.append([r.out_tokens for r in reqs])
+    engines = [_engine(model, params, device) for _ in range(2)]
+    assert engines[0].stream != engines[1].stream
+    runs = [_requests(1), _requests(2)]
+    reset_launch_counts()
+    threads = _run_threads([lambda e=e, r=r: e.run(r)
+                            for e, r in zip(engines, runs)])
+    torch.cuda.synchronize()
+    for eng, reqs, want, t in zip(engines, runs, solo, threads):
+        assert [r.out_tokens for r in reqs] == want
+        assert thread_launch_counts(t) == _expected(model, eng)
+        steps = eng.runner.steps()
+        assert len(steps) == 2 and all(s["captured"] for s in steps)
+    assert launch_counts() == {k: sum(_expected(model, e)[k]
+                                      for e in engines)
+                               for k in launch_counts()}
+
+
+def test_capture_on_one_thread_while_another_replays(device):
+    """Engine A, its graphs captured, replays on one thread while engine
+    B captures its own on another: no capture error, both streams as
+    alone, B's graphs hold exactly one call's launches."""
+    from repro_torch.kernels import thread_launch_counts
+    model, params = _small_model(device)
+    ref = []
+    for seed in (3, 4):
+        reqs = _requests(seed, n=8)
+        _engine(model, params, device).run(reqs)
+        ref.append([r.out_tokens for r in reqs])
+    a, b = _engine(model, params, device), _engine(model, params, device)
+    a.run(_requests(5, n=4))                       # A captures first
+    a_calls = (a.prefill_calls, a.decode_calls)
+    runs = [_requests(3, n=8), _requests(4, n=8)]
+    reset_launch_counts()
+    threads = _run_threads([lambda: a.run(runs[0]), lambda: b.run(runs[1])])
+    torch.cuda.synchronize()
+    assert [r.out_tokens for r in runs[0]] == ref[0]
+    assert [r.out_tokens for r in runs[1]] == ref[1]
+    for st in b.runner.steps():
+        s = st["shape"][1]
+        assert st["captured"]
+        assert st["launches_per_call"] == _per_call(model, s)
+    pre, dec = _per_call(model, 16), _per_call(model, 1)
+    assert thread_launch_counts(threads[0]) == {
+        k: pre[k] * (a.prefill_calls - a_calls[0])
+        + dec[k] * (a.decode_calls - a_calls[1]) for k in pre}
+    assert thread_launch_counts(threads[1]) == _expected(model, b)
+
+
+@pytest.mark.parametrize("shape", [(11008, 2048, 86), (2048, 256, 128)])
+def test_arrival_counters_are_per_stream_and_left_zero(device, shape):
+    """Calls on two streams use two sets of arrival counters (different
+    addresses), and each is zero after its call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cim_gemv import _counters, split_plan
+    from repro_torch.kernels.swiglu_gemv import swiglu_qgemv as sw
+    k, n, group = shape
+    g = _gen(44)
+    w = quantize(torch.randn(k, n, generator=g, device=device), 4, group)
+    x = torch.randn(4, k, generator=g, device=device)
+    assert split_plan("cols", 4, k // 2, n, 4).splits > 1
+    s1, s2 = torch.cuda.Stream(device), torch.cuda.Stream(device)
+    outs, ptrs = [], []
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            outs.append(cim_gemv(x, w))
+            sw(x, w, w)
+            ptrs.append((_counters(device, stream=_build.stream_handle())
+                         .data_ptr(),
+                         _counters(device, "swiglu_qgemv",
+                                   _build.stream_handle()).data_ptr()))
+    torch.cuda.synchronize()
+    assert ptrs[0][0] != ptrs[1][0] and ptrs[0][1] != ptrs[1][1]
+    assert len({p for pair in ptrs for p in pair}) == 4
+    for s in (s1, s2):
+        for kern in ("cim_gemv", "swiglu_qgemv"):
+            assert int(_counters(device, kern, s.cuda_stream).abs().sum()) \
+                == 0
+    assert torch.equal(outs[0], outs[1])

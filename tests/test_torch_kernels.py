@@ -283,6 +283,12 @@ def test_import_repro_torch_leaves_jax_and_repro_out():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import repro_torch.launch.serve\n"
+        "want = ['repro_torch.api.gateway', 'repro_torch.api.driver',\n"
+        "        'repro_torch.api.protocol', 'repro_torch.fleet.router',\n"
+        "        'repro_torch.fleet.replica', 'repro_torch.fleet.policy',\n"
+        "        'repro_torch.obs.slo', 'repro_torch.obs.drift',\n"
+        "        'repro_torch.obs.export', 'repro_torch.kernels.launches']\n"
+        "assert all(m in sys.modules for m in want), want\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -295,3 +301,127 @@ def test_import_repro_torch_leaves_jax_and_repro_out():
                        text=True, env=env, timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_gateway_fleet_and_slo_modules_import_no_jax():
+    """The gateway, fleet and SLO modules, imported on their own in a
+    fresh process, bring in neither `jax` nor `repro`."""
+    code = (
+        "import sys\n"
+        "import repro_torch.api, repro_torch.fleet, repro_torch.obs\n"
+        "from repro_torch.obs import prometheus_text, SLOMonitor\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or "
+        "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+# ----------------------------------------------------------------------------
+# launch and dequantize counts, per thread (engine replicas step on their
+# own driver threads)
+# ----------------------------------------------------------------------------
+def _hammer(work, n_threads=8):
+    """Run work(i) on n_threads threads at once, with a short switch
+    interval so a lost update would show."""
+    import threading
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    return threads
+
+
+def test_launch_counts_are_exact_per_thread_and_in_total():
+    from repro_torch.kernels import thread_launch_counts
+    from repro_torch.kernels.ops import add_launches
+    reset_launch_counts()
+
+    def work(i):
+        for _ in range(500):
+            add_launches({"cim_gemv": 1, "swiglu_qgemv": i})
+    threads = _hammer(work)
+    try:
+        total = launch_counts()
+        assert total["cim_gemv"] == 8 * 500
+        assert total["swiglu_qgemv"] == 500 * sum(range(8))
+        for i, thread in enumerate(threads):
+            mine = thread_launch_counts(thread)
+            assert mine["cim_gemv"] == 500 and mine["swiglu_qgemv"] == 500 * i
+            assert mine["paged_flash_decode"] == 0
+        assert thread_launch_counts() == dict.fromkeys(total, 0)
+    finally:
+        reset_launch_counts()
+    assert launch_counts() == dict.fromkeys(total, 0)
+    assert thread_launch_counts(threads[1]) == dict.fromkeys(total, 0)
+
+
+def test_dequant_counts_are_exact_per_thread_and_in_total():
+    port_qarray.reset_dequant_counters()
+
+    def work(i):
+        for _ in range(300):
+            port_qarray.count_dequant("fused_dequant")
+        for _ in range(i):
+            port_qarray.count_dequant()
+    threads = _hammer(work)
+    try:
+        assert port_qarray.dequant_counters() == {
+            "full_dequant": sum(range(8)), "fused_dequant": 8 * 300}
+        for i, thread in enumerate(threads):
+            assert port_qarray.dequant_counters(thread) == {
+                "full_dequant": i, "fused_dequant": 300}
+    finally:
+        port_qarray.reset_dequant_counters()
+
+
+def test_capture_takes_back_only_its_own_threads_launches():
+    """`StepRunner._capture`'s arithmetic on the CPU: what another thread
+    launches while this one captures stays out of the capture's count."""
+    import threading
+
+    from repro_torch.kernels import thread_launch_counts
+    from repro_torch.kernels.ops import add_launches
+    reset_launch_counts()
+    before = thread_launch_counts()
+    other = threading.Thread(target=add_launches,
+                             args=({"cim_gemv": 7},))
+    add_launches({"cim_gemv": 3, "paged_flash_decode": 1})   # "captured"
+    other.start()
+    other.join(30)
+    mine = {k: n - before[k] for k, n in thread_launch_counts().items()}
+    try:
+        assert mine["cim_gemv"] == 3 and mine["paged_flash_decode"] == 1
+        assert launch_counts()["cim_gemv"] == 10
+    finally:
+        reset_launch_counts()
+
+
+@pytest.mark.parametrize("n,offset,want", [
+    (64, 0, 16), (48, 0, 16), (68, 0, 4), (64, 4, 4), (170, 0, 1),
+    (171, 0, 1), (3, 0, 1), (64, 2, 1), (6, 0, 1)])
+def test_vec_bytes_picks_the_widest_aligned_copy(n, offset, want):
+    """16-byte copies where the weight's base and rows allow them, 4-byte
+    ones where they are 4-byte aligned, else byte copies (any N)."""
+    from repro_torch.kernels.cim_gemv import vec_bytes
+    qt = port_qarray.quantize(torch.ones(64, n), 4, 16)
+    flat = torch.empty(qt.data.numel() + 16, dtype=qt.data.dtype)
+    base = (-flat.data_ptr()) % 16 + offset
+    data = flat[base:base + qt.data.numel()].view(qt.data.shape)
+    w = port_qarray.QTensor(data, qt.scales, qt.bits, qt.group, qt.axis,
+                            qt.orig_shape)
+    assert vec_bytes(w, n) == want
