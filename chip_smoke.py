@@ -190,7 +190,25 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      INT4 and INT8, both layouts, M = 1, 4, 20 with K split over several
      blocks, and serves the xlstm smoke config (its ffn_up has 170
      columns) on the card against the CPU.
- 14. summary: a `{"kernels": [...]}` line, the card line, and last
+ 14. training (no kernel of the port runs here: plain PyTorch products
+     and autograd; the five kernels' launch counts must stay 0 over the
+     phase): (a) 2-layer full-width f32 copies of qwen2.5-3b,
+     musicgen-medium (embeddings through the frontend stub, LayerNorm,
+     GELU FFN, untied head) and deepseek-v2-lite-16b (MLA, a dense first
+     layer, 64 experts, top 6), batch 2 x 32, seed 0: the loss and every
+     gradient leaf on the card against the CPU's, then one AdamW update
+     from the same gradients on each, parameters compared; (b)
+     qwen2.5-3b at full width and depth (3.086 B params, f32) through
+     the port's Trainer, 4 steps at batch 8 x 64, remat off, and (c)
+     musicgen-medium at full width and depth for 2 steps: losses and the
+     next batch's gradient norm finite (gated); step ms, tokens/s, the
+     share of the f32 bound (6 N tokens over 67 TFLOP/s), peak memory
+     beside 16 B a param (printed); (d) the qwen2.5-3b smoke config
+     through the Trainer with microbatches 2: 20 steps straight against
+     10 steps stopped by the preemption flag and resumed from LATEST for
+     10 more (bit-identical losses, gated), and 30 steps whose last 5
+     losses average below their first 5 (gated).
+ 15. summary: a `{"kernels": [...]}` line, the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -4161,6 +4179,308 @@ def phase_gateway(model, params, device, card):
     return counts, result
 
 
+# ---------------------------------------------------------------------------
+# Training: forward, loss, autograd, AdamW, checkpoints, the Trainer
+# ---------------------------------------------------------------------------
+TRAIN_LOSS_TOL = 1e-4       # card vs CPU loss, relative (f32 sum order)
+TRAIN_GRAD_TOL = 1e-3       # each gradient leaf: 1e-3 * max|g_cpu| + 1e-7
+TRAIN_PARAM_TOL = 1e-6      # after one AdamW update from the same
+                            #   gradients: 1e-6 * max|p| + 1e-9
+STATE_BYTES = 16            # f32 params, grads and two moments a param
+
+
+def train_feed(cfg, seq_len: int, batch: int):
+    """SyntheticLM batches at (batch, seq_len), through the frontend
+    stub for an arch that takes embeddings."""
+    from repro_torch.data import DataConfig, FrontendStub, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq_len,
+                                  global_batch=batch))
+    return data if cfg.embed_inputs else FrontendStub(data, cfg.d_model)
+
+
+def f32_params(model, device, seed: int = 0):
+    """Seeded f32 parameters drawn on `device`."""
+    import torch
+    from repro_torch.models import init_params
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return init_params(model.param_specs(), gen, device,
+                       dtype_override=torch.float32)
+
+
+def trainable(params):
+    from repro_torch.train.adamw import tree_leaves
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return params
+
+
+def all_grads(loss, params):
+    """Gradients of every leaf, zeros for one the loss does not read."""
+    import torch
+    from repro_torch.train.adamw import tree_leaves
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for x, g in zip(leaves, grads)]
+
+
+def train_card_vs_cpu(arch: str, device) -> dict:
+    """Phase 14a: a 2-layer full-width copy of `arch`, f32, seed 0, one
+    batch of 2 x 32 from SyntheticLM (the frontend stub's embeddings for
+    musicgen): the loss and every gradient leaf on the card against the
+    CPU's from the same weights; then one AdamW update on each from the
+    CPU's gradients (so the optimizer's arithmetic is what is compared),
+    parameters after it compared."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.common import tree_to
+    from repro_torch.train import AdamW
+    from repro_torch.train.adamw import tree_leaves, tree_unflatten
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(dtype="float32", remat=False, n_layers=2)
+    model = DecoderLM(cfg)
+    drawn = f32_params(model, device)
+    params = {str(device): drawn, "cpu": tree_to(drawn, "cpu")}
+    batch = {k: torch.from_numpy(v)
+             for k, v in train_feed(cfg, 32, 2).batch(0).items()}
+    out = {}
+    for dev, p in params.items():
+        loss = model.loss(trainable(p),
+                          {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(loss.detach()), all_grads(loss, p))
+    (lc, gc), (lg, gg) = out["cpu"], out[str(device)]
+    if not (math.isfinite(lg) and abs(lg - lc) <= TRAIN_LOSS_TOL * abs(lc)):
+        fail(f"training {arch} x2: card loss {lg} vs CPU {lc}")
+    worst = (0.0, "")
+    for name, a, b in zip(_leaf_names(params["cpu"]), gg, gc):
+        err = float((a.cpu() - b).abs().max())
+        tol = TRAIN_GRAD_TOL * float(b.abs().max()) + 1e-7
+        if not err <= tol:
+            fail(f"training {arch} x2: gradient {name} max diff {err:.3e} "
+                 f"> tol {tol:.3e}")
+        worst = max(worst, (err / tol, name))
+    opt = AdamW(lr=1e-3)
+    for dev, p in params.items():
+        grads = [g.to(dev, copy=True) for g in gc]
+        opt.update(tree_unflatten(p, grads), opt.init(p), p)
+    perr = 0.0
+    for a, b in zip(tree_leaves(params[str(device)]),
+                    tree_leaves(params["cpu"])):
+        err = float((a.detach().cpu() - b.detach()).abs().max())
+        tol = TRAIN_PARAM_TOL * float(b.detach().abs().max()) + 1e-9
+        if not err <= tol:
+            fail(f"training {arch} x2: parameters after AdamW differ by "
+                 f"{err:.3e} > {tol:.3e}")
+        perr = max(perr, err / tol)
+    res = {"arch": arch, "layers": 2, "params": model.n_params(),
+           "loss_card": lg, "loss_cpu": lc,
+           "loss_rel_diff": abs(lg - lc) / abs(lc),
+           "grad_worst_err_over_tol": worst[0], "grad_worst_leaf": worst[1],
+           "adamw_worst_err_over_tol": perr,
+           "s": time.perf_counter() - t0}
+    log(f"training card vs CPU, {arch} 2 layers at full width "
+        f"({model.n_params() / 1e9:.3f} B params), batch 2 x 32, f32: loss "
+        f"{lg:.6f} vs {lc:.6f} (rel diff {res['loss_rel_diff']:.2e}, tol "
+        f"{TRAIN_LOSS_TOL:g}); gradients worst err/tol {worst[0]:.3f} "
+        f"({worst[1]}; tol {TRAIN_GRAD_TOL:g} x max|g| + 1e-7); params "
+        f"after one AdamW update worst err/tol {perr:.3f} (tol "
+        f"{TRAIN_PARAM_TOL:g} x max|p| + 1e-9); {res['s']:.1f} s")
+    del params, out, gg, gc
+    torch.cuda.empty_cache()
+    return res
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix.lstrip("/")]
+
+
+def train_full(arch: str, device, card: str, steps: int,
+               n_layers: int = 0) -> dict:
+    """Phases 14b-c: `arch` at full width (and `n_layers`, 0 = full
+    depth) through the port's Trainer: f32 params drawn on the card from
+    seed 0, `steps` steps at the launcher's batch 8 x 64, remat off, the
+    launcher's schedule.  Then one more step by hand, its forward +
+    backward and AdamW update timed apart.  Gated: losses finite, and
+    that step's gradient norm finite.  Printed: losses, step ms (median
+    of the steps after the first), tokens/s, the share of the f32 bound
+    (6 N tokens over 67 TFLOP/s), the two parts' ms, peak memory beside
+    16 B a param."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import (AdamW, TrainConfig, Trainer,
+                                   cosine_schedule, global_norm)
+    from repro_torch.train.adamw import tree_unflatten
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch).replace(dtype="float32", remat=False)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    model = DecoderLM(cfg)
+    n = model.n_params()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = trainable(f32_params(model, device))
+    feed = train_feed(cfg, 64, 8)
+    dts = []
+    tr = Trainer(model, AdamW(lr=cosine_schedule(1e-3, 10, steps)), feed,
+                 TrainConfig(steps=steps, log_every=1),
+                 event_hook=lambda e: dts.append(e.payload["dt"])
+                 if e.kind == "STEP" else None, device=device)
+    t_run = time.perf_counter()
+    out = tr.run(params=params)
+    run_s = time.perf_counter() - t_run
+    losses = out["losses"]
+    # one more step by hand, its parts timed with CUDA events: forward
+    # + backward, then (after the gradient norm) the AdamW update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    batch = tr._batch_at(steps)
+    ev[0].record()
+    grads = all_grads(model.loss(params, batch), params)
+    ev[1].record()
+    gnorm = float(global_norm(grads))
+    ev[2].record()
+    tr.opt.update(tree_unflatten(params, grads), out["opt_state"], params)
+    ev[3].record()
+    torch.cuda.synchronize()
+    fwd_bwd_ms, adamw_ms = ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(math.isfinite(x) for x in losses) and math.isfinite(gnorm)):
+        fail(f"training {arch}: losses {losses}, gradient norm {gnorm}")
+    tokens = 8 * 64
+    step_s = float(sorted(dts[1:])[len(dts[1:]) // 2])
+    flops = 6.0 * n * tokens
+    bound_s = flops / F32_FLOPS
+    res = {"arch": arch, "layers": cfg.n_layers, "params": n,
+           "steps": steps, "batch": [8, 64], "losses": losses,
+           "step_ms": [d * 1e3 for d in dts],
+           "step_ms_median": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "bound_ms": bound_s * 1e3, "bound_flop": flops,
+           "bound_share": bound_s / step_s,
+           "grad_norm_next_batch": gnorm, "fwd_bwd_ms": fwd_bwd_ms,
+           "adamw_ms": adamw_ms,
+           "peak_gb": peak / 1e9, "state_gb_computed": STATE_BYTES * n / 1e9,
+           "run_s": run_s, "phase_s": time.perf_counter() - t0,
+           "card": card}
+    log(f"training {arch} x{cfg.n_layers} at full width "
+        f"({n / 1e9:.3f} B params), f32, batch 8 x 64, {steps} steps "
+        f"through Trainer: losses {[round(x, 6) for x in losses]}; step ms "
+        f"{[round(d * 1e3, 2) for d in dts]}, median after the first "
+        f"{step_s * 1e3:.2f} ms, {tokens / step_s:.1f} tokens/s; f32 bound "
+        f"6 N tokens = {flops / 1e12:.3f} TFLOP over 67 TFLOP/s = "
+        f"{bound_s * 1e3:.1f} ms, share {bound_s / step_s:.3f}; one more "
+        f"step by hand: forward + backward {fwd_bwd_ms:.1f} ms, AdamW "
+        f"{adamw_ms:.1f} ms (CUDA events), gradient norm {gnorm:.4f}; "
+        f"peak memory {peak / 1e9:.2f} "
+        f"GB (params + grads + moments {STATE_BYTES * n / 1e9:.2f} GB, "
+        f"computed); {card}")
+    del tr, out, params, grads, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_resume(device) -> dict:
+    """Phase 14d: the qwen2.5-3b smoke config on the card through the
+    Trainer (seed params, bf16 as the specs), microbatches 2: 20 steps
+    straight; 10 steps stopped by the preemption flag (raised while the
+    10th STEP event is emitted), then a resume from LATEST for 10 more;
+    and 30 steps.  Gated: the two 20-step trajectories bit-identical, and
+    the 30-step run's mean of its last 5 losses below its first 5."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import (AdamW, TrainConfig, Trainer,
+                                   cosine_schedule)
+
+    t0 = time.perf_counter()
+    cfg = get_smoke_config("qwen2.5-3b").replace(dtype="float32",
+                                                  remat=False)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke" / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    flag = work / "PREEMPT"
+
+    def trainer(steps, total, ckpt_dir=None, hook=None):
+        tc = TrainConfig(steps=steps, microbatches=2, log_every=1,
+                         ckpt_every=50, ckpt_dir=ckpt_dir,
+                         preempt_flag=str(flag))
+        return Trainer(DecoderLM(cfg),
+                       AdamW(lr=cosine_schedule(1e-3, 10, total)),
+                       train_feed(cfg, 64, 8), tc, event_hook=hook,
+                       device=device)
+
+    def raise_flag(ev):
+        if ev.kind == "STEP" and ev.step == 10:
+            flag.touch()
+    full = trainer(20, 20).run()
+    ck = str(work / "ck")
+    first_tr = trainer(20, 20, ck, raise_flag)
+    first = first_tr.run()
+    kinds = [e.kind for e in first_tr.events]
+    flag.unlink()
+    second = trainer(20, 20, ck).run(resume=True)
+    long_run = trainer(30, 30).run()
+    resumed = first["losses"] + second["losses"]
+    same = resumed == full["losses"]
+    l30 = long_run["losses"]
+    head, tail = sum(l30[:5]) / 5, sum(l30[-5:]) / 5
+    log(f"training resume on the card, qwen2.5-3b smoke config, "
+        f"microbatches 2, batch 8 x 64: preempted at step {first['step']} "
+        f"(events {kinds[-3:]}), resumed to {second['step']}; 20-step "
+        f"losses straight {[round(x, 6) for x in full['losses'][::5]]}... "
+        f"and resumed bit-identical: {same}; 30 steps: mean of the first "
+        f"5 {head:.6f}, of the last 5 {tail:.6f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if first["step"] != 10 or kinds[-2:] != ["CKPT", "PREEMPT"]:
+        fail(f"training resume: the preempted run stopped at "
+             f"{first['step']} with events {kinds[-3:]}")
+    if not same:
+        fail("training resume: the resumed losses differ from the "
+             "uninterrupted run's")
+    if not tail < head:
+        fail(f"training: the loss did not fall over 30 steps ({head} -> "
+             f"{tail})")
+    del full, first, second, long_run
+    torch.cuda.empty_cache()
+    return {"bit_identical": same, "preempted_at": 10,
+            "loss_first5_mean": head, "loss_last5_mean": tail,
+            "s": time.perf_counter() - t0}
+
+
+def phase_training(device, card) -> dict:
+    """Phase 14: training, on no kernel of the port (plain PyTorch
+    products and autograd; the five kernels' launch counts must stay 0
+    over the whole phase)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    log(f"training phase starts with {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB allocated")
+    reset_launch_counts()
+    result = {"card_vs_cpu": [train_card_vs_cpu(a, device) for a in (
+        "qwen2.5-3b", "musicgen-medium", "deepseek-v2-lite-16b")]}
+    result["qwen2.5-3b"] = train_full("qwen2.5-3b", device, card, 4)
+    result["musicgen-medium"] = train_full("musicgen-medium", device, card, 2)
+    result["resume"] = train_resume(device)
+    counts = launch_counts()
+    log(f"training launches of the five kernels: {counts} (the training "
+        f"path runs plain PyTorch products and autograd, no kernel of the "
+        f"port)")
+    if any(counts.values()):
+        fail(f"training launched a serving kernel: {counts}")
+    result["launches"] = counts
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result
+
+
 def main() -> None:
     import dataclasses
 
@@ -4273,6 +4593,7 @@ def main() -> None:
             "lora out_proj": (("lora", "out_proj"), 112),
             "shared w_down": (("shared", "ffn", "w_down"), 128),
             "head": (("head",), 112)}, decode_launches=(79, 4, 4))
+    train_result = phase_training(device, card)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -4312,6 +4633,7 @@ def main() -> None:
     log(f"{XLSTM_ARCH} x48 summary " + json.dumps(xlstm_result))
     log(f"{ZAMBA_ARCH} x27 summary " + json.dumps(zamba_result))
     log("gateway summary " + json.dumps(gateway_result))
+    log("training summary " + json.dumps(train_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -268,6 +268,9 @@ def main(argv=None):
            else get_config(args.arch)).replace(dtype="float32", remat=False)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
+    if not cfg.embed_inputs:
+        raise SystemExit(f"{args.arch} takes frontend-stub embeddings; the "
+                         "token engine serves token-input archs")
     group = 16 if args.smoke else 128
     from repro_torch.models import DecoderLM
     prefix_cache = check_capabilities(DecoderLM(cfg), args.spec,

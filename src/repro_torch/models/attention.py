@@ -1,6 +1,15 @@
-"""Attention over a paged KV pool (PyTorch port of the serve path of
-`repro.models.attention`): GQA over K/V pages, and DeepSeek's absorbed
-multi-head latent attention (MLA) over latent pages.
+"""Attention (PyTorch port of `repro.models.attention`): the serve path
+over a paged KV pool (GQA over K/V pages, DeepSeek's absorbed multi-head
+latent attention (MLA) over latent pages), and the full-sequence forward
+of training (`gqa_forward`, `mla_forward`: causal, optionally windowed,
+in query blocks of Q_CHUNK).
+
+The forward contracts with plain products, as the JAX package's einsums
+do: f32 scores, then the softcap, the mask and the softmax, the
+probabilities cast to V's dtype for the value product.  Not
+`scaled_dot_product_attention`: it takes no softcap and sums in another
+order.  `mla_forward` decompresses the latent into per-head K and V (the
+value dim differs from the query dim), not the absorbed serving form.
 
 Differences from the JAX package, all PyTorch idiom:
   * the KV pools are updated IN PLACE (`index_copy_` into the layer's
@@ -42,6 +51,7 @@ from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
+Q_CHUNK = 2048      # query-block size of the full-sequence forward
 NEG_INF = -1.0e30
 
 
@@ -133,6 +143,116 @@ def rope_by_theta(cfg: ModelConfig, slots: torch.Tensor,
     layer."""
     return {theta: rope_tables(slots, rope_dim(cfg), theta)
             for theta in {layer_theta(cfg, f) for f in local_flags}}
+
+
+def forward_ropes(cfg: ModelConfig, positions: torch.Tensor,
+                  local_flags: Iterable[bool]) -> Dict[float, Rope]:
+    """cos/sin tables (s, rope_dim/2) of the full-sequence forward, once
+    per distinct RoPE base.  GQA computes its frequencies as JAX's
+    `gqa_forward` does, exp(i / hd * -log(theta)) (its base is traced
+    there), MLA as `rope_tables`: the two round differently."""
+    if cfg.attn_kind == "mla":
+        return rope_by_theta(cfg, positions, local_flags)
+    hd = cfg.hd()
+    out = {}
+    for theta in {layer_theta(cfg, f) for f in local_flags}:
+        log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+        freqs = torch.exp(torch.arange(0, hd, 2, dtype=torch.float32) / hd
+                          * -log_theta).to(positions.device)
+        ang = positions.to(torch.float32)[:, None] * freqs[None, :]
+        out[theta] = (torch.cos(ang), torch.sin(ang))
+    return out
+
+
+def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, scale: float,
+                    attn_cap: float) -> torch.Tensor:
+    """q (b, qs, g, qpk, hd), k (b, ks, g, hd), v (b, ks, g, hd_v), mask
+    (qs, ks) -> (b, qs, g, qpk, hd_v)."""
+    f32 = torch.float32
+    scores = torch.einsum("bqgph,bkgh->bgpqk", q.to(f32), k.to(f32)) * scale
+    if attn_cap:
+        scores = softcap(scores, attn_cap)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgpqk,bkgh->bqgph", w.to(v.dtype), v)
+
+
+def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_pos: torch.Tensor, k_pos: torch.Tensor,
+                       window: int, scale: float,
+                       attn_cap: float) -> torch.Tensor:
+    """Causal (windowed when `window` > 0) attention in blocks of
+    Q_CHUNK queries, so the score tensor of a long sequence is never
+    whole.  q (b, qs, g, qpk, hd); k, v (b, ks, g, hd[_v]); q_pos (qs,),
+    k_pos (ks,) absolute positions.  A query row's result does not
+    depend on its block, so the last block is not padded (JAX pads it to
+    a whole chunk for its scan)."""
+    def mask_for(qp):
+        mask = qp[:, None] >= k_pos[None, :]
+        if window:
+            mask = mask & (qp[:, None] - k_pos[None, :] < window)
+        return mask
+
+    outs = [_softmax_attend(q[:, i:i + Q_CHUNK], k, v,
+                            mask_for(q_pos[i:i + Q_CHUNK]), scale, attn_cap)
+            for i in range(0, q.shape[1], Q_CHUNK)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, rope: Rope,
+                is_local: bool = False) -> torch.Tensor:
+    """Full-sequence attention: x (b, s, d), positions (s,), rope this
+    layer's tables (`forward_ropes`); a local layer sees the
+    `cfg.local_window` keys up to each query."""
+    b, s, _ = x.shape
+    hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
+    q, k, v = _qkv(p, cfg, x)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    window = cfg.local_window if is_local else 0
+    out = _chunked_attention(q.reshape(b, s, g, qpk, hd), k, v, positions,
+                             positions, window, 1.0 / math.sqrt(hd),
+                             cfg.attn_softcap)
+    return qmm(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
+
+
+def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, rope: Rope,
+                is_local: bool = False) -> torch.Tensor:
+    """Training path of MLA: the latent decompressed into per-head K
+    (no-RoPE part from `w_uk`, the shared RoPE key broadcast over heads)
+    and V (`w_uv`, at `v_head_dim`), then causal attention as GQA with
+    one query per kv head (`is_local` unused: MLA has no window)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    q = qmm(x, p["wq"]).reshape(b, s, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = qmm(x, p["w_dkv"])
+    c_kv = rms_norm(dkv[..., :m.kv_lora_rank], p["ckv_norm"], cfg.norm_eps)
+    cos, sin = rope
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :], cos, sin)
+    k_nope = qmm(c_kv, p["w_uk"]).reshape(b, s, H, nope)
+    v = qmm(c_kv, p["w_uv"]).reshape(b, s, H, vd)
+    k = torch.cat([k_nope, k_rope.expand(b, s, H, rope_d)], dim=-1)
+    qg = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, H, 1,
+                                                     nope + rope_d)
+    out = _chunked_attention(qg, k, v, positions, positions, 0,
+                             1.0 / math.sqrt(nope + rope_d),
+                             cfg.attn_softcap)
+    return qmm(out.reshape(b, s, H * vd), p["wo"])
+
+
+def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, rope: Rope,
+                 is_local: bool = False) -> torch.Tensor:
+    fn = mla_forward if cfg.attn_kind == "mla" else gqa_forward
+    return fn(p, cfg, x, positions, rope, is_local)
 
 
 @dataclass

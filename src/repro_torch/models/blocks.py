@@ -1,6 +1,7 @@
-"""Norms and the blocks of every family (PyTorch port of the serve path
-of `repro.models.blocks`): the transformer block (GQA or MLA attention,
-dense or MoE FFN) over a paged KV pool; xLSTM's mLSTM and sLSTM blocks
+"""Norms and the blocks of every family (PyTorch port of
+`repro.models.blocks`): the transformer block (GQA or MLA attention,
+dense or MoE FFN) over the full sequence (training) and over a paged KV
+pool (serving); xLSTM's mLSTM and sLSTM blocks
 and zamba's Mamba2 blocks over per-lane recurrent state; zamba's SHARED
 attention + MLP block, invoked after every `shared_every` Mamba2 layers
 with per-site LoRA deltas on q/k/v and a gated output projection."""
@@ -12,8 +13,9 @@ import torch
 
 from repro_torch.kernels.ops import qmatmul as qmm
 
-from .attention import PageRows, Rope, attention_specs, attn_paged_step
-from .common import ParamSpec, rms_norm
+from .attention import (PageRows, Rope, attention_specs, attn_forward,
+                        attn_paged_step)
+from .common import ParamSpec, layer_norm, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, dense_ffn_specs, ffn_forward, ffn_specs
 from .ssm import (mamba2_serve_step, mamba2_specs, mlstm_serve_step,
@@ -24,10 +26,15 @@ Params = Dict[str, Any]
 
 def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     init = "zeros" if cfg.rms_scale_plus_one else "ones"
-    return {"scale": ParamSpec((cfg.d_model,), init=init)}
+    sp = {"scale": ParamSpec((cfg.d_model,), init=init)}
+    if cfg.norm_kind == "layer":
+        sp["bias"] = ParamSpec((cfg.d_model,), init="zeros")
+    return sp
 
 
 def apply_norm(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm_kind == "layer":
+        return layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rms_norm(x, p["scale"], cfg.norm_eps,
                     scale_plus_one=cfg.rms_scale_plus_one)
 
@@ -44,6 +51,27 @@ def transformer_block_specs(cfg: ModelConfig, dense_ffn_override: int = 0
         sp["post_attn"] = norm_specs(cfg)
         sp["post_ffn"] = norm_specs(cfg)
     return sp
+
+
+def transformer_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, rope: Rope,
+                      is_local: bool = False,
+                      dense_override: bool = False) -> torch.Tensor:
+    """Full-sequence block (training): pre-norm attention and FFN with
+    residuals, each branch normed again before its add when
+    `post_block_norm`; `dense_override` runs the dense FFN of a MoE
+    model's leading layers."""
+    h = apply_norm(p["ln_attn"], cfg, x)
+    a = attn_forward(p["attn"], cfg, h, positions, rope, is_local)
+    if cfg.post_block_norm:
+        a = apply_norm(p["post_attn"], cfg, a)
+    x = x + a
+    h = apply_norm(p["ln_ffn"], cfg, x)
+    f = dense_ffn(p["ffn"], cfg, h) if dense_override \
+        else ffn_forward(p["ffn"], cfg, h)
+    if cfg.post_block_norm:
+        f = apply_norm(p["post_ffn"], cfg, f)
+    return x + f
 
 
 def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,

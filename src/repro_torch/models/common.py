@@ -1,4 +1,5 @@
-"""Model substrate: parameter specs, init, norms, RoPE (PyTorch).
+"""Model substrate: parameter specs, init, norms, RoPE, the loss
+(PyTorch).
 
 Counterpart of `repro.models.common`.  Parameters are declared as
 `ParamSpec` trees (plain nested dicts), materialized by `init_params`
@@ -6,6 +7,10 @@ with an explicit `torch.Generator` and device.  The distributions follow
 the JAX package (normal with std 1/sqrt(fan_in), `embed` with an
 explicit std), but the draws differ from `jax.random`'s, so tests carry
 weights across with `repro_torch.convert` instead of re-drawing them.
+
+`take_rows` and the loss's gather have backward passes without float
+atomics (a sorted segment sum, a scatter onto distinct positions), so a
+training step on the card is bit-reproducible.
 """
 from __future__ import annotations
 
@@ -82,6 +87,13 @@ def init_params(tree: Tree, generator: torch.Generator, device=None,
     return walk(tree, "")
 
 
+def param_count(tree: Tree) -> int:
+    """Elements of every ParamSpec of a tree."""
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return math.prod(tree.shape)
+
+
 def tree_to(tree: Tree, device) -> Tree:
     """Move every tensor (and QTensor) of a nested dict to `device`."""
     if isinstance(tree, dict):
@@ -101,6 +113,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     if scale_plus_one:
         w = w + 1.0
     return (y * w).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim in f32 with the population variance
+    (`jnp.var`'s; torch's default is the unbiased one)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
 
 
 def rope_tables(positions: torch.Tensor, dim: int, theta: float = 10000.0
@@ -147,3 +171,68 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "gelu_tanh": _gelu_tanh,
     "relu": torch.relu,
 }
+
+
+class _TakeRows(torch.autograd.Function):
+    """table[idx] whose backward sums each row's gradients in a fixed
+    order: the indices sorted (stably), one segment sum per distinct
+    row, written to distinct rows.  Indexing's own backward accumulates
+    with float atomics on the card, in an order that changes run to
+    run."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g = grad.reshape(flat.numel(), *ctx.shape[1:])
+        rows, order = torch.sort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(rows, return_counts=True)
+        sums = torch.segment_reduce(g[order], "sum", lengths=counts, axis=0)
+        out = grad.new_zeros(ctx.shape)
+        out[uniq] = sums
+        return out, None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] along dim 0 (an embedding lookup, the MoE combine's
+    gather); under autograd its backward is deterministic
+    (`_TakeRows`), otherwise it is plain indexing."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _TakeRows.apply(table, idx)
+    return table[idx]
+
+
+class _TakeLast(torch.autograd.Function):
+    """x[..., idx[...]] along the last dim; the backward writes each
+    row's one gradient with `scatter_` (no atomics: one position a
+    row)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return x.gather(-1, idx[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        out = grad.new_zeros(ctx.shape)
+        return out.scatter_(-1, idx[..., None], grad[..., None]), None
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -100) -> torch.Tensor:
+    """Mean CE over non-ignored positions: logits (b, s, v), labels (b,
+    s).  Labels are clamped at 0 for the gather, `ignore_id` positions
+    masked out, and the sum divided by max(1, kept), as in JAX."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = _TakeLast.apply(lf, labels.long().clamp_min(0))
+    mask = (labels != ignore_id).to(torch.float32)
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)

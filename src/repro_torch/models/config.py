@@ -7,7 +7,9 @@ serves the dense family (SwiGLU or gated GELU FFNs, sliding-window /
 global layer alternation, softcaps, QK-norm, post-block norms) and its
 Mixture-of-Experts variant, with GQA or multi-head latent attention
 (MLA), and the recurrent families: xLSTM (mLSTM + sLSTM) and zamba
-(Mamba2 with a shared attention + MLP block).
+(Mamba2 with a shared attention + MLP block).  It trains the dense and
+MoE families, LayerNorm, plain GELU FFNs and frontend-stub embedding
+inputs (`embed_inputs=False`) included.
 """
 from __future__ import annotations
 

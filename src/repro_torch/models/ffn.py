@@ -25,7 +25,7 @@ from repro_torch.kernels.ops import expert_qmatmul
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.kernels.ops import swiglu
 
-from .common import ACTIVATIONS, ParamSpec
+from .common import ACTIVATIONS, ParamSpec, take_rows
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -147,7 +147,13 @@ def moe_routed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     the experts' buffers, run them, gather the kept slots back and sum
     them weighted.  Every one of the b * s rows is routed, padding rows
     and idle lanes included, in the JAX engine's flattened order, so
-    they take capacity as they do there."""
+    they take capacity as they do there.
+
+    Under autograd (training, float stacks) gradients reach the router
+    through the top-k weights `w` and the experts through `index_copy_`
+    (its source's gradient is a gather) and the combine's gather
+    (`take_rows`: a fixed-order segment sum, no atomics); only the
+    choice of slots is discrete, as in JAX."""
     m = cfg.moe
     b, s, d = x.shape
     T, k, E = b * s, m.top_k, m.n_experts
@@ -162,7 +168,8 @@ def moe_routed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # only kept rows are gathered: rows past an expert's count hold
     # whatever the card left there; a dropped slot reads the zero row
     ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
-    out = (ye[slot] * w.reshape(T * k, 1).to(x.dtype)).reshape(T, k, d)
+    out = (take_rows(ye, slot) * w.reshape(T * k, 1).to(x.dtype)
+           ).reshape(T, k, d)
     return out.sum(dim=1).reshape(b, s, d)
 
 

@@ -1,8 +1,10 @@
-"""Decoder-only LM (PyTorch port of the serve path of
-`repro.models.model.DecoderLM`) for every family the JAX engine serves:
+"""Decoder-only LM (PyTorch port of `repro.models.model.DecoderLM`):
+the full-sequence forward and loss of the transformer families
+(training), and the serve path of every family the JAX engine serves:
 dense and MoE decoders (GQA or multi-head latent attention (MLA,
-deepseek), SwiGLU or gated GELU FFNs or routed experts with shared
-experts and leading dense layers, tied or untied heads, and gemma's
+deepseek), SwiGLU, gated or plain GELU FFNs or routed experts with
+shared experts and leading dense layers, RMSNorm or LayerNorm, tied or
+untied heads, token or frontend-stub embedding inputs, and gemma's
 features: sliding-window / global layers, attention and final softcaps,
 QK-norm, post-block norms, scaled embeddings, a second RoPE base for
 local layers), xLSTM (groups of mLSTM blocks closed by an sLSTM block)
@@ -12,6 +14,8 @@ and zamba (groups of Mamba2 blocks, each followed by a shared attention
     model  = DecoderLM(cfg)
     specs  = model.param_specs()                     # ParamSpec tree
     params = init_params(specs, generator, device)   # nested dict
+    loss   = model.loss(params, batch)               # training loss
+    logits = model.forward(params, inputs)           # (b, s, vocab) f32
     logits, cache = model.serve_step(params, cache, inputs, tables,
                                      lengths, n_new)
     logits, cache = model.paged_verify_step(...)     # speculative verify
@@ -21,13 +25,20 @@ Parameters keep the JAX package's tree and stacked-layer layout
 layers are `first_blocks`, with their own `attn_first` pools; xLSTM's
 `mlstm` stack is doubly stacked, (groups, slstm_every - 1, ...), as
 zamba's `mamba` is (groups, shared_every, ...)), so `repro_torch.convert`
-carries weights across leaf for leaf.  The decode state is the JAX
-engine's, updated in place: paged KV pools `(L, n_pages + 1, page_size,
-g, hd)` (MLA's latent pools `(L, n_pages + 1, page_size, r)` and `(L,
-..., rope_d)`; zamba's at the shared block's shape, one per group) and
-per-lane recurrent leaves (`arena_state_specs`), flattened into one
-cache dict.  What is not ported raises NotImplementedError
-(`_unsupported` names it).
+carries weights across leaf for leaf.  The forward unbinds each stacked
+leaf once per call (its backward is one `stack`; indexing a stack per
+layer would build a zero-filled gradient of the whole stack in every
+layer's backward).  The decode state is the JAX engine's, updated in
+place: paged KV pools `(L, n_pages + 1, page_size, g, hd)` (MLA's
+latent pools `(L, n_pages + 1, page_size, r)` and `(L, ..., rope_d)`;
+zamba's at the shared block's shape, one per group) and per-lane
+recurrent leaves (`arena_state_specs`), flattened into one cache dict.
+
+What is not ported raises NotImplementedError: a config no path can run
+at construction (`_unsupported`), the recurrent families' full-sequence
+forward in `forward`.  The serve path takes token inputs only: the
+engine and the serve launcher refuse a frontend-stub arch, as the JAX
+package's do (such an arch trains through `loss`).
 """
 from __future__ import annotations
 
@@ -35,19 +46,21 @@ import math
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import QTensor, dequant_rows
 
-from .attention import layer_theta, page_rows, paged_cache_spec, \
-    rope_by_theta
+from .attention import (forward_ropes, layer_theta, page_rows,
+                        paged_cache_spec, rope_by_theta)
 from .blocks import (apply_norm, mamba_block_serve, mamba_block_specs,
                      mlstm_block_serve, mlstm_block_specs, norm_specs,
-                     slstm_block_serve, slstm_block_specs,
+                     slstm_block_serve, slstm_block_specs, transformer_block,
                      transformer_block_paged, transformer_block_specs,
                      zamba_lora_specs, zamba_shared_block_paged,
                      zamba_shared_cfg, zamba_shared_specs)
-from .common import ACTIVATIONS, ParamSpec, softcap, stack_specs
+from .common import (ACTIVATIONS, ParamSpec, cross_entropy_loss, param_count,
+                     softcap, stack_specs, take_rows)
 from .config import ModelConfig
 from .ssm import mamba2_cache_spec, mlstm_cache_spec, slstm_cache_spec
 
@@ -57,6 +70,7 @@ FAMILIES = ("dense", "moe", "xlstm", "zamba")
 
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
+    """What no path of the port can run."""
     out = []
     if cfg.family not in FAMILIES:
         out.append(f"family {cfg.family!r}")
@@ -67,12 +81,10 @@ def _unsupported(cfg: ModelConfig) -> List[str]:
     if cfg.attn_kind not in ("gqa", "mla") or \
             (cfg.attn_kind == "mla") != (cfg.mla is not None):
         out.append(f"attention {cfg.attn_kind!r}")
-    if cfg.norm_kind != "rms":
+    if cfg.norm_kind not in ("rms", "layer"):
         out.append(f"norm {cfg.norm_kind!r}")
     if cfg.ffn_act not in ACTIVATIONS:
         out.append(f"ffn activation {cfg.ffn_act!r}")
-    if not cfg.embed_inputs:
-        out.append("frontend-stub embeddings")
     return out
 
 
@@ -89,12 +101,24 @@ def _take(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unbind(tree: Any) -> List[Any]:
+    """Per-layer trees of a stacked tree, each leaf split once
+    (`unbind`: under autograd its backward is one `stack`)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()}
+                for i in range(_lead(tree))]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [tree[i] for i in range(tree.shape[0])]     # a packed QTensor
+
+
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
         bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
-                f"{cfg.name}: the PyTorch port cannot serve this config; "
+                f"{cfg.name}: the PyTorch port cannot run this config; "
                 f"not ported: {', '.join(bad)}")
         self.cfg = cfg
         # the embedding scale rounded to the embeddings' dtype first, as
@@ -159,32 +183,40 @@ class DecoderLM:
                                    cfg.n_layers - self.n_first)
         return sp
 
+    def n_params(self) -> int:
+        return param_count(self.param_specs())
+
     # ------------------------------------------------------------------
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, inputs: Dict[str, torch.Tensor]
+               ) -> torch.Tensor:
+        """The token rows of the table, or a frontend stub's
+        `inputs["embeddings"]` (b, s, d) when `embed_inputs` is off."""
         cfg = self.cfg
-        emb = params["embed"]
-        tokens = tokens.long()
-        if isinstance(emb, QTensor):
-            h = dequant_rows(emb, tokens, cfg.activation_dtype())
+        if not cfg.embed_inputs:
+            h = inputs["embeddings"].to(cfg.activation_dtype())
+        elif isinstance(params["embed"], QTensor):
+            h = dequant_rows(params["embed"], inputs["tokens"].long(),
+                             cfg.activation_dtype())
         else:
-            h = emb[tokens]
+            h = take_rows(params["embed"], inputs["tokens"].long())
         if cfg.embed_scale:
             h = h * self._embed_scale[h.dtype]
         return h.to(cfg.activation_dtype())
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        """f32 logits of the final-normed h: the weight at h's dtype
+        (JAX's `w.astype(h.dtype)`), the product summed in f32."""
         cfg = self.cfg
         h = apply_norm(params["ln_final"], cfg, h)
-        if cfg.tie_embeddings or "head" not in params:
-            w = params["embed"]
-            if isinstance(w, QTensor):
-                # packed (V, d) table: the kernel contracts over d rows
-                logits = qmm(h, w).to(torch.float32)
-            else:
-                logits = torch.matmul(h.to(torch.float32),
-                                      w.to(torch.float32).t())
+        tied = cfg.tie_embeddings or "head" not in params
+        w = params["embed"] if tied else params["head"]
+        if isinstance(w, QTensor):
+            # the packed (V, d) table contracts over its d rows
+            logits = qmm(h, w).to(torch.float32)
         else:
-            logits = qmm(h, params["head"]).to(torch.float32)
+            wf = w.to(h.dtype).to(torch.float32)
+            logits = torch.matmul(h.to(torch.float32),
+                                  wf.t() if tied else wf)
         if cfg.final_softcap:
             logits = softcap(logits, cfg.final_softcap)
         return logits
@@ -207,6 +239,49 @@ class DecoderLM:
         """Per-layer views of `params[name]` (`blocks` or
         `first_blocks`)."""
         return self._stack_views(params[name], name)
+
+    # ------------------------------------------------------------------
+    def forward(self, params: Params, inputs: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+        """Full-sequence forward (training): inputs {tokens: (b, s)} or
+        {embeddings: (b, s, d)} -> f32 logits (b, s, vocab), causal over
+        positions 0..s-1.  With `cfg.remat` each layer's activations are
+        recomputed in the backward (`torch.utils.checkpoint`, JAX's
+        `jax.checkpoint`)."""
+        cfg = self.cfg
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"{cfg.name}: the full-sequence forward of family "
+                f"{cfg.family!r} is not ported yet; it comes with the "
+                "recurrent families' forward / decode slice (ROADMAP "
+                "Queue 1, item 6); the family serves through serve_step")
+        h = self._embed(params, inputs)
+        positions = torch.arange(h.shape[1], device=h.device)
+        ropes = forward_ropes(cfg, positions,
+                              [False] * self.n_first + self._local)
+        stages = [("first_blocks", [False] * self.n_first, True),
+                  ("blocks", self._local, False)]
+        for name, flags, dense in stages:
+            if not flags:
+                continue
+            for layer_p, is_local in zip(_unbind(params[name]), flags):
+                rope = ropes[layer_theta(cfg, is_local)]
+
+                def block(x, layer_p=layer_p, rope=rope, is_local=is_local,
+                          dense=dense):
+                    return transformer_block(layer_p, cfg, x, positions,
+                                             rope, is_local=is_local,
+                                             dense_override=dense)
+                h = (checkpoint(block, h, use_reentrant=False)
+                     if cfg.remat else block(h))
+        return self._logits(params, h)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Mean next-token cross entropy of `forward` against
+        batch["labels"] (b, s); -100 labels are ignored."""
+        return cross_entropy_loss(self.forward(params, batch),
+                                  batch["labels"])
 
     # ------------------------------------------------------------------
     def serve_step(self, params: Params, cache: Dict[str, Any],
@@ -234,7 +309,7 @@ class DecoderLM:
         if self.supports_paged():
             return self._paged_forward(params, cache, inputs, tables,
                                        lengths, n_new, verify=False)
-        h = self._embed(params, inputs["tokens"])
+        h = self._embed(params, inputs)
         s = h.shape[1]
         valid = torch.arange(s, device=h.device)[None, :] < n_new[:, None]
         if cfg.family == "xlstm":
@@ -333,7 +408,7 @@ class DecoderLM:
         if not self.supports_paged():
             raise ValueError(f"{cfg.name}: family {cfg.family!r} has no "
                              "paged verify / paged-only step")
-        h = self._embed(params, inputs["tokens"])
+        h = self._embed(params, inputs)
         s = h.shape[1]
         # every pool leaf (K/V, scales, MLA's latents) is stacked (L,
         # n_pages + 1, page_size, ...): the last page is the dump page of

@@ -191,6 +191,8 @@ class PagedServeEngine:
             # bf16, pinned into the config as the JAX engine pins it; an
             # explicit kv_dtype="int8" raises there
             config = dataclasses.replace(config, kv_dtype="bf16")
+        if not model.cfg.embed_inputs:
+            raise ValueError("engine serves token-input models")
         self.config = config
         self.device = resolve_device(device)
         max_batch, max_seq = config.max_batch, config.max_seq

@@ -1343,3 +1343,81 @@ def test_arrival_counters_are_per_stream_and_left_zero(device, shape):
             assert int(_counters(device, kern, s.cuda_stream).abs().sum()) \
                 == 0
     assert torch.equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the plain PyTorch forward / backward (no kernel of
+# the port), deterministic, and equal to the CPU's within f32 sum order
+# ---------------------------------------------------------------------------
+TRAIN_ARCHS = ("qwen2.5-3b", "gemma2-27b", "qwen3-moe-235b-a22b",
+               "deepseek-v2-lite-16b", "musicgen-medium")
+
+
+def _trainer(arch, device, steps, microbatches=1, ckpt_dir=None):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, FrontendStub, SyntheticLM
+    from repro_torch.models import DecoderLM
+    from repro_torch.train import AdamW, TrainConfig, Trainer, \
+        cosine_schedule
+
+    cfg = get_smoke_config(arch).replace(dtype="float32", remat=False)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=4))
+    feed = data if cfg.embed_inputs else FrontendStub(data, cfg.d_model)
+    return Trainer(DecoderLM(cfg), AdamW(lr=cosine_schedule(1e-2, 2, 20)),
+                   feed, TrainConfig(steps=steps, microbatches=microbatches,
+                                     ckpt_every=5, ckpt_dir=ckpt_dir,
+                                     log_every=100),
+                   device=device)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_training_steps_repeat_bitwise_on_the_card(device, arch):
+    """Two runs of 3 steps from the seed params: the same losses and
+    parameters, bit for bit (no float atomics in the backward)."""
+    from repro_torch.train.adamw import tree_leaves
+    runs = [_trainer(arch, device, 3, microbatches=2).run()
+            for _ in range(2)]
+    assert runs[0]["losses"] == runs[1]["losses"]
+    for a, b in zip(tree_leaves(runs[0]["params"]),
+                    tree_leaves(runs[1]["params"])):
+        assert torch.equal(a, b)
+
+
+def test_training_resume_is_bit_identical_on_the_card(device, tmp_path):
+    d = str(tmp_path / "ck")
+    full = _trainer("qwen2.5-3b", device, 12).run()
+    first = _trainer("qwen2.5-3b", device, 6, ckpt_dir=d).run()
+    second = _trainer("qwen2.5-3b", device, 12, ckpt_dir=d).run(resume=True)
+    assert first["losses"] + second["losses"] == full["losses"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_loss_and_grads_on_the_card_match_the_cpu(device, arch):
+    """f32 loss (1e-5 relative) and every gradient leaf (1e-4 of its max
+    |g| plus 1e-7) from the same params and batch; TF32 off."""
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_to
+    from repro_torch.train.adamw import tree_leaves
+    tr = _trainer(arch, device, 1)
+    params = init_params(tr.model.param_specs(),
+                         torch.Generator().manual_seed(0), "cpu",
+                         dtype_override=torch.float32,
+                         leaf_fn=lambda _, x: x.to(device))
+    batch = tr._batch_at(0)
+    out = {}
+    for dev, p in ((device, params), ("cpu", tree_to(params, "cpu"))):
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = tr.model.loss(p, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        out[str(dev)] = (float(loss.detach()),
+                         [None if g is None else g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(device)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert float((a - b).abs().max()) <= \
+                1e-4 * float(b.abs().max()) + 1e-7

@@ -302,7 +302,7 @@ def test_embed_scale_rounds_to_bf16_as_jax():
     tokens = np.arange(0, kw["vocab"], 3, dtype=np.int32)[None]
     ref = np.asarray(jm._embed(jp, {"tokens": jnp.asarray(tokens)})
                      .astype(jnp.float32))
-    got = tm._embed(tp, torch.from_numpy(tokens))
+    got = tm._embed(tp, {"tokens": torch.from_numpy(tokens)})
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), ref)
     # the unrounded scale gives other bf16 embeddings

@@ -270,14 +270,22 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
 
 
 def test_features_outside_the_slice_raise():
+    """Tensor parallelism, a recurrent family without its SSMConfig, a
+    norm the port does not have, and the recurrent families' full
+    sequence forward.  (LayerNorm and frontend-stub embeddings are
+    ported for training; the engine refuses the latter,
+    tests/test_torch_forward.py.)"""
     with pytest.raises(NotImplementedError):
         ServeConfig(tp=2)
     with pytest.raises(NotImplementedError):
         DecoderLM(ModelConfig(**dict(SMOKE, family="xlstm")))
     with pytest.raises(NotImplementedError):
-        DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="layer")))
+        DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="group")))
+    DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="layer")))
+    from repro_torch.configs import get_smoke_config
     with pytest.raises(NotImplementedError):
-        DecoderLM(ModelConfig(**dict(SMOKE, embed_inputs=False)))
+        DecoderLM(get_smoke_config("xlstm-1.3b")).forward(
+            {}, {"tokens": torch.zeros(1, 2, dtype=torch.long)})
 
 
 def test_launcher_smoke_on_cpu():
