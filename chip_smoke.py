@@ -208,7 +208,33 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      10 steps stopped by the preemption flag and resumed from LATEST for
      10 more (bit-identical losses, gated), and 30 steps whose last 5
      losses average below their first 5 (gated).
- 15. summary: a `{"kernels": [...]}` line, the card line, and last
+ 15. the model's other paths: (a) xlstm-1.3b at full width and depth
+     (48 layers) and zamba2-7b at full width and 27 layers through the
+     Trainer in f32, 4 steps each at batch 8 x 64 (step ms, tokens/s,
+     share of the f32 bound, forward + backward and AdamW ms, peak
+     memory beside 16 B a param, printed; losses finite, gated), after
+     the loss and every gradient leaf on the card against the CPU's on
+     the smallest full-width copies the families allow (xlstm: one group
+     of 8 layers; zamba: one group of 6 and the tail layer) at batch 1 x
+     16; no kernel launches; (b) qwen2.5-3b at full width and depth on
+     INT4 weights (phase 3's seed), `prefill` of 4 prompts of 32 tokens
+     into a bf16 `cache_specs` cache of 4 x 256, then 32 greedy
+     `decode_step`s, eagerly: the tokens must equal the paged engine's
+     greedy stream with bf16 KV (or diverge at a logged near-tie), a
+     step must launch 181 cim_gemv, 36 swiglu_qgemv, 36 flash_decode and
+     no paged kernel (counts zeroed before the 32 steps, read after);
+     printed: the step's wall median beside its bytes bound, and the
+     device time of `ops.decode_attention`'s cache transposes; then
+     each layer's `decode_attention` over the live bf16 cache (b * g =
+     8, S = 256, qpk 8) at pos 32, 48 and 63 against its plain version
+     (phase 2's tolerance), and the step's 36 `flash_decode` calls at
+     that shape (pos 48) timed as in phase 2 for the kernels line; (c)
+     xlstm-1.3b at full width and depth on INT4: 16 `decode_step`s from
+     the zero state (8 prompt tokens, then greedy), the tokens equal to
+     the engine's `serve_step` stream, 265 cim_gemv a step.
+ 16. summary: a `{"kernels": [...]}` line (flash_decode's launches from
+     phase 15b's contiguous decode, and its ms, plain_ms, library_ms and
+     bound_ms at that path's shape), the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -946,7 +972,7 @@ def phase_kernels(model, params, device, checks: Checks):
         f"chunk {chunk} keys, {bg * n_split} blocks")
     time_kernel("flash_decode", f"{L} calls, b*g={bg}, S={S}, pos={pos}, "
                 "f32 cache", fd_step, flash_decode, flash_decode_plain,
-                fd_bytes, fd_flops, library=sdpa)
+                fd_bytes, fd_flops, library=sdpa, key="flash_decode S1024")
     device_split(f"flash_decode x36, b*g={bg}, S={S}",
                  lambda: fd_step(flash_decode))
     del kcs, vcs
@@ -4225,13 +4251,15 @@ def all_grads(loss, params):
             for x, g in zip(leaves, grads)]
 
 
-def train_card_vs_cpu(arch: str, device) -> dict:
-    """Phase 14a: a 2-layer full-width copy of `arch`, f32, seed 0, one
-    batch of 2 x 32 from SyntheticLM (the frontend stub's embeddings for
-    musicgen): the loss and every gradient leaf on the card against the
-    CPU's from the same weights; then one AdamW update on each from the
-    CPU's gradients (so the optimizer's arithmetic is what is compared),
-    parameters after it compared."""
+def train_card_vs_cpu(arch: str, device, n_layers: int = 2, seq: int = 32,
+                      batch_size: int = 2) -> dict:
+    """Phase 14a (and 15a): an `n_layers`-layer full-width copy of
+    `arch`, f32, seed 0, one batch of `batch_size` x `seq` from
+    SyntheticLM (the frontend stub's embeddings for musicgen): the loss
+    and every gradient leaf on the card against the CPU's from the same
+    weights; then one AdamW update on each from the CPU's gradients (so
+    the optimizer's arithmetic is what is compared), parameters after it
+    compared."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
@@ -4240,12 +4268,13 @@ def train_card_vs_cpu(arch: str, device) -> dict:
     from repro_torch.train.adamw import tree_leaves, tree_unflatten
 
     t0 = time.perf_counter()
-    cfg = get_config(arch).replace(dtype="float32", remat=False, n_layers=2)
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers)
     model = DecoderLM(cfg)
     drawn = f32_params(model, device)
     params = {str(device): drawn, "cpu": tree_to(drawn, "cpu")}
-    batch = {k: torch.from_numpy(v)
-             for k, v in train_feed(cfg, 32, 2).batch(0).items()}
+    batch = {k: torch.from_numpy(v) for k, v in
+             train_feed(cfg, seq, batch_size).batch(0).items()}
     out = {}
     for dev, p in params.items():
         loss = model.loss(trainable(p),
@@ -4275,14 +4304,16 @@ def train_card_vs_cpu(arch: str, device) -> dict:
             fail(f"training {arch} x2: parameters after AdamW differ by "
                  f"{err:.3e} > {tol:.3e}")
         perr = max(perr, err / tol)
-    res = {"arch": arch, "layers": 2, "params": model.n_params(),
+    res = {"arch": arch, "layers": n_layers, "params": model.n_params(),
+           "batch": [batch_size, seq],
            "loss_card": lg, "loss_cpu": lc,
            "loss_rel_diff": abs(lg - lc) / abs(lc),
            "grad_worst_err_over_tol": worst[0], "grad_worst_leaf": worst[1],
            "adamw_worst_err_over_tol": perr,
            "s": time.perf_counter() - t0}
-    log(f"training card vs CPU, {arch} 2 layers at full width "
-        f"({model.n_params() / 1e9:.3f} B params), batch 2 x 32, f32: loss "
+    log(f"training card vs CPU, {arch} {n_layers} layers at full width "
+        f"({model.n_params() / 1e9:.3f} B params), batch {batch_size} x "
+        f"{seq}, f32: loss "
         f"{lg:.6f} vs {lc:.6f} (rel diff {res['loss_rel_diff']:.2e}, tol "
         f"{TRAIN_LOSS_TOL:g}); gradients worst err/tol {worst[0]:.3f} "
         f"({worst[1]}; tol {TRAIN_GRAD_TOL:g} x max|g| + 1e-7); params "
@@ -4481,6 +4512,273 @@ def phase_training(device, card) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# The model's other paths: the recurrent families' training, and prefill /
+# decode_step on a contiguous cache
+# ---------------------------------------------------------------------------
+def as_streams(prompts, outs):
+    """Greedy streams in the shape `check_identity` reads."""
+    from types import SimpleNamespace
+    return [SimpleNamespace(rid=i, prompt=p, out_tokens=[int(t) for t in o])
+            for i, (p, o) in enumerate(zip(prompts, outs))]
+
+
+def zero_cache(model, b: int, max_seq: int, kv_dtype, device):
+    """`decode_step`'s contiguous cache (`cache_specs`), zeros."""
+    import torch
+    from repro_torch.models.common import map_specs
+    return map_specs(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                           device=device),
+                     model.cache_specs(b, max_seq, kv_dtype))
+
+
+def engine_streams(model, params, device, prompts, n_new, kv_dtype):
+    """The paged engine's greedy streams of `prompts` (INT4, CUDA graphs,
+    `kv_dtype` pools)."""
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+    eng = PagedServeEngine(model, params, ServeConfig(
+        precision="int4", kv_dtype=kv_dtype, max_batch=4, max_seq=256,
+        page_size=16, prefill_chunk=16), device=device)
+    reqs, _, _ = run_wave(eng, list(prompts), n_new, 0)
+    del eng
+    return reqs
+
+
+def contiguous_qwen(device, card, checks: Checks, timings) -> tuple:
+    """Phase 15b: qwen2.5-3b at full width and depth on phase 3's INT4
+    weights, a bf16 `cache_specs` cache of batch 4 x 256: `prefill` of 4
+    prompts of 32 tokens, their K/V rows copied into the cache, then 32
+    greedy `decode_step`s (eager).  Gated: the tokens equal the paged
+    engine's greedy stream on the same prompts with bf16 KV (or diverge
+    at a near-tie, logged); the launches of each decode step are 181
+    cim_gemv, 36 swiglu_qgemv, 36 flash_decode and no paged kernel.
+    Printed: prefill ms, the decode step's wall median beside its bytes
+    bound, and the device time of the `decode_attention` wrapper's
+    (b, S, g, hd) -> (b * g, S, hd) copies of a step.  Then, on the live
+    cache (b * g = 8, S = 256, qpk 8, bf16): each layer's
+    `decode_attention` at pos 32, 48 and 63 against its plain version,
+    and the step's 36 `flash_decode` calls at pos 48 timed into
+    `timings["flash_decode"]` (graph replay, eager, plain and
+    `scaled_dot_product_attention` with q in bf16, beside the bound of
+    the K/V rows up to pos read once)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.ops import decode_attention
+
+    t0 = time.perf_counter()
+    model, params = build_full_model(device)
+    cfg = model.cfg
+    L, g, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd()
+    b, P, n_dec, S = 4, 32, 32, 256
+    prompts = np.random.default_rng(15).integers(
+        0, cfg.vocab, (b, P)).astype(np.int32)
+    cache = zero_cache(model, b, S, torch.bfloat16, device)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter()
+    with torch.no_grad():
+        logits, kv = model.prefill(
+            params, {"tokens": torch.from_numpy(prompts).to(device)})
+        for k in ("k", "v"):
+            cache["attn"][k][:, :, :P].copy_(kv["attn"][k])
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t_pre) * 1e3
+    prefill_counts = launch_counts()
+    tok = logits[:, -1].argmax(-1)
+    outs, step_ms = [tok], []
+    reset_launch_counts()
+    with torch.no_grad():
+        for i in range(n_dec):
+            t = time.perf_counter()
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": tok[:, None]},
+                torch.tensor(P + i, dtype=torch.int32, device=device))
+            tok = logits[:, 0].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            outs.append(tok)
+    counts = launch_counts()
+    per_step = {"cim_gemv": 181, "swiglu_qgemv": 36, "flash_decode": 36,
+                "paged_flash_decode": 0, "paged_flash_verify": 0}
+    if counts != {k: n * n_dec for k, n in per_step.items()}:
+        fail(f"contiguous decode: launches {counts} over {n_dec} steps, "
+             f"expected {per_step} a step")
+    outs = torch.stack(outs, 1).cpu().numpy()
+    ref = engine_streams(model, params, device, prompts, n_dec + 1, "bf16")
+    near = check_identity("contiguous decode vs the paged engine (bf16 KV)",
+                          ref, as_streams(prompts, outs), model, params,
+                          device)
+    # the step's bound: packed weights and activations, and the bf16 K/V
+    # rows up to the mean position read once
+    cost = step_bounds(model, params, b, 1, [P + n_dec // 2] * b)
+    kv_bytes = L * b * (P + n_dec // 2 + 1) * g * hd * 2 * 2
+    nbytes = cost["cim_gemv"][0] + cost["swiglu_qgemv"][0] + kv_bytes
+    b_ms, b_by = bound(nbytes, cost["cim_gemv"][1] + cost["swiglu_qgemv"][1])
+    med = float(np.median(step_ms[1:]))
+    # the wrapper's transpose copies, on their own: a step's 36 layers
+    ck, cv = cache["attn"]["k"], cache["attn"]["v"]
+    copy_ms = graph_time_ms(lambda: [
+        x[i].transpose(1, 2).reshape(b * g, S, hd)
+        for i in range(L) for x in (ck, cv)])
+    qpk = cfg.q_per_kv()
+    gen = torch.Generator(device=device).manual_seed(15)
+    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+    pos = torch.tensor(P + n_dec - 1, dtype=torch.int32, device=device)
+    attn_ms = graph_time_ms(lambda: [decode_attention(q, ck[i], cv[i], pos)
+                                     for i in range(L)])
+    # flash_decode at the shape this path gives it, on the live cache
+    for p_ in (P, P + n_dec // 2, P + n_dec - 1):
+        pt = torch.tensor(p_, dtype=torch.int32, device=device)
+        for i in range(L):
+            checks.compare(
+                "flash_decode", f"decode_step cache layer {i} bf16 "
+                f"b*g={b * g} S={S} pos={p_}",
+                decode_attention(q, ck[i], cv[i], pt),
+                decode_attention(q, ck[i], cv[i], pt, use_kernel=False))
+    bg, pos_t = b * g, P + n_dec // 2
+    pt = torch.tensor(pos_t, dtype=torch.int32, device=device)
+    qf = q.reshape(bg, qpk, hd)
+    kfs = [ck[i].transpose(1, 2).reshape(bg, S, hd) for i in range(L)]
+    vfs = [cv[i].transpose(1, 2).reshape(bg, S, hd) for i in range(L)]
+
+    def fd_step(fn):
+        for i in range(L):
+            fn(qf, kfs[i], vfs[i], pt)
+
+    def sdpa(qx, kx, vx, _):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qx.to(kx.dtype), kx[:, :pos_t + 1], vx[:, :pos_t + 1])
+
+    time_calls(timings, "flash_decode",
+               f"{L} calls of a contiguous decode step, b*g={bg}, S={S}, "
+               f"pos={pos_t}, qpk={qpk}, bf16 cache (the live one), the "
+               "library with q in bf16",
+               fd_step, flash_decode, flash_decode_plain,
+               L * (2 * bg * (pos_t + 1) * hd * 2 + 2 * qf.numel() * 4),
+               L * bg * qpk * (pos_t + 1) * hd * 4, library=sdpa)
+    del kfs, vfs
+    res = {"arch": "qwen2.5-3b", "layers": L, "batch": b, "prompt": P,
+           "decode_steps": n_dec, "max_seq": S, "cache": "bf16",
+           "prefill_ms": prefill_ms, "prefill_launches": prefill_counts,
+           "decode_launches": counts, "decode_step_ms": step_ms,
+           "decode_step_ms_median": med, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_bytes": nbytes,
+           "bound_share": b_ms / med, "near_ties": near,
+           "transpose_copies_ms": copy_ms,
+           "decode_attention_36_calls_ms": attn_ms,
+           "s": time.perf_counter() - t0, "card": card}
+    log(f"contiguous decode, qwen2.5-3b x{L} at full width, INT4, bf16 "
+        f"cache {b} x {S}: prefill of {b} x {P} tokens {prefill_ms:.1f} ms "
+        f"(launches {prefill_counts}); {n_dec} greedy decode_steps (eager), "
+        f"step wall median {med:.3f} ms (first steps "
+        f"{[round(x, 3) for x in step_ms[:4]]}), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e9:.4f} GB), share "
+        f"{b_ms / med:.4f}; launches a step {per_step}; the wrapper's "
+        f"(b, S, g, hd) -> (b*g, S, hd) copies of K and V, 36 layers: "
+        f"{copy_ms:.4f} ms device time, of 36 decode_attention calls' "
+        f"{attn_ms:.4f} ms; {card}")
+    del model, params, cache, kv, logits
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def contiguous_xlstm(device, card) -> tuple:
+    """Phase 15c: xlstm-1.3b at full width and depth on INT4 (phase 11's
+    weights: seed 0, groups of 128), 16 `decode_step`s from the zero
+    state on 4 lanes: 8 prompt tokens fed one at a time, then 8 greedy
+    steps (9 tokens a lane).  Gated: the tokens equal the paged
+    engine's `serve_step` stream on the same prompts (or a logged
+    near-tie); 265 cim_gemv launches a step.  Printed: step ms."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import build_model
+
+    t0 = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH).replace(dtype="float32", remat=False)
+    model, params = build_model(cfg, "int4", 128, device, seed=0)
+    b, P, steps = 4, 8, 16
+    prompts = np.random.default_rng(16).integers(
+        0, cfg.vocab, (b, P)).astype(np.int32)
+    cache = zero_cache(model, b, 256, torch.bfloat16, device)
+    feed = torch.from_numpy(prompts).to(device)
+    outs, step_ms = [], []
+    reset_launch_counts()
+    with torch.no_grad():
+        for t in range(steps):
+            tok = feed[:, t] if t < P else outs[-1]
+            t1 = time.perf_counter()
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": tok[:, None]}, t)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            if t >= P - 1:
+                outs.append(logits[:, 0].argmax(-1))
+    counts = launch_counts()
+    per_step = step_launches(cfg, 1)
+    if counts != {k: n * steps for k, n in per_step.items()}:
+        fail(f"xlstm decode_step: launches {counts} over {steps} steps, "
+             f"expected {per_step} a step")
+    outs = torch.stack(outs, 1).cpu().numpy()
+    ref = engine_streams(model, params, device, prompts, outs.shape[1],
+                         "auto")
+    near = check_identity("xlstm decode_step vs the engine's serve_step",
+                          ref, as_streams(prompts, outs), model, params,
+                          device)
+    med = float(np.median(step_ms[1:]))
+    res = {"arch": XLSTM_ARCH, "layers": cfg.n_layers, "batch": b,
+           "steps": steps, "decode_launches": counts,
+           "decode_step_ms": step_ms, "decode_step_ms_median": med,
+           "near_ties": near, "s": time.perf_counter() - t0, "card": card}
+    log(f"contiguous decode, {XLSTM_ARCH} x{cfg.n_layers} at full width, "
+        f"INT4, {b} lanes from the zero state: {steps} decode_steps (eager), "
+        f"step wall median {med:.3f} ms; launches a step {per_step}; "
+        f"{card}")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def phase_other_paths(device, card, checks: Checks, timings) -> tuple:
+    """Phase 15: (a) xlstm-1.3b (full depth) and zamba2-7b (27 layers) at
+    full width through the Trainer in f32, 4 steps at batch 8 x 64, and
+    card-vs-CPU loss and gradients on the smallest full-width copies the
+    families allow (xlstm: one group of 8 layers; zamba: one group and
+    the tail, 7 layers) at batch 1 x 16; no kernel launches (float
+    weights); (b) qwen2.5-3b's prefill and contiguous decode through
+    `flash_decode`, each layer's call checked against its plain version
+    and the step's calls timed at that shape into `timings`; (c)
+    xlstm-1.3b's decode_step from the zero state."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    log(f"other paths phase starts with "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    reset_launch_counts()
+    result = {"card_vs_cpu": [
+        train_card_vs_cpu(XLSTM_ARCH, device, n_layers=8, seq=16,
+                          batch_size=1),
+        train_card_vs_cpu(ZAMBA_ARCH, device, n_layers=7, seq=16,
+                          batch_size=1)]}
+    result[XLSTM_ARCH] = train_full(XLSTM_ARCH, device, card, 4)
+    result[ZAMBA_ARCH] = train_full(ZAMBA_ARCH, device, card, 4,
+                                    n_layers=27)
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"recurrent training launched a serving kernel: {counts}")
+    by_path = {}
+    by_path["contiguous_decode"], result["qwen2.5-3b decode"] = \
+        contiguous_qwen(device, card, checks, timings)
+    by_path["xlstm_contiguous_decode"], result["xlstm decode"] = \
+        contiguous_xlstm(device, card)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"other paths phase {result['phase_s']:.1f} s")
+    return by_path, result
+
+
 def main() -> None:
     import dataclasses
 
@@ -4594,12 +4892,14 @@ def main() -> None:
             "shared w_down": (("shared", "ffn", "w_down"), 128),
             "head": (("head",), 112)}, decode_launches=(79, 4, 4))
     train_result = phase_training(device, card)
+    paths, other_result = phase_other_paths(device, card, checks, timings)
+    by_path.update(paths)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
                  "paged_flash_decode": "decode",
                  "paged_flash_verify": "spec_ngram",
-                 "flash_decode": "decode_attention"}
+                 "flash_decode": "contiguous_decode"}
     kernels = []
     for name, fn in KERNELS.items():
         err, tol, label = checks.worst[name]
@@ -4634,6 +4934,7 @@ def main() -> None:
     log(f"{ZAMBA_ARCH} x27 summary " + json.dumps(zamba_result))
     log("gateway summary " + json.dumps(gateway_result))
     log("training summary " + json.dumps(train_result))
+    log("other paths summary " + json.dumps(other_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

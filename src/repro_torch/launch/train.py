@@ -5,10 +5,14 @@
       --device cpu --steps 100 --ckpt-dir ck --resume
   python -m repro_torch.launch.train --arch qwen2.5-3b --steps 4  # card
   python -m repro_torch.launch.train --arch musicgen-medium --layers 4
+  python -m repro_torch.launch.train --arch xlstm-1.3b --steps 4
+  python -m repro_torch.launch.train --arch zamba2-7b --layers 27
 
 The JAX launcher's flags, plus `--device` (the card unless `--device
 cpu`; with no card it stops instead of falling back to the CPU) and
-`--layers` (cut the depth).  Activations in f32, remat off, a cosine
+`--layers` (cut the depth: zamba2-7b's 81 layers hold 111 GB at 16 B a
+parameter, 27 fit one card).  Every family trains, the recurrent ones
+(xlstm, zamba) included.  Activations in f32, remat off, a cosine
 schedule with 10 warm-up steps, synthetic Markov-chain data; the archs
 that take embeddings (pixtral-12b, musicgen-medium) are fed the
 `FrontendStub` of the same token stream.  Prints the same `[train]`

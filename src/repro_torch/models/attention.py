@@ -1,8 +1,10 @@
 """Attention (PyTorch port of `repro.models.attention`): the serve path
 over a paged KV pool (GQA over K/V pages, DeepSeek's absorbed multi-head
-latent attention (MLA) over latent pages), and the full-sequence forward
-of training (`gqa_forward`, `mla_forward`: causal, optionally windowed,
-in query blocks of Q_CHUNK).
+latent attention (MLA) over latent pages), the full-sequence forward of
+training and prefill (`gqa_forward`, `mla_forward`: causal, optionally
+windowed, in query blocks of Q_CHUNK; each also returns the rows a cache
+holds), and one token against a contiguous cache (`gqa_decode`, through
+`ops.decode_attention`, the `flash_decode` kernel; `mla_decode`).
 
 The forward contracts with plain products, as the JAX package's einsums
 do: f32 scores, then the softcap, the mask and the softmax, the
@@ -41,7 +43,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import (paged_decode_attention,
+from repro_torch.kernels.ops import (decode_attention,
+                                     paged_decode_attention,
                                      paged_verify_attention)
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import maybe_dequantize as deq
@@ -202,13 +205,14 @@ def _chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, rope: Rope,
-                is_local: bool = False) -> torch.Tensor:
+                is_local: bool = False, lora: Params = None):
     """Full-sequence attention: x (b, s, d), positions (s,), rope this
     layer's tables (`forward_ropes`); a local layer sees the
-    `cfg.local_window` keys up to each query."""
+    `cfg.local_window` keys up to each query.  Returns (output (b, s,
+    d), {"k", "v"}: the layer's rotated K and its V, (b, s, g, hd))."""
     b, s, _ = x.shape
     hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
-    q, k, v = _qkv(p, cfg, x)
+    q, k, v = _qkv(p, cfg, x, lora)
     cos, sin = rope
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -216,16 +220,19 @@ def gqa_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = _chunked_attention(q.reshape(b, s, g, qpk, hd), k, v, positions,
                              positions, window, 1.0 / math.sqrt(hd),
                              cfg.attn_softcap)
-    return qmm(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
+    return qmm(out.reshape(b, s, cfg.n_heads * hd), p["wo"]), \
+        {"k": k, "v": v}
 
 
 def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor, rope: Rope,
-                is_local: bool = False) -> torch.Tensor:
+                is_local: bool = False):
     """Training path of MLA: the latent decompressed into per-head K
     (no-RoPE part from `w_uk`, the shared RoPE key broadcast over heads)
     and V (`w_uv`, at `v_head_dim`), then causal attention as GQA with
-    one query per kv head (`is_local` unused: MLA has no window)."""
+    one query per kv head (`is_local` unused: MLA has no window).
+    Returns (output, {"c_kv": (b, s, r), "k_rope": (b, s, rope_d)}: the
+    rows a latent cache holds)."""
     m = cfg.mla
     b, s, _ = x.shape
     H = cfg.n_heads
@@ -245,14 +252,108 @@ def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = _chunked_attention(qg, k, v, positions, positions, 0,
                              1.0 / math.sqrt(nope + rope_d),
                              cfg.attn_softcap)
-    return qmm(out.reshape(b, s, H * vd), p["wo"])
+    return qmm(out.reshape(b, s, H * vd), p["wo"]), \
+        {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
 
 
 def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor, rope: Rope,
-                 is_local: bool = False) -> torch.Tensor:
-    fn = mla_forward if cfg.attn_kind == "mla" else gqa_forward
-    return fn(p, cfg, x, positions, rope, is_local)
+                 is_local: bool = False, lora: Params = None):
+    if cfg.attn_kind == "mla":
+        return mla_forward(p, cfg, x, positions, rope, is_local)
+    return gqa_forward(p, cfg, x, positions, rope, is_local, lora)
+
+
+# ----------------------------------------------------------------------------
+# one token against a contiguous cache (`DecoderLM.decode_step`)
+# ----------------------------------------------------------------------------
+def _write_row(leaf: torch.Tensor, pos: torch.Tensor,
+               row: torch.Tensor) -> None:
+    """leaf[:, pos] = row in place: leaf (b, S, ...), row (b, 1, ...),
+    pos a 0-d int32 tensor read on the device (no host sync)."""
+    leaf.index_copy_(1, pos.reshape(1).long(), row.to(leaf.dtype))
+
+
+def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+               rope: Rope, is_local: bool = False,
+               lora: Params = None) -> torch.Tensor:
+    """One-token GQA decode: x (b, 1, d); cache {k, v} (b, S, g, hd),
+    f32 or bf16, this layer's; pos a 0-d int32 tensor; rope the tables
+    at pos (`forward_ropes`).  Writes the fresh k/v row at pos, then
+    attends positions <= pos (within the layer's window) through
+    `ops.decode_attention`, the `flash_decode` kernel on the card.
+
+    JAX attends the stale rows < pos plus a rank-1 term for the fresh
+    token; the two are equal in exact arithmetic and differ only where
+    the cache is narrower than the activations: the fresh row is read
+    back rounded to the cache dtype here."""
+    b = x.shape[0]
+    hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
+    q, k, v = _qkv(p, cfg, x, lora)
+    cos, sin = rope
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    _write_row(cache["k"], pos, k)
+    _write_row(cache["v"], pos, v)
+    out = decode_attention(
+        q.reshape(b, g, qpk, hd).to(torch.float32).contiguous(),
+        cache["k"], cache["v"], pos,
+        window=cfg.local_window if is_local else 0,
+        attn_cap=cfg.attn_softcap)
+    return qmm(out.reshape(b, 1, cfg.n_heads * hd).to(x.dtype), p["wo"])
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+               rope: Rope, is_local: bool = False) -> torch.Tensor:
+    """Absorbed one-token MLA decode over the latent cache {c_kv: (b, S,
+    r), k_rope: (b, S, rope_d)}, rows written at pos in place; plain
+    PyTorch, as in JAX (`mla_attend`, with the contiguous cache read as
+    one page of S rows a lane)."""
+    m = cfg.mla
+    b = x.shape[0]
+    H, S = cfg.n_heads, cache["c_kv"].shape[1]
+    nope, rope_d, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    q = qmm(x, p["wq"]).reshape(b, 1, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    dkv = qmm(x, p["w_dkv"])
+    c_new = rms_norm(dkv[..., :r], p["ckv_norm"], cfg.norm_eps)
+    cos, sin = rope
+    q_rope = apply_rope(q_rope, cos, sin)
+    kr_new = apply_rope(dkv[..., r:][:, :, None, :], cos, sin)
+    _write_row(cache["c_kv"], pos, c_new)
+    _write_row(cache["k_rope"], pos, kr_new[:, :, 0, :])
+    tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
+    slots = pos.reshape(1, 1).expand(b, 1)
+    out = mla_attend(p, cfg, q_nope, q_rope, cache, tables, slots,
+                     slots[:, 0] + 1, x.dtype)
+    return qmm(out, p["wo"])
+
+
+def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                rope: Rope, is_local: bool = False,
+                lora: Params = None) -> torch.Tensor:
+    if cfg.attn_kind == "mla":
+        return mla_decode(p, cfg, x, cache, pos, rope, is_local)
+    return gqa_decode(p, cfg, x, cache, pos, rope, is_local, lora)
+
+
+def empty_cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, ParamSpec]:
+    """One layer's contiguous cache, zeros, the lane axis first: {k, v}
+    (batch, max_seq, g, hd), or MLA's {c_kv, k_rope} latent rows."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        shapes = {"c_kv": (batch, max_seq, m.kv_lora_rank),
+                  "k_rope": (batch, max_seq, m.qk_rope_head_dim)}
+    else:
+        kv = (batch, max_seq, cfg.n_kv_heads, cfg.hd())
+        shapes = {"k": kv, "v": kv}
+    return {k: ParamSpec(v, dtype, init="zeros", lane_axis=0)
+            for k, v in shapes.items()}
 
 
 @dataclass

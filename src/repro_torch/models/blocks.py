@@ -1,10 +1,18 @@
 """Norms and the blocks of every family (PyTorch port of
 `repro.models.blocks`): the transformer block (GQA or MLA attention,
-dense or MoE FFN) over the full sequence (training) and over a paged KV
-pool (serving); xLSTM's mLSTM and sLSTM blocks
-and zamba's Mamba2 blocks over per-lane recurrent state; zamba's SHARED
-attention + MLP block, invoked after every `shared_every` Mamba2 layers
-with per-site LoRA deltas on q/k/v and a gated output projection."""
+dense or MoE FFN); xLSTM's mLSTM and sLSTM blocks and zamba's Mamba2
+blocks; zamba's SHARED attention + MLP block, invoked after every
+`shared_every` Mamba2 layers with per-site LoRA deltas on q/k/v and a
+gated output projection.  Each over the full sequence (training and
+`prefill`: `*_block`, attention blocks also returning the layer's K/V
+rows), one token against a contiguous cache (`*_decode`, the cache
+written in place) and a chunk against a paged KV pool and per-lane
+recurrent state (`*_paged`, `*_serve`: the engine).  A recurrent
+block's decode is its serve step with every lane valid (`one_token`).
+
+zamba's LoRA: on float weights A B is added to the shared W, as JAX
+does; packed W stay packed for `cim_gemv`, and (x A) B is added after
+(`zamba_attn_params`, `attention._qkv`)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -12,14 +20,16 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.kernels.ops import qmatmul as qmm
+from repro_torch.quant.qarray import QTensor
 
-from .attention import (PageRows, Rope, attention_specs, attn_forward,
-                        attn_paged_step)
+from .attention import (PageRows, Rope, attention_specs, attn_decode,
+                        attn_forward, attn_paged_step)
 from .common import ParamSpec, layer_norm, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, dense_ffn_specs, ffn_forward, ffn_specs
-from .ssm import (mamba2_serve_step, mamba2_specs, mlstm_serve_step,
-                  mlstm_specs, slstm_serve_step, slstm_specs)
+from .ssm import (mamba2_forward, mamba2_serve_step, mamba2_specs,
+                  mlstm_forward, mlstm_serve_step, mlstm_specs,
+                  slstm_forward, slstm_serve_step, slstm_specs)
 
 Params = Dict[str, Any]
 
@@ -53,16 +63,11 @@ def transformer_block_specs(cfg: ModelConfig, dense_ffn_override: int = 0
     return sp
 
 
-def transformer_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                      positions: torch.Tensor, rope: Rope,
-                      is_local: bool = False,
-                      dense_override: bool = False) -> torch.Tensor:
-    """Full-sequence block (training): pre-norm attention and FFN with
-    residuals, each branch normed again before its add when
-    `post_block_norm`; `dense_override` runs the dense FFN of a MoE
-    model's leading layers."""
-    h = apply_norm(p["ln_attn"], cfg, x)
-    a = attn_forward(p["attn"], cfg, h, positions, rope, is_local)
+def _transformer_tail(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      a: torch.Tensor, dense_override: bool) -> torch.Tensor:
+    """The rest of a transformer block after its attention output a:
+    the residual, then the pre-norm FFN and its residual (each branch
+    normed again before its add when `post_block_norm`)."""
     if cfg.post_block_norm:
         a = apply_norm(p["post_attn"], cfg, a)
     x = x + a
@@ -72,6 +77,30 @@ def transformer_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.post_block_norm:
         f = apply_norm(p["post_ffn"], cfg, f)
     return x + f
+
+
+def transformer_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, rope: Rope,
+                      is_local: bool = False,
+                      dense_override: bool = False):
+    """Full-sequence block (training, prefill): pre-norm attention and
+    FFN with residuals; `dense_override` runs the dense FFN of a MoE
+    model's leading layers.  Returns (x, the layer's K/V rows)."""
+    h = apply_norm(p["ln_attn"], cfg, x)
+    a, kv = attn_forward(p["attn"], cfg, h, positions, rope, is_local)
+    return _transformer_tail(p, cfg, x, a, dense_override), kv
+
+
+def transformer_block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                             cache: Dict[str, torch.Tensor],
+                             pos: torch.Tensor, rope: Rope,
+                             is_local: bool = False,
+                             dense_override: bool = False) -> torch.Tensor:
+    """One token of every lane (x: (b, 1, d)) against this layer's
+    contiguous cache, whose row `pos` it writes in place."""
+    h = apply_norm(p["ln_attn"], cfg, x)
+    a = attn_decode(p["attn"], cfg, h, cache, pos, rope, is_local)
+    return _transformer_tail(p, cfg, x, a, dense_override)
 
 
 def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -89,19 +118,11 @@ def transformer_block_paged(p: Params, cfg: ModelConfig, x: torch.Tensor,
     h = apply_norm(p["ln_attn"], cfg, x)
     a = attn_paged_step(p["attn"], cfg, h, cache, tables, lengths, n_new,
                         rows, rope, is_local=is_local, verify=verify)
-    if cfg.post_block_norm:
-        a = apply_norm(p["post_attn"], cfg, a)
-    x = x + a
-    h = apply_norm(p["ln_ffn"], cfg, x)
-    f = dense_ffn(p["ffn"], cfg, h) if dense_override \
-        else ffn_forward(p["ffn"], cfg, h)
-    if cfg.post_block_norm:
-        f = apply_norm(p["post_ffn"], cfg, f)
-    return x + f
+    return _transformer_tail(p, cfg, x, a, dense_override)
 
 
 # ----------------------------------------------------------------------------
-# xLSTM and Mamba2 blocks: pre-norm, residual, per-lane state in place
+# xLSTM and Mamba2 blocks: pre-norm, residual
 # ----------------------------------------------------------------------------
 def mlstm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return {"ln": norm_specs(cfg), "cell": mlstm_specs(cfg)}
@@ -113,6 +134,18 @@ def slstm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def mamba_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return {"ln": norm_specs(cfg), "cell": mamba2_specs(cfg)}
+
+
+def mlstm_block(p, cfg, x):
+    return x + mlstm_forward(p["cell"], cfg, apply_norm(p["ln"], cfg, x))
+
+
+def slstm_block(p, cfg, x):
+    return x + slstm_forward(p["cell"], cfg, apply_norm(p["ln"], cfg, x))
+
+
+def mamba_block(p, cfg, x):
+    return x + mamba2_forward(p["cell"], cfg, apply_norm(p["ln"], cfg, x))
 
 
 def mlstm_block_serve(p, cfg, x, cache, valid, n_new):
@@ -129,6 +162,15 @@ def mamba_block_serve(p, cfg, x, cache, valid, n_new):
     return x + mamba2_serve_step(p["cell"], cfg,
                                  apply_norm(p["ln"], cfg, x), cache, valid,
                                  n_new)
+
+
+def one_token(x: torch.Tensor):
+    """(valid (b, 1), n_new (b,)) of a step that feeds every lane one
+    token: a recurrent block's decode is its serve step under this
+    mask (JAX's `*_block_decode`)."""
+    b = x.shape[0]
+    return (torch.ones(b, 1, dtype=torch.bool, device=x.device),
+            torch.ones(b, dtype=torch.int32, device=x.device))
 
 
 # ----------------------------------------------------------------------------
@@ -158,6 +200,55 @@ def zamba_lora_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return sp
 
 
+def zamba_attn_params(attn: Params, lora: Params):
+    """(attention params, LoRA for `attention._qkv`) of one site of the
+    shared block.  Float weights: W + A B for q/k/v, as JAX's
+    `_zamba_attn_params`, and no LoRA after.  Packed weights stay packed
+    for `cim_gemv`, and the site's LoRA goes along."""
+    if isinstance(attn["wq"], QTensor):
+        return attn, lora
+    p = dict(attn)
+    for nm in ("q", "k", "v"):
+        base = p["w" + nm]
+        delta = lora[f"lora_a_{nm}"] @ lora[f"lora_b_{nm}"]
+        p["w" + nm] = base + delta.to(base.dtype)
+    return p, None
+
+
+def _zamba_tail(shared: Params, lora: Params, cfg: ModelConfig,
+                x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The shared block after its attention output a: the site's
+    `out_proj` and the residual, then the shared SwiGLU MLP."""
+    x = x + qmm(a, lora["out_proj"])
+    h = apply_norm(shared["ln_ffn"], cfg, x)
+    return x + dense_ffn(shared["ffn"], zamba_shared_cfg(cfg), h)
+
+
+def zamba_shared_block(shared: Params, lora: Params, cfg: ModelConfig,
+                       x: torch.Tensor, positions: torch.Tensor,
+                       rope: Rope):
+    """One invocation of the shared block over the full sequence.
+    Returns (x, the site's K/V rows)."""
+    attn_p, site_lora = zamba_attn_params(shared["attn"], lora)
+    h = apply_norm(shared["ln_attn"], cfg, x)
+    a, kv = attn_forward(attn_p, zamba_shared_cfg(cfg), h, positions, rope,
+                         lora=site_lora)
+    return _zamba_tail(shared, lora, cfg, x, a), kv
+
+
+def zamba_shared_block_decode(shared: Params, lora: Params,
+                              cfg: ModelConfig, x: torch.Tensor,
+                              cache: Dict[str, torch.Tensor],
+                              pos: torch.Tensor, rope: Rope) -> torch.Tensor:
+    """One token of every lane against the site's contiguous cache, whose
+    row `pos` it writes in place."""
+    attn_p, site_lora = zamba_attn_params(shared["attn"], lora)
+    h = apply_norm(shared["ln_attn"], cfg, x)
+    a = attn_decode(attn_p, zamba_shared_cfg(cfg), h, cache, pos, rope,
+                    lora=site_lora)
+    return _zamba_tail(shared, lora, cfg, x, a)
+
+
 def zamba_shared_block_paged(shared: Params, lora: Params, cfg: ModelConfig,
                              x: torch.Tensor, cache: Dict[str, torch.Tensor],
                              tables: torch.Tensor, lengths: torch.Tensor,
@@ -165,13 +256,11 @@ def zamba_shared_block_paged(shared: Params, lora: Params, cfg: ModelConfig,
                              rope: Rope) -> torch.Tensor:
     """One invocation of the shared block against its paged KV pools (the
     `transformer_block_paged` contract): attention with this site's LoRA
-    deltas (`attention._qkv`: x W + (x A) B on the packed W, where JAX
-    adds A B to a bf16 dequantized W), its output through the site's
+    deltas (`zamba_attn_params`; on packed W, where JAX adds A B to a
+    bf16 dequantized W, x W + (x A) B), its output through the site's
     `out_proj`, then the shared SwiGLU MLP."""
-    shared_cfg = zamba_shared_cfg(cfg)
+    attn_p, site_lora = zamba_attn_params(shared["attn"], lora)
     h = apply_norm(shared["ln_attn"], cfg, x)
-    a = attn_paged_step(shared["attn"], shared_cfg, h, cache, tables,
-                        lengths, n_new, rows, rope, lora=lora)
-    x = x + qmm(a, lora["out_proj"])
-    h = apply_norm(shared["ln_ffn"], cfg, x)
-    return x + dense_ffn(shared["ffn"], shared_cfg, h)
+    a = attn_paged_step(attn_p, zamba_shared_cfg(cfg), h, cache,
+                        tables, lengths, n_new, rows, rope, lora=site_lora)
+    return _zamba_tail(shared, lora, cfg, x, a)

@@ -1,21 +1,25 @@
-"""Decoder-only LM (PyTorch port of `repro.models.model.DecoderLM`):
-the full-sequence forward and loss of the transformer families
-(training), and the serve path of every family the JAX engine serves:
-dense and MoE decoders (GQA or multi-head latent attention (MLA,
-deepseek), SwiGLU, gated or plain GELU FFNs or routed experts with
-shared experts and leading dense layers, RMSNorm or LayerNorm, tied or
-untied heads, token or frontend-stub embedding inputs, and gemma's
-features: sliding-window / global layers, attention and final softcaps,
-QK-norm, post-block norms, scaled embeddings, a second RoPE base for
-local layers), xLSTM (groups of mLSTM blocks closed by an sLSTM block)
-and zamba (groups of Mamba2 blocks, each followed by a shared attention
-+ MLP block with per-site LoRA, then trailing Mamba2 blocks).
+"""Decoder-only LM (PyTorch port of `repro.models.model.DecoderLM`)
+with every path of the JAX model: the full-sequence forward and loss
+(training), `prefill` and `decode_step` on a contiguous cache, and the
+serve path of the JAX engine, for every family: dense and MoE decoders
+(GQA or multi-head latent attention (MLA, deepseek), SwiGLU, gated or
+plain GELU FFNs or routed experts with shared experts and leading dense
+layers, RMSNorm or LayerNorm, tied or untied heads, token or
+frontend-stub embedding inputs, and gemma's features: sliding-window /
+global layers, attention and final softcaps, QK-norm, post-block norms,
+scaled embeddings, a second RoPE base for local layers), xLSTM (groups
+of mLSTM blocks closed by an sLSTM block) and zamba (groups of Mamba2
+blocks, each followed by a shared attention + MLP block with per-site
+LoRA, then trailing Mamba2 blocks).
 
     model  = DecoderLM(cfg)
     specs  = model.param_specs()                     # ParamSpec tree
     params = init_params(specs, generator, device)   # nested dict
     loss   = model.loss(params, batch)               # training loss
     logits = model.forward(params, inputs)           # (b, s, vocab) f32
+    logits, kv = model.prefill(params, inputs)       # last position
+    cache  = model.cache_specs(batch, max_seq)       # ParamSpec tree
+    logits, cache = model.decode_step(params, cache, inputs, pos)
     logits, cache = model.serve_step(params, cache, inputs, tables,
                                      lengths, n_new)
     logits, cache = model.paged_verify_step(...)     # speculative verify
@@ -28,17 +32,20 @@ zamba's `mamba` is (groups, shared_every, ...)), so `repro_torch.convert`
 carries weights across leaf for leaf.  The forward unbinds each stacked
 leaf once per call (its backward is one `stack`; indexing a stack per
 layer would build a zero-filled gradient of the whole stack in every
-layer's backward).  The decode state is the JAX engine's, updated in
-place: paged KV pools `(L, n_pages + 1, page_size, g, hd)` (MLA's
-latent pools `(L, n_pages + 1, page_size, r)` and `(L, ..., rope_d)`;
-zamba's at the shared block's shape, one per group) and per-lane
-recurrent leaves (`arena_state_specs`), flattened into one cache dict.
+layer's backward).  Decode state is updated in place, where JAX returns
+new arrays: the contiguous cache of `cache_specs` (JAX's shapes and
+dtypes), and the engine's paged KV pools `(L, n_pages + 1, page_size,
+g, hd)` (MLA's latent pools `(L, n_pages + 1, page_size, r)` and `(L,
+..., rope_d)`; zamba's at the shared block's shape, one per group) and
+per-lane recurrent leaves (`arena_state_specs`), flattened into one
+cache dict.  `decode_step` of a recurrent layer is its serve step with
+every lane valid.
 
-What is not ported raises NotImplementedError: a config no path can run
-at construction (`_unsupported`), the recurrent families' full-sequence
-forward in `forward`.  The serve path takes token inputs only: the
-engine and the serve launcher refuse a frontend-stub arch, as the JAX
-package's do (such an arch trains through `loss`).
+A config no path can run raises NotImplementedError at construction
+(`_unsupported`).  The serve path takes token inputs only: the engine
+and the serve launcher refuse a frontend-stub arch, as the JAX
+package's do (such an arch trains through `loss` and decodes through
+`decode_step`).
 """
 from __future__ import annotations
 
@@ -51,14 +58,17 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import QTensor, dequant_rows
 
-from .attention import (forward_ropes, layer_theta, page_rows,
-                        paged_cache_spec, rope_by_theta)
-from .blocks import (apply_norm, mamba_block_serve, mamba_block_specs,
-                     mlstm_block_serve, mlstm_block_specs, norm_specs,
+from .attention import (empty_cache_spec, forward_ropes, layer_theta,
+                        page_rows, paged_cache_spec, rope_by_theta)
+from .blocks import (apply_norm, mamba_block, mamba_block_serve,
+                     mamba_block_specs, mlstm_block, mlstm_block_serve,
+                     mlstm_block_specs, norm_specs, one_token, slstm_block,
                      slstm_block_serve, slstm_block_specs, transformer_block,
-                     transformer_block_paged, transformer_block_specs,
-                     zamba_lora_specs, zamba_shared_block_paged,
-                     zamba_shared_cfg, zamba_shared_specs)
+                     transformer_block_decode, transformer_block_paged,
+                     transformer_block_specs, zamba_lora_specs,
+                     zamba_shared_block, zamba_shared_block_decode,
+                     zamba_shared_block_paged, zamba_shared_cfg,
+                     zamba_shared_specs)
 from .common import (ACTIVATIONS, ParamSpec, cross_entropy_loss, param_count,
                      softcap, stack_specs, take_rows)
 from .config import ModelConfig
@@ -99,6 +109,14 @@ def _take(tree: Any, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _stack_trees(trees: List[Dict[str, torch.Tensor]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Per-layer trees' leaves stacked on a new first dim ({} for no
+    layer)."""
+    return {k: torch.stack([t[k] for t in trees])
+            for k in (trees[0] if trees else ())}
 
 
 def _unbind(tree: Any) -> List[Any]:
@@ -241,29 +259,47 @@ class DecoderLM:
         return self._stack_views(params[name], name)
 
     # ------------------------------------------------------------------
-    def forward(self, params: Params, inputs: Dict[str, torch.Tensor]
-                ) -> torch.Tensor:
-        """Full-sequence forward (training): inputs {tokens: (b, s)} or
-        {embeddings: (b, s, d)} -> f32 logits (b, s, vocab), causal over
-        positions 0..s-1.  With `cfg.remat` each layer's activations are
-        recomputed in the backward (`torch.utils.checkpoint`, JAX's
-        `jax.checkpoint`)."""
+    def forward(self, params: Params, inputs: Dict[str, torch.Tensor],
+                return_kv: bool = False):
+        """Full-sequence forward (training, prefill): inputs {tokens: (b,
+        s)} or {embeddings: (b, s, d)} -> f32 logits (b, s, vocab),
+        causal over positions 0..s-1, every recurrent state from zero.
+        With `cfg.remat` each layer's activations are recomputed in the
+        backward (`torch.utils.checkpoint`, JAX's `jax.checkpoint`).
+        With `return_kv`, (logits, kv): the attention layers' K/V rows
+        stacked over layers in JAX's tree ({"attn"[, "attn_first"]} for
+        dense and MoE, MLA's latent rows; {"attn"} over zamba's groups;
+        None for xlstm)."""
         cfg = self.cfg
-        if cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"{cfg.name}: the full-sequence forward of family "
-                f"{cfg.family!r} is not ported yet; it comes with the "
-                "recurrent families' forward / decode slice (ROADMAP "
-                "Queue 1, item 6); the family serves through serve_step")
         h = self._embed(params, inputs)
         positions = torch.arange(h.shape[1], device=h.device)
+        if cfg.family == "xlstm":
+            h, kv = self._forward_xlstm(params, h), None
+        elif cfg.family == "zamba":
+            h, kv = self._forward_zamba(params, h, positions, return_kv)
+        else:
+            h, kv = self._forward_transformer(params, h, positions,
+                                              return_kv)
+        logits = self._logits(params, h)
+        return (logits, kv) if return_kv else logits
+
+    def _layer(self, block, h: torch.Tensor):
+        """block(h), recomputed in the backward when `cfg.remat`."""
+        if self.cfg.remat:
+            return checkpoint(block, h, use_reentrant=False)
+        return block(h)
+
+    def _forward_transformer(self, params, h, positions, return_kv):
+        cfg = self.cfg
         ropes = forward_ropes(cfg, positions,
                               [False] * self.n_first + self._local)
-        stages = [("first_blocks", [False] * self.n_first, True),
-                  ("blocks", self._local, False)]
-        for name, flags, dense in stages:
+        kvs = {}
+        stages = [("first_blocks", "attn_first", [False] * self.n_first,
+                   True), ("blocks", "attn", self._local, False)]
+        for name, pool_name, flags, dense in stages:
             if not flags:
                 continue
+            layer_kvs = []
             for layer_p, is_local in zip(_unbind(params[name]), flags):
                 rope = ropes[layer_theta(cfg, is_local)]
 
@@ -272,9 +308,42 @@ class DecoderLM:
                     return transformer_block(layer_p, cfg, x, positions,
                                              rope, is_local=is_local,
                                              dense_override=dense)
-                h = (checkpoint(block, h, use_reentrant=False)
-                     if cfg.remat else block(h))
-        return self._logits(params, h)
+                h, kv = self._layer(block, h)
+                if return_kv:
+                    layer_kvs.append(kv)
+            if return_kv:
+                kvs[pool_name] = _stack_trees(layer_kvs)
+        return h, kvs
+
+    def _forward_xlstm(self, params, h):
+        cfg = self.cfg
+        for mlstm_g, slstm_p in zip(_unbind(params["mlstm"]),
+                                    _unbind(params["slstm"])):
+            for lp in _unbind(mlstm_g):
+                h = self._layer(lambda x, lp=lp: mlstm_block(lp, cfg, x), h)
+            h = self._layer(lambda x, lp=slstm_p: slstm_block(lp, cfg, x), h)
+        return h
+
+    def _forward_zamba(self, params, h, positions, return_kv):
+        cfg = self.cfg
+        shared = params["shared"]
+        shared_cfg = zamba_shared_cfg(cfg)
+        rope = forward_ropes(shared_cfg, positions, [False])[
+            layer_theta(shared_cfg, False)]
+        kvs = []
+        for mamba_g, lora in zip(_unbind(params["mamba"]),
+                                 _unbind(params["lora"])):
+            for lp in _unbind(mamba_g):
+                h = self._layer(lambda x, lp=lp: mamba_block(lp, cfg, x), h)
+            h, kv = self._layer(
+                lambda x, lora=lora: zamba_shared_block(
+                    shared, lora, cfg, x, positions, rope), h)
+            if return_kv:
+                kvs.append(kv)
+        if "mamba_tail" in params:
+            for lp in _unbind(params["mamba_tail"]):
+                h = self._layer(lambda x, lp=lp: mamba_block(lp, cfg, x), h)
+        return h, {"attn": _stack_trees(kvs)}
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
@@ -282,6 +351,65 @@ class DecoderLM:
         batch["labels"] (b, s); -100 labels are ignored."""
         return cross_entropy_loss(self.forward(params, batch),
                                   batch["labels"])
+
+    # ------------------------------------------------------------------
+    # prefill and decode on a contiguous cache
+    # ------------------------------------------------------------------
+    def prefill(self, params: Params, inputs: Dict[str, torch.Tensor]):
+        """`forward` of a prompt: (the last position's logits (b, 1,
+        vocab), `forward`'s kv tree: the K/V rows of every position)."""
+        logits, kv = self.forward(params, inputs, return_kv=True)
+        return logits[:, -1:], kv
+
+    def decode_step(self, params: Params, cache: Any,
+                    inputs: Dict[str, torch.Tensor], pos):
+        """One token for every lane: inputs {tokens: (b, 1)} or
+        {embeddings: (b, 1, d)}; pos (an int or a 0-d int32 tensor, read
+        on the device) the position of this token in every lane.
+        `cache` (`cache_specs`' layout) is written in place and
+        returned: attention layers write their row `pos` and attend rows
+        <= pos, recurrent layers advance their state by one token.
+        Returns (logits (b, 1, vocab) f32, cache)."""
+        cfg = self.cfg
+        h = self._embed(params, inputs)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=h.device)
+        if cfg.family == "xlstm":
+            h = self._serve_xlstm(params, h, cache, *one_token(h))
+        elif cfg.family == "zamba":
+            h = self._decode_zamba(params, h, cache, pos)
+        else:
+            h = self._decode_transformer(params, h, cache, pos)
+        return self._logits(params, h), cache
+
+    def _decode_transformer(self, params, h, cache, pos):
+        cfg = self.cfg
+        ropes = forward_ropes(cfg, pos.reshape(1),
+                              [False] * self.n_first + self._local)
+        stages = [("first_blocks", "attn_first", [False] * self.n_first,
+                   True), ("blocks", "attn", self._local, False)]
+        for name, pool_name, flags, dense in stages:
+            if not flags:
+                continue
+            views = self._stack_views(cache[pool_name], ("cache", pool_name))
+            for layer_p, layer_cache, is_local in zip(
+                    self._layer_params(params, name), views, flags):
+                h = transformer_block_decode(
+                    layer_p, cfg, h, layer_cache, pos,
+                    ropes[layer_theta(cfg, is_local)], is_local=is_local,
+                    dense_override=dense)
+        return h
+
+    def _decode_zamba(self, params, h, cache, pos):
+        cfg = self.cfg
+        shared_cfg = zamba_shared_cfg(cfg)
+        rope = forward_ropes(shared_cfg, pos.reshape(1), [False])[
+            layer_theta(shared_cfg, False)]
+
+        def shared_block(x, lora, layer_cache):
+            return zamba_shared_block_decode(params["shared"], lora, cfg, x,
+                                             layer_cache, pos, rope)
+        return self._zamba_layers(params, h, cache, *one_token(h),
+                                  shared_block, ("cache", "attn"))
 
     # ------------------------------------------------------------------
     def serve_step(self, params: Params, cache: Dict[str, Any],
@@ -332,24 +460,38 @@ class DecoderLM:
 
     def _serve_zamba(self, params, h, cache, tables, lengths, n_new, valid):
         cfg = self.cfg
-        n_groups = self.n_paged_layers()
-        if n_groups:
-            shared_cfg = zamba_shared_cfg(cfg)
+        shared_cfg = zamba_shared_cfg(cfg)
+        rows = rope = None
+        if self.n_paged_layers():
             leaf = cache["attn"]["k"]          # (groups, n_pages + 1, ps,
             rows = page_rows(tables, lengths, n_new, h.shape[1],  # g, hd)
                              leaf.shape[2], dump_page=leaf.shape[1] - 1)
             rope = rope_by_theta(shared_cfg, rows.slots, [False])[
                 layer_theta(shared_cfg, False)]
+
+        def shared_block(x, lora, pools):
+            return zamba_shared_block_paged(params["shared"], lora, cfg, x,
+                                            pools, tables, lengths, n_new,
+                                            rows, rope)
+        return self._zamba_layers(params, h, cache, valid, n_new,
+                                  shared_block, ("state", "attn"))
+
+    def _zamba_layers(self, params, h, cache, valid, n_new, shared_block,
+                      attn_key):
+        """zamba's layers over the recurrent state in `cache`: each
+        group's Mamba2 layers, then `shared_block(h, the site's LoRA, the
+        site's attention cache)`; then the trailing Mamba2 layers."""
+        cfg = self.cfg
+        n_groups = self.n_paged_layers()
+        if n_groups:
             mamba = self._stack_views(params["mamba"], "mamba", 2)
             lora = self._stack_views(params["lora"], "lora")
             mc = self._stack_views(cache["mamba"], ("state", "mamba"), 2)
-            ac = self._stack_views(cache["attn"], ("state", "attn"))
+            ac = self._stack_views(cache["attn"], attn_key)
             for g in range(n_groups):
                 for lp, c in zip(mamba[g], mc[g]):
                     h = mamba_block_serve(lp, cfg, h, c, valid, n_new)
-                h = zamba_shared_block_paged(params["shared"], lora[g], cfg,
-                                             h, ac[g], tables, lengths,
-                                             n_new, rows, rope)
+                h = shared_block(h, lora[g], ac[g])
         if "mamba_tail" in params:
             tail = self._stack_views(params["mamba_tail"], "mamba_tail")
             tc = self._stack_views(cache["mamba_tail"],
@@ -452,6 +594,34 @@ class DecoderLM:
             return {"attn": {k: v.stacked(n_attn) for k, v in one.items()}}
         one = paged_cache_spec(cfg, n_pages, page_size, kv_dtype)
         out = {"attn": {k: v.stacked(n_attn - self.n_first)
+                        for k, v in one.items()}}
+        if self.n_first:
+            out["attn_first"] = {k: v.stacked(self.n_first)
+                                 for k, v in one.items()}
+        return out
+
+    def cache_specs(self, batch: int, max_seq: int,
+                    kv_dtype: torch.dtype = torch.bfloat16) -> Any:
+        """ParamSpec tree of `decode_step`'s contiguous cache, JAX's
+        shapes and dtypes: attention layers' {k, v} (batch, max_seq, g,
+        hd) (MLA: {c_kv, k_rope}) stacked over layers as "attn" (and
+        "attn_first" for MoE models' leading dense layers); xlstm's
+        recurrent state (`arena_state_specs`); zamba's recurrent state
+        plus an "attn" stack over its groups (a model with no group keeps
+        a zero-group "mamba" stack, as JAX's)."""
+        cfg = self.cfg
+        one = empty_cache_spec(cfg, batch, max_seq, kv_dtype)
+        if cfg.family == "xlstm":
+            return self.arena_state_specs(batch)
+        if cfg.family == "zamba":
+            n_groups, per, _ = self._groups()
+            out = dict(self.arena_state_specs(batch))
+            out["attn"] = {k: v.stacked(n_groups) for k, v in one.items()}
+            if "mamba" not in out:
+                out["mamba"] = {k: v.stacked(per).stacked(0) for k, v in
+                                mamba2_cache_spec(cfg, batch).items()}
+            return out
+        out = {"attn": {k: v.stacked(cfg.n_layers - self.n_first)
                         for k, v in one.items()}}
         if self.n_first:
             out["attn_first"] = {k: v.stacked(self.n_first)

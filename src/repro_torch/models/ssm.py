@@ -1,16 +1,42 @@
-"""Recurrent-state blocks (PyTorch port of the serve path of
-`repro.models.ssm`): Mamba2, and xLSTM's mLSTM and sLSTM.
+"""Recurrent-state blocks (PyTorch port of `repro.models.ssm`): Mamba2,
+and xLSTM's mLSTM and sLSTM.
 
-Only the serving step is ported.  `*_serve_step(p, cfg, x, cache,
-valid[, n_new])` advances up to s tokens per lane in one call (a chunked
-prefill, or s == 1 batched decode): x (b, s, d), valid (b, s) with lane
-i's first n_new[i] positions valid (the cells with a conv take n_new
-too).  A lane's state after the call is
-the state after feeding its valid tokens one at a time; masked
-positions update nothing, so one lane's padding never reaches another
-lane's state (the engine's continuous-batching contract).
+Three entry points a cell:
+  * `*_forward(p, cfg, x)`: the full sequence from the zero state
+    (training, and `prefill`).  Nothing is written in place, so autograd
+    holds.  Mamba2 is JAX's chunked SSD (the sequence padded to a
+    multiple of L = min(chunk, s), the state carried across chunks);
+    the sLSTM is JAX's recurrence over time (JAX checkpoints it per
+    `time_chunk`, which changes no value; the port loops straight); the
+    mLSTM is the stabilised PARALLEL form of JAX's recurrence (below).
+  * `*_serve_step(p, cfg, x, cache, valid[, n_new])` advances up to s
+    tokens per lane in one call (a chunked prefill, or s == 1 batched
+    decode): x (b, s, d), valid (b, s) with lane i's first n_new[i]
+    positions valid (the cells with a conv take n_new too).  A lane's
+    state after the call is the state after feeding its valid tokens one
+    at a time; masked positions update nothing, so one lane's padding
+    never reaches another lane's state (the engine's
+    continuous-batching contract).
+  * the one-token decode of `DecoderLM.decode_step` is the serve step
+    at s == 1 with every lane valid (`blocks.one_token`): the per-token
+    arithmetic lives once.
 
-Differences from the JAX package:
+The mLSTM's full-sequence forward.  JAX scans `_mlstm_cell` over time
+from C = 0, n = 0, m = -1e30; under autograd that saves one (b, nh, dh,
+dh) C a step (16.8 MB a lane at xlstm-1.3b's width, 361 GB for its 42
+mLSTM layers at batch 8 x 64).  Unrolled, with F_t = sum_{l<=t} log
+sigmoid(f_l) and D_tj = i_j + F_t - F_j (j <= t), the recurrence's
+stabiliser is m_t = max(max_j D_tj, -1e30) and
+
+    h_t = sum_j S_tj v_j / max(|sum_j S_tj|, exp(-m_t)),
+    S_tj = (q_t . k_j) exp(D_tj - m_t),
+
+which `mlstm_parallel` computes with (s, s) scores a head (F_t - F_j as
+a masked cumulative sum, so no large prefix sums cancel).  Equal to
+JAX's scan in exact arithmetic, gradients too (m flows back through its
+max, as JAX's does); in f32 to sum order.
+
+Differences of the serve steps from the JAX package:
   * the state is written IN PLACE into the caller's views of the
     `StateArena` leaves, where JAX returns new arrays.  A masked
     position keeps its lane's state bit for bit by folding the mask into
@@ -29,7 +55,8 @@ Differences from the JAX package:
     `cim_gemv`'s expert-stack layout with the heads as the experts (x
     (nh, b * s, dh), every row counted), where JAX dequantizes them to
     bf16 in every step (`maybe_dequantize`); the port's weights are the
-    exact INT4 values times their f16 scales.
+    exact INT4 values times their f16 scales.  The forward does the
+    same.
 
 Numerics copied from JAX: `jax.nn.softplus` is logaddexp(x, 0)
 (`softplus` here; torch's own has a threshold shortcut), `jax.nn.gelu`
@@ -68,6 +95,30 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(dt), b.to(dt))
 
 
+def _conv_taps(buf: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               s: int) -> torch.Tensor:
+    """The depthwise causal conv of s positions over buf (b, k - 1 + s,
+    c), the k - 1 inputs before them first; w: (k, c); b: (c,).  The
+    taps sum in f32 in tap order; the result, before the activation, is
+    in buf's dtype."""
+    wf = w.to(F32)
+    acc = buf[:, 0:s].to(F32) * wf[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + buf[:, i:i + s].to(F32) * wf[i]
+    return (acc + b.to(F32)).to(buf.dtype)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """JAX's `_causal_conv` of a whole sequence from a zero state: x
+    (b, s, c) -> (b, s, c) in the promoted dtype of x and w."""
+    k = w.shape[0]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    buf = torch.cat([x.new_zeros((x.shape[0], k - 1, x.shape[2]),
+                                 dtype=dt), x.to(dt)], dim=1)
+    return _conv_taps(buf, w, b, x.shape[1])
+
+
 def _conv_prefix(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor, n_new: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,17 +127,12 @@ def _conv_prefix(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     conv: (b, k - 1, c) the lane's last k - 1 inputs; x: (b, s, c) the
     chunk; w: (k, c); b: (c,).  Returns (the conv at each position,
     before the activation, (b, s, c) in the promoted dtype; the new
-    state, the k - 1 rows after each lane's n_new valid ones).  The
-    taps sum in f32 in tap order."""
+    state, the k - 1 rows after each lane's n_new valid ones)."""
     k, s = w.shape[0], x.shape[1]
     dt = torch.promote_types(torch.promote_types(conv.dtype, x.dtype),
                              w.dtype)
     buf = torch.cat([conv.to(dt), x.to(dt)], dim=1)          # (b, k-1+s, c)
-    wf = w.to(F32)
-    acc = buf[:, 0:s].to(F32) * wf[0]
-    for i in range(1, k):
-        acc = acc + buf[:, i:i + s].to(F32) * wf[i]
-    out = (acc + b.to(F32)).to(dt)
+    out = _conv_taps(buf, w, b, s)
     idx = n_new.long()[:, None] + torch.arange(k - 1, device=x.device)
     new = buf.gather(1, idx[..., None].expand(-1, -1, buf.shape[-1]))
     return out, new
@@ -123,6 +169,77 @@ def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _mamba2_in(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """in_proj of x (b, s, d) split: the gate z, the conv input xbc
+    (x, B, C), dt = softplus(dt_raw + dt_bias) (b, s, nh) f32 and
+    A = -exp(a_log) (nh,) f32."""
+    di, nh, ds = mamba2_dims(cfg)
+    proj = qmm(x, p["in_proj"])
+    dt = softplus(proj[..., 2 * di + 2 * ds:].to(F32)
+                  + p["dt_bias"].to(F32))
+    return (proj[..., :di], proj[..., di:2 * di + 2 * ds], dt,
+            -torch.exp(p["a_log"].to(F32)))
+
+
+def _mamba2_out(p: Params, cfg: ModelConfig, y: torch.Tensor,
+                z: torch.Tensor) -> torch.Tensor:
+    """The gated RMSNorm and out_proj of y (b, s, di)."""
+    return qmm(rms_norm(y * swish(z), p["norm"], cfg.norm_eps),
+               p["out_proj"])
+
+
+def mamba2_forward(p: Params, cfg: ModelConfig,
+                   x: torch.Tensor) -> torch.Tensor:
+    """JAX's chunked SSD over the full sequence from the zero state: x
+    (b, s, d) padded to a multiple of L = min(chunk, s); in each chunk
+    the intra-chunk scores (C_l . B_m) exp(cs_l - cs_m) dt_m (m <= l)
+    plus the carried state's term, then the state advanced to the
+    chunk's end.  Returns (b, s, d)."""
+    b, s_orig, _ = x.shape
+    di, nh, ds = mamba2_dims(cfg)
+    hd = cfg.ssm.head_dim
+    L = min(cfg.ssm.chunk, s_orig)
+    pad = (-s_orig) % L
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    s = s_orig + pad
+    nc = s // L
+    z, xbc, dt, A = _mamba2_in(p, cfg, x)
+    xbc = swish(causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xs = xbc[..., :di].reshape(b, nc, L, nh, hd)
+    B = xbc[..., di:di + ds].reshape(b, nc, L, ds)
+    C = xbc[..., di + ds:].reshape(b, nc, L, ds)
+    dt = dt.reshape(b, nc, L, nh)
+    cs = torch.cumsum(dt * A, dim=2)                         # (b, c, l, h)
+    causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+    state = x.new_zeros((b, nh, hd, ds), dtype=F32)
+    ys = []
+    for c in range(nc):
+        xs_i, B_i, C_i, dt_i, cs_i = xs[:, c], B[:, c], C[:, c], dt[:, c], \
+            cs[:, c]
+        cb = torch.einsum("bln,bmn->blm", C_i.to(F32), B_i.to(F32))
+        # exp of the masked segment sums only: exp(+large) above the
+        # diagonal would give 0 * inf in the backward
+        seg = (cs_i[:, :, None, :] - cs_i[:, None, :, :]).masked_fill(
+            ~causal[None, :, :, None], float("-inf"))        # (b, l, m, h)
+        w = cb[..., None] * torch.exp(seg) * dt_i[:, None, :, :]
+        y_intra = torch.einsum("blmh,bmhp->blhp", w.to(xs.dtype), xs_i)
+        y_inter = torch.einsum("bln,bhpn,blh->blhp", C_i,
+                               state.to(C_i.dtype),
+                               torch.exp(cs_i).to(C_i.dtype))
+        tot = cs_i[:, -1, :]                                  # (b, h)
+        dec_end = torch.exp(tot[:, None, :] - cs_i)           # (b, l, h)
+        contrib = torch.einsum("blh,blhp,bln->bhpn",
+                               (dec_end * dt_i).to(xs.dtype), xs_i, B_i)
+        state = state * torch.exp(tot)[:, :, None, None] + contrib.to(F32)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(b, s, nh, hd)
+    y = y + xs.reshape(b, s, nh, hd) * p["d_skip"].to(x.dtype)[None, None,
+                                                               :, None]
+    out = _mamba2_out(p, cfg, y.reshape(b, s, di), z)
+    return out[:, :s_orig] if pad else out
+
+
 def mamba2_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                       cache: State, valid: torch.Tensor,
                       n_new: torch.Tensor) -> torch.Tensor:
@@ -133,12 +250,7 @@ def mamba2_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     di, nh, ds = mamba2_dims(cfg)
     hd = cfg.ssm.head_dim
 
-    proj = qmm(x, p["in_proj"])
-    z = proj[..., :di]
-    xbc = proj[..., di:2 * di + 2 * ds]
-    dt = softplus(proj[..., 2 * di + 2 * ds:].to(F32)
-                  + p["dt_bias"].to(F32))                   # (b, s, nh)
-    A = -torch.exp(p["a_log"].to(F32))
+    z, xbc, dt, A = _mamba2_in(p, cfg, x)
     xc, conv = _conv_prefix(cache["conv"], xbc, p["conv_w"], p["conv_b"],
                             n_new)
     xc = swish(xc)
@@ -157,9 +269,7 @@ def mamba2_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y = torch.matmul(state, C[:, t, None, :, None])[..., 0]
         ys.append(y.to(x.dtype) + xs[:, t] * d_skip)
     cache["conv"].copy_(conv)
-    y = torch.stack(ys, dim=1).reshape(b, s, di)
-    y = rms_norm(y * swish(z), p["norm"], cfg.norm_eps)
-    return qmm(y, p["out_proj"])
+    return _mamba2_out(p, cfg, torch.stack(ys, dim=1).reshape(b, s, di), z)
 
 
 def mamba2_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
@@ -228,6 +338,58 @@ def mlstm_qkvif(p: Params, cfg: ModelConfig, xc: torch.Tensor):
     return q, k, v, gates[..., :nh], gates[..., nh:]
 
 
+def _mlstm_in(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """up_proj of x (b, s, d) split into the cell input x_m and the gate
+    z, and the output gate o = sigmoid(x_m @ w_o)."""
+    di = mlstm_dims(cfg)[0]
+    up = qmm(x, p["up_proj"])
+    x_m, z = up[..., :di], up[..., di:]
+    return x_m, z, torch.sigmoid(qmm(x_m, p["w_o"]))
+
+
+def _mlstm_out(p: Params, cfg: ModelConfig, h: torch.Tensor,
+               o: torch.Tensor, z: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The cell's h (b, s, nh, dh) f32 -> RMSNorm, output gate, gate z,
+    down_proj."""
+    b, s = h.shape[:2]
+    h = h.reshape(b, s, -1).to(dtype)
+    h = rms_norm(h, p["hnorm"], cfg.norm_eps) * o
+    return qmm(h * swish(z), p["down_proj"])
+
+
+def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   i_raw: torch.Tensor, f_raw: torch.Tensor) -> torch.Tensor:
+    """h (b, s, nh, dh) f32 of JAX's mLSTM recurrence over s steps from
+    C = 0, n = 0, m = -1e30, in the stabilised parallel form (module
+    docstring): q, k, v (b, s, nh, dh) f32; i_raw, f_raw (b, s, nh)
+    f32.  Saves (b, nh, s, s) scores for the backward, not a C a step."""
+    s = q.shape[1]
+    log_f = (-softplus(-f_raw)).transpose(1, 2)               # (b, nh, s)
+    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    # seg[t, j] = sum_{j < l <= t} log_f_l: column j of a cumulative sum
+    # over l of log_f_l kept where l > j
+    seg = log_f[..., :, None].expand(*log_f.shape, s).masked_fill(
+        ~causal.tril(-1), 0.0).cumsum(dim=-2)
+    D = (i_raw.transpose(1, 2)[..., None, :] + seg).masked_fill(
+        ~causal, float("-inf"))                               # (b, nh, t, j)
+    m = D.amax(dim=-1).clamp_min(-1e30)
+    S = torch.einsum("bthd,bjhd->bhtj", q, k) * torch.exp(D - m[..., None])
+    num = torch.einsum("bhtj,bjhd->bthd", S, v)
+    den = torch.maximum(S.sum(-1).abs(), torch.exp(-m))       # (b, nh, t)
+    return num / den.transpose(1, 2)[..., None]
+
+
+def mlstm_forward(p: Params, cfg: ModelConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The mLSTM block's cell over the full sequence from the zero
+    state: x (b, s, d) -> (b, s, d)."""
+    x_m, z, o = _mlstm_in(p, cfg, x)
+    xc = swish(causal_conv(x_m, p["conv_w"], p["conv_b"]))
+    h = mlstm_parallel(*mlstm_qkvif(p, cfg, xc))
+    return _mlstm_out(p, cfg, h, o, z, x.dtype)
+
+
 def mlstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: State, valid: torch.Tensor,
                      n_new: torch.Tensor) -> torch.Tensor:
@@ -236,11 +398,8 @@ def mlstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     place.  C is scaled by the forget gate and takes the rank-1 input in
     place (`mul_`, `addcmul_`), then read once for h.  Returns (b, s,
     d)."""
-    b, s, _ = x.shape
-    di, nh, dh = mlstm_dims(cfg)
-    up = qmm(x, p["up_proj"])
-    x_m, z = up[..., :di], up[..., di:]
-    o = torch.sigmoid(qmm(x_m, p["w_o"]))
+    s = x.shape[1]
+    x_m, z, o = _mlstm_in(p, cfg, x)
     xc, conv = _conv_prefix(cache["conv"], x_m, p["conv_w"], p["conv_b"],
                             n_new)
     q, k, v, i_raw, f_raw = mlstm_qkvif(p, cfg, swish(xc))
@@ -264,9 +423,7 @@ def mlstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         den = torch.maximum((n * q[:, t]).sum(-1).abs(), torch.exp(-m_new))
         hs.append(num / den[..., None])
     cache["conv"].copy_(conv)
-    h = torch.stack(hs, dim=1).reshape(b, s, di).to(x.dtype)
-    h = rms_norm(h, p["hnorm"], cfg.norm_eps) * o
-    return qmm(h * swish(z), p["down_proj"])
+    return _mlstm_out(p, cfg, torch.stack(hs, dim=1), o, z, x.dtype)
 
 
 def mlstm_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
@@ -299,46 +456,79 @@ def slstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _slstm_gx(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x @ w_gates + b_gates of every position, f32: (b, s, 4d)."""
+    return _mm(x.to(F32), p["w_gates"]) + p["b_gates"].to(F32)
+
+
+def _slstm_cell(gx_t: torch.Tensor, r: torch.Tensor, state):
+    """One sLSTM step of every lane (JAX's `_slstm_cell`): gx_t (b, 4d)
+    the input's gates, r the recurrent gates (nh, dh, 4dh) f32, state
+    (c, n, h (b, d), m (b, nh)) f32 -> the new state."""
+    c, n, h, m = state
+    b, d = c.shape
+    nh = m.shape[1]
+    dh = d // nh
+    rec = torch.matmul(h.reshape(b, nh, dh).transpose(0, 1), r)
+    g = gx_t + rec.transpose(0, 1).reshape(b, 4 * d)
+    zr, ir, fr, orr = g.split(d, dim=-1)
+    ir_h = ir.reshape(b, nh, dh).mean(-1)             # per-head scalar gates
+    fr_h = fr.reshape(b, nh, dh).mean(-1)
+    m_new = torch.maximum(fr_h + m, ir_h)
+    i_p = torch.exp(ir_h - m_new)[..., None]
+    f_p = torch.exp(fr_h + m - m_new)[..., None]
+    c_new = f_p * c.reshape(b, nh, dh) + i_p * torch.tanh(zr).reshape(
+        b, nh, dh)
+    n_new = f_p * n.reshape(b, nh, dh) + i_p
+    h_new = torch.sigmoid(orr) * (
+        c_new / torch.clamp_min(n_new, 1e-6)).reshape(b, d)
+    return c_new.reshape(b, d), n_new.reshape(b, d), h_new, m_new
+
+
+def _slstm_ffn(p: Params, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
+    """RMSNorm, then the gated GELU FFN of the cell's h (b, s, d)."""
+    y = rms_norm(y, p["gnorm"], cfg.norm_eps)
+    up = qmm(y, p["ffn_up"])
+    f_up = up.shape[-1] // 2
+    y = ACTIVATIONS["gelu"](up[..., :f_up]) * up[..., f_up:]
+    return qmm(y, p["ffn_down"])
+
+
+def slstm_forward(p: Params, cfg: ModelConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The sLSTM block's cell over the full sequence from the zero state
+    (m = -1e30): the recurrence over time, x (b, s, d) -> (b, s, d)."""
+    b, s, d = x.shape
+    nh = slstm_dims(cfg)[1]
+    gx = _slstm_gx(p, x)
+    r = p["r_gates"].to(F32)
+    zero = x.new_zeros((b, d), dtype=F32)
+    state = (zero, zero, zero, x.new_full((b, nh), -1e30, dtype=F32))
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(gx[:, t], r, state)
+        hs.append(state[2])
+    return _slstm_ffn(p, cfg, torch.stack(hs, dim=1).to(x.dtype))
+
+
 def slstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: State, valid: torch.Tensor) -> torch.Tensor:
     """Masked multi-token sLSTM step; cache {c, n, h (b, d), m (b, nh)}
     f32 is advanced in place.  x @ w_gates runs over (b, s) at once; the
     recurrent h_prev @ r_gates stays in the loop; the gated GELU FFN runs
     over (b, s).  Returns (b, s, d)."""
-    b, s, d = x.shape
-    _, nh, dh = slstm_dims(cfg)
-    gx = _mm(x.to(F32), p["w_gates"]) + p["b_gates"].to(F32)  # (b, s, 4d)
+    gx = _slstm_gx(p, x)                                     # (b, s, 4d)
     r = p["r_gates"].to(F32)
-    c, n, h, m = (cache[k] for k in ("c", "n", "h", "m"))
+    state = tuple(cache[k] for k in ("c", "n", "h", "m"))
     hs = []
-    for t in range(s):
-        rec = torch.matmul(h.reshape(b, nh, dh).transpose(0, 1), r)
-        g = gx[:, t] + rec.transpose(0, 1).reshape(b, 4 * d)
-        zr, ir, fr, orr = g.split(d, dim=-1)
-        ir_h = ir.reshape(b, nh, dh).mean(-1)         # per-head scalar gates
-        fr_h = fr.reshape(b, nh, dh).mean(-1)
-        m_new = torch.maximum(fr_h + m, ir_h)
-        i_p = torch.exp(ir_h - m_new)[..., None]
-        f_p = torch.exp(fr_h + m - m_new)[..., None]
-        c_new = f_p * c.reshape(b, nh, dh) + i_p * torch.tanh(zr).reshape(
-            b, nh, dh)
-        n_new_ = f_p * n.reshape(b, nh, dh) + i_p
-        h_new = torch.sigmoid(orr) * (
-            c_new / torch.clamp_min(n_new_, 1e-6)).reshape(b, d)
+    for t in range(x.shape[1]):
+        new = _slstm_cell(gx[:, t], r, state)
         vt = valid[:, t, None]
-        c = torch.where(vt, c_new.reshape(b, d), c)
-        n = torch.where(vt, n_new_.reshape(b, d), n)
-        h = torch.where(vt, h_new, h)
-        m = torch.where(vt, m_new, m)
-        hs.append(h_new)
-    for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
+        state = tuple(torch.where(vt, a2, a) for a, a2 in zip(state, new))
+        hs.append(new[2])
+    for key, val in zip(("c", "n", "h", "m"), state):
         cache[key].copy_(val)
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    y = rms_norm(y, p["gnorm"], cfg.norm_eps)
-    up = qmm(y, p["ffn_up"])
-    f_up = up.shape[-1] // 2
-    y = ACTIVATIONS["gelu"](up[..., :f_up]) * up[..., f_up:]
-    return qmm(y, p["ffn_down"])
+    return _slstm_ffn(p, cfg, torch.stack(hs, dim=1).to(x.dtype))
 
 
 def slstm_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:

@@ -1421,3 +1421,76 @@ def test_loss_and_grads_on_the_card_match_the_cpu(device, arch):
         if b is not None:
             assert float((a - b).abs().max()) <= \
                 1e-4 * float(b.abs().max()) + 1e-7
+
+
+# ---------------------------------------------------------------------------
+# the model's other paths: decode_step on a contiguous cache (flash_decode)
+# and the recurrent families' full-sequence forward
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma2-27b"])
+def test_decode_step_on_the_card_matches_the_cpu(device, arch):
+    """12 teacher-forced `decode_step`s of the smoke config (gemma2: past
+    its window of 8, softcaps) from the zero f32 cache, card against the
+    CPU's plain route: logits within 1e-4 of max |logit| + 1e-6, and
+    `flash_decode` launched once per attention layer per step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.common import map_specs, tree_to
+    cfg = get_smoke_config(arch).replace(dtype="float32", remat=False)
+    model = DecoderLM(cfg)
+    params = init_params(model.param_specs(),
+                         torch.Generator().manual_seed(0), "cpu",
+                         dtype_override=torch.float32)
+    tokens = torch.randint(0, cfg.vocab, (2, 12),
+                           generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev, p in (("cpu", params), (device, tree_to(params, device))):
+        cache = map_specs(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                                device=dev),
+                          model.cache_specs(2, 16, torch.float32))
+        reset_launch_counts()
+        out = []
+        with torch.no_grad():
+            for t in range(12):
+                logits, cache = model.decode_step(
+                    p, cache, {"tokens": tokens[:, t:t + 1].to(dev)},
+                    torch.tensor(t, dtype=torch.int32, device=dev))
+                out.append(logits.cpu())
+        runs[str(dev)] = (torch.cat(out, 1), launch_counts())
+    (ref, n_cpu), (got, n_card) = runs["cpu"], runs[str(device)]
+    _close(got, ref)
+    assert n_cpu["flash_decode"] == 0
+    assert n_card["flash_decode"] == 12 * cfg.n_layers
+    assert n_card["paged_flash_decode"] == 0
+
+
+def test_recurrent_forward_and_grads_on_the_card_match_the_cpu(device):
+    """The xlstm smoke config's loss (1e-5 relative) and every gradient
+    leaf (1e-4 of its max |g| plus 1e-7) at batch 2 x 24, f32: the
+    mLSTM's parallel form and the sLSTM's recurrence on the card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.common import tree_to
+    from repro_torch.train.adamw import tree_leaves
+    cfg = get_smoke_config("xlstm-1.3b").replace(dtype="float32",
+                                                  remat=False)
+    model = DecoderLM(cfg)
+    params = init_params(model.param_specs(),
+                         torch.Generator().manual_seed(0), "cpu",
+                         dtype_override=torch.float32)
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24), generator=g),
+             "labels": torch.randint(0, cfg.vocab, (2, 24), generator=g)}
+    out = {}
+    for dev, p in (("cpu", params), (device, tree_to(params, device))):
+        leaves = tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        loss = model.loss(p, {k: v.to(dev) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves)
+        out[str(dev)] = (float(loss.detach()), [x.cpu() for x in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out[str(device)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) \
+            + 1e-7

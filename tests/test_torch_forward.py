@@ -30,7 +30,7 @@ from repro.models import init_params as jax_init
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import from_numpy_tree
 from repro_torch.launch.serve import main as serve_main
-from repro_torch.models import DecoderLM
+from repro_torch.models import DecoderLM, init_params
 from repro_torch.models import attention as tattn
 from repro_torch.models import config as tconfig
 from repro_torch.serve import PagedServeEngine, ServeConfig
@@ -213,11 +213,20 @@ def test_bf16_forward_loss_and_grads_match_jax():
 # ----------------------------------------------------------------------------
 @pytest.mark.parametrize("arch_id", sorted(ARCH_IDS))
 def test_full_configs_count_jax_params(arch_id):
+    """And the recurrent families' forward runs (their smoke configs:
+    finite logits of the expected shape)."""
     tm = DecoderLM(get_config(arch_id))
     assert tm.n_params() == JaxLM(jax_get_config(arch_id)).n_params()
     if arch_id in RECURRENT:
-        with pytest.raises(NotImplementedError, match="forward"):
-            tm.forward({}, {"tokens": torch.zeros(1, 1, dtype=torch.long)})
+        sm = DecoderLM(get_smoke_config(arch_id).replace(dtype="float32"))
+        params = init_params(sm.param_specs(),
+                             torch.Generator().manual_seed(0), "cpu",
+                             dtype_override=torch.float32)
+        with torch.no_grad():
+            logits = sm.forward(params, {"tokens": torch.zeros(
+                1, 3, dtype=torch.long)})
+        assert logits.shape == (1, 3, sm.cfg.vocab)
+        assert torch.isfinite(logits).all()
 
 
 # ----------------------------------------------------------------------------

@@ -270,11 +270,11 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
 
 
 def test_features_outside_the_slice_raise():
-    """Tensor parallelism, a recurrent family without its SSMConfig, a
-    norm the port does not have, and the recurrent families' full
-    sequence forward.  (LayerNorm and frontend-stub embeddings are
-    ported for training; the engine refuses the latter,
-    tests/test_torch_forward.py.)"""
+    """Tensor parallelism, a recurrent family without its SSMConfig and
+    a norm the port does not have raise.  (LayerNorm and frontend-stub
+    embeddings are ported for training; the engine refuses the latter,
+    tests/test_torch_forward.py.  The recurrent families' full-sequence
+    forward is ported: it runs.)"""
     with pytest.raises(NotImplementedError):
         ServeConfig(tp=2)
     with pytest.raises(NotImplementedError):
@@ -283,9 +283,15 @@ def test_features_outside_the_slice_raise():
         DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="group")))
     DecoderLM(ModelConfig(**dict(SMOKE, norm_kind="layer")))
     from repro_torch.configs import get_smoke_config
-    with pytest.raises(NotImplementedError):
-        DecoderLM(get_smoke_config("xlstm-1.3b")).forward(
-            {}, {"tokens": torch.zeros(1, 2, dtype=torch.long)})
+    from repro_torch.models import init_params
+    xm = DecoderLM(get_smoke_config("xlstm-1.3b"))
+    params = init_params(xm.param_specs(), torch.Generator().manual_seed(0),
+                         "cpu")
+    with torch.no_grad():
+        logits = xm.forward(params, {"tokens": torch.zeros(
+            1, 2, dtype=torch.long)})
+    assert logits.shape == (1, 2, xm.cfg.vocab)
+    assert torch.isfinite(logits).all()
 
 
 def test_launcher_smoke_on_cpu():
