@@ -232,9 +232,30 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      xlstm-1.3b at full width and depth on INT4: 16 `decode_step`s from
      the zero state (8 prompt tokens, then greedy), the tokens equal to
      the engine's `serve_step` stream, 265 cim_gemv a step.
- 16. summary: a `{"kernels": [...]}` line (flash_decode's launches from
+ 16. tensor-parallel serving: two ranks (processes spawned on a gloo
+     group over loopback, both on the one card) each build qwen2.5-3b
+     from phase 3's seed, INT4 (a sha256 of the unsharded packed weights
+     must equal phase 3's), keep their half (`dist.shard`: 8 / 1 heads,
+     d_ff 5504, 75968 vocab rows; INT8 pools of one kv head) and serve
+     at tp = 2, eagerly: phase 3's first wave, whose greedy streams must
+     equal phase 3's eager ones, and an n-gram run (k = 4) on phase 4's
+     prompts, equal to phase 4's (a divergence only at a near-tie of the
+     tp = 2 logits, logged); both ranks' streams equal.  Each rank's
+     launches must be exactly 181 cim_gemv, 36 swiglu_qgemv and 36
+     paged_flash_decode a decode step (36 paged_flash_verify a verify
+     step), and its collectives 74 a step call (73 all-reduces, 1
+     gather).  Each rank holds cim_gemv (wq / wk / wv / wo, w_down in
+     groups of 86, the 75968-row table, M = 1, 4, 20), swiglu_qgemv
+     (2048 -> 5504) and both paged kernels (g 1, qpk 8) at its shapes
+     against their plain versions, every call twice (bitwise equal).
+     Logged: one rank's decode step kernels as CUDA-graph replays
+     beside their bytes bound, the decode step wall median at tp = 2
+     beside phase 3's eager tp = 1, the collectives' share of a step,
+     each rank's peak memory.
+ 17. summary: a `{"kernels": [...]}` line (flash_decode's launches from
      phase 15b's contiguous decode, and its ms, plain_ms, library_ms and
-     bound_ms at that path's shape), the card line, and last
+     bound_ms at that path's shape; the tensor-parallel paths' launches
+     under `launches_by_path`), the card line, and last
      `{"ok": true, "device": {...}}`.
 
 Imports nothing of the JAX package.  Needs the repository's src/ next to
@@ -1205,6 +1226,8 @@ def phase_full_model(model, params, device, card):
 
     graph, eager = serve(False), serve(True)
     eng = graph["eng"]
+    TP_REF.update(wave=waves[0], eager_decode_ms=eager["decode_ms"],
+                  wave_streams=[r.out_tokens for r in eager["reqs"][:4]])
 
     # the EdgeCIM cost model's reading of wave 2, beside what the card did
     sim = graph["sims"][1]
@@ -1441,14 +1464,16 @@ def device_split(label, step, steps: int = 3) -> None:
                     for nm, (_, v) in zip(names, parts)))
 
 
-def fresh_state(model, b: int, n_pages: int, ps: int, device):
+def fresh_state(model, b: int, n_pages: int, ps: int, device, tp: int = 1):
     """A step's decode state on `device`, zeroed: the paged pools (INT8,
     or MLA's bf16 latent pools) and, for a recurrent family, the arena's
-    leaves for b lanes, in one dict as the engine hands them over."""
+    leaves for b lanes, in one dict as the engine hands them over; at
+    one of `tp` ranks' shapes."""
     import torch
+    from repro_torch.dist.shard import shard_specs
     from repro_torch.models.common import map_specs
     kv = torch.bfloat16 if model.cfg.attn_kind == "mla" else torch.int8
-    specs = model.decode_state_specs(b, n_pages, ps, kv)
+    specs = shard_specs(model.decode_state_specs(b, n_pages, ps, kv), tp)
     state = {}
     for half in ("paged", "arena"):
         state.update(map_specs(lambda s: torch.zeros(
@@ -1456,15 +1481,16 @@ def fresh_state(model, b: int, n_pages: int, ps: int, device):
     return state
 
 
-def top2_gap(model, params, device, tokens):
+def top2_gap(model, params, device, tokens, step=None, tp: int = 1):
     """(gap between the two largest logits after `tokens`, the logit
-    tolerance): one prefill chunk through `serve_step` on a fresh pool
-    (and arena)."""
+    tolerance): one prefill chunk through `serve_step` (or `step`: a
+    tensor-parallel engine's, which every rank calls in lockstep) on a
+    fresh pool (and arena) at one of `tp` ranks' shapes."""
     import torch
     n, ps = len(tokens), 16
     pages = -(-n // ps)
-    cache = fresh_state(model, 1, pages, ps, device)
-    logits, _ = model.serve_step(
+    cache = fresh_state(model, 1, pages, ps, device, tp)
+    logits, _ = (step or model.serve_step)(
         params, cache, {"tokens": torch.tensor(tokens[None], device=device)},
         torch.arange(pages, dtype=torch.int32, device=device)[None],
         torch.zeros(1, dtype=torch.int32, device=device),
@@ -1475,12 +1501,14 @@ def top2_gap(model, params, device, tokens):
             LOGIT_TOL * max(1.0, float(row.abs().max())))
 
 
-def check_identity(label, base, spec, model, params, device) -> int:
+def check_identity(label, base, spec, model, params, device, step=None,
+                   tp: int = 1) -> int:
     """Greedy streams of two runs (with and without speculation, or
     eager and as CUDA graphs) must be equal.  The one exception: a first
-    divergence at a step whose top-two target logits lie within the
-    logit tolerance (the two paths sum in another order), which is
-    logged.  Returns the number of such requests."""
+    divergence at a step whose top-two target logits (`top2_gap`, with
+    `step` and `tp`) lie within the logit tolerance (the two paths sum
+    in another order), which is logged.  Returns the number of such
+    requests."""
     import numpy as np
     near_ties = 0
     for rb, rs in zip(base, spec):
@@ -1491,7 +1519,7 @@ def check_identity(label, base, spec, model, params, device) -> int:
                      f"more than the {len(a)} compared")
             t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
             gap, tol = top2_gap(model, params, device, np.concatenate(
-                [rb.prompt, np.asarray(a[:t], np.int32)]))
+                [rb.prompt, np.asarray(a[:t], np.int32)]), step, tp)
             log(f"{label}: request {rs.rid} diverges at token {t} "
                 f"({a[t]} vs {b[t]}); target top-2 gap {gap:.3e}, logit "
                 f"tol {tol:.3e}")
@@ -1688,6 +1716,8 @@ def phase_spec(model, params, device):
                          e_run_s)
     check_identity("graphs vs eager (spec ngram)", e_reqs, reqs, model,
                    params, device)
+    TP_REF.update(ngram_prompts=prompts,
+                  ngram_streams=[r.out_tokens for r in e_reqs])
     ngram["graphs_vs_eager"] = graphs_vs_eager("spec ngram k=4", ngram,
                                                ngram_eager, replay_ms)
     # the host split from a run of its own, so the statistics above stay
@@ -4779,6 +4809,362 @@ def phase_other_paths(device, card, checks: Checks, timings) -> tuple:
     return by_path, result
 
 
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: qwen2.5-3b at tp = 2, two ranks sharing the card
+# ---------------------------------------------------------------------------
+TP = 2
+TP_REF = {}       # what phase 16 is held to: phase 3's and 4's streams,
+                  # the weights' digest, phase 3's eager decode step median
+
+
+def weights_digest(params) -> str:
+    """sha256 over every leaf of a param tree in key order: its name, and
+    its bytes (a QTensor's packed data, then its scales)."""
+    import hashlib
+    import torch
+    from repro_torch.quant.qarray import QTensor
+    h = hashlib.sha256()
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{name}/{k}")
+            return
+        h.update(name.encode())
+        parts = [tree.data, tree.scales] if isinstance(tree, QTensor) \
+            else [tree]
+        for t in parts:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    walk(params, "")
+    return h.hexdigest()
+
+
+def tp_serve(eng, prompts, n_new):
+    """Serve `prompts` to the end, eagerly, synchronizing every step:
+    (requests, [(decode step wall ms, its collectives' host ms)])."""
+    import torch
+    from repro_torch.dist import collective_seconds
+    from repro_torch.serve import ServeRequest
+    reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=n_new, rid=i)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    while eng.busy:
+        pre = eng.prefill_calls
+        c0 = sum(collective_seconds().values())
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        if eng.prefill_calls == pre:
+            steps.append(((time.perf_counter() - t0) * 1e3,
+                          (sum(collective_seconds().values()) - c0) * 1e3))
+    return reqs, steps
+
+
+def tp_kernel_checks(eng, device, rank):
+    """Each kernel at this rank's shapes against its plain version,
+    every call twice (bitwise equal), phase 2's tolerances."""
+    import torch
+    from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
+    from repro_torch.kernels.paged_flash_decode import (paged_decode_plain,
+                                                        paged_flash_decode,
+                                                        paged_flash_verify,
+                                                        paged_verify_plain)
+    from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
+    checks = Checks()
+    cfg = eng.model.cfg
+    gen = torch.Generator(device=device).manual_seed(16 + rank)
+    attn, ffn = eng.params["blocks"]["attn"], eng.params["blocks"]["ffn"]
+    ws = {"wq": attn["wq"][0], "wk": attn["wk"][0], "wv": attn["wv"][0],
+          "wo": attn["wo"][0], "w_down": ffn["w_down"][0],
+          "table": eng.params["embed"]}
+    shapes = {}
+    for m in (1, 4, 20):
+        for name, w in ws.items():
+            k = w.orig_shape[1] if w.axis == -1 else w.orig_shape[0]
+            n = w.data.shape[0] if w.axis == -1 else w.data.shape[1]
+            shapes[name] = (k, n, w.group)
+            x = torch.randn(m, k, generator=gen, device=device)
+            label = f"rank {rank} {name} {k}->{n} g{w.group} M={m}"
+            out = cim_gemv(x, w)
+            checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+            checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+        wg, wu = ffn["w_gate"][0], ffn["w_up"][0]
+        x = torch.randn(m, cfg.d_model, generator=gen, device=device)
+        label = (f"rank {rank} gate/up {cfg.d_model}->{wg.data.shape[1]} "
+                 f"M={m}")
+        out = swiglu_qgemv(x, wg, wu)
+        checks.compare("swiglu_qgemv", label, out, swiglu_plain(x, wg, wu))
+        checks.repeat("swiglu_qgemv", label, out, swiglu_qgemv(x, wg, wu))
+    b, g, qpk, hd = 4, cfg.n_kv_heads // TP, cfg.q_per_kv(), cfg.hd()
+    kp, vp, ks, vs, tables = int8_pools(gen, device, b, 64, g, hd)
+    lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
+                           device=device)
+    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+    args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+    label = f"rank {rank} int8 g={g} qpk={qpk} hd={hd} len<=1024"
+    out = paged_flash_decode(*args)
+    checks.compare("paged_flash_decode", label, out,
+                   paged_decode_plain(*args))
+    checks.repeat("paged_flash_decode", label, out, paged_flash_decode(*args))
+    qv = torch.randn(b, 5, g, qpk, hd, generator=gen, device=device)
+    args = (qv, kp, vp, tables, lengths - 5, 0, 0.0, ks, vs)
+    label = f"rank {rank} int8 s=5 g={g} qpk={qpk} hd={hd}"
+    out = paged_flash_verify(*args)
+    checks.compare("paged_flash_verify", label, out,
+                   paged_verify_plain(*args))
+    checks.repeat("paged_flash_verify", label, out, paged_flash_verify(*args))
+    return {k: {"max_abs_err": e, "tol": t, "worst_case": lab}
+            for k, (e, t, lab) in checks.worst.items()}, shapes
+
+
+def tp_step_timing(eng, device):
+    """One rank's decode step's kernel calls (batch 4: 181 cim_gemv, 36
+    swiglu_qgemv, 36 paged_flash_decode at the rank's shapes, INT8 pools
+    of 1024 / 777 / 301 / 45 keys), timed as in phase 2 (CUDA-graph
+    replays of the calls alone), beside their bytes bound."""
+    import torch
+    from repro_torch.kernels.cim_gemv import cim_gemv
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.kernels.swiglu_gemv import swiglu_qgemv
+    cfg = eng.model.cfg
+    L, d, M = cfg.n_layers, cfg.d_model, 4
+    gen = torch.Generator(device=device).manual_seed(160)
+    attn, ffn = eng.params["blocks"]["attn"], eng.params["blocks"]["ffn"]
+    table = eng.params["embed"]
+    layers = [{k: attn[k][i] for k in ("wq", "wk", "wv", "wo")}
+              | {k: ffn[k][i] for k in ("w_gate", "w_up", "w_down")}
+              for i in range(L)]
+    H, F = layers[0]["wo"].orig_shape[0], layers[0]["w_down"].orig_shape[0]
+    x = torch.randn(M, d, generator=gen, device=device)
+    xo = torch.randn(M, H, generator=gen, device=device)
+    xd = torch.randn(M, F, generator=gen, device=device)
+    b, g, qpk, hd = M, cfg.n_kv_heads // TP, cfg.q_per_kv(), cfg.hd()
+    pools = [int8_pools(gen, device, b, 64, g, hd) for _ in range(L)]
+    lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
+                           device=device)
+    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+
+    def cim_calls():
+        for lw in layers:
+            for k in ("wq", "wk", "wv"):
+                cim_gemv(x, lw[k])
+            cim_gemv(xo, lw["wo"])
+            cim_gemv(xd, lw["w_down"])
+        cim_gemv(x, table)
+
+    def sw_calls():
+        for lw in layers:
+            swiglu_qgemv(x, lw["w_gate"], lw["w_up"])
+
+    def pd_calls():
+        for kp, vp, ks, vs, tables in pools:
+            paged_flash_decode(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+
+    keys = int(lengths.sum())
+    cim_w = sum(lw[k].nbytes_packed() for lw in layers
+                for k in ("wq", "wk", "wv", "wo", "w_down")) \
+        + table.nbytes_packed()
+    cim_io = 4 * M * (L * (3 * d + H + F) + d + sum(
+        lw[k].data.shape[1] for lw in layers
+        for k in ("wq", "wk", "wv", "wo", "w_down")) + table.data.shape[0])
+    sw_b = sum(lw["w_gate"].nbytes_packed() + lw["w_up"].nbytes_packed()
+               for lw in layers) + L * 4 * M * (d + F)
+    pd_b = L * (keys * g * (2 * hd + 2 * 2) + 2 * q.numel() * 4
+                + b * 65 * 4)
+    out = {}
+    for name, fn, nbytes in (("cim_gemv", cim_calls, cim_w + cim_io),
+                             ("swiglu_qgemv", sw_calls, sw_b),
+                             ("paged_flash_decode", pd_calls, pd_b)):
+        ms = graph_time_ms(fn)
+        b_ms, _ = bound(nbytes, 0.0)
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bytes": nbytes}
+    total_b = cim_w + cim_io + sw_b + pd_b
+
+    def all_calls():
+        cim_calls()
+        sw_calls()
+        pd_calls()
+    ms = graph_time_ms(all_calls)
+    out["step"] = {"ms": ms, "bound_ms": bound(total_b, 0.0)[0],
+                   "bytes": total_b}
+    return out
+
+
+def tp_rank(rank, ref, init, out_dir):
+    """One rank of phase 16 (spawned): qwen2.5-3b from phase 3's seed,
+    its shard served at tp = 2 on a gloo group over loopback."""
+    import datetime
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=TP,
+                            timeout=datetime.timedelta(seconds=300))
+    from repro_torch.dist import (collective_counts, collective_seconds,
+                                  reset_collective_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+    from repro_torch.spec import SpecConfig
+
+    tag = f"phase 16 rank {rank}"
+    t0 = time.perf_counter()
+    model, params = build_full_model(device)
+    digest = weights_digest(params)
+    same = digest == ref["digest"]
+    log(f"{tag}: qwen2.5-3b INT4 drawn in {time.perf_counter() - t0:.1f} s; "
+        f"unsharded weights sha256 {digest[:16]}..., phase 3's "
+        f"{ref['digest'][:16]}... ({'equal' if same else 'DIFFERENT'})")
+    if not same:
+        fail(f"{tag}: the unsharded weights differ from phase 3's")
+    cfg = model.cfg
+    serve_cfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                            max_seq=128, page_size=16, prefill_chunk=16,
+                            tp=TP)
+    eng = PagedServeEngine(model, params, serve_cfg, device=device)
+    spec_eng = PagedServeEngine(model, params, serve_cfg, device=device,
+                                spec=SpecConfig(k=4))
+    del params
+    torch.cuda.empty_cache()
+    if eng.runner.graphs or spec_eng.runner.graphs:
+        fail(f"{tag}: steps captured as CUDA graphs at tp = {TP}")
+    pools = eng.cache.pools["attn"]
+    wq = eng.params["blocks"]["attn"]["wq"]
+    log(f"{tag}: shard wq {tuple(wq.orig_shape)}, w_down "
+        f"{tuple(eng.params['blocks']['ffn']['w_down'].orig_shape)} g"
+        f"{eng.params['blocks']['ffn']['w_down'].group}, table "
+        f"{tuple(eng.params['embed'].orig_shape)}, pools "
+        f"{tuple(pools['k'].shape)} {pools['k'].dtype}; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    if pools["k"].shape[-2] != cfg.n_kv_heads // TP:
+        fail(f"{tag}: pools hold {pools['k'].shape[-2]} kv heads")
+
+    per_step = step_launches(cfg, 1)
+    if (per_step["cim_gemv"], per_step["swiglu_qgemv"],
+            per_step["paged_flash_decode"]) != (181, 36, 36):
+        fail(f"{tag}: a decode step's launches {per_step}")
+    per_call = {"all_reduce": 2 * cfg.n_layers + 1, "all_gather": 1}
+    res = {"rank": rank}
+    for label, e, prompts, n_new, want in (
+            ("wave", eng, ref["wave"], 16, ref["wave_streams"]),
+            ("ngram", spec_eng, ref["ngram_prompts"], 32,
+             ref["ngram_streams"])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_collective_counts()
+        t_run = time.perf_counter()
+        reqs, steps = tp_serve(e, prompts, n_new)
+        run_s = time.perf_counter() - t_run
+        counts, coll = launch_counts(), collective_counts()
+        calls = e.prefill_calls + e.decode_calls + e.verify_calls
+        expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
+                                   e.verify_calls)
+        want_coll = {k: v * calls for k, v in per_call.items()}
+        log(f"{tag} {label}: {e.prefill_calls} prefill + {e.decode_calls} "
+            f"decode + {e.verify_calls} verify calls in {run_s:.2f} s; "
+            f"launches {counts}, expected {expect}; collectives {coll}, "
+            f"expected {want_coll}")
+        if counts != expect:
+            fail(f"{tag} {label}: launches {counts} != {expect}")
+        if coll != want_coll:
+            fail(f"{tag} {label}: collectives {coll} != {want_coll}")
+        if label == "ngram" and e.verify_calls <= 0:
+            fail(f"{tag}: the n-gram run made no verify call")
+        got = [r.out_tokens for r in reqs]
+        if any(len(t) != n_new for t in got):
+            fail(f"{tag} {label}: generated {[len(t) for t in got]} "
+                 f"tokens, expected {n_new} each")
+        ref_reqs = [SimpleNamespace(prompt=p, out_tokens=w, rid=i)
+                    for i, (p, w) in enumerate(zip(prompts, want))]
+        near = check_identity(f"{tag} {label} vs phase "
+                              f"{3 if label == 'wave' else 4}", ref_reqs,
+                              reqs, model, e.params, device, e._serve_fn,
+                              TP)
+        wall = [ms for ms, _ in steps]
+        res[label] = {
+            "streams": got, "near_ties": near, "launches": counts,
+            "collectives": coll, "calls": calls,
+            "collectives_per_call": {k: v // calls for k, v in coll.items()},
+            "collective_s": collective_seconds(),
+            "step_ms_median": float(np.median(wall)),
+            "step_collective_ms_median": float(np.median(
+                [c for _, c in steps])),
+            "collective_share": sum(c for _, c in steps) / sum(wall),
+            "steps": len(steps), "run_s": run_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "summary_tp": e.summary()["tp"],
+            "step_graphs": e.summary()["step_graphs"]}
+    res["kernel_checks"], res["shapes"] = tp_kernel_checks(eng, device, rank)
+    dist.barrier()
+    if rank == 0:                     # rank 1 waits: the card is rank 0's
+        res["timing"] = tp_step_timing(eng, device)
+    dist.barrier()
+    res["resident_gb"] = torch.cuda.memory_allocated() / 1e9
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_tp(card):
+    """Phase 16: spawn two ranks (gloo over loopback, both on cuda:0),
+    each serving qwen2.5-3b's shard at tp = 2; hold them to phase 3 and
+    4 and to each other."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "tp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(tp_rank, args=(TP_REF, f"tcp://127.0.0.1:{port}",
+                                      str(out_dir)),
+                       nprocs=TP, join=True, start_method="spawn")
+    phase_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(TP)]
+    for label in ("wave", "ngram"):
+        if ranks[0][label]["streams"] != ranks[1][label]["streams"]:
+            fail(f"phase 16 {label}: the ranks' streams differ")
+        if ranks[0][label]["launches"] != ranks[1][label]["launches"]:
+            fail(f"phase 16 {label}: the ranks' launches differ")
+    w, t = ranks[0]["wave"], ranks[0]["timing"]
+    log(f"phase 16 (tp = {TP}, two ranks on one card, {card}): decode step "
+        f"wall median {w['step_ms_median']:.2f} ms (rank 0; rank 1 "
+        f"{ranks[1]['wave']['step_ms_median']:.2f} ms) against phase 3's "
+        f"eager tp = 1 {TP_REF['eager_decode_ms']:.2f} ms; collectives "
+        f"{w['collectives_per_call']} a step, "
+        f"{w['step_collective_ms_median']:.2f} ms of a step (median), "
+        f"{100 * w['collective_share']:.1f} % of decode step wall; peak "
+        f"memory {[round(r['wave']['peak_gb'], 3) for r in ranks]} GB a "
+        f"rank; one rank's decode step kernels (graph replay): "
+        + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms)"
+                    for k, v in t.items())
+        + f"; phase {phase_s:.1f} s")
+    result = {"phase_s": phase_s, "card": card,
+              "eager_tp1_decode_step_ms_median": TP_REF["eager_decode_ms"],
+              "ranks": [{k: v for k, v in r.items()
+                         if k not in ("wave", "ngram")}
+                        | {lab: {k: v for k, v in r[lab].items()
+                                 if k != "streams"}
+                           for lab in ("wave", "ngram")} for r in ranks]}
+    return ranks[0]["wave"]["launches"], ranks[0]["ngram"]["launches"], \
+        result
+
+
 def main() -> None:
     import dataclasses
 
@@ -4827,6 +5213,7 @@ def main() -> None:
     log(f"qwen2.5-3b INT4 weights drawn and packed on the card in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    TP_REF["digest"] = weights_digest(params)
 
     checks = Checks()
     timings = phase_kernels(model, params, device, checks)
@@ -4894,6 +5281,8 @@ def main() -> None:
     train_result = phase_training(device, card)
     paths, other_result = phase_other_paths(device, card, checks, timings)
     by_path.update(paths)
+    by_path["tp2_decode"], by_path["tp2_spec_ngram"], tp_result = \
+        phase_tp(card)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -4935,6 +5324,7 @@ def main() -> None:
     log("gateway summary " + json.dumps(gateway_result))
     log("training summary " + json.dumps(train_result))
     log("other paths summary " + json.dumps(other_result))
+    log("tp summary " + json.dumps(tp_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

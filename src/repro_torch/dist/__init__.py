@@ -1,8 +1,19 @@
-"""Distribution substrate of the port: so far the inter-pod gradient
-compression (`compress`); the mesh rules and sharding helpers come with
-tensor parallelism."""
+"""Distribution substrate of the port: logical-axis mesh rules
+(`axes`), tensor-parallel sharding and collectives on torch.distributed
+(`shard`), and inter-pod gradient compression (`compress`)."""
+from .axes import (MULTI_POD_RULES, SERVE_RULES, SINGLE_POD_RULES,
+                   MeshRules, rules_for_mesh, sanitize_pspec)
 from .compress import (compress_decompress_roundtrip, compress_with_feedback,
                        init_error_state)
+from .shard import (collective_counts, collective_seconds, leaf_pspec,
+                    reset_collective_counts,
+                    serve_group, shard_specs, shard_tree, tp_all_gather,
+                    tp_all_reduce, use_tp)
 
-__all__ = ["compress_decompress_roundtrip", "compress_with_feedback",
-           "init_error_state"]
+__all__ = ["MeshRules", "MULTI_POD_RULES", "SERVE_RULES", "SINGLE_POD_RULES",
+           "rules_for_mesh", "sanitize_pspec",
+           "compress_decompress_roundtrip", "compress_with_feedback",
+           "init_error_state",
+           "collective_counts", "collective_seconds", "leaf_pspec",
+           "reset_collective_counts", "serve_group", "shard_specs", "shard_tree", "tp_all_gather",
+           "tp_all_reduce", "use_tp"]

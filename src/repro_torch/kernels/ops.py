@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.dist.shard import tp_all_gather, tp_all_reduce
 from repro_torch.quant.qarray import QTensor
 
 from . import launches
@@ -68,6 +69,24 @@ def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     out = cim_gemv(x.reshape(-1, x.shape[-1]).contiguous(), w)
     n = w.data.shape[0] if w.axis == -1 else w.data.shape[-1]
     return out.reshape(*lead, n).to(x.dtype)
+
+
+def row_parallel(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x @ W for a row-parallel weight (attention's `wo`, the FFN's
+    `w_down`) under tensor parallelism (`dist.shard.use_tp`): the rank's
+    rows of W times its columns of x, summed over the ranks in f32 (the
+    packed route's `cim_gemv` output) before the cast to x's dtype.  A W
+    the sharding rule left whole (its group count does not divide by the
+    ranks) takes the ranks' x gathered and sums nothing.  Outside
+    `use_tp` this is `qmatmul`."""
+    if w.shape[-2] != x.shape[-1]:
+        x = tp_all_gather(x, -1)
+        return qmatmul(x, w)
+    if not isinstance(w, QTensor):
+        return tp_all_reduce(torch.matmul(x, w.to(x.dtype)))
+    lead = x.shape[:-1]
+    out = tp_all_reduce(cim_gemv(x.reshape(-1, x.shape[-1]).contiguous(), w))
+    return out.reshape(*lead, w.data.shape[-1]).to(x.dtype)
 
 
 def expert_qmatmul(x: torch.Tensor, w: Any, counts: torch.Tensor

@@ -24,6 +24,8 @@
   python -m repro_torch.launch.serve --arch zamba2-7b --layers 27   # card
   python -m repro_torch.launch.serve --gateway --replicas 2 \
       --policy prefix --port 8151          # HTTP/SSE gateway, 2 replicas
+  python -m repro_torch.launch.serve --tp 2      # 2 tensor-parallel ranks
+  python -m repro_torch.launch.serve --smoke --device cpu --tp 2
 
 Recurrent and hybrid families (xlstm, zamba) keep per-lane state in the
 engine's StateArena: `--spec` on them is a capability error, and
@@ -38,6 +40,15 @@ until Ctrl-C, over `--replicas` engines behind a `FleetRouter`
 The replicas share one card and one copy of the packed weights; each
 has its own KV pool, CUDA graphs, stream and driver thread.
 
+`--tp N` serves one engine over N tensor-parallel ranks: the launcher
+spawns N processes (torch.multiprocessing, start method "spawn") on a
+gloo group over loopback, each draws the same weights from `--seed` and
+keeps its slice of the heads, the FFN width and the vocab
+(`repro_torch.dist.shard`), and rank 0 prints the results.  On the card
+the ranks share the cards there are (rank r on card r mod count: two
+ranks on one card with one card), and the steps run eagerly.  The paged
+GQA families only; `--tp` with `--gateway` is not in the port yet.
+
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
 weights at once).  Runs on CUDA unless `--device cpu` is given; with no
@@ -47,6 +58,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
+import sys
 import time
 from collections import Counter
 
@@ -212,6 +226,12 @@ def main(argv=None):
                     help="data-parallel engine replicas behind the "
                          "gateway (same model, one card, shared "
                          "weights; --gateway mode only)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel devices per engine (shards "
+                         "heads/FFN/vocab over a ('model',) mesh; "
+                         "composes with --replicas as replicas x tp; "
+                         "the port spawns one process per rank on a "
+                         "gloo group)")
     ap.add_argument("--policy", default="least-loaded",
                     choices=["rr", "least-loaded", "prefix"],
                     help="fleet dispatch policy: rr cycles replicas, "
@@ -253,10 +273,59 @@ def main(argv=None):
     if args.slo is not None and not args.gateway:
         raise SystemExit("--slo requires --gateway (burn-rate alerting "
                          "evaluates the live serving loop)")
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp}: need at least 1")
+    if args.tp > 1 and args.gateway:
+        raise NotImplementedError(
+            "--gateway with --tp > 1 is not in the PyTorch port yet: the "
+            "gateway drives one engine per replica thread, not a group of "
+            "rank processes")
+    if args.tp > 1:
+        spawn_ranks(args, precision)
+        return None, []
+    return serve(args, precision)
 
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(args, precision: str) -> None:
+    """Run `serve` in `args.tp` rank processes on a gloo group over
+    loopback; a rank that fails fails the launch."""
+    import torch.multiprocessing as mp
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    mp.start_processes(_rank_main, args=(args, precision, init),
+                       nprocs=args.tp, join=True, start_method="spawn")
+
+
+def _rank_main(rank: int, args, precision: str, init: str) -> None:
+    import torch
+    import torch.distributed as dist
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tp))
+    elif torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=args.tp)
+    try:
+        if rank:                        # rank 0 prints the results
+            sys.stdout = open(os.devnull, "w")
+        serve(args, precision)
+    finally:
+        dist.destroy_process_group()
+
+
+def serve(args, precision: str):
+    """Build the model and the engine (one rank's, under --tp), serve
+    the offline request sweep or the gateway, and print the results."""
     if args.trace:
         from repro_torch.obs import get_tracer
         get_tracer().enable()
+
+    import torch
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, get_smoke_config
@@ -264,6 +333,8 @@ def main(argv=None):
                                    ServeConfig, ServeRequest)
 
     device = resolve_device(args.device)
+    if args.tp > 1 and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = (get_smoke_config(args.arch) if args.smoke
            else get_config(args.arch)).replace(dtype="float32", remat=False)
     if args.layers:
@@ -287,7 +358,7 @@ def main(argv=None):
         max_batch=args.batch, max_seq=args.max_seq,
         page_size=args.page_size, n_pages=args.pages or None,
         prefix_cache=prefix_cache, seed=args.seed, replicas=args.replicas,
-        policy=args.policy, max_pending=args.max_pending)
+        policy=args.policy, max_pending=args.max_pending, tp=args.tp)
     spec_cfg = None
     if args.spec != "off":
         from repro_torch.spec import SpecConfig
@@ -311,9 +382,11 @@ def main(argv=None):
                          sampling=sampling) for i, p in enumerate(prompts)]
     eng.run(reqs)
     m = eng.summary()
+    tp_txt = (f", tp {args.tp} ({args.tp} ranks over gloo, steps eager)"
+              if args.tp > 1 else "")
     print(f"[serve] {cfg.name} x{cfg.n_layers} layers, {precision} "
           f"weights, kv {eng.config.as_dict()['kv_dtype_resolved']}, "
-          f"setup {setup_s:.1f} s")
+          f"setup {setup_s:.1f} s{tp_txt}")
     print(f"[serve] {int(m['tokens'])} tokens, "
           f"{eng.throughput():.1f} tok/s decode, "
           f"ttft p50 {m['ttft_p50_s'] * 1e3:.1f} ms, "
@@ -337,6 +410,7 @@ def main(argv=None):
         names = Counter(e["name"] for e in eng.tracer.events())
         print(f"[serve] trace: {sum(names.values())} events "
               + json.dumps(dict(sorted(names.items()))))
+    print("[serve] streams " + json.dumps([r.out_tokens for r in reqs]))
     return eng, reqs
 
 

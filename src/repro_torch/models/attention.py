@@ -45,11 +45,12 @@ import torch
 
 from repro_torch.kernels.ops import (decode_attention,
                                      paged_decode_attention,
-                                     paged_verify_attention)
+                                     paged_verify_attention, row_parallel)
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import maybe_dequantize as deq
 
-from .common import ParamSpec, apply_rope, rms_norm, rope_tables, softcap
+from .common import (BATCH, FSDP, KV_SEQ, NONE, TP, ParamSpec, apply_rope,
+                     rms_norm, rope_tables, softcap)
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -61,18 +62,20 @@ NEG_INF = -1.0e30
 def gqa_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, hd = cfg.d_model, cfg.hd()
     sp: Dict[str, ParamSpec] = {
-        "wq": ParamSpec((d, cfg.n_heads * hd)),
-        "wk": ParamSpec((d, cfg.n_kv_heads * hd)),
-        "wv": ParamSpec((d, cfg.n_kv_heads * hd)),
-        "wo": ParamSpec((cfg.n_heads * hd, d)),
+        "wq": ParamSpec((d, cfg.n_heads * hd), axes=(FSDP, TP)),
+        "wk": ParamSpec((d, cfg.n_kv_heads * hd), axes=(FSDP, TP)),
+        "wv": ParamSpec((d, cfg.n_kv_heads * hd), axes=(FSDP, TP)),
+        "wo": ParamSpec((cfg.n_heads * hd, d), axes=(TP, FSDP)),
     }
     if cfg.qkv_bias:
-        sp["bq"] = ParamSpec((cfg.n_heads * hd,), init="zeros")
-        sp["bk"] = ParamSpec((cfg.n_kv_heads * hd,), init="zeros")
-        sp["bv"] = ParamSpec((cfg.n_kv_heads * hd,), init="zeros")
+        sp["bq"] = ParamSpec((cfg.n_heads * hd,), axes=(TP,), init="zeros")
+        sp["bk"] = ParamSpec((cfg.n_kv_heads * hd,), axes=(TP,),
+                             init="zeros")
+        sp["bv"] = ParamSpec((cfg.n_kv_heads * hd,), axes=(TP,),
+                             init="zeros")
     if cfg.qk_norm:
-        sp["q_norm"] = ParamSpec((hd,), init="ones")
-        sp["k_norm"] = ParamSpec((hd,), init="ones")
+        sp["q_norm"] = ParamSpec((hd,), axes=(NONE,), init="ones")
+        sp["k_norm"] = ParamSpec((hd,), axes=(NONE,), init="ones")
     return sp
 
 
@@ -81,12 +84,16 @@ def mla_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, H = cfg.d_model, cfg.n_heads
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq": ParamSpec((d, H * qk_dim)),
-        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "ckv_norm": ParamSpec((m.kv_lora_rank,), init="ones"),
-        "w_uk": ParamSpec((m.kv_lora_rank, H * m.qk_nope_head_dim)),
-        "w_uv": ParamSpec((m.kv_lora_rank, H * m.v_head_dim)),
-        "wo": ParamSpec((H * m.v_head_dim, d)),
+        "wq": ParamSpec((d, H * qk_dim), axes=(FSDP, TP)),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           axes=(FSDP, NONE)),
+        "ckv_norm": ParamSpec((m.kv_lora_rank,), axes=(NONE,),
+                              init="ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H * m.qk_nope_head_dim),
+                          axes=(NONE, TP)),
+        "w_uv": ParamSpec((m.kv_lora_rank, H * m.v_head_dim),
+                          axes=(NONE, TP)),
+        "wo": ParamSpec((H * m.v_head_dim, d), axes=(TP, FSDP)),
     }
 
 
@@ -99,7 +106,10 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v of x; with `lora` (zamba's per-site deltas) each adds
     (x @ lora_a) @ lora_b to its packed product, the linear identity of
-    JAX's x @ (W + lora_a @ lora_b), which never materializes W."""
+    JAX's x @ (W + lora_a @ lora_b), which never materializes W.  The
+    head counts are read off the products: a tensor-parallel rank's
+    column slices of wq / wk / wv (and of their biases) give its heads,
+    at the config's head_dim."""
     b, s, _ = x.shape
     hd = cfg.hd()
     q = qmm(x, p["wq"])
@@ -113,9 +123,9 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
         # plain RMSNorm scales (no +1), even where the block norms use
         # rms_scale_plus_one, as the JAX package applies them
@@ -352,7 +362,8 @@ def empty_cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
     else:
         kv = (batch, max_seq, cfg.n_kv_heads, cfg.hd())
         shapes = {"k": kv, "v": kv}
-    return {k: ParamSpec(v, dtype, init="zeros", lane_axis=0)
+    return {k: ParamSpec(v, dtype, (BATCH, KV_SEQ) + (NONE,) * (len(v) - 2),
+                         init="zeros", lane_axis=0)
             for k, v in shapes.items()}
 
 
@@ -433,9 +444,15 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     multi-query verify kernel — one pass over the lane's pages scores
     all s positions — instead of the chunk path's page gather.  Same
     math: the intra-window causal mask is identical.  `lora`: zamba's
-    per-site q/k/v deltas (`_qkv`)."""
+    per-site q/k/v deltas (`_qkv`).
+
+    Under tensor parallelism (`dist.shard.use_tp`) a rank holds its
+    slices of wq / wk / wv, wo and of the pools' kv heads: it attends
+    with its n_heads / tp query heads over its n_kv_heads / tp pool
+    heads (the pools' width sets g), and `wo`'s output is summed over
+    the ranks (`row_parallel`) on all three routes."""
     b, s, _ = x.shape
-    hd, g, qpk = cfg.hd(), cfg.n_kv_heads, cfg.q_per_kv()
+    hd, g, qpk = cfg.hd(), cache["k"].shape[-2], cfg.q_per_kv()
     ps = cache["k"].shape[1]
     S = tables.shape[1] * ps
     q, k, v = _qkv(p, cfg, x, lora)
@@ -467,15 +484,15 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         qg = q.reshape(b, g, qpk, hd).contiguous()
         out_g = paged_decode_attention(qg, ck, cv, tables, total, window,
                                        cap, k_scales=cks, v_scales=cvs)
-        out = out_g.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
-        return qmm(out, p["wo"])
+        out = out_g.reshape(b, 1, g * qpk * hd).to(x.dtype)
+        return row_parallel(out, p["wo"])
 
     if verify:
         qg = q.reshape(b, s, g, qpk, hd).contiguous()
         out_g = paged_verify_attention(qg, ck, cv, tables, lengths, window,
                                        cap, k_scales=cks, v_scales=cvs)
-        out = out_g.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
-        return qmm(out, p["wo"])
+        out = out_g.reshape(b, s, g * qpk * hd).to(x.dtype)
+        return row_parallel(out, p["wo"])
 
     # chunk path: gather the lane's pages back to a contiguous view
     tl = tables.long()
@@ -501,8 +518,8 @@ def gqa_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     scores = scores.masked_fill(~mask[:, None, None, :, :], NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgpqk,bkgh->bqgph", w.to(vg.dtype), vg)
-    out = out.reshape(b, s, cfg.n_heads * hd).to(x.dtype)
-    return qmm(out, p["wo"])
+    out = out.reshape(b, s, g * qpk * hd).to(x.dtype)
+    return row_parallel(out, p["wo"])
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -611,7 +628,12 @@ def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,
     (`page_rows`).  dtype int8 adds f16 per-(token, kv-head) scale pools
     "k_scale"/"v_scale"; every leaf keeps the page axis first, so page
     copies move scales with their pages.  MLA keeps float latent pools
-    "c_kv" / "k_rope" and refuses int8, as the JAX package does."""
+    "c_kv" / "k_rope" and refuses int8, as the JAX package does.
+
+    Logical axes as the JAX package's `paged_cache_specs`: K/V pools and
+    their scale pools shard the kv-head dim (`TP`), the page axis stays
+    replicated (the block tables are host-side and the same on every
+    rank); MLA's latent pools are replicated."""
     if cfg.attn_kind == "mla":
         if dtype == torch.int8:
             raise ValueError(
@@ -619,15 +641,16 @@ def paged_cache_spec(cfg: ModelConfig, n_pages: int, page_size: int,
         m = cfg.mla
         return {
             "c_kv": ParamSpec((n_pages + 1, page_size, m.kv_lora_rank),
-                              dtype, init="zeros"),
+                              dtype, (NONE, NONE, NONE), init="zeros"),
             "k_rope": ParamSpec((n_pages + 1, page_size,
-                                 m.qk_rope_head_dim), dtype, init="zeros")}
+                                 m.qk_rope_head_dim), dtype,
+                                (NONE, NONE, NONE), init="zeros")}
     kv = ParamSpec((n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd()),
-                   dtype, init="zeros")
+                   dtype, (NONE, NONE, TP, NONE), init="zeros")
     spec = {"k": kv, "v": kv}
     if dtype == torch.int8:
         sc = ParamSpec((n_pages + 1, page_size, cfg.n_kv_heads),
-                       torch.float16, init="zeros")
+                       torch.float16, (NONE, NONE, TP), init="zeros")
         spec["k_scale"] = sc
         spec["v_scale"] = sc
     return spec

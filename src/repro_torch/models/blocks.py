@@ -24,7 +24,7 @@ from repro_torch.quant.qarray import QTensor
 
 from .attention import (PageRows, Rope, attention_specs, attn_decode,
                         attn_forward, attn_paged_step)
-from .common import ParamSpec, layer_norm, rms_norm
+from .common import FSDP, NONE, TP, ParamSpec, layer_norm, rms_norm
 from .config import ModelConfig
 from .ffn import dense_ffn, dense_ffn_specs, ffn_forward, ffn_specs
 from .ssm import (mamba2_forward, mamba2_serve_step, mamba2_specs,
@@ -36,9 +36,9 @@ Params = Dict[str, Any]
 
 def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     init = "zeros" if cfg.rms_scale_plus_one else "ones"
-    sp = {"scale": ParamSpec((cfg.d_model,), init=init)}
+    sp = {"scale": ParamSpec((cfg.d_model,), axes=(NONE,), init=init)}
     if cfg.norm_kind == "layer":
-        sp["bias"] = ParamSpec((cfg.d_model,), init="zeros")
+        sp["bias"] = ParamSpec((cfg.d_model,), axes=(NONE,), init="zeros")
     return sp
 
 
@@ -194,9 +194,10 @@ def zamba_lora_specs(cfg: ModelConfig) -> Dict[str, Any]:
     sp = {}
     for nm, out_dim in (("q", cfg.n_heads * hd), ("k", cfg.n_kv_heads * hd),
                         ("v", cfg.n_kv_heads * hd)):
-        sp[f"lora_a_{nm}"] = ParamSpec((d, r))
-        sp[f"lora_b_{nm}"] = ParamSpec((r, out_dim), init="zeros")
-    sp["out_proj"] = ParamSpec((d, d))
+        sp[f"lora_a_{nm}"] = ParamSpec((d, r), axes=(FSDP, NONE))
+        sp[f"lora_b_{nm}"] = ParamSpec((r, out_dim), axes=(NONE, TP),
+                                       init="zeros")
+    sp["out_proj"] = ParamSpec((d, d), axes=(FSDP, NONE))
     return sp
 
 

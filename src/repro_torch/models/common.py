@@ -8,6 +8,11 @@ the JAX package (normal with std 1/sqrt(fan_in), `embed` with an
 explicit std), but the draws differ from `jax.random`'s, so tests carry
 weights across with `repro_torch.convert` instead of re-drawing them.
 
+Every `ParamSpec` carries the JAX package's logical axes (`BATCH`,
+`FSDP`, `TP`, ...), which `repro_torch.dist.axes` maps onto a mesh:
+tensor-parallel serving (`repro_torch.dist.shard`) slices each rank's
+part of a leaf by them.  They are data only and change no computation.
+
 `take_rows` and the loss's gather have backward passes without float
 atomics (a sorted segment sum, a scatter onto distinct positions), so a
 training step on the card is bit-reproducible.
@@ -23,14 +28,30 @@ import torch
 
 Tree = Any
 
+# logical axis names (mapped to mesh axes in dist/axes.py)
+BATCH = "batch"      # activation batch            -> (pod, data)
+FSDP = "fsdp"        # param fully-sharded dim     -> data
+TP = "tp"            # tensor-parallel dim          -> model
+EXPERT = "expert"    # MoE expert dim               -> model
+KV_SEQ = "kv_seq"    # decode KV sequence (split-K) -> model
+SEQ = "seq"          # long-context activation seq  -> data
+LAYERS = "layers"    # stacked-scan layer dim       -> replicated
+NONE = None
+
 
 @dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
+    axes: Tuple[Optional[str], ...] = ()   # one logical axis per dim
     init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # None => 1/sqrt(fan_in)
     lane_axis: Optional[int] = None  # a decode-state leaf's per-lane axis
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamSpec {self.shape}: axes {self.axes} "
+                             "name one logical axis per dim")
 
     def fan_in(self) -> int:
         if len(self.shape) <= 1:
@@ -53,10 +74,11 @@ class ParamSpec:
         return (x * std).to(self.dtype)
 
     def stacked(self, n: int) -> "ParamSpec":
-        """Prepend a stacked-layers dim (the lane axis moves with it)."""
+        """Prepend a stacked-layers dim (the lane axis moves with it),
+        replicated: its logical axis is NONE, as the JAX package's."""
         lane = None if self.lane_axis is None else self.lane_axis + 1
         return dataclasses.replace(self, shape=(n, *self.shape),
-                                   lane_axis=lane)
+                                   axes=(NONE, *self.axes), lane_axis=lane)
 
 
 def map_specs(fn: Callable[[ParamSpec], Any], tree: Tree) -> Tree:

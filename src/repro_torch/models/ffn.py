@@ -21,11 +21,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import expert_qmatmul
+from repro_torch.kernels.ops import expert_qmatmul, row_parallel
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.kernels.ops import swiglu
 
-from .common import ACTIVATIONS, ParamSpec, take_rows
+from .common import ACTIVATIONS, EXPERT, FSDP, NONE, TP, ParamSpec, take_rows
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -37,22 +37,26 @@ GROUP_TOKENS = 512      # the JAX package's GShard group: with the onehot
 
 def dense_ffn_specs(cfg: ModelConfig, d_ff: int = 0) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    sp = {"w_up": ParamSpec((d, f)), "w_down": ParamSpec((f, d))}
+    sp = {"w_up": ParamSpec((d, f), axes=(FSDP, TP)),
+          "w_down": ParamSpec((f, d), axes=(TP, FSDP))}
     if cfg.ffn_gated:
-        sp["w_gate"] = ParamSpec((d, f))
+        sp["w_gate"] = ParamSpec((d, f), axes=(FSDP, TP))
     return sp
 
 
 def dense_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Gated SiLU is the fused SwiGLU (one pass over the packed gate/up
     weights); every other activation takes the unfused route, one
-    `cim_gemv` call per packed projection, as the JAX package does."""
+    `cim_gemv` call per packed projection, as the JAX package does.
+    Under tensor parallelism a rank holds its d_ff / tp columns of gate
+    / up and rows of w_down, whose output is summed over the ranks
+    (`row_parallel`)."""
     if cfg.ffn_gated and cfg.ffn_act == "silu":
-        return qmm(swiglu(x, p["w_gate"], p["w_up"]), p["w_down"])
+        return row_parallel(swiglu(x, p["w_gate"], p["w_up"]), p["w_down"])
     act = ACTIVATIONS[cfg.ffn_act]
     up = qmm(x, p["w_up"])
     h = act(qmm(x, p["w_gate"])) * up if cfg.ffn_gated else act(up)
-    return qmm(h, p["w_down"])
+    return row_parallel(h, p["w_down"])
 
 
 # ----------------------------------------------------------------------------
@@ -61,15 +65,16 @@ def dense_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     m = cfg.moe
     d, fe, E = cfg.d_model, m.d_ff_expert, m.n_experts
-    sp = {"router": ParamSpec((d, E), scale=1.0 / math.sqrt(d)),
-          "we_gate": ParamSpec((E, d, fe)),
-          "we_up": ParamSpec((E, d, fe)),
-          "we_down": ParamSpec((E, fe, d))}
+    sp = {"router": ParamSpec((d, E), axes=(FSDP, NONE),
+                              scale=1.0 / math.sqrt(d)),
+          "we_gate": ParamSpec((E, d, fe), axes=(EXPERT, NONE, FSDP)),
+          "we_up": ParamSpec((E, d, fe), axes=(EXPERT, NONE, FSDP)),
+          "we_down": ParamSpec((E, fe, d), axes=(EXPERT, FSDP, NONE))}
     if m.n_shared_experts > 0:
         fs = fe * m.n_shared_experts
-        sp["ws_gate"] = ParamSpec((d, fs))
-        sp["ws_up"] = ParamSpec((d, fs))
-        sp["ws_down"] = ParamSpec((fs, d))
+        sp["ws_gate"] = ParamSpec((d, fs), axes=(FSDP, TP))
+        sp["ws_up"] = ParamSpec((d, fs), axes=(FSDP, TP))
+        sp["ws_down"] = ParamSpec((fs, d), axes=(TP, FSDP))
     return sp
 
 

@@ -49,12 +49,15 @@ package's do (such an arch trains through `loss` and decodes through
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.shard import (tp_all_gather, tp_all_reduce,
+                                    tp_rank_and_size)
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import QTensor, dequant_rows
 
@@ -69,8 +72,8 @@ from .blocks import (apply_norm, mamba_block, mamba_block_serve,
                      zamba_shared_block, zamba_shared_block_decode,
                      zamba_shared_block_paged, zamba_shared_cfg,
                      zamba_shared_specs)
-from .common import (ACTIVATIONS, ParamSpec, cross_entropy_loss, param_count,
-                     softcap, stack_specs, take_rows)
+from .common import (ACTIVATIONS, FSDP, TP, ParamSpec, cross_entropy_loss,
+                     param_count, softcap, stack_specs, take_rows)
 from .config import ModelConfig
 from .ssm import mamba2_cache_spec, mlstm_cache_spec, slstm_cache_spec
 
@@ -169,10 +172,10 @@ class DecoderLM:
     def param_specs(self) -> Params:
         cfg = self.cfg
         sp: Params = {"embed": ParamSpec((cfg.vocab, cfg.d_model),
-                                         init="embed",
+                                         axes=(TP, FSDP), init="embed",
                                          scale=cfg.d_model ** -0.5)}
         if not cfg.tie_embeddings:
-            sp["head"] = ParamSpec((cfg.d_model, cfg.vocab))
+            sp["head"] = ParamSpec((cfg.d_model, cfg.vocab), axes=(FSDP, TP))
         sp["ln_final"] = norm_specs(cfg)
         if cfg.family == "xlstm":
             n_groups, per, tail = self._groups()
@@ -208,22 +211,38 @@ class DecoderLM:
     def _embed(self, params: Params, inputs: Dict[str, torch.Tensor]
                ) -> torch.Tensor:
         """The token rows of the table, or a frontend stub's
-        `inputs["embeddings"]` (b, s, d) when `embed_inputs` is off."""
+        `inputs["embeddings"]` (b, s, d) when `embed_inputs` is off.
+        A tensor-parallel rank holding its slice of the vocab rows
+        (`dist.shard`) looks up the tokens in its range, zeros the
+        others, and the ranks' rows are summed (`tp_all_reduce`)."""
         cfg = self.cfg
         if not cfg.embed_inputs:
             h = inputs["embeddings"].to(cfg.activation_dtype())
-        elif isinstance(params["embed"], QTensor):
-            h = dequant_rows(params["embed"], inputs["tokens"].long(),
-                             cfg.activation_dtype())
         else:
-            h = take_rows(params["embed"], inputs["tokens"].long())
+            table, tokens = params["embed"], inputs["tokens"].long()
+            rows = table.shape[0]
+            mine = None
+            if rows != cfg.vocab:               # a vocab-parallel slice
+                tokens = tokens - tp_rank_and_size()[0] * rows
+                mine = (tokens >= 0) & (tokens < rows)
+                tokens = tokens.clamp(0, rows - 1)
+            if isinstance(table, QTensor):
+                h = dequant_rows(table, tokens, cfg.activation_dtype())
+            else:
+                h = take_rows(table, tokens)
+            if mine is not None:
+                h = tp_all_reduce(h.masked_fill(~mine[..., None], 0))
         if cfg.embed_scale:
             h = h * self._embed_scale[h.dtype]
         return h.to(cfg.activation_dtype())
 
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         """f32 logits of the final-normed h: the weight at h's dtype
-        (JAX's `w.astype(h.dtype)`), the product summed in f32."""
+        (JAX's `w.astype(h.dtype)`), the product summed in f32.  A
+        tensor-parallel rank holding a slice of the table's (or the
+        untied head's) vocab computes its columns, softcaps them, and
+        the ranks' columns are gathered in rank order
+        (`tp_all_gather`)."""
         cfg = self.cfg
         h = apply_norm(params["ln_final"], cfg, h)
         tied = cfg.tie_embeddings or "head" not in params
@@ -237,6 +256,8 @@ class DecoderLM:
                                   wf.t() if tied else wf)
         if cfg.final_softcap:
             logits = softcap(logits, cfg.final_softcap)
+        if logits.shape[-1] != cfg.vocab:       # vocab-parallel columns
+            logits = tp_all_gather(logits, -1)
         return logits
 
     def _stack_views(self, tree: Any, key: Any, depth: int = 1) -> List:
@@ -544,6 +565,31 @@ class DecoderLM:
             return self._groups()[0]
         return 0
 
+    def validate_tp(self, tp: int) -> None:
+        """Raise unless every tensor-parallel hot-path dim divides evenly
+        across `tp` ranks, with the JAX package's message: the sharding
+        rule would replicate a non-dividing dim instead of sharding it,
+        which defeats the point of paying for tp ranks."""
+        if tp <= 1:
+            return
+        cfg = self.cfg
+        bad = []
+        if cfg.n_heads % tp:
+            bad.append(f"n_heads={cfg.n_heads}")
+        if cfg.attn_kind != "mla" and cfg.n_kv_heads % tp:
+            # MLA keeps one replicated latent pool; there is no sharded
+            # KV-head group dim to divide
+            bad.append(f"n_kv_heads={cfg.n_kv_heads}")
+        if cfg.d_ff % tp:
+            bad.append(f"d_ff={cfg.d_ff}")
+        if cfg.family == "moe" and cfg.moe and cfg.moe.d_ff_expert % tp:
+            bad.append(f"moe.d_ff_expert={cfg.moe.d_ff_expert}")
+        if bad:
+            raise ValueError(
+                f"tp={tp} does not divide the tensor-parallel dims of "
+                f"{cfg.name!r}: " + ", ".join(bad)
+                + " (pick a tp that divides the head and FFN widths)")
+
     def _paged_forward(self, params, cache, inputs, tables, lengths, n_new,
                        verify: bool):
         cfg = self.cfg
@@ -639,8 +685,8 @@ class DecoderLM:
         act = cfg.activation_dtype()
 
         def promoted(one):
-            return {k: ParamSpec(v.shape, torch.promote_types(v.dtype, act),
-                                 init="zeros", lane_axis=v.lane_axis)
+            return {k: dataclasses.replace(
+                        v, dtype=torch.promote_types(v.dtype, act))
                     for k, v in one.items()}
         if cfg.family == "xlstm":
             n_groups, per, _ = self._groups()

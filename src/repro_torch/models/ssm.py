@@ -75,7 +75,8 @@ from repro_torch.kernels.ops import expert_qmatmul
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.quant.qarray import QTensor
 
-from .common import ACTIVATIONS, ParamSpec, rms_norm, swish
+from .common import (ACTIVATIONS, BATCH, FSDP, NONE, TP, ParamSpec, rms_norm,
+                     swish)
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -138,9 +139,11 @@ def _conv_prefix(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return out, new
 
 
-def _lane_spec(shape, dtype=F32) -> ParamSpec:
-    """A decode-state leaf of one layer: lane axis first, zeros."""
-    return ParamSpec(tuple(shape), dtype, init="zeros", lane_axis=0)
+def _lane_spec(shape, axes, dtype=F32) -> ParamSpec:
+    """A decode-state leaf of one layer: lane axis first (`BATCH`),
+    zeros; `axes` the logical axes of the dims after it."""
+    return ParamSpec(tuple(shape), dtype, (BATCH, *axes), init="zeros",
+                     lane_axis=0)
 
 
 # ============================================================================
@@ -157,15 +160,15 @@ def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     di, nh, ds = mamba2_dims(cfg)
     conv_dim = di + 2 * ds                       # x + B + C (single group)
     return {
-        "in_proj": ParamSpec((d, 2 * di + 2 * ds + nh)),
-        "conv_w": ParamSpec((s.d_conv, conv_dim),
+        "in_proj": ParamSpec((d, 2 * di + 2 * ds + nh), axes=(FSDP, TP)),
+        "conv_w": ParamSpec((s.d_conv, conv_dim), axes=(NONE, TP),
                             scale=1.0 / math.sqrt(s.d_conv)),
-        "conv_b": ParamSpec((conv_dim,), init="zeros"),
-        "a_log": ParamSpec((nh,), init="zeros"),
-        "d_skip": ParamSpec((nh,), init="ones"),
-        "dt_bias": ParamSpec((nh,), init="zeros"),
-        "norm": ParamSpec((di,), init="ones"),
-        "out_proj": ParamSpec((di, d)),
+        "conv_b": ParamSpec((conv_dim,), axes=(TP,), init="zeros"),
+        "a_log": ParamSpec((nh,), axes=(NONE,), init="zeros"),
+        "d_skip": ParamSpec((nh,), axes=(NONE,), init="ones"),
+        "dt_bias": ParamSpec((nh,), axes=(NONE,), init="zeros"),
+        "norm": ParamSpec((di,), axes=(TP,), init="ones"),
+        "out_proj": ParamSpec((di, d), axes=(TP, FSDP)),
     }
 
 
@@ -274,9 +277,10 @@ def mamba2_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def mamba2_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
     di, nh, ds = mamba2_dims(cfg)
-    return {"state": _lane_spec((batch, nh, cfg.ssm.head_dim, ds)),
+    return {"state": _lane_spec((batch, nh, cfg.ssm.head_dim, ds),
+                                (TP, NONE, NONE)),
             "conv": _lane_spec((batch, cfg.ssm.d_conv - 1, di + 2 * ds),
-                               torch.bfloat16)}
+                               (NONE, TP), torch.bfloat16)}
 
 
 # ============================================================================
@@ -292,18 +296,20 @@ def mlstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     s, d = cfg.ssm, cfg.d_model
     di, nh, dh = mlstm_dims(cfg)
     return {
-        "up_proj": ParamSpec((d, 2 * di)),
-        "conv_w": ParamSpec((s.conv_width, di),
+        "up_proj": ParamSpec((d, 2 * di), axes=(FSDP, TP)),
+        "conv_w": ParamSpec((s.conv_width, di), axes=(NONE, TP),
                             scale=1.0 / math.sqrt(s.conv_width)),
-        "conv_b": ParamSpec((di,), init="zeros"),
-        "wq": ParamSpec((nh, dh, dh)),             # head-wise (block
-        "wk": ParamSpec((nh, dh, dh)),             #   diagonal) q/k/v
-        "wv": ParamSpec((nh, dh, dh)),
-        "w_if": ParamSpec((di, 2 * nh), scale=1.0 / math.sqrt(di)),
-        "b_if": ParamSpec((2 * nh,), init="zeros"),
-        "w_o": ParamSpec((di, di)),
-        "hnorm": ParamSpec((di,), init="ones"),
-        "down_proj": ParamSpec((di, d)),
+        "conv_b": ParamSpec((di,), axes=(TP,), init="zeros"),
+        # head-wise (block diagonal) q/k/v, sharded on the output dh dim
+        "wq": ParamSpec((nh, dh, dh), axes=(NONE, NONE, TP)),
+        "wk": ParamSpec((nh, dh, dh), axes=(NONE, NONE, TP)),
+        "wv": ParamSpec((nh, dh, dh), axes=(NONE, NONE, TP)),
+        "w_if": ParamSpec((di, 2 * nh), axes=(FSDP, NONE),
+                          scale=1.0 / math.sqrt(di)),
+        "b_if": ParamSpec((2 * nh,), axes=(NONE,), init="zeros"),
+        "w_o": ParamSpec((di, di), axes=(FSDP, TP)),
+        "hnorm": ParamSpec((di,), axes=(TP,), init="ones"),
+        "down_proj": ParamSpec((di, d), axes=(TP, FSDP)),
     }
 
 
@@ -428,11 +434,11 @@ def mlstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def mlstm_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
     di, nh, dh = mlstm_dims(cfg)
-    return {"C": _lane_spec((batch, nh, dh, dh)),
-            "n": _lane_spec((batch, nh, dh)),
-            "m": _lane_spec((batch, nh)),
+    return {"C": _lane_spec((batch, nh, dh, dh), (NONE, TP, NONE)),
+            "n": _lane_spec((batch, nh, dh), (NONE, TP)),
+            "m": _lane_spec((batch, nh), (NONE,)),
             "conv": _lane_spec((batch, cfg.ssm.conv_width - 1, di),
-                               torch.bfloat16)}
+                               (NONE, TP), torch.bfloat16)}
 
 
 # ============================================================================
@@ -447,12 +453,13 @@ def slstm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, nh, dh = slstm_dims(cfg)
     f_up = int(cfg.ssm.proj_factor_slstm * d)
     return {
-        "w_gates": ParamSpec((d, 4 * d)),
-        "r_gates": ParamSpec((nh, dh, 4 * dh), scale=1.0 / math.sqrt(dh)),
-        "b_gates": ParamSpec((4 * d,), init="zeros"),
-        "gnorm": ParamSpec((d,), init="ones"),
-        "ffn_up": ParamSpec((d, 2 * f_up)),
-        "ffn_down": ParamSpec((f_up, d)),
+        "w_gates": ParamSpec((d, 4 * d), axes=(FSDP, NONE)),
+        "r_gates": ParamSpec((nh, dh, 4 * dh), axes=(NONE, NONE, TP),
+                             scale=1.0 / math.sqrt(dh)),
+        "b_gates": ParamSpec((4 * d,), axes=(NONE,), init="zeros"),
+        "gnorm": ParamSpec((d,), axes=(NONE,), init="ones"),
+        "ffn_up": ParamSpec((d, 2 * f_up), axes=(FSDP, TP)),
+        "ffn_down": ParamSpec((f_up, d), axes=(TP, FSDP)),
     }
 
 
@@ -533,5 +540,7 @@ def slstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def slstm_cache_spec(cfg: ModelConfig, batch: int) -> Dict[str, ParamSpec]:
     d, nh, _ = slstm_dims(cfg)
-    return {"c": _lane_spec((batch, d)), "n": _lane_spec((batch, d)),
-            "h": _lane_spec((batch, d)), "m": _lane_spec((batch, nh))}
+    return {"c": _lane_spec((batch, d), (TP,)),
+            "n": _lane_spec((batch, d), (TP,)),
+            "h": _lane_spec((batch, d), (TP,)),
+            "m": _lane_spec((batch, nh), (NONE,))}

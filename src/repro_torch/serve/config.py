@@ -17,12 +17,16 @@ One frozen object flows launcher -> Gateway -> FleetRouter -> Replica
 -> PagedServeEngine, as in the JAX package.  `replicas`, `policy` and
 `max_pending` shape the fleet behind the gateway (`repro_torch.fleet`):
 the replicas share one card and one copy of the packed weights, each
-with its own KV pool, CUDA graphs and stream.  `tp` keeps its field so
-configs read the same in both packages, but tensor parallelism is not
-in this port yet: tp > 1 raises NotImplementedError.
+with its own KV pool, CUDA graphs and stream.  `tp` is the number of
+tensor-parallel ranks one engine spans (`repro_torch.dist.shard`): each
+rank is a process of a torch.distributed group of `tp` ranks and holds
+its slice of the heads, the FFN width and the vocab; the engine serves
+the paged GQA families at tp > 1 and refuses the others.  At tp > 1 the
+steps run eagerly, not as CUDA graphs: the collectives of the gloo
+group go through the host, which a graph cannot capture.
 
 The resolved config is reported verbatim under `/metrics` (key
-"config").
+"config"); at tp > 1 it says how the steps run ("steps").
 """
 from __future__ import annotations
 
@@ -33,6 +37,8 @@ from typing import Optional
 import torch
 
 PRECISIONS = ("fp", "int8", "int4")
+STEPS_AT_TP = ("eager: the tensor-parallel collectives go through the "
+               "host (gloo), which a CUDA graph cannot capture")
 KV_DTYPES = ("auto", "bf16", "f32", "int8")
 
 
@@ -69,13 +75,10 @@ class ServeConfig:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, got "
                 f"{self.kv_dtype!r}")
-        if self.tp < 1 or self.replicas < 1:
-            raise ValueError(f"tp and replicas must be >= 1, got "
-                             f"tp={self.tp}, replicas={self.replicas}")
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"tensor parallelism is not in the PyTorch port yet "
-                f"(tp={self.tp})")
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {self.replicas}")
 
     # -- resolution ------------------------------------------------------
     def quantized(self) -> bool:
@@ -98,4 +101,6 @@ class ServeConfig:
         d["kv_dtype_resolved"] = str(self.resolved_kv_dtype()).replace(
             "torch.", "")
         d["weight_bits"] = self.weight_bits()
+        if self.tp > 1:
+            d["steps"] = STEPS_AT_TP
         return d

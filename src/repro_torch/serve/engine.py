@@ -65,8 +65,24 @@ versions of the kernels, run eagerly).  On the card each engine owns a
 CUDA stream (`self.stream`) and runs every step on it, so engines that
 share the card (fleet replicas, one driver thread each) never wait for
 each other's work: a phase that must see its device work done
-synchronizes that stream, not the device.  Not in this port yet, and
-refused when asked for: tensor parallelism (`ServeConfig.tp`).
+synchronizes that stream, not the device.
+
+Tensor parallelism (`ServeConfig.tp > 1`), the counterpart of the JAX
+engine's `_shard_runtime_state`: the engine runs in each of `tp` ranks
+of a torch.distributed group (`dist.shard.serve_group`), takes the full
+params and keeps its rank's slice of every leaf (`dist.shard.shard_tree`
+by the specs' logical axes), and allocates its pools at n_kv_heads / tp
+heads.  Block tables, refcounts, the scheduler and the prefix trie stay
+host-side and the same on every rank; every step runs under
+`dist.shard.use_tp` (the all-reduces after `wo` and `w_down`, the
+vocab-parallel embedding, the logits gathered in rank order), so every
+rank samples from the same logits with the same seeded generator and
+the ranks stay in lockstep.  The steps run eagerly: the gloo group's
+collectives go through the host and cannot be captured in a CUDA graph.
+A model drafter stays whole on every rank.  The paged GQA families only
+(dense, with GQA attention); MoE, MLA and the recurrent families raise
+NotImplementedError at tp > 1, and a request with a deadline raises
+ValueError (each rank's scheduler would expire it on its own clock).
 Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
 and MLA models (deepseek) are served like any dense model;
 `kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
@@ -81,6 +97,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -88,8 +105,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.dist.shard import (serve_group, shard_specs, shard_tree,
+                                    use_tp)
 from repro_torch.models.common import tree_to
 from repro_torch.obs.energy import EnergyMeter
 from repro_torch.obs.recorder import FlightRecorder
@@ -152,6 +172,19 @@ def _has_qtensor(tree: Any) -> bool:
     return isinstance(tree, QTensor)
 
 
+def _check_tp_family(model) -> None:
+    """Tensor-parallel serving covers the paged GQA families (dense
+    decoders with GQA attention); the others raise, naming the
+    family."""
+    cfg = model.cfg
+    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+        mla = " with MLA attention" if cfg.attn_kind == "mla" else ""
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving (tp > 1) of family "
+            f"{cfg.family!r}{mla} is not in the PyTorch port yet; it "
+            f"covers the dense GQA families")
+
+
 class PagedServeEngine:
     def __init__(self, model, params: Any,
                  config: Optional[ServeConfig] = None, *,
@@ -193,6 +226,13 @@ class PagedServeEngine:
             config = dataclasses.replace(config, kv_dtype="bf16")
         if not model.cfg.embed_inputs:
             raise ValueError("engine serves token-input models")
+        # tensor parallelism: the dims first, then the group, then the
+        # family, so a misconfigured tp fails before anything is built
+        self.group = None
+        if config.tp > 1:
+            model.validate_tp(config.tp)
+            self.group = serve_group(config.tp)
+            _check_tp_family(model)
         self.config = config
         self.device = resolve_device(device)
         max_batch, max_seq = config.max_batch, config.max_seq
@@ -213,6 +253,9 @@ class PagedServeEngine:
             # the precision field is authoritative: quantize float params
             params = quantize_params(params, bits=config.weight_bits(),
                                      group=config.quant_group)
+        if self.group is not None:
+            params = shard_tree(params, model.param_specs(),
+                                dist.get_rank(self.group), config.tp)
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -224,6 +267,8 @@ class PagedServeEngine:
         kv_dtype = config.resolved_kv_dtype()
         state_specs = model.decode_state_specs(max_batch, n_pages,
                                                page_size, kv_dtype)
+        if self.group is not None:      # the rank's kv heads
+            state_specs = shard_specs(state_specs, config.tp)
         self.cache = PagedKVCache(model, n_pages, page_size, max_seq,
                                   kv_dtype, specs=state_specs["paged"],
                                   device=self.device)
@@ -252,13 +297,17 @@ class PagedServeEngine:
         self.recorder = FlightRecorder(label="engine", clock=clock)
         self.energy = EnergyMeter(
             model.cfg, w_bits=config.weight_bits(),
-            a_bits=8 if config.quantized() else 16)
+            a_bits=8 if config.quantized() else 16, tp=config.tp)
         self._cow_seen = 0          # deltas -> cow_copy / prefix_evict
         self._evict_seen = 0        # trace instants per step
         self.lanes: List[Optional[ServeRequest]] = [None] * max_batch
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed)
-        self.runner = StepRunner(self.device, eager=eager)
+        self.runner = StepRunner(self.device,
+                                 eager=eager or self.group is not None)
+        # the model's steps; at tp > 1 each runs its collectives on the
+        # group (one wrapper per step, so the runner keys it stably)
+        self._serve_fn = self._on_group(model.serve_step)
         # the engine's own stream: every step runs on it, after the work
         # that built the pools and the arena on the caller's stream
         self.stream: Optional[torch.cuda.Stream] = None
@@ -275,6 +324,22 @@ class PagedServeEngine:
             self.spec = SpecDecoder(model, spec, max_batch=max_batch,
                                     max_seq=max_seq, kv_dtype=kv_dtype,
                                     device=self.device, runner=self.runner)
+            # the verify window runs the same sharded layout as decode;
+            # a draft model's steps stay outside the group, whole
+            self.spec.verify_fn = self._on_group(self.spec.verify_fn)
+
+    def _on_group(self, fn):
+        """`fn` with its collectives on the engine's group (`fn` itself
+        at tp = 1)."""
+        if self.group is None:
+            return fn
+        group = self.group
+
+        @functools.wraps(fn)
+        def step(*args):
+            with use_tp(group):
+                return fn(*args)
+        return step
 
     # ------------------------------------------------------------------
     def _event(self, kind: str, **fields: Any) -> None:
@@ -298,6 +363,11 @@ class PagedServeEngine:
         if req.fork_from is not None and not self.model.supports_paged():
             raise ValueError(capability_error(self.model,
                                               "parallel-sampling"))
+        if self.group is not None and req.deadline_s is not None:
+            # each rank would expire it on its own clock, and ranks that
+            # admit different requests no longer meet in the collectives
+            raise ValueError("a request deadline at tp > 1: each rank's "
+                             "scheduler would decide it on its own clock")
         now = self._clock()
         req.eid = self._next_eid      # rid is the caller's label and may
         self._next_eid += 1           # collide; eid keys cache/telemetry
@@ -355,7 +425,7 @@ class PagedServeEngine:
         through the runner; the pools and the arena are updated in
         place.  The logits are the step's static output: every use of
         them ends before the next call of the same step."""
-        return self.runner(step_fn or self.model.serve_step, self.params,
+        return self.runner(step_fn or self._serve_fn, self.params,
                            self.state, tokens, tables, lengths, n_new)
 
     def _tables(self) -> np.ndarray:
@@ -774,6 +844,9 @@ class PagedServeEngine:
         if self.prefix is not None:
             s["prefix_pages_resident"] = float(self.prefix.n_pages)
             s["prefix_pages_evicted"] = float(self.prefix.pages_evicted)
+        if self.group is not None:      # steps eager: see ServeConfig
+            s["tp"] = float(self.config.tp)
+            s["step_graphs"] = float(self.runner.graphs)
         return s
 
     def throughput(self) -> float:

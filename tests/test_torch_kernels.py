@@ -287,7 +287,8 @@ def test_import_repro_torch_leaves_jax_and_repro_out():
         "        'repro_torch.api.protocol', 'repro_torch.fleet.router',\n"
         "        'repro_torch.fleet.replica', 'repro_torch.fleet.policy',\n"
         "        'repro_torch.obs.slo', 'repro_torch.obs.drift',\n"
-        "        'repro_torch.obs.export', 'repro_torch.kernels.launches']\n"
+        "        'repro_torch.obs.export', 'repro_torch.kernels.launches',\n"
+        "        'repro_torch.dist.axes', 'repro_torch.dist.shard']\n"
         "assert all(m in sys.modules for m in want), want\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"

@@ -270,13 +270,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
 
 
 def test_features_outside_the_slice_raise():
-    """Tensor parallelism, a recurrent family without its SSMConfig and
-    a norm the port does not have raise.  (LayerNorm and frontend-stub
+    """Tensor parallelism with no process group of tp ranks, a recurrent
+    family without its SSMConfig and a norm the port does not have
+    raise.  (Tensor-parallel serving itself is held against JAX's in
+    tests/test_torch_tp_serving.py; LayerNorm and frontend-stub
     embeddings are ported for training; the engine refuses the latter,
     tests/test_torch_forward.py.  The recurrent families' full-sequence
     forward is ported: it runs.)"""
-    with pytest.raises(NotImplementedError):
-        ServeConfig(tp=2)
+    _, _, tm, tp = _pair(SMOKE, "fp")
+    with pytest.raises(ValueError, match="torch.distributed group of 2"):
+        PagedServeEngine(tm, tp, ServeConfig(max_seq=32, page_size=4,
+                                             tp=2), device="cpu")
     with pytest.raises(NotImplementedError):
         DecoderLM(ModelConfig(**dict(SMOKE, family="xlstm")))
     with pytest.raises(NotImplementedError):

@@ -54,9 +54,14 @@ def test_serve_config_defaults_and_as_dict_equal_jax(kw):
 
 
 def test_serve_config_accepts_replicas_and_refuses_tp():
+    """replicas and tp > 1 are accepted (tp's config reports its eager
+    steps beside JAX's keys); tp < 1 and replicas < 1 are refused."""
     assert port_serve.ServeConfig(replicas=2).replicas == 2
-    with pytest.raises(NotImplementedError, match="tp=2"):
-        port_serve.ServeConfig(tp=2)
+    port, ref = port_serve.ServeConfig(tp=2), jax_serve.ServeConfig(tp=2)
+    assert port.as_dict() == dict(ref.as_dict(), steps=port_serve.config
+                                  .STEPS_AT_TP)
+    with pytest.raises(ValueError, match="tp must be >= 1"):
+        port_serve.ServeConfig(tp=0)
     with pytest.raises(ValueError):
         port_serve.ServeConfig(replicas=0)
 
