@@ -252,7 +252,29 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      beside their bytes bound, the decode step wall median at tp = 2
      beside phase 3's eager tp = 1, the collectives' share of a step,
      each rank's peak memory.
- 17. summary: a `{"kernels": [...]}` line (flash_decode's launches from
+ 17. expert-parallel MoE and tensor-parallel MLA: two ranks (spawned
+     as in phase 16, both on the one card) build qwen3-moe-235b-a22b at
+     4 layers and then deepseek-v2-lite-16b at 8, each from phase 9's /
+     10's seed, INT4 (one rank draws at a time; the unsharded weights'
+     sha256 must equal that phase's), keep their half (64 / 32 experts
+     of every stack; qwen3-moe 32 / 2 heads, INT8 pools of 2 kv heads;
+     deepseek 8 MLA heads over whole bf16 latent pools, layer 0's d_ff
+     5472) and serve at tp = 2, eagerly: the phase's first wave, whose
+     streams must equal its eager ones, and its n-gram prompts (k = 4),
+     equal to its run without speculation (a divergence only at a
+     near-tie, logged); both ranks' streams equal.  Launches exactly as
+     tp = 1 a call (qwen3-moe 29 cim_gemv and 4 paged_flash_decode a
+     decode step, deepseek 68 cim_gemv and 1 swiglu_qgemv), collectives
+     2 L + 2 a call.  Each rank holds cim_gemv (projections, shared
+     experts, head at M = 1, 4, 20; the first MoE layer's stacks at the
+     decode capacity with a decode step's own routing counts over its
+     experts), swiglu_qgemv and the paged kernels (g 2, qpk 16) at its
+     shapes against their plain versions, every call twice.  Logged:
+     one rank's decode step kernels as CUDA-graph replays beside the
+     bytes bound of the experts it kept, the decode step wall median
+     beside the phase's eager tp = 1, the collectives' share, each
+     rank's peak memory drawing, resident and serving.
+ 18. summary: a `{"kernels": [...]}` line (flash_decode's launches from
      phase 15b's contiguous decode, and its ms, plain_ms, library_ms and
      bound_ms at that path's shape; the tensor-parallel paths' launches
      under `launches_by_path`), the card line, and last
@@ -2971,6 +2993,7 @@ def phase_moe_serving(device, arch: str, n_layers: int, groups, seed: int,
     torch.cuda.synchronize()
     draw_peak = torch.cuda.max_memory_allocated() / 1e9
     resident = torch.cuda.memory_allocated() / 1e9
+    ref = TP_MOE_REF[arch] = {"digest": weights_digest(params)}
     got = {}
     for name, (path, _) in groups.items():
         leaf = params
@@ -3044,6 +3067,8 @@ def phase_moe_serving(device, arch: str, n_layers: int, groups, seed: int,
 
     t_phase = time.perf_counter()
     graph, eager = serve(False), serve(True)
+    ref.update(wave=wave, wave_streams=[r.out_tokens for r in eager["reqs"]],
+               eager_decode_ms=eager["decode_ms"])
     eng = graph["eng"]
     check_identity(f"graphs vs eager ({arch})", eager["reqs"],
                    graph["reqs"], model, params, device)
@@ -3116,6 +3141,8 @@ def phase_moe_serving(device, arch: str, n_layers: int, groups, seed: int,
         return e, reqs, counts, (float(np.median(ver)) if ver else None)
 
     _, base, _, _ = spec_serve(None)
+    ref.update(ngram_prompts=prompts,
+               ngram_streams=[r.out_tokens for r in base])
     s_eng, s_reqs, s_counts, s_ms = spec_serve(SpecConfig(k=4))
     check_identity(f"{arch} spec ngram", base, s_reqs, model, params,
                    device)
@@ -4863,9 +4890,108 @@ def tp_serve(eng, prompts, n_new):
     return reqs, steps
 
 
-def tp_kernel_checks(eng, device, rank):
-    """Each kernel at this rank's shapes against its plain version,
-    every call twice (bitwise equal), phase 2's tolerances."""
+def tp_run(tag, label, e, model, prompts, n_new, want, what, device):
+    """Serve `prompts` at tp = 2 on engine `e` (`tp_serve`) with the
+    launches, launched kernels and collectives counted from 0: launches
+    exactly the per-call counts x calls, 2 L + 2 collectives a call,
+    `n_new` tokens in range a request, streams `want` (`what` names
+    them) but for logged near-ties; returns the run's record."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from repro_torch.dist import (collective_counts, collective_seconds,
+                                  reset_collective_counts)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    reset_collective_counts()
+    t_run = time.perf_counter()
+    reqs, steps = tp_serve(e, prompts, n_new)
+    run_s = time.perf_counter() - t_run
+    counts, coll = launch_counts(), collective_counts()
+    calls = e.prefill_calls + e.decode_calls + e.verify_calls
+    expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
+                               e.verify_calls)
+    want_coll = {"all_reduce": (2 * cfg.n_layers + 1) * calls,
+                 "all_gather": calls}
+    log(f"{tag} {label}: {e.prefill_calls} prefill + {e.decode_calls} "
+        f"decode + {e.verify_calls} verify calls in {run_s:.2f} s; "
+        f"launches {counts}, expected {expect}; collectives {coll}, "
+        f"expected {want_coll}")
+    if counts != expect:
+        fail(f"{tag} {label}: launches {counts} != {expect}")
+    if coll != want_coll:
+        fail(f"{tag} {label}: collectives {coll} != {want_coll}")
+    if label == "ngram" and e.verify_calls <= 0:
+        fail(f"{tag}: the n-gram run made no verify call")
+    got = [r.out_tokens for r in reqs]
+    if any(len(t) != n_new or not all(0 <= x < cfg.vocab for x in t)
+           for t in got):
+        fail(f"{tag} {label}: generated {[len(t) for t in got]} tokens, "
+             f"expected {n_new} each in range")
+    ref_reqs = [SimpleNamespace(prompt=p, out_tokens=w, rid=i)
+                for i, (p, w) in enumerate(zip(prompts, want))]
+    near = check_identity(f"{tag} {label} vs {what}", ref_reqs, reqs, model,
+                          e.params, device, e._serve_fn, TP)
+    wall = [ms for ms, _ in steps]
+    return {"streams": got, "near_ties": near, "launches": counts,
+            "collectives": coll, "calls": calls,
+            "collectives_per_call": {k: v // calls for k, v in coll.items()},
+            "collective_s": collective_seconds(),
+            "step_ms_median": float(np.median(wall)),
+            "step_collective_ms_median": float(np.median(
+                [c for _, c in steps])),
+            "collective_share": sum(c for _, c in steps) / sum(wall),
+            "steps": len(steps), "run_s": run_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "summary_tp": e.summary()["tp"],
+            "step_graphs": e.summary()["step_graphs"]}
+
+
+def tp_weights(eng):
+    """This rank's packed leaves of a decode step's kernels, by layer:
+    {name: QTensor} of the projections (GQA's q/k/v/o or MLA's wq / w_dkv
+    / wo, not the w_uk / w_uv the step dequantizes; shared experts; a
+    dense layer's gate / up / down) and the expert stacks; and the
+    head."""
+    p = eng.params
+    layers = []
+    for name in ("first_blocks", "blocks"):
+        if name not in p:
+            continue
+        blocks = p[name]
+        for i in range(_lead_dim(blocks)):
+            layers.append({f"{part} {k}": v[i]
+                           for part in ("attn", "ffn")
+                           for k, v in blocks[part].items()
+                           if hasattr(v, "nbytes_packed")
+                           and k not in ("w_uk", "w_uv")})
+    head = p["embed"] if eng.model.cfg.tie_embeddings else p["head"]
+    return layers, head
+
+
+def _kn(w):
+    """(K, N) of a packed projection or table."""
+    return ((w.orig_shape[-1], w.orig_shape[-2]) if w.axis == -1
+            else tuple(w.orig_shape[-2:]))
+
+
+def tp_kernel_checks(eng, device, rank, counts=None):
+    """Each kernel at this rank's shapes against its plain version, every
+    call twice (bitwise equal), phase 2's tolerances: cim_gemv on each
+    2-D projection of the first and last layers by name (shared experts
+    included; a name the two layers share, same shape on both, is
+    checked on the last layer's leaf, so deepseek's dense w_down comes
+    from layer 0 and its attention from the last layer) and the head at
+    M = 1, 4, 20; swiglu_qgemv on layer 0's dense gate / up; with
+    `counts` (a MoE model: per MoE layer, the router's global expert
+    counts of a decode step) the first MoE layer's three stacks at the
+    decode capacity, counts those of this rank's experts (rows past a
+    count hold NaN, compared on the counted rows); GQA's paged kernels
+    at the rank's kv heads, lanes at 1024 / 777 / 301 / 45 keys."""
     import torch
     from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
     from repro_torch.kernels.paged_flash_decode import (paged_decode_plain,
@@ -4873,123 +4999,183 @@ def tp_kernel_checks(eng, device, rank):
                                                         paged_flash_verify,
                                                         paged_verify_plain)
     from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
+    from repro_torch.models.ffn import capacity
     checks = Checks()
     cfg = eng.model.cfg
-    gen = torch.Generator(device=device).manual_seed(16 + rank)
-    attn, ffn = eng.params["blocks"]["attn"], eng.params["blocks"]["ffn"]
-    ws = {"wq": attn["wq"][0], "wk": attn["wk"][0], "wv": attn["wv"][0],
-          "wo": attn["wo"][0], "w_down": ffn["w_down"][0],
-          "table": eng.params["embed"]}
+    gen = torch.Generator(device=device).manual_seed(170 + rank)
+    layers, head = tp_weights(eng)
+    ws = {"head": head}
+    for lw in (layers[0], layers[-1]):
+        ws.update({k: w for k, w in lw.items() if w.ndim == 2})
     shapes = {}
     for m in (1, 4, 20):
         for name, w in ws.items():
-            k = w.orig_shape[1] if w.axis == -1 else w.orig_shape[0]
-            n = w.data.shape[0] if w.axis == -1 else w.data.shape[1]
+            if name in ("ffn w_gate", "ffn w_up"):
+                continue
+            k, n = _kn(w)
             shapes[name] = (k, n, w.group)
             x = torch.randn(m, k, generator=gen, device=device)
             label = f"rank {rank} {name} {k}->{n} g{w.group} M={m}"
             out = cim_gemv(x, w)
             checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
             checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
-        wg, wu = ffn["w_gate"][0], ffn["w_up"][0]
-        x = torch.randn(m, cfg.d_model, generator=gen, device=device)
-        label = (f"rank {rank} gate/up {cfg.d_model}->{wg.data.shape[1]} "
-                 f"M={m}")
-        out = swiglu_qgemv(x, wg, wu)
-        checks.compare("swiglu_qgemv", label, out, swiglu_plain(x, wg, wu))
-        checks.repeat("swiglu_qgemv", label, out, swiglu_qgemv(x, wg, wu))
-    b, g, qpk, hd = 4, cfg.n_kv_heads // TP, cfg.q_per_kv(), cfg.hd()
-    kp, vp, ks, vs, tables = int8_pools(gen, device, b, 64, g, hd)
-    lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
-                           device=device)
-    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
-    args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
-    label = f"rank {rank} int8 g={g} qpk={qpk} hd={hd} len<=1024"
-    out = paged_flash_decode(*args)
-    checks.compare("paged_flash_decode", label, out,
-                   paged_decode_plain(*args))
-    checks.repeat("paged_flash_decode", label, out, paged_flash_decode(*args))
-    qv = torch.randn(b, 5, g, qpk, hd, generator=gen, device=device)
-    args = (qv, kp, vp, tables, lengths - 5, 0, 0.0, ks, vs)
-    label = f"rank {rank} int8 s=5 g={g} qpk={qpk} hd={hd}"
-    out = paged_flash_verify(*args)
-    checks.compare("paged_flash_verify", label, out,
-                   paged_verify_plain(*args))
-    checks.repeat("paged_flash_verify", label, out, paged_flash_verify(*args))
+        if "ffn w_gate" in ws:
+            wg, wu = ws["ffn w_gate"], ws["ffn w_up"]
+            x = torch.randn(m, cfg.d_model, generator=gen, device=device)
+            label = (f"rank {rank} gate/up {cfg.d_model}->"
+                     f"{wg.data.shape[1]} M={m}")
+            shapes["ffn gate/up"] = (cfg.d_model, wg.data.shape[1], wg.group)
+            out = swiglu_qgemv(x, wg, wu)
+            checks.compare("swiglu_qgemv", label, out,
+                           swiglu_plain(x, wg, wu))
+            checks.repeat("swiglu_qgemv", label, out,
+                          swiglu_qgemv(x, wg, wu))
+    groups, cap = capacity(cfg, eng.max_batch) if counts else (0, 0)
+    C = groups * cap
+    moe = next((lw for lw in layers if "ffn we_gate" in lw), {})
+    El = moe["ffn we_gate"].orig_shape[0] if counts else 0
+    local = torch.tensor(counts[0][rank * El:(rank + 1) * El] if counts
+                         else [], dtype=torch.int32, device=device)
+    rows = torch.arange(C, device=device)[None] < local[:, None]
+    for name in ("ffn we_gate", "ffn we_up", "ffn we_down") if counts \
+            else ():
+        w = moe[name]
+        k, n = w.orig_shape[-2:]
+        shapes[name] = (El, k, n, w.group)
+        x = torch.randn(El, C, k, generator=gen, device=device)
+        xn = torch.where(rows[..., None], x, float("nan"))
+        label = (f"rank {rank} stack {name[4:]} {k}->{n} g{w.group} E={El} "
+                 f"C={C}, {int((local > 0).sum())} experts with rows")
+        out = cim_gemv(xn, w, local)
+        checks.compare("cim_gemv", label, out[rows],
+                       cim_gemv_plain(x, w)[rows])
+        checks.repeat("cim_gemv", label, out[rows],
+                      cim_gemv(xn, w, local)[rows])
+    if cfg.attn_kind != "mla":
+        b, g, qpk, hd = 4, cfg.n_kv_heads // TP, cfg.q_per_kv(), cfg.hd()
+        kp, vp, ks, vs, tables = int8_pools(gen, device, b, 64, g, hd)
+        lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
+                               device=device)
+        q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+        args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+        label = f"rank {rank} int8 g={g} qpk={qpk} hd={hd} len<=1024"
+        out = paged_flash_decode(*args)
+        checks.compare("paged_flash_decode", label, out,
+                       paged_decode_plain(*args))
+        checks.repeat("paged_flash_decode", label, out,
+                      paged_flash_decode(*args))
+        qv = torch.randn(b, 5, g, qpk, hd, generator=gen, device=device)
+        args = (qv, kp, vp, tables, lengths - 5, 0, 0.0, ks, vs)
+        label = f"rank {rank} int8 s=5 g={g} qpk={qpk} hd={hd}"
+        out = paged_flash_verify(*args)
+        checks.compare("paged_flash_verify", label, out,
+                       paged_verify_plain(*args))
+        checks.repeat("paged_flash_verify", label, out,
+                      paged_flash_verify(*args))
     return {k: {"max_abs_err": e, "tol": t, "worst_case": lab}
             for k, (e, t, lab) in checks.worst.items()}, shapes
 
 
-def tp_step_timing(eng, device):
-    """One rank's decode step's kernel calls (batch 4: 181 cim_gemv, 36
-    swiglu_qgemv, 36 paged_flash_decode at the rank's shapes, INT8 pools
-    of 1024 / 777 / 301 / 45 keys), timed as in phase 2 (CUDA-graph
-    replays of the calls alone), beside their bytes bound."""
+def tp_step_timing(eng, device, rank, counts=None,
+                   lengths=(1024, 777, 301, 45)):
+    """One rank's decode step kernel calls (batch 4, lanes at `lengths`
+    keys after the step): every packed projection and the head through
+    cim_gemv, with `counts` (as `tp_kernel_checks`) the stacks at the
+    decode capacity over this rank's experts, a dense layer's
+    swiglu_qgemv, GQA's paged_flash_decode at the rank's kv heads (INT8
+    pools); timed as in phase 2 (CUDA-graph replays of the calls alone),
+    beside their bytes bound: the weights and scales read once (of the
+    stacks, the experts this rank kept), the activations in and out, the
+    K/V rows and the tables.  qwen2.5-3b's is 181 cim_gemv, 36
+    swiglu_qgemv and 36 paged_flash_decode calls."""
     import torch
     from repro_torch.kernels.cim_gemv import cim_gemv
     from repro_torch.kernels.paged_flash_decode import paged_flash_decode
     from repro_torch.kernels.swiglu_gemv import swiglu_qgemv
+    from repro_torch.models.ffn import capacity
     cfg = eng.model.cfg
-    L, d, M = cfg.n_layers, cfg.d_model, 4
-    gen = torch.Generator(device=device).manual_seed(160)
-    attn, ffn = eng.params["blocks"]["attn"], eng.params["blocks"]["ffn"]
-    table = eng.params["embed"]
-    layers = [{k: attn[k][i] for k in ("wq", "wk", "wv", "wo")}
-              | {k: ffn[k][i] for k in ("w_gate", "w_up", "w_down")}
-              for i in range(L)]
-    H, F = layers[0]["wo"].orig_shape[0], layers[0]["w_down"].orig_shape[0]
-    x = torch.randn(M, d, generator=gen, device=device)
-    xo = torch.randn(M, H, generator=gen, device=device)
-    xd = torch.randn(M, F, generator=gen, device=device)
-    b, g, qpk, hd = M, cfg.n_kv_heads // TP, cfg.q_per_kv(), cfg.hd()
-    pools = [int8_pools(gen, device, b, 64, g, hd) for _ in range(L)]
-    lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
-                           device=device)
-    q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+    M = eng.max_batch
+    gen = torch.Generator(device=device).manual_seed(171)
+    layers, head = tp_weights(eng)
+    groups, cap = capacity(cfg, M) if counts else (0, 0)
+    C = groups * cap
+    xs = {}
 
-    def cim_calls():
-        for lw in layers:
-            for k in ("wq", "wk", "wv"):
-                cim_gemv(x, lw[k])
-            cim_gemv(xo, lw["wo"])
-            cim_gemv(xd, lw["w_down"])
-        cim_gemv(x, table)
+    def x_of(*shape):
+        if shape not in xs:
+            xs[shape] = torch.randn(*shape, generator=gen, device=device)
+        return xs[shape]
+    calls = {"cim_gemv": [], "swiglu_qgemv": [], "paged_flash_decode": []}
+    nbytes = dict.fromkeys(calls, 0)
+    kept = []
+    moe_i = 0
+    for lw in layers:
+        for name, w in lw.items():
+            if name in ("ffn w_gate", "ffn w_up") or w.ndim != 2:
+                continue
+            k, n = _kn(w)
+            calls["cim_gemv"].append((w, x_of(M, k), None))
+            nbytes["cim_gemv"] += w.nbytes_packed() + 4 * M * (k + n)
+        if "ffn w_gate" in lw:
+            wg, wu = lw["ffn w_gate"], lw["ffn w_up"]
+            k, n = _kn(wg)
+            calls["swiglu_qgemv"].append((wg, wu, x_of(M, k)))
+            nbytes["swiglu_qgemv"] += (wg.nbytes_packed() + wu.nbytes_packed()
+                                       + 4 * M * (k + n))
+        if "ffn we_gate" in lw:
+            El = lw["ffn we_gate"].orig_shape[0]
+            cc = counts[moe_i][rank * El:(rank + 1) * El]
+            moe_i += 1
+            kept.append(sum(c > 0 for c in cc))
+            local = torch.tensor(cc, dtype=torch.int32, device=device)
+            ws = [lw[f"ffn {k}"] for k in ("we_gate", "we_up", "we_down")]
+            for w in ws:
+                k = w.orig_shape[-2]
+                calls["cim_gemv"].append((w, x_of(El, C, k), local))
+            nbytes["cim_gemv"] += stack_cost(ws, cc)[0]
+    k, n = _kn(head)
+    calls["cim_gemv"].append((head, x_of(M, k), None))
+    nbytes["cim_gemv"] += head.nbytes_packed() + 4 * M * (k + n)
+    if cfg.attn_kind != "mla":
+        g, qpk, hd = cfg.n_kv_heads // TP, cfg.q_per_kv(), cfg.hd()
+        pages = -(-max(lengths) // 16)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        q = x_of(M, g, qpk, hd)
+        for _ in range(len(layers)):
+            kp, vp, ks, vs, tables = int8_pools(gen, device, M, pages, g,
+                                                hd)
+            calls["paged_flash_decode"].append(
+                (q, kp, vp, tables, lens, 0, 0.0, ks, vs))
+            nbytes["paged_flash_decode"] += (
+                sum(lengths) * g * (2 * hd + 2 * 2) + 2 * q.numel() * 4
+                + M * (pages + 1) * 4)
 
-    def sw_calls():
-        for lw in layers:
-            swiglu_qgemv(x, lw["w_gate"], lw["w_up"])
-
-    def pd_calls():
-        for kp, vp, ks, vs, tables in pools:
-            paged_flash_decode(q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
-
-    keys = int(lengths.sum())
-    cim_w = sum(lw[k].nbytes_packed() for lw in layers
-                for k in ("wq", "wk", "wv", "wo", "w_down")) \
-        + table.nbytes_packed()
-    cim_io = 4 * M * (L * (3 * d + H + F) + d + sum(
-        lw[k].data.shape[1] for lw in layers
-        for k in ("wq", "wk", "wv", "wo", "w_down")) + table.data.shape[0])
-    sw_b = sum(lw["w_gate"].nbytes_packed() + lw["w_up"].nbytes_packed()
-               for lw in layers) + L * 4 * M * (d + F)
-    pd_b = L * (keys * g * (2 * hd + 2 * 2) + 2 * q.numel() * 4
-                + b * 65 * 4)
+    def run(kernel):
+        def fn():
+            for c in calls[kernel]:
+                if kernel == "cim_gemv":
+                    w, x, cnt = c
+                    cim_gemv(x, w) if cnt is None else cim_gemv(x, w, cnt)
+                elif kernel == "swiglu_qgemv":
+                    swiglu_qgemv(c[2], c[0], c[1])
+                else:
+                    paged_flash_decode(*c)
+        return fn
     out = {}
-    for name, fn, nbytes in (("cim_gemv", cim_calls, cim_w + cim_io),
-                             ("swiglu_qgemv", sw_calls, sw_b),
-                             ("paged_flash_decode", pd_calls, pd_b)):
-        ms = graph_time_ms(fn)
-        b_ms, _ = bound(nbytes, 0.0)
-        out[name] = {"ms": ms, "bound_ms": b_ms, "bytes": nbytes}
-    total_b = cim_w + cim_io + sw_b + pd_b
+    for kernel in calls:
+        if calls[kernel]:
+            ms = graph_time_ms(run(kernel))
+            out[kernel] = {"calls": len(calls[kernel]), "ms": ms,
+                           "bound_ms": bound(nbytes[kernel], 0.0)[0],
+                           "bytes": nbytes[kernel]}
 
     def all_calls():
-        cim_calls()
-        sw_calls()
-        pd_calls()
-    ms = graph_time_ms(all_calls)
-    out["step"] = {"ms": ms, "bound_ms": bound(total_b, 0.0)[0],
-                   "bytes": total_b}
+        for kernel in calls:
+            run(kernel)()
+    total = sum(nbytes.values())
+    out["step"] = {"ms": graph_time_ms(all_calls),
+                   "bound_ms": bound(total, 0.0)[0], "bytes": total,
+                   "experts_kept_per_layer": kept}
     return out
 
 
@@ -4997,9 +5183,7 @@ def tp_rank(rank, ref, init, out_dir):
     """One rank of phase 16 (spawned): qwen2.5-3b from phase 3's seed,
     its shard served at tp = 2 on a gloo group over loopback."""
     import datetime
-    from types import SimpleNamespace
 
-    import numpy as np
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5009,9 +5193,6 @@ def tp_rank(rank, ref, init, out_dir):
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=TP,
                             timeout=datetime.timedelta(seconds=300))
-    from repro_torch.dist import (collective_counts, collective_seconds,
-                                  reset_collective_counts)
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serve import PagedServeEngine, ServeConfig
     from repro_torch.spec import SpecConfig
 
@@ -5051,62 +5232,17 @@ def tp_rank(rank, ref, init, out_dir):
     if (per_step["cim_gemv"], per_step["swiglu_qgemv"],
             per_step["paged_flash_decode"]) != (181, 36, 36):
         fail(f"{tag}: a decode step's launches {per_step}")
-    per_call = {"all_reduce": 2 * cfg.n_layers + 1, "all_gather": 1}
     res = {"rank": rank}
-    for label, e, prompts, n_new, want in (
-            ("wave", eng, ref["wave"], 16, ref["wave_streams"]),
+    for label, e, prompts, n_new, want, what in (
+            ("wave", eng, ref["wave"], 16, ref["wave_streams"], "phase 3"),
             ("ngram", spec_eng, ref["ngram_prompts"], 32,
-             ref["ngram_streams"])):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        reset_collective_counts()
-        t_run = time.perf_counter()
-        reqs, steps = tp_serve(e, prompts, n_new)
-        run_s = time.perf_counter() - t_run
-        counts, coll = launch_counts(), collective_counts()
-        calls = e.prefill_calls + e.decode_calls + e.verify_calls
-        expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
-                                   e.verify_calls)
-        want_coll = {k: v * calls for k, v in per_call.items()}
-        log(f"{tag} {label}: {e.prefill_calls} prefill + {e.decode_calls} "
-            f"decode + {e.verify_calls} verify calls in {run_s:.2f} s; "
-            f"launches {counts}, expected {expect}; collectives {coll}, "
-            f"expected {want_coll}")
-        if counts != expect:
-            fail(f"{tag} {label}: launches {counts} != {expect}")
-        if coll != want_coll:
-            fail(f"{tag} {label}: collectives {coll} != {want_coll}")
-        if label == "ngram" and e.verify_calls <= 0:
-            fail(f"{tag}: the n-gram run made no verify call")
-        got = [r.out_tokens for r in reqs]
-        if any(len(t) != n_new for t in got):
-            fail(f"{tag} {label}: generated {[len(t) for t in got]} "
-                 f"tokens, expected {n_new} each")
-        ref_reqs = [SimpleNamespace(prompt=p, out_tokens=w, rid=i)
-                    for i, (p, w) in enumerate(zip(prompts, want))]
-        near = check_identity(f"{tag} {label} vs phase "
-                              f"{3 if label == 'wave' else 4}", ref_reqs,
-                              reqs, model, e.params, device, e._serve_fn,
-                              TP)
-        wall = [ms for ms, _ in steps]
-        res[label] = {
-            "streams": got, "near_ties": near, "launches": counts,
-            "collectives": coll, "calls": calls,
-            "collectives_per_call": {k: v // calls for k, v in coll.items()},
-            "collective_s": collective_seconds(),
-            "step_ms_median": float(np.median(wall)),
-            "step_collective_ms_median": float(np.median(
-                [c for _, c in steps])),
-            "collective_share": sum(c for _, c in steps) / sum(wall),
-            "steps": len(steps), "run_s": run_s,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "summary_tp": e.summary()["tp"],
-            "step_graphs": e.summary()["step_graphs"]}
+             ref["ngram_streams"], "phase 4")):
+        res[label] = tp_run(tag, label, e, model, prompts, n_new, want,
+                            what, device)
     res["kernel_checks"], res["shapes"] = tp_kernel_checks(eng, device, rank)
     dist.barrier()
     if rank == 0:                     # rank 1 waits: the card is rank 0's
-        res["timing"] = tp_step_timing(eng, device)
+        res["timing"] = tp_step_timing(eng, device, rank)
     dist.barrier()
     res["resident_gb"] = torch.cuda.memory_allocated() / 1e9
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
@@ -5163,6 +5299,250 @@ def phase_tp(card):
                            for lab in ("wave", "ngram")} for r in ranks]}
     return ranks[0]["wave"]["launches"], ranks[0]["ngram"]["launches"], \
         result
+
+
+# ---------------------------------------------------------------------------
+# expert-parallel MoE and tensor-parallel MLA: qwen3-moe-235b-a22b x4 and
+# deepseek-v2-lite-16b x8 at tp = 2, two ranks sharing the card
+# ---------------------------------------------------------------------------
+TP_MOE_REF = {}   # what phase 17 is held to, by arch: phase 9's / 10's
+                  # weights digest, first wave and its eager streams,
+                  # n-gram prompts and their streams without speculation,
+                  # eager decode step median
+# (arch, layers, cim_gemv / swiglu_qgemv / paged_flash_decode a decode
+# step on each rank)
+TP_MOE_ARCHS = ((MOE_ARCH, 4, (29, 0, 4)), (DS_ARCH, 8, (68, 1, 0)))
+
+
+def tp_route_counts(eng):
+    """Per MoE layer, the router's global expert counts of one batch-4
+    decode step (tokens 0, lanes at 64 keys) through the engine's own
+    tensor-parallel step, which every rank calls in lockstep (it writes
+    the lanes' pages of a drained engine's pools)."""
+    import numpy as np
+    import torch
+    b, mp, dev = eng.max_batch, eng.cache.max_pages, eng.device
+    with RouteLog() as rl:
+        eng._serve_fn(eng.params, eng.state,
+                      {"tokens": torch.zeros(b, 1, dtype=torch.int32,
+                                             device=dev)},
+                      torch.from_numpy(np.arange(b * mp, dtype=np.int32)
+                                       .reshape(b, mp)).to(dev),
+                      torch.full((b,), 64, dtype=torch.int32, device=dev),
+                      torch.ones(b, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+    return rl.counts
+
+
+def tp_moe_rank(rank, refs, init, out_dir):
+    """One rank of phase 17 (spawned): qwen3-moe x4 and deepseek x8 from
+    phase 9's and 10's seed, each its shard served at tp = 2 on a gloo
+    group over loopback."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=TP,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {"rank": rank}
+    for arch, n_layers, want_step in TP_MOE_ARCHS:
+        res[arch] = tp_moe_arch(rank, arch, n_layers, want_step, refs[arch],
+                                device)
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def tree_gb(tree) -> float:
+    """GB of a param tree's tensors (a QTensor's packed data and scales)."""
+    if isinstance(tree, dict):
+        return sum(tree_gb(v) for v in tree.values())
+    if hasattr(tree, "nbytes_packed"):
+        return tree.nbytes_packed() / 1e9
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def tp_moe_arch(rank, arch, n_layers, want_step, ref, device):
+    """This rank's part of phase 17 for one arch: draw (one rank at a
+    time), shard, serve the wave and the n-gram prompts, check the
+    kernels at its shapes and (rank 0) time its decode step's kernels."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+    from repro_torch.spec import SpecConfig
+
+    tag = f"phase 17 rank {rank} {arch}"
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers)
+    mla = cfg.attn_kind == "mla"
+    serve_cfg = ServeConfig(precision="int4", kv_dtype="auto",
+                            max_batch=4, max_seq=128, page_size=16,
+                            prefill_chunk=16, tp=TP)
+    # one rank draws at a time: a stack is drawn as f32 and packed
+    # through f32 temporaries (qwen3-moe x4's we_gate alone is 12.9
+    # GB of f32), which two ranks at once would crowd the card with
+    for turn in range(TP):
+        if turn == rank:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, params = build_model(cfg, "int4", 128, device,
+                                        seed=0)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            draw_peak = torch.cuda.max_memory_allocated() / 1e9
+            whole_gb = torch.cuda.memory_allocated() / 1e9
+            digest = weights_digest(params)
+            eng = PagedServeEngine(model, params, serve_cfg,
+                                   device=device)
+            spec_eng = PagedServeEngine(model, params, serve_cfg,
+                                        device=device,
+                                        spec=SpecConfig(k=4))
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    resident = torch.cuda.memory_allocated() / 1e9
+    shard_gb = tree_gb(eng.params)
+    same = digest == ref["digest"]
+    log(f"{tag}: x{n_layers} INT4 drawn in {draw_s:.1f} s, "
+        f"{whole_gb:.2f} GB whole (peak {draw_peak:.2f} GB while "
+        f"drawing), {resident:.2f} GB resident after sharding (two "
+        f"engines, each its {shard_gb:.2f} GB shard and pools); "
+        f"unsharded weights sha256 {digest[:16]}..., phase "
+        f"{9 if arch == MOE_ARCH else 10}'s {ref['digest'][:16]}... "
+        f"({'equal' if same else 'DIFFERENT'})")
+    if not same:
+        fail(f"{tag}: the unsharded weights differ from phase "
+             f"{9 if arch == MOE_ARCH else 10}'s")
+    if eng.runner.graphs or spec_eng.runner.graphs:
+        fail(f"{tag}: steps captured as CUDA graphs at tp = {TP}")
+    blocks = eng.params["blocks"]
+    attn, ffn = blocks["attn"], blocks["ffn"]
+    pools = eng.cache.pools["attn"]
+    El = ffn["we_gate"].orig_shape[1]
+    log(f"{tag}: shard stacks {tuple(ffn['we_gate'].orig_shape)} / "
+        f"{tuple(ffn['we_down'].orig_shape)}, wq "
+        f"{tuple(attn['wq'].orig_shape)}, wo "
+        f"{tuple(attn['wo'].orig_shape)}, pools "
+        + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                    for k, v in pools.items()))
+    if El != cfg.moe.n_experts // TP:
+        fail(f"{tag}: a rank holds {El} experts a stack")
+    if mla:
+        m = cfg.mla
+        heads = attn["wq"].orig_shape[-1] // (m.qk_nope_head_dim
+                                              + m.qk_rope_head_dim)
+        if heads != cfg.n_heads // TP or pools["c_kv"].shape[-1] \
+                != m.kv_lora_rank or attn["w_dkv"].orig_shape[-1] \
+                != m.kv_lora_rank + m.qk_rope_head_dim:
+            fail(f"{tag}: {heads} heads, latent pools "
+                 f"{tuple(pools['c_kv'].shape)}")
+    elif pools["k"].shape[-2] != cfg.n_kv_heads // TP:
+        fail(f"{tag}: pools hold {pools['k'].shape[-2]} kv heads")
+    per_step = step_launches(cfg, 1)
+    got_step = (per_step["cim_gemv"], per_step["swiglu_qgemv"],
+                per_step["paged_flash_decode"])
+    if got_step != want_step:
+        fail(f"{tag}: a decode step's launches {per_step}, expected "
+             f"{want_step}")
+    phase = 9 if arch == MOE_ARCH else 10
+    out = {"draw_s": draw_s, "draw_peak_gb": draw_peak,
+           "whole_gb": whole_gb, "resident_gb": resident,
+           "shard_gb": shard_gb, "experts_per_rank": El}
+    for label, e, prompts, n_new, want, what in (
+            ("wave", eng, ref["wave"], 16, ref["wave_streams"],
+             f"phase {phase}'s eager wave"),
+            ("ngram", spec_eng, ref["ngram_prompts"], 24,
+             ref["ngram_streams"], f"phase {phase}'s run without spec")):
+        out[label] = tp_run(tag, label, e, model, prompts, n_new, want,
+                            what, device)
+    route = tp_route_counts(eng)
+    out["kernel_checks"], out["shapes"] = tp_kernel_checks(eng, device,
+                                                           rank, route)
+    dist.barrier()
+    if rank == 0:                 # rank 1 waits: the card is rank 0's
+        out["timing"] = tp_step_timing(eng, device, rank, route,
+                                       lengths=(65,) * 4)
+    dist.barrier()
+    return out
+
+
+def phase_tp_moe(card):
+    """Phase 17: spawn two ranks (gloo over loopback, both on cuda:0),
+    each serving qwen3-moe x4 and then deepseek x8 at tp = 2; hold them
+    to phases 9 and 10 and to each other."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    out_dir = (Path(__file__).resolve().parent / "build" / "chip_smoke"
+               / "tp_moe")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(tp_moe_rank, args=(TP_MOE_REF,
+                                          f"tcp://127.0.0.1:{port}",
+                                          str(out_dir)),
+                       nprocs=TP, join=True, start_method="spawn")
+    phase_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(TP)]
+    by_path, result = {}, {"phase_s": phase_s, "card": card}
+    for arch, n_layers, _ in TP_MOE_ARCHS:
+        a, b = ranks[0][arch], ranks[1][arch]
+        for label in ("wave", "ngram"):
+            if a[label]["streams"] != b[label]["streams"]:
+                fail(f"phase 17 {arch} {label}: the ranks' streams differ")
+            if a[label]["launches"] != b[label]["launches"]:
+                fail(f"phase 17 {arch} {label}: the ranks' launches differ")
+        w, t = a["wave"], a["timing"]
+        tp1 = TP_MOE_REF[arch]["eager_decode_ms"]
+
+        def gb(key, label=None):
+            return [round((r[arch][label] if label else r[arch])[key], 3)
+                    for r in ranks]
+        log(f"phase 17 {arch} x{n_layers} (tp = {TP}, two ranks on one "
+            f"card, {card}): decode step wall median "
+            f"{w['step_ms_median']:.2f} ms (rank 0; rank 1 "
+            f"{b['wave']['step_ms_median']:.2f} ms) against phase "
+            f"{9 if arch == MOE_ARCH else 10}'s eager tp = 1 {tp1:.2f} ms; "
+            f"collectives {w['collectives_per_call']} a step, "
+            f"{w['step_collective_ms_median']:.2f} ms of a step (median), "
+            f"{100 * w['collective_share']:.1f} % of decode step wall; "
+            f"n-gram run's step {a['ngram']['step_ms_median']:.2f} ms; "
+            f"peak memory a rank drawing {gb('draw_peak_gb')} GB, resident "
+            f"{gb('resident_gb')} GB (a shard {a['shard_gb']:.3f} GB an "
+            f"engine), serving {gb('peak_gb', 'wave')} GB; one rank's "
+            f"decode step kernels (graph replay, experts with rows per "
+            f"layer {t['step']['experts_kept_per_layer']}): "
+            + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} "
+                        f"ms)" for k, v in t.items()))
+        key = "qwen3moe" if arch == MOE_ARCH else "deepseek"
+        by_path[f"{key}_tp2_decode"] = w["launches"]
+        by_path[f"{key}_tp2_spec_ngram"] = a["ngram"]["launches"]
+        result[arch] = {
+            "eager_tp1_decode_step_ms_median": tp1,
+            "ranks": [{k: v for k, v in r[arch].items()
+                       if k not in ("wave", "ngram")}
+                      | {lab: {k: v for k, v in r[arch][lab].items()
+                               if k != "streams"}
+                         for lab in ("wave", "ngram")} for r in ranks]}
+    log(f"phase 17 {phase_s:.1f} s")
+    return by_path, result
 
 
 def main() -> None:
@@ -5283,6 +5663,8 @@ def main() -> None:
     by_path.update(paths)
     by_path["tp2_decode"], by_path["tp2_spec_ngram"], tp_result = \
         phase_tp(card)
+    tp_moe_paths, tp_moe_result = phase_tp_moe(card)
+    by_path.update(tp_moe_paths)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -5325,6 +5707,7 @@ def main() -> None:
     log("training summary " + json.dumps(train_result))
     log("other paths summary " + json.dumps(other_result))
     log("tp summary " + json.dumps(tp_result))
+    log("tp moe / mla summary " + json.dumps(tp_moe_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,9 +20,10 @@ A serve "mesh" is one axis, "model", of `tp` ranks, and rank r holds the
 r-th contiguous slice of every dim its pspec names.  The model code
 (`models/attention.py`, `ffn.py`, `model.py`) reads the local widths off
 the tensors it is given: column-parallel q/k/v and gate/up, row-parallel
-`wo` and `w_down` followed by `tp_all_reduce`, a vocab-parallel table
-gathered for the logits (`kernels.ops.row_parallel`,
-`tp_rank_and_size`).
+`wo` and `w_down` followed by `tp_all_reduce`, the rank's experts of
+every MoE stack (the routing global, one `tp_all_reduce` a MoE layer),
+MLA's heads over whole latent pools, a vocab-parallel table gathered
+for the logits (`kernels.ops.row_parallel`, `tp_rank_and_size`).
 
 Collectives run on the group's backend as it is: gloo for ranks on the
 CPU and for ranks that share one card (NCCL refuses two ranks on one

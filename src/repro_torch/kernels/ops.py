@@ -71,22 +71,28 @@ def qmatmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     return out.reshape(*lead, n).to(x.dtype)
 
 
+def rank_rows(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """x @ W over this rank's rows of a row-parallel W, before the sum
+    over the ranks: `cim_gemv`'s f32 output for a packed W, x's dtype for
+    a float one.  x: (..., K_rank) -> (..., N)."""
+    if not isinstance(w, QTensor):
+        return torch.matmul(x, w.to(x.dtype))
+    lead = x.shape[:-1]
+    out = cim_gemv(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return out.reshape(*lead, w.data.shape[-1])
+
+
 def row_parallel(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x @ W for a row-parallel weight (attention's `wo`, the FFN's
     `w_down`) under tensor parallelism (`dist.shard.use_tp`): the rank's
-    rows of W times its columns of x, summed over the ranks in f32 (the
-    packed route's `cim_gemv` output) before the cast to x's dtype.  A W
-    the sharding rule left whole (its group count does not divide by the
-    ranks) takes the ranks' x gathered and sums nothing.  Outside
-    `use_tp` this is `qmatmul`."""
+    rows of W times its columns of x (`rank_rows`), summed over the ranks
+    in f32 (the packed route's `cim_gemv` output) before the cast to x's
+    dtype.  A W the sharding rule left whole (its group count does not
+    divide by the ranks) takes the ranks' x gathered and sums nothing.
+    Outside `use_tp` this is `qmatmul`."""
     if w.shape[-2] != x.shape[-1]:
-        x = tp_all_gather(x, -1)
-        return qmatmul(x, w)
-    if not isinstance(w, QTensor):
-        return tp_all_reduce(torch.matmul(x, w.to(x.dtype)))
-    lead = x.shape[:-1]
-    out = tp_all_reduce(cim_gemv(x.reshape(-1, x.shape[-1]).contiguous(), w))
-    return out.reshape(*lead, w.data.shape[-1]).to(x.dtype)
+        return qmatmul(tp_all_gather(x, -1), w)
+    return tp_all_reduce(rank_rows(x, w)).to(x.dtype)
 
 
 def expert_qmatmul(x: torch.Tensor, w: Any, counts: torch.Tensor

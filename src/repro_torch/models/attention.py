@@ -585,11 +585,18 @@ def mla_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     Prefill chunks, decode steps and verify windows take the same path:
     the latent gather scores every window position under the
     intra-window causal mask, so `verify` needs no kernel of its own (as
-    in the JAX package; `is_local` and `verify` are unused)."""
+    in the JAX package; `is_local` and `verify` are unused).
+
+    Under tensor parallelism (`dist.shard.use_tp`) a rank holds its
+    heads' columns of wq, w_uk and w_uv (head-major, so a contiguous
+    slice is whole heads) and their rows of wo, whose output is summed
+    over the ranks (`row_parallel`); w_dkv, ckv_norm and the latent pools
+    stay whole, and every rank writes the same latent rows.  The head
+    count is read off wq's columns."""
     m = cfg.mla
     b, s, _ = x.shape
-    H = cfg.n_heads
     nope, rope_d, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    H = p["wq"].shape[-1] // (nope + rope_d)
 
     q = qmm(x, p["wq"]).reshape(b, s, H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
@@ -604,7 +611,7 @@ def mla_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     _page_scatter(cache["k_rope"], kr_new[:, :, 0, :], rows)
     out = mla_attend(p, cfg, q_nope, q_rope, cache, tables, rows.slots,
                      lengths + n_new, x.dtype)
-    return qmm(out, p["wo"])
+    return row_parallel(out, p["wo"])
 
 
 def attn_paged_step(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -21,7 +21,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.ops import expert_qmatmul, row_parallel
+from repro_torch.dist.shard import (tp_all_gather, tp_all_reduce,
+                                    tp_rank_and_size)
+from repro_torch.kernels.ops import expert_qmatmul, rank_rows, row_parallel
 from repro_torch.kernels.ops import qmatmul as qmm
 from repro_torch.kernels.ops import swiglu
 
@@ -147,6 +149,37 @@ def _expert_ffn(p: Params, cfg: ModelConfig, xe: torch.Tensor,
     return expert_qmatmul(h, p["we_down"], counts)
 
 
+def _dispatch(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Route the b * s rows of x and place their slots: (xf (T, d), the
+    top-k weights (T, k), slot (T * k,) and counts (E,) of
+    `dispatch_slots`, the rows C of an expert's buffer)."""
+    b, s, d = x.shape
+    T = b * s
+    groups, cap = capacity(cfg, T)
+    xf = x.reshape(T, d)
+    w, ids = _router(p, cfg, xf)
+    slot, counts = dispatch_slots(ids, cfg.moe.n_experts, cap, groups)
+    return xf, w, slot, counts, groups * cap
+
+
+def _combine(p: Params, cfg: ModelConfig, xf: torch.Tensor,
+             w: torch.Tensor, slot: torch.Tensor, counts: torch.Tensor,
+             C: int) -> torch.Tensor:
+    """Pack xf's slots into the stacks' (E, C, d) buffers (E the stacks'
+    leading dim; slot E * C drops), run the experts, and gather each slot
+    back times its weight: (T, k, d) in xf's dtype, a dropped slot 0."""
+    T, k = w.shape
+    E, d = p["we_gate"].shape[0], xf.shape[1]
+    buf = torch.zeros(E * C + 1, d, dtype=xf.dtype, device=xf.device)
+    buf.index_copy_(0, slot, xf[:, None].expand(T, k, d).reshape(T * k, d))
+    ye = _expert_ffn(p, cfg, buf[:E * C].view(E, C, d), counts)
+    # only kept rows are gathered: rows past an expert's count hold
+    # whatever the card left there; a dropped slot reads the zero row
+    ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
+    return (take_rows(ye, slot) * w.reshape(T * k, 1).to(xf.dtype)
+            ).reshape(T, k, d)
+
+
 def moe_routed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """The routed experts of every token of x (b, s, d): route, pack into
     the experts' buffers, run them, gather the kept slots back and sum
@@ -159,34 +192,62 @@ def moe_routed(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     (its source's gradient is a gather) and the combine's gather
     (`take_rows`: a fixed-order segment sum, no atomics); only the
     choice of slots is discrete, as in JAX."""
-    m = cfg.moe
-    b, s, d = x.shape
-    T, k, E = b * s, m.top_k, m.n_experts
-    groups, cap = capacity(cfg, T)
-    xf = x.reshape(T, d)
-    w, ids = _router(p, cfg, xf)
-    slot, counts = dispatch_slots(ids, E, cap, groups)
-    C = groups * cap
-    buf = torch.zeros(E * C + 1, d, dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, slot, xf[:, None].expand(T, k, d).reshape(T * k, d))
-    ye = _expert_ffn(p, cfg, buf[:E * C].view(E, C, d), counts)
-    # only kept rows are gathered: rows past an expert's count hold
-    # whatever the card left there; a dropped slot reads the zero row
-    ye = torch.cat([ye.reshape(E * C, d), ye.new_zeros(1, d)])
-    out = (take_rows(ye, slot) * w.reshape(T * k, 1).to(x.dtype)
-           ).reshape(T, k, d)
-    return out.sum(dim=1).reshape(b, s, d)
+    xf, w, slot, counts, C = _dispatch(p, cfg, x)
+    return _combine(p, cfg, xf, w, slot, counts, C).sum(dim=1).reshape(
+        x.shape)
+
+
+def _moe_routed_rank(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     rank: int) -> torch.Tensor:
+    """Expert parallelism: this rank's share of `moe_routed`, an f32
+    partial (b, s, d) that the ranks' sum makes whole.  The routing and
+    the capacity stay global, the same on every rank (the router is
+    replicated), so the slots kept and dropped are those of tp = 1; the
+    rank holds the stacks' experts [rank * El, (rank + 1) * El) (El their
+    leading dim), packs only their slots into (El, C, d) buffers and
+    sends every other slot to its own drop row El * C."""
+    El = p["we_gate"].shape[0]
+    xf, w, slot, counts, C = _dispatch(p, cfg, x)
+    local = slot - rank * El * C
+    local = torch.where((local >= 0) & (local < El * C), local,
+                        torch.full_like(local, El * C))
+    out = _combine(p, cfg, xf, w, local,
+                   counts[rank * El:(rank + 1) * El], C)
+    return out.to(torch.float32).sum(dim=1).reshape(x.shape)
 
 
 def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Routed experts plus, when the config has them, the shared experts:
-    three packed products (not the fused SwiGLU), as the JAX package."""
-    out = moe_routed(p, cfg, x)
+    three packed products (not the fused SwiGLU), as the JAX package.
+
+    Under tensor parallelism (`dist.shard.use_tp`) a rank runs its
+    experts (`_moe_routed_rank`) and its columns of the shared gate / up
+    and rows of the shared down projection; the two f32 partials are
+    summed over the ranks in one all-reduce, then cast.  A leaf the
+    sharding rule left whole (the stacks when the ranks do not divide
+    the experts, `ws_down` when they do not divide its groups) is
+    computed whole on every rank (the shared input gathered) and added
+    after the sum.  Outside `use_tp` every leaf is whole and the sum is
+    the identity: routed plus shared, in x's dtype."""
+    rank, _ = tp_rank_and_size()
+    whole = part = None
+    if p["we_gate"].shape[0] == cfg.moe.n_experts:
+        whole = moe_routed(p, cfg, x)
+    else:
+        part = _moe_routed_rank(p, cfg, x, rank)
     if cfg.moe.n_shared_experts > 0:
         act = ACTIVATIONS[cfg.ffn_act]
-        out = out + qmm(act(qmm(x, p["ws_gate"])) * qmm(x, p["ws_up"]),
-                        p["ws_down"])
-    return out
+        h = act(qmm(x, p["ws_gate"])) * qmm(x, p["ws_up"])
+        if p["ws_down"].shape[-2] != h.shape[-1]:
+            sh = qmm(tp_all_gather(h, -1), p["ws_down"])
+            whole = sh if whole is None else whole + sh
+        else:
+            sh = rank_rows(h, p["ws_down"]).to(torch.float32)
+            part = sh if part is None else part + sh
+    out = None if part is None else tp_all_reduce(part).to(x.dtype)
+    if whole is None:
+        return out
+    return whole if out is None else out + whole
 
 
 def ffn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:

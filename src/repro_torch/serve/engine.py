@@ -72,17 +72,22 @@ engine's `_shard_runtime_state`: the engine runs in each of `tp` ranks
 of a torch.distributed group (`dist.shard.serve_group`), takes the full
 params and keeps its rank's slice of every leaf (`dist.shard.shard_tree`
 by the specs' logical axes), and allocates its pools at n_kv_heads / tp
-heads.  Block tables, refcounts, the scheduler and the prefix trie stay
-host-side and the same on every rank; every step runs under
-`dist.shard.use_tp` (the all-reduces after `wo` and `w_down`, the
+heads (MLA's latent pools whole).  Block tables, refcounts, the
+scheduler and the prefix trie stay host-side and the same on every
+rank; every step runs under `dist.shard.use_tp` (the all-reduces after
+`wo` and `w_down`, one after each MoE layer's experts, the
 vocab-parallel embedding, the logits gathered in rank order), so every
 rank samples from the same logits with the same seeded generator and
-the ranks stay in lockstep.  The steps run eagerly: the gloo group's
+the ranks stay in lockstep.  A MoE rank runs its n_experts / tp experts
+of every stack on the global routing (`ffn.moe_ffn`); an MLA rank its
+n_heads / tp heads over the whole latent pools
+(`attention.mla_paged_step`).  The steps run eagerly: the gloo group's
 collectives go through the host and cannot be captured in a CUDA graph.
-A model drafter stays whole on every rank.  The paged GQA families only
-(dense, with GQA attention); MoE, MLA and the recurrent families raise
-NotImplementedError at tp > 1, and a request with a deadline raises
-ValueError (each rank's scheduler would expire it on its own clock).
+A model drafter stays whole on every rank.  The paged families only
+(dense and MoE, GQA or MLA attention); the recurrent and hybrid families
+(xlstm, zamba) raise NotImplementedError at tp > 1, and a request with
+a deadline raises ValueError (each rank's scheduler would expire it on
+its own clock).
 Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
 and MLA models (deepseek) are served like any dense model;
 `kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
@@ -173,16 +178,16 @@ def _has_qtensor(tree: Any) -> bool:
 
 
 def _check_tp_family(model) -> None:
-    """Tensor-parallel serving covers the paged GQA families (dense
-    decoders with GQA attention); the others raise, naming the
-    family."""
+    """Tensor-parallel serving covers the paged families
+    (`supports_paged`: dense and MoE decoders, GQA or MLA attention).  A
+    family with recurrent per-lane state (xlstm, zamba) raises, naming
+    the family."""
     cfg = model.cfg
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
-        mla = " with MLA attention" if cfg.attn_kind == "mla" else ""
+    if not model.supports_paged():
         raise NotImplementedError(
             f"{cfg.name}: tensor-parallel serving (tp > 1) of family "
-            f"{cfg.family!r}{mla} is not in the PyTorch port yet; it "
-            f"covers the dense GQA families")
+            f"{cfg.family!r} is not in the PyTorch port yet; it covers "
+            f"the paged dense and MoE families (GQA or MLA attention)")
 
 
 class PagedServeEngine:

@@ -34,7 +34,9 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.dist import axes as jax_axes
 from repro.dist import qtree_shardings, serve_mesh
 from repro.models import DecoderLM as JaxLM
+from repro.models import MLAConfig as JaxMLA
 from repro.models import ModelConfig as JaxConfig
+from repro.models import MoEConfig as JaxMoE
 from repro.models.common import is_spec
 from repro.quant.qarray import QTensor as JaxQTensor
 
@@ -45,9 +47,11 @@ from repro_torch.dist.shard import leaf_pspec, shard_specs, shard_tree
 from repro_torch.kernels import cim_gemv as cg
 from repro_torch.kernels import split_decode as sd
 from repro_torch.kernels import swiglu_gemv as sw
-from repro_torch.models import DecoderLM, ModelConfig
+from repro_torch.models import DecoderLM
 from repro_torch.quant.ptq import _pick_group, quantize_params
 from repro_torch.quant.qarray import QTensor
+
+from torch_tp_ranks import port_config
 
 
 # w_down (24, 32) in groups of 8: 12 packed rows but 3 scale rows, which
@@ -68,8 +72,24 @@ def _flat(tree, prefix=""):
 
 
 def _smoke_kw(arch_id):
+    """JAX's smoke config of `arch_id` as an arch dict, its `moe` / `mla`
+    as dicts of their fields (tests/torch_tp_ranks.py)."""
     cfg = jax_smoke(arch_id)
-    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for k in ("moe", "mla"):
+        if out[k] is not None:
+            out[k] = dataclasses.asdict(out[k])
+    return out
+
+
+def jax_config(arch):
+    """JAX's f32 ModelConfig of an arch dict."""
+    kw = dict(arch, dtype="float32", remat=False)
+    if isinstance(kw.get("moe"), dict):
+        kw["moe"] = JaxMoE(**kw["moe"])
+    if isinstance(kw.get("mla"), dict):
+        kw["mla"] = JaxMLA(**kw["mla"])
+    return JaxConfig(**kw)
 
 
 # ----------------------------------------------------------------------------
@@ -139,7 +159,7 @@ _PARAMS = {}
 def host_weights(arch, seed=0):
     """Float weights of `arch` drawn with numpy from `seed`: the JAX
     parameter tree as numpy f32 arrays."""
-    jm = JaxLM(JaxConfig(**dict(arch, dtype="float32", remat=False)))
+    jm = JaxLM(jax_config(arch))
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
         lambda s: (0.2 * rng.standard_normal(s.shape)).astype(np.float32),
@@ -174,21 +194,24 @@ def _params(arch, precision):
     """(jax specs, jax params, port specs, port params), built once."""
     key = (arch["name"], precision)
     if key not in _PARAMS:
-        kw = dict(arch, dtype="float32", remat=False)
         host = host_weights(arch)
         if precision == "int4":
             jp, host = packed(host, 8 if arch is REPLICATED_LEAF else 16)
         else:
             jp = jax.tree_util.tree_map(jnp.asarray, host)
-        _PARAMS[key] = (JaxLM(JaxConfig(**kw)).param_specs(), jp,
-                        DecoderLM(ModelConfig(**kw)).param_specs(),
+        _PARAMS[key] = (JaxLM(jax_config(arch)).param_specs(), jp,
+                        DecoderLM(port_config(arch)).param_specs(),
                         from_numpy_tree(host))
     return _PARAMS[key]
 
 
 CASES = [(_smoke_kw("qwen2.5-3b"), "fp"), (_smoke_kw("qwen2.5-3b"), "int4"),
          (_smoke_kw("gemma3-4b"), "fp"), (_smoke_kw("gemma3-4b"), "int4"),
-         (REPLICATED_LEAF, "int4")]
+         (REPLICATED_LEAF, "int4"),
+         (_smoke_kw("qwen3-moe-235b-a22b"), "fp"),
+         (_smoke_kw("qwen3-moe-235b-a22b"), "int4"),
+         (_smoke_kw("deepseek-v2-lite-16b"), "fp"),
+         (_smoke_kw("deepseek-v2-lite-16b"), "int4")]
 
 
 def _jax_leaves(jspecs, jp, mesh):
@@ -219,7 +242,8 @@ def test_leaf_pspec_equals_qtree_shardings(arch, precision):
         (arch is REPLICATED_LEAF)
 
 
-@pytest.mark.parametrize("arch,precision", [CASES[1], CASES[3], CASES[4]],
+@pytest.mark.parametrize("arch,precision", [CASES[1], CASES[3], CASES[4],
+                                            *CASES[5:]],
                          ids=lambda a: a["name"] if isinstance(a, dict)
                          else a)
 def test_each_ranks_shard_is_the_bytes_jax_puts_on_its_device(arch,
@@ -341,6 +365,121 @@ def test_kernel_plans_take_the_rank_shapes(m):
     assert chunk % 16 == 0 and (n_split - 1) * chunk < 128 <= \
         n_split * chunk
     n_split, chunk = sd.plan_verify(4, 5 * 8, 128, 16)
+    assert chunk % 16 == 0 and (n_split - 1) * chunk < 128 <= \
+        n_split * chunk
+    assert sd.smem_bytes(1, 128) <= 226 * 1024
+
+
+# ----------------------------------------------------------------------------
+# the MoE and MLA configs: validate_tp, and the kernels' host plans at one
+# rank's shapes (qwen3-moe-235b-a22b and deepseek-v2-lite-16b, tp = 2)
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("arch_id,tp", [
+    ("qwen3-moe-235b-a22b", 2), ("qwen3-moe-235b-a22b", 4),
+    ("qwen3-moe-235b-a22b", 8), ("deepseek-v2-lite-16b", 2),
+    ("deepseek-v2-lite-16b", 8), ("deepseek-v2-lite-16b", 32)])
+def test_validate_tp_of_the_full_moe_and_mla_configs(arch_id, tp):
+    """qwen3-moe's 4 kv heads stop it at tp = 8; deepseek's MLA has no kv
+    head dim to divide (8 passes), its 16 heads stop it at 32."""
+    from repro.configs import get_config as jax_get_config
+    errs = []
+    for model in (JaxLM(jax_get_config(arch_id)),
+                  DecoderLM(get_config(arch_id))):
+        try:
+            model.validate_tp(tp)
+            errs.append(None)
+        except ValueError as e:
+            errs.append(str(e))
+    assert errs[0] == errs[1]
+    bad = {("qwen3-moe-235b-a22b", 8): "n_kv_heads=4",
+           ("deepseek-v2-lite-16b", 32): "n_heads=16"}.get((arch_id, tp))
+    assert (errs[1] is None) == (bad is None)
+    if bad:
+        assert bad in errs[1]
+
+
+@pytest.mark.parametrize("m", (1, 4, 20))
+def test_kernel_plans_take_the_moe_and_mla_rank_shapes(m):
+    """One rank of two: qwen3-moe's projections (64 heads, 4 kv heads of
+    128) and 64-expert stacks, deepseek's MLA projections (8 heads of
+    192, wo 1024 -> 2048), its 32-expert stacks and shared experts, and
+    layer 0's dense FFN (5472 columns, w_down 48 of its 96 groups of
+    114); the stacks at a decode step's capacity (8 rows an expert) and
+    a 64-token chunk's; split-KV at g 2, qpk 16."""
+    tp = 2
+    q3m, ds = get_config("qwen3-moe-235b-a22b"), get_config(
+        "deepseek-v2-lite-16b")
+    d, hd = q3m.d_model, q3m.hd()
+    fe = q3m.moe.d_ff_expert
+    m_ = ds.mla
+    H = ds.n_heads // tp
+    qk, vd = m_.qk_nope_head_dim + m_.qk_rope_head_dim, m_.v_head_dim
+    dd, fs = ds.d_model, ds.moe.d_ff_expert * ds.moe.n_shared_experts
+    g = _pick_group
+    # (name, K, N, group): the full leaf's group, which the slice keeps
+    calls = [("q3m wq", d, q3m.n_heads * hd // tp, g(d, 128, 16)),
+             ("q3m wk", d, q3m.n_kv_heads * hd // tp, g(d, 128, 16)),
+             ("q3m wo", q3m.n_heads * hd // tp, d,
+              g(q3m.n_heads * hd, 128, 16)),
+             ("q3m head", d, q3m.vocab // tp, g(d, 128, 16)),
+             ("ds wq", dd, H * qk, g(dd, 128, 16)),
+             ("ds w_dkv", dd, m_.kv_lora_rank + m_.qk_rope_head_dim,
+              g(dd, 128, 16)),
+             ("ds wo", H * vd, dd, g(ds.n_heads * vd, 128, 16)),
+             ("ds ws_gate", dd, fs // tp, g(dd, 128, 16)),
+             ("ds ws_down", fs // tp, dd, g(fs, 128, 16)),
+             ("ds w_down", ds.d_ff // tp, dd, g(ds.d_ff, 128, 16)),
+             ("ds head", dd, ds.vocab // tp, g(dd, 128, 16))]
+    assert [c[1:] for c in calls] == [
+        (4096, 4096, 128), (4096, 256, 128), (4096, 4096, 128),
+        (4096, 75968, 128), (2048, 1536, 128), (2048, 576, 128),
+        (1024, 2048, 128), (2048, 1408, 128), (1408, 2048, 88),
+        (5472, 2048, 114), (2048, 51200, 128)]
+    for name, k, n, group in calls:
+        assert k % group == 0, name
+        stored = k // 2
+        plan = cg.split_plan("cols", m, stored, n, 4, 132)
+        assert plan.mt == min(4, m)
+        assert cg.smem_bytes("cols", plan, m, k, 4, group) <= cg.SMEM_MAX
+        rows = [p for sp in range(plan.splits)
+                for b, e in cg.lane_rows(plan, sp, stored)
+                for p in range(b, e)]
+        assert rows == list(range(stored)), name
+        assert plan.blocks == -(-n // cg.TN) * plan.splits
+    # the expert stacks: E / tp experts a rank, one expert's shape as at
+    # tp = 1; C rows an expert (8 at a decode step, m here beside it)
+    stacks = [("q3m we_gate", q3m.moe.n_experts // tp, d, fe, g(d, 128, 16)),
+              ("q3m we_down", q3m.moe.n_experts // tp, fe, d,
+               g(fe, 128, 16)),
+              ("ds we_gate", ds.moe.n_experts // tp, dd,
+               ds.moe.d_ff_expert, g(dd, 128, 16)),
+              ("ds we_down", ds.moe.n_experts // tp, ds.moe.d_ff_expert,
+               dd, g(ds.moe.d_ff_expert, 128, 16))]
+    assert [s[1:] for s in stacks] == [(64, 4096, 1536, 128),
+                                       (64, 1536, 4096, 96),
+                                       (32, 2048, 1408, 128),
+                                       (32, 1408, 2048, 88)]
+    for name, E, k, n, group in stacks:
+        for c in (8, m):
+            plan = cg.stack_plan(c, k // 2, n, 4, E, 132)
+            assert plan.mt == min(4, c)
+            assert cg.smem_bytes("cols", plan, c, k, 4, group) \
+                <= cg.SMEM_MAX, name
+            assert plan.splits == 1 or E * -(-n // cg.TN) <= cg.MAX_TILES
+            assert plan.blocks == -(-n // cg.TN) * plan.splits
+    # layer 0's fused gate / up: 5472 columns a rank, F % 4 == 0
+    F = ds.d_ff // tp
+    assert F % 4 == 0 and -(-F // sw.TN) == 43
+    plan = sw.split_plan(m, dd // 2, F, 4, 128, 132)
+    assert sw.smem_bytes(plan, m, 4, 128) <= sw.SMEM_MAX
+    assert (plan.splits - 1) * plan.rows < dd // 2 <= plan.splits * plan.rows
+    # qwen3-moe's paged attention: 2 kv heads a rank, 16 queries each
+    qpk = q3m.n_heads // q3m.n_kv_heads
+    assert (q3m.n_kv_heads // tp, qpk) == (2, 16)
+    n_split, chunk = sd.plan_splits(4 * 2 * sd.q_groups(qpk), 128, 16)
+    assert chunk % 16 == 0 and (n_split - 1) * chunk < 128 <= \
+        n_split * chunk
+    n_split, chunk = sd.plan_verify(4 * 2, 5 * qpk, 128, 16)
     assert chunk % 16 == 0 and (n_split - 1) * chunk < 128 <= \
         n_split * chunk
     assert sd.smem_bytes(1, 128) <= 226 * 1024

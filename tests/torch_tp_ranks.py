@@ -1,5 +1,6 @@
-"""What each rank of tests/test_torch_tp_serving.py's 2-rank gloo group
-runs (a module of its own, so a spawned rank imports torch, numpy and
+"""What each rank of the 2-rank gloo groups of
+tests/test_torch_tp_serving.py and tests/test_torch_tp_moe_mla.py runs
+(a module of its own, so a spawned rank imports torch, numpy and
 repro_torch, and neither JAX nor the JAX package).
 
 `rank_main(rank, init, cases, queue)` serves every case of `cases` at
@@ -7,7 +8,14 @@ tp = 2 on the CPU and puts (rank, results) on `queue`: each case's
 greedy streams and summary, the collectives it ran and its step calls,
 the rank's pool and weight shapes, then the page-conservation trials
 and the refusals (a deadline, a group of the wrong size, the families
-outside the slice).  A rank that raises puts (rank, the traceback).
+outside the slice, and the MoE / MLA families admitted).
+`moe_rank_main` does the same for the MoE and MLA cases, with every
+leaf's shape on the rank and the slots the router dropped.  A rank that
+raises puts (rank, the traceback).
+
+An arch is a dict of `ModelConfig` fields whose `moe` / `mla` entries
+are dicts of their configs' fields (`port_config`), so that each package
+builds its own config objects from one description.
 """
 import traceback
 
@@ -19,17 +27,31 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_numpy_tree
 from repro_torch.dist import collective_counts, reset_collective_counts
 from repro_torch.models import DecoderLM, ModelConfig
+from repro_torch.models import ffn as port_ffn
+from repro_torch.models.common import init_params
+from repro_torch.models.config import MLAConfig, MoEConfig
+from repro_torch.quant.qarray import QTensor
 from repro_torch.serve import (PagedServeEngine, SamplingParams, ServeConfig,
                                ServeRequest)
 from repro_torch.spec import SpecConfig
+
+
+def port_config(arch) -> ModelConfig:
+    """The port's f32 ModelConfig of an arch dict (`moe` / `mla` given
+    as dicts of their fields, or as None)."""
+    kw = dict(arch, dtype="float32", remat=False)
+    if isinstance(kw.get("moe"), dict):
+        kw["moe"] = MoEConfig(**kw["moe"])
+    if isinstance(kw.get("mla"), dict):
+        kw["mla"] = MLAConfig(**kw["mla"])
+    return ModelConfig(**kw)
 
 
 def serve(arch, params, serve_kw, prompts, new, spec_k=0, drafter="ngram"):
     """(streams, engine) of one engine run on the CPU; `drafter="model"`
     drafts with the launcher's 1-layer draft model (float, seed 7),
     whole on every rank."""
-    model = DecoderLM(ModelConfig(**dict(arch, dtype="float32",
-                                         remat=False)))
+    model = DecoderLM(port_config(arch))
     spec = None
     if spec_k and drafter == "model":
         from repro_torch.launch.serve import build_draft
@@ -54,8 +76,7 @@ def conservation(arch, params, trials=2):
     of a run whose pool of 9 pages cannot hold its three lanes' growth
     (tests/test_torch_model.py's preemption case), so lanes are
     preempted and rebuilt."""
-    model = DecoderLM(ModelConfig(**dict(arch, dtype="float32",
-                                         remat=False)))
+    model = DecoderLM(port_config(arch))
     params = from_numpy_tree(params)
     rng = np.random.default_rng(11)
     out = []
@@ -122,7 +143,9 @@ def conservation(arch, params, trials=2):
 
 def refusals(refused):
     """The message each refused engine raises at tp = 2 on this group:
-    tp = 3 on 2 ranks, then each family outside the slice."""
+    tp = 3 on 2 ranks, then each family outside the slice; "admitted"
+    for each family the slice serves (an engine built at tp = 2 on
+    random smoke weights)."""
     out = {}
     kw = dict(max_batch=2, max_seq=32, page_size=4)
     arch = refused["tp3"]
@@ -138,7 +161,80 @@ def refusals(refused):
                              device="cpu")
         except NotImplementedError as e:
             out[arch_id] = str(e)
+    for arch_id in refused.get("admitted", ()):
+        model = DecoderLM(get_smoke_config(arch_id).replace(
+            dtype="float32"))
+        params = init_params(model.param_specs(),
+                             torch.Generator().manual_seed(0))
+        eng = PagedServeEngine(model, params, ServeConfig(tp=2, **kw),
+                               device="cpu")
+        out[arch_id] = f"admitted, tp {eng.config.tp}"
     return out
+
+
+def leaf_shapes(tree, prefix=""):
+    """{path: shape} of every leaf of a param or pool tree (a QTensor's
+    orig_shape)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaf_shapes(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tuple(tree.orig_shape if isinstance(tree, QTensor)
+                          else tree.shape)}
+
+
+class DropCount:
+    """Counts the (token, k) slots `dispatch_slots` drops at capacity
+    (its sentinel row) while on, and the slots it routes."""
+
+    def __enter__(self):
+        self.orig, self.dropped, self.slots = port_ffn.dispatch_slots, 0, 0
+
+        def spy(ids, n_experts, cap, groups=1):
+            slot, counts = self.orig(ids, n_experts, cap, groups)
+            self.dropped += int((slot == n_experts * groups * cap).sum())
+            self.slots += slot.numel()
+            return slot, counts
+        port_ffn.dispatch_slots = spy
+        return self
+
+    def __exit__(self, *exc):
+        port_ffn.dispatch_slots = self.orig
+
+
+def moe_rank_main(rank, init, cases, queue):
+    """One rank of tests/test_torch_tp_moe_mla.py's group: every MoE /
+    MLA case at tp = 2."""
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=2)
+        res = {}
+        for name, case in cases.items():
+            reset_collective_counts()
+            with DropCount() as drops:
+                streams, eng = serve(case["arch"], case["params"],
+                                     dict(case["serve"], tp=2),
+                                     case["prompts"], case["new"],
+                                     case["spec_k"])
+            res[name] = {
+                "streams": streams,
+                "summary": eng.summary(),
+                "collectives": collective_counts(),
+                "calls": eng.prefill_calls + eng.decode_calls
+                + eng.verify_calls,
+                "verify_calls": eng.verify_calls,
+                "dropped": drops.dropped, "slots": drops.slots,
+                "params": leaf_shapes(eng.params),
+                "pools": leaf_shapes(eng.cache.pools),
+                "drained": eng.cache.n_free_or_cached()
+                == eng.cache.allocator.n_pages,
+            }
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
 
 
 def rank_main(rank, init, cases, queue):
