@@ -274,7 +274,35 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      bytes bound of the experts it kept, the decode step wall median
      beside the phase's eager tp = 1, the collectives' share, each
      rank's peak memory drawing, resident and serving.
- 18. summary: a `{"kernels": [...]}` line (flash_decode's launches from
+ 18. tensor-parallel recurrent and hybrid serving: two ranks (spawned
+     as in phase 16, both on the one card) build xlstm-1.3b at full
+     width and depth and then zamba2-7b at 27 layers, each from phase
+     11's / 12's seed, INT4 (one rank draws at a time; the unsharded
+     weights' sha256 must equal that phase's), keep their half by the
+     split table (`dist.shard.recurrent_splits`: xlstm 2 of 4 mLSTM
+     heads, up_proj 2048 -> 4096, the sLSTM cell whole, ffn_up 2048 ->
+     2730, ffn_down whole (a rank's 1365 rows would split a packed
+     byte); zamba 56 of 112 Mamba2 heads, in_proj 3584 -> 7352, B and C
+     whole, 16 / 16 attention heads, INT8 pools of 16 kv heads; each
+     arena at the rank's heads) and serve at tp = 2, eagerly: the
+     phase's first wave, whose streams must equal its eager ones, and
+     the same wave in the pool of its forced preemption (xlstm's lanes
+     resume from each rank's snapshot of its slice, zamba's re-prefill),
+     equal to them too (a divergence only at a near-tie, logged); both
+     ranks' streams equal.  Launches exactly as tp = 1 a call (xlstm 265
+     cim_gemv a decode step, zamba 79 cim_gemv, 4 swiglu_qgemv, 4
+     paged_flash_decode), collectives exactly as the rank's leaves give
+     them (`rec_collectives`: xlstm 43 all-reduces + 91 gathers, zamba
+     36 + 28 a call).  Each rank holds cim_gemv (every packed leaf of
+     the first and last layer, the 2-expert head-wise stacks, the head;
+     M = 1, 4, 20), swiglu_qgemv (3584 -> 7168) and paged_flash_decode
+     (g 16, qpk 1, hd 112) at its shapes against their plain versions,
+     every call twice.  Logged: one rank's decode step kernels as
+     CUDA-graph replays beside the bytes bound of what it holds, the
+     decode step wall median beside the phase's eager tp = 1, the
+     collectives' share, the arena's bytes a rank, each rank's peak
+     memory drawing, resident and serving.
+ 19. summary: a `{"kernels": [...]}` line (flash_decode's launches from
      phase 15b's contiguous decode, and its ms, plain_ms, library_ms and
      bound_ms at that path's shape; the tensor-parallel paths' launches
      under `launches_by_path`), the card line, and last
@@ -1492,10 +1520,11 @@ def fresh_state(model, b: int, n_pages: int, ps: int, device, tp: int = 1):
     leaves for b lanes, in one dict as the engine hands them over; at
     one of `tp` ranks' shapes."""
     import torch
-    from repro_torch.dist.shard import shard_specs
+    from repro_torch.dist.shard import shard_state_specs
     from repro_torch.models.common import map_specs
     kv = torch.bfloat16 if model.cfg.attn_kind == "mla" else torch.int8
-    specs = shard_specs(model.decode_state_specs(b, n_pages, ps, kv), tp)
+    specs = shard_state_specs(model.decode_state_specs(b, n_pages, ps, kv),
+                              model.cfg, tp)
     state = {}
     for half in ("paged", "arena"):
         state.update(map_specs(lambda s: torch.zeros(
@@ -3537,6 +3566,7 @@ def phase_recurrent_serving(device, arch: str, n_layers: int, seed: int,
     torch.cuda.synchronize()
     draw_peak = torch.cuda.max_memory_allocated() / 1e9
     resident = torch.cuda.memory_allocated() / 1e9
+    ref = TP_REC_REF[arch] = {"digest": weights_digest(params)}
     got = {}
     for name, (path, _) in groups.items():
         leaf = params
@@ -3623,6 +3653,9 @@ def phase_recurrent_serving(device, arch: str, n_layers: int, seed: int,
     check_identity(f"graphs vs eager ({arch})", eager["reqs"],
                    graph["reqs"], model, params, device)
     eager["eng"] = None
+    ref.update(wave=wave, wave_streams=[r.out_tokens for r in eager["reqs"]],
+               eager_decode_ms=eager["decode_ms"],
+               state_bytes=eager["state_bytes"])
     name = f"{cfg.name}.serve_step"
     graphs = check_graphs(arch, eng, {
         (name, (4, 16)): step_launches(cfg, 16),
@@ -3672,6 +3705,7 @@ def phase_recurrent_serving(device, arch: str, n_layers: int, seed: int,
     # the same wave in a pool too small for it: every lane needs one page
     # more than its prompt, and two pages are spare
     pages = sum(-(-len(p) // 16) for p in wave) + 2
+    ref["tight_pages"] = pages
     tight = serve(False, n_pages=pages)
     if tight["preempts"] <= 0:
         fail(f"{arch}: no lane was preempted in {pages} pages")
@@ -4890,12 +4924,14 @@ def tp_serve(eng, prompts, n_new):
     return reqs, steps
 
 
-def tp_run(tag, label, e, model, prompts, n_new, want, what, device):
+def tp_run(tag, label, e, model, prompts, n_new, want, what, device,
+           per_call=None):
     """Serve `prompts` at tp = 2 on engine `e` (`tp_serve`) with the
     launches, launched kernels and collectives counted from 0: launches
-    exactly the per-call counts x calls, 2 L + 2 collectives a call,
-    `n_new` tokens in range a request, streams `want` (`what` names
-    them) but for logged near-ties; returns the run's record."""
+    exactly the per-call counts x calls, collectives `per_call` a call
+    (by default 2 L + 2: 2 L + 1 all-reduces, 1 gather), `n_new` tokens
+    in range a request, streams `want` (`what` names them) but for
+    logged near-ties; returns the run's record."""
     from types import SimpleNamespace
 
     import numpy as np
@@ -4915,8 +4951,9 @@ def tp_run(tag, label, e, model, prompts, n_new, want, what, device):
     calls = e.prefill_calls + e.decode_calls + e.verify_calls
     expect = expected_launches(cfg, e.prefill_calls, e.decode_calls,
                                e.verify_calls)
-    want_coll = {"all_reduce": (2 * cfg.n_layers + 1) * calls,
-                 "all_gather": calls}
+    per_call = per_call or {"all_reduce": 2 * cfg.n_layers + 1,
+                            "all_gather": 1}
+    want_coll = {k: v * calls for k, v in per_call.items()}
     log(f"{tag} {label}: {e.prefill_calls} prefill + {e.decode_calls} "
         f"decode + {e.verify_calls} verify calls in {run_s:.2f} s; "
         f"launches {counts}, expected {expect}; collectives {coll}, "
@@ -5179,20 +5216,55 @@ def tp_step_timing(eng, device, rank, counts=None,
     return out
 
 
-def tp_rank(rank, ref, init, out_dir):
-    """One rank of phase 16 (spawned): qwen2.5-3b from phase 3's seed,
-    its shard served at tp = 2 on a gloo group over loopback."""
+def join_rank_group(rank, init):
+    """A spawned rank's set-up, as `main`'s: TF32 off, bf16 products
+    accumulated in f32, cuda:0, and the gloo group of TP ranks at
+    `init`.  Returns the device."""
     import datetime
 
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     torch.cuda.set_device(0)
-    device = torch.device("cuda", 0)
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=TP,
                             timeout=datetime.timedelta(seconds=300))
+    return torch.device("cuda", 0)
+
+
+def spawn_ranks(fn, refs, name):
+    """Run `fn(rank, refs, init, out_dir)` in TP spawned processes (gloo
+    over loopback, all on cuda:0), each writing out_dir/rank<r>.json;
+    returns (those records in rank order, the seconds it took)."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    mp.start_processes(fn, args=(refs, f"tcp://127.0.0.1:{port}",
+                                 str(out_dir)),
+                       nprocs=TP, join=True, start_method="spawn")
+    return ([json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(TP)], time.perf_counter() - t0)
+
+
+def tp_rank(rank, ref, init, out_dir):
+    """One rank of phase 16 (spawned): qwen2.5-3b from phase 3's seed,
+    its shard served at tp = 2 on a gloo group over loopback."""
+    import torch
+    import torch.distributed as dist
+    device = join_rank_group(rank, init)
     from repro_torch.serve import PagedServeEngine, ServeConfig
     from repro_torch.spec import SpecConfig
 
@@ -5253,25 +5325,7 @@ def phase_tp(card):
     """Phase 16: spawn two ranks (gloo over loopback, both on cuda:0),
     each serving qwen2.5-3b's shard at tp = 2; hold them to phase 3 and
     4 and to each other."""
-    import socket
-
-    import torch
-    import torch.multiprocessing as mp
-    torch.cuda.empty_cache()
-    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "tp"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for f in out_dir.glob("rank*.json"):
-        f.unlink()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    t0 = time.perf_counter()
-    mp.start_processes(tp_rank, args=(TP_REF, f"tcp://127.0.0.1:{port}",
-                                      str(out_dir)),
-                       nprocs=TP, join=True, start_method="spawn")
-    phase_s = time.perf_counter() - t0
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(TP)]
+    ranks, phase_s = spawn_ranks(tp_rank, TP_REF, "tp")
     for label in ("wave", "ngram"):
         if ranks[0][label]["streams"] != ranks[1][label]["streams"]:
             fail(f"phase 16 {label}: the ranks' streams differ")
@@ -5338,19 +5392,9 @@ def tp_moe_rank(rank, refs, init, out_dir):
     """One rank of phase 17 (spawned): qwen3-moe x4 and deepseek x8 from
     phase 9's and 10's seed, each its shard served at tp = 2 on a gloo
     group over loopback."""
-    import datetime
-
     import torch
     import torch.distributed as dist
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-        False
-    torch.cuda.set_device(0)
-    device = torch.device("cuda", 0)
-    dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=TP,
-                            timeout=datetime.timedelta(seconds=300))
+    device = join_rank_group(rank, init)
     res = {"rank": rank}
     for arch, n_layers, want_step in TP_MOE_ARCHS:
         res[arch] = tp_moe_arch(rank, arch, n_layers, want_step, refs[arch],
@@ -5480,27 +5524,7 @@ def phase_tp_moe(card):
     """Phase 17: spawn two ranks (gloo over loopback, both on cuda:0),
     each serving qwen3-moe x4 and then deepseek x8 at tp = 2; hold them
     to phases 9 and 10 and to each other."""
-    import socket
-
-    import torch
-    import torch.multiprocessing as mp
-    torch.cuda.empty_cache()
-    out_dir = (Path(__file__).resolve().parent / "build" / "chip_smoke"
-               / "tp_moe")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for f in out_dir.glob("rank*.json"):
-        f.unlink()
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    t0 = time.perf_counter()
-    mp.start_processes(tp_moe_rank, args=(TP_MOE_REF,
-                                          f"tcp://127.0.0.1:{port}",
-                                          str(out_dir)),
-                       nprocs=TP, join=True, start_method="spawn")
-    phase_s = time.perf_counter() - t0
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(TP)]
+    ranks, phase_s = spawn_ranks(tp_moe_rank, TP_MOE_REF, "tp_moe")
     by_path, result = {}, {"phase_s": phase_s, "card": card}
     for arch, n_layers, _ in TP_MOE_ARCHS:
         a, b = ranks[0][arch], ranks[1][arch]
@@ -5542,6 +5566,461 @@ def phase_tp_moe(card):
                                if k != "streams"}
                          for lab in ("wave", "ngram")} for r in ranks]}
     log(f"phase 17 {phase_s:.1f} s")
+    return by_path, result
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel recurrent and hybrid serving: xlstm-1.3b x48 and
+# zamba2-7b x27 at tp = 2, two ranks sharing the card
+# ---------------------------------------------------------------------------
+TP_REC_REF = {}   # what phase 18 is held to, by arch: phase 11's / 12's
+                  # weights digest, first wave and its eager streams, the
+                  # eager decode step median, the arena's bytes, the
+                  # pages of its forced preemption
+# (arch, layers, cim_gemv / swiglu_qgemv / paged_flash_decode a decode
+# step on each rank, the phase it is held to)
+TP_REC_ARCHS = ((XLSTM_ARCH, 48, (265, 0, 0), 11),
+                (ZAMBA_ARCH, 27, (79, 4, 4), 12))
+
+
+def rec_collectives(eng):
+    """Collectives a step call of a recurrent engine at tp = 2, from the
+    leaves the rank holds: the embedding's all-reduce and the logits'
+    gather (where the vocab is split); a split Mamba2 layer's gather for
+    its norm, a split mLSTM layer's two gathers (x_m, h); each
+    row-parallel projection of a split cell (out_proj, down_proj,
+    ffn_down; zamba's shared wo and w_down) an all-reduce, or a gather
+    of its input where its rows stayed whole."""
+    from repro_torch.models.ssm import mamba2_dims, mlstm_dims, slstm_dims
+    cfg, p = eng.model.cfg, eng.params
+    out = {"all_reduce": 0, "all_gather": 0}
+
+    def add(n, rows_split):
+        out["all_reduce" if rows_split else "all_gather"] += n
+
+    def rows(w):
+        return w.shape[-2]
+    add(1, p["embed"].shape[0] != cfg.vocab)
+    out["all_gather"] += p["head"].shape[-1] != cfg.vocab
+    L = cfg.n_layers
+    if cfg.family == "zamba":
+        di, nh, _ = mamba2_dims(cfg)
+        cell = p["mamba"]["cell"]
+        if cell["a_log"].shape[-1] != nh:
+            out["all_gather"] += L
+            add(L, rows(cell["out_proj"]) != di)
+        n_groups = eng.model.n_paged_layers()
+        shared = p["shared"]
+        hq = cfg.n_heads * cfg.hd()
+        add(n_groups, rows(shared["attn"]["wo"]) != hq)
+        add(n_groups, rows(shared["ffn"]["w_down"]) != cfg.zamba.shared_d_ff)
+        return out
+    di, nh, _ = mlstm_dims(cfg)
+    n_s = L // cfg.ssm.slstm_every
+    cell = p["mlstm"]["cell"]
+    if cell["wq"].shape[-3] != nh:
+        out["all_gather"] += 2 * (L - n_s)
+        add(L - n_s, rows(cell["down_proj"]) != di)
+    f_up = int(cfg.ssm.proj_factor_slstm * slstm_dims(cfg)[0])
+    scell = p["slstm"]["cell"]
+    if scell["ffn_up"].shape[-1] != 2 * f_up:
+        add(n_s, rows(scell["ffn_down"]) != f_up)
+    return out
+
+
+def rec_packed_leaves(eng):
+    """This rank's packed leaves of a decode step's kernels, one dict a
+    use: each mLSTM / sLSTM / Mamba2 layer's (the head-wise stacks as 3-D
+    leaves), each zamba group's LoRA out_proj and shared block (gate /
+    up as a pair), then the head."""
+    p = eng.params
+    uses = []
+
+    def layers(tree, depth):
+        views = [tree]
+        for _ in range(depth):
+            views = [_take_layer(v, i) for v in views
+                     for i in range(_lead_dim(v))]
+        return views
+
+    def packed(tree, prefix):
+        return {f"{prefix} {k}": v for k, v in tree.items()
+                if hasattr(v, "nbytes_packed")}
+    for name, depth in (("mlstm", 2), ("slstm", 1)):
+        if name in p:
+            uses += [packed(c["cell"], name) for c in layers(p[name], depth)]
+    n_groups = eng.model.n_paged_layers()
+    for name, depth in (("mamba", 2), ("mamba_tail", 1)):
+        if name not in p:
+            continue
+        cells = [packed(c["cell"], "mamba") for c in layers(p[name], depth)]
+        if name == "mamba":          # each group's layers, then the site
+            per = len(cells) // n_groups
+            lora = layers(p["lora"], 1)
+            shared = {**packed(p["shared"]["attn"], "shared"),
+                      **packed(p["shared"]["ffn"], "shared")}
+            for g in range(n_groups):
+                uses += cells[g * per:(g + 1) * per]
+                uses.append({**packed(lora[g], "lora"), **shared})
+        else:
+            uses += cells
+    return uses, p["head"]
+
+
+def tp_rec_kernel_checks(eng, device, rank):
+    """Each kernel at this rank's shapes against its plain version, every
+    call twice (bitwise equal), phase 2's tolerances: cim_gemv on every
+    packed leaf of the first and the last use (2-D at M = 1, 4, 20; the
+    mLSTM's head-wise stacks at the rank's heads, every row counted) and
+    the head; zamba's swiglu_qgemv on the shared gate / up and its
+    paged_flash_decode at the rank's kv heads (INT8 pools, lanes at 1024
+    / 777 / 301 / 45 keys)."""
+    import torch
+    from repro_torch.kernels.cim_gemv import cim_gemv, cim_gemv_plain
+    from repro_torch.kernels.paged_flash_decode import (paged_decode_plain,
+                                                        paged_flash_decode)
+    from repro_torch.kernels.swiglu_gemv import swiglu_plain, swiglu_qgemv
+    checks = Checks()
+    cfg = eng.model.cfg
+    gen = torch.Generator(device=device).manual_seed(180 + rank)
+    uses, head = rec_packed_leaves(eng)
+    ws = {"head": head}
+    for use in (uses[0], uses[-1]) + tuple(
+            u for u in uses if "shared w_gate" in u)[:1]:
+        ws.update(use)
+    shapes = {}
+    for m in (1, 4, 20):
+        for name, w in ws.items():
+            if name in ("shared w_gate", "shared w_up"):
+                continue
+            if w.ndim == 3:                 # the head-wise stack
+                E, k, n = w.orig_shape
+                x = torch.randn(E, m, k, generator=gen, device=device)
+                cnt = torch.full((E,), m, dtype=torch.int32, device=device)
+                shapes[name] = (E, k, n, w.group)
+                label = f"rank {rank} {name} E={E} {k}->{n} g{w.group} M={m}"
+                out = cim_gemv(x, w, cnt)
+                checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+                checks.repeat("cim_gemv", label, out, cim_gemv(x, w, cnt))
+                continue
+            k, n = _kn(w)
+            shapes[name] = (k, n, w.group)
+            x = torch.randn(m, k, generator=gen, device=device)
+            label = f"rank {rank} {name} {k}->{n} g{w.group} M={m}"
+            out = cim_gemv(x, w)
+            checks.compare("cim_gemv", label, out, cim_gemv_plain(x, w))
+            checks.repeat("cim_gemv", label, out, cim_gemv(x, w))
+        if "shared w_gate" in ws:
+            wg, wu = ws["shared w_gate"], ws["shared w_up"]
+            k, n = _kn(wg)
+            shapes["shared gate/up"] = (k, n, wg.group)
+            x = torch.randn(m, k, generator=gen, device=device)
+            label = f"rank {rank} shared gate/up {k}->{n} g{wg.group} M={m}"
+            out = swiglu_qgemv(x, wg, wu)
+            checks.compare("swiglu_qgemv", label, out,
+                           swiglu_plain(x, wg, wu))
+            checks.repeat("swiglu_qgemv", label, out,
+                          swiglu_qgemv(x, wg, wu))
+    if eng.model.n_paged_layers():
+        pools = eng.cache.pools["attn"]["k"]
+        b, g, hd = 4, pools.shape[-2], pools.shape[-1]
+        qpk = cfg.n_heads // cfg.n_kv_heads
+        shapes["paged_flash_decode"] = (g, qpk, hd)
+        kp, vp, ks, vs, tables = int8_pools(gen, device, b, 64, g, hd)
+        lengths = torch.tensor([1024, 777, 301, 45], dtype=torch.int32,
+                               device=device)
+        q = torch.randn(b, g, qpk, hd, generator=gen, device=device)
+        args = (q, kp, vp, tables, lengths, 0, 0.0, ks, vs)
+        label = f"rank {rank} int8 g={g} qpk={qpk} hd={hd} len<=1024"
+        out = paged_flash_decode(*args)
+        checks.compare("paged_flash_decode", label, out,
+                       paged_decode_plain(*args))
+        checks.repeat("paged_flash_decode", label, out,
+                      paged_flash_decode(*args))
+    return {k: {"max_abs_err": e, "tol": t, "worst_case": lab}
+            for k, (e, t, lab) in checks.worst.items()}, shapes
+
+
+def tp_rec_step_timing(eng, device, lengths=(65,) * 4):
+    """One rank's decode step kernel calls (batch 4; zamba's lanes at
+    `lengths` keys after the step): every packed leaf of every use
+    through cim_gemv (the head-wise stacks with every row counted),
+    zamba's shared gate / up through swiglu_qgemv and its attention
+    through paged_flash_decode at the rank's kv heads (INT8 pools) a
+    site; timed as in phase 2 (CUDA-graph replays of the calls alone),
+    beside their bytes bound: the rank's weights and scales read once a
+    use, the activations in and out, the K/V rows and the tables."""
+    import torch
+    from repro_torch.kernels.cim_gemv import cim_gemv
+    from repro_torch.kernels.paged_flash_decode import paged_flash_decode
+    from repro_torch.kernels.swiglu_gemv import swiglu_qgemv
+    M = eng.max_batch
+    gen = torch.Generator(device=device).manual_seed(181)
+    uses, head = rec_packed_leaves(eng)
+    xs = {}
+
+    def x_of(*shape):
+        if shape not in xs:
+            xs[shape] = torch.randn(*shape, generator=gen, device=device)
+        return xs[shape]
+    calls = {"cim_gemv": [], "swiglu_qgemv": [], "paged_flash_decode": []}
+    nbytes = dict.fromkeys(calls, 0)
+    full = torch.full((8,), M, dtype=torch.int32, device=device)
+    for use in uses + [{"head": head}]:
+        for name, w in use.items():
+            if name in ("shared w_gate", "shared w_up"):
+                continue
+            if w.ndim == 3:
+                E, k, n = w.orig_shape
+                calls["cim_gemv"].append((w, x_of(E, M, k), full[:E]))
+                nbytes["cim_gemv"] += w.nbytes_packed() + 4 * E * M * (k + n)
+                continue
+            k, n = _kn(w)
+            calls["cim_gemv"].append((w, x_of(M, k), None))
+            nbytes["cim_gemv"] += w.nbytes_packed() + 4 * M * (k + n)
+        if "shared w_gate" in use:
+            wg, wu = use["shared w_gate"], use["shared w_up"]
+            k, n = _kn(wg)
+            calls["swiglu_qgemv"].append((wg, wu, x_of(M, k)))
+            nbytes["swiglu_qgemv"] += (wg.nbytes_packed() + wu.nbytes_packed()
+                                       + 4 * M * (k + n))
+    n_sites = eng.model.n_paged_layers()
+    if n_sites:
+        cfg = eng.model.cfg
+        pools = eng.cache.pools["attn"]["k"]
+        g, hd, qpk = pools.shape[-2], pools.shape[-1], \
+            cfg.n_heads // cfg.n_kv_heads
+        pages = -(-max(lengths) // 16)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        q = x_of(M, g, qpk, hd)
+        for _ in range(n_sites):
+            kp, vp, ks, vs, tables = int8_pools(gen, device, M, pages, g,
+                                                hd)
+            calls["paged_flash_decode"].append(
+                (q, kp, vp, tables, lens, 0, 0.0, ks, vs))
+            nbytes["paged_flash_decode"] += (
+                sum(lengths) * g * (2 * hd + 2 * 2) + 2 * q.numel() * 4
+                + M * (pages + 1) * 4)
+
+    def run(kernel):
+        def fn():
+            for c in calls[kernel]:
+                if kernel == "cim_gemv":
+                    w, x, cnt = c
+                    cim_gemv(x, w) if cnt is None else cim_gemv(x, w, cnt)
+                elif kernel == "swiglu_qgemv":
+                    swiglu_qgemv(c[2], c[0], c[1])
+                else:
+                    paged_flash_decode(*c)
+        return fn
+    out = {}
+    for kernel in calls:
+        if calls[kernel]:
+            ms = graph_time_ms(run(kernel))
+            out[kernel] = {"calls": len(calls[kernel]), "ms": ms,
+                           "bound_ms": bound(nbytes[kernel], 0.0)[0],
+                           "bytes": nbytes[kernel]}
+
+    def all_calls():
+        for kernel in calls:
+            if calls[kernel]:
+                run(kernel)()
+    total = sum(nbytes.values())
+    out["step"] = {"ms": graph_time_ms(all_calls),
+                   "bound_ms": bound(total, 0.0)[0], "bytes": total}
+    return out
+
+
+def tp_rec_rank(rank, refs, init, out_dir):
+    """One rank of phase 18 (spawned): xlstm-1.3b x48 and zamba2-7b x27
+    from phase 11's and 12's seed, each its shard served at tp = 2 on a
+    gloo group over loopback."""
+    import torch
+    import torch.distributed as dist
+    device = join_rank_group(rank, init)
+    res = {"rank": rank}
+    for arch, n_layers, want_step, phase in TP_REC_ARCHS:
+        res[arch] = tp_rec_arch(rank, arch, n_layers, want_step, phase,
+                                refs[arch], device)
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def tp_rec_arch(rank, arch, n_layers, want_step, phase, ref, device):
+    """This rank's part of phase 18 for one arch: draw (one rank at a
+    time), shard, serve the wave and the same wave in the pool of its
+    forced preemption, check the kernels at its shapes and (rank 0) time
+    its decode step's kernels."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_model
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+
+    tag = f"phase 18 rank {rank} {arch}"
+    cfg = get_config(arch).replace(dtype="float32", remat=False,
+                                   n_layers=n_layers)
+    serve_cfg = ServeConfig(precision="int4", kv_dtype="auto",
+                            max_batch=4, max_seq=128, page_size=16,
+                            prefill_chunk=16, tp=TP)
+    for turn in range(TP):              # one rank draws at a time
+        if turn == rank:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, params = build_model(cfg, "int4", 128, device, seed=0)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            draw_peak = torch.cuda.max_memory_allocated() / 1e9
+            whole_gb = torch.cuda.memory_allocated() / 1e9
+            digest = weights_digest(params)
+            eng = PagedServeEngine(model, params, serve_cfg, device=device)
+            tight = PagedServeEngine(model, params, dataclasses.replace(
+                serve_cfg, n_pages=ref["tight_pages"]), device=device)
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    resident = torch.cuda.memory_allocated() / 1e9
+    shard_gb = tree_gb(eng.params)
+    same = digest == ref["digest"]
+    log(f"{tag}: x{n_layers} INT4 drawn in {draw_s:.1f} s, "
+        f"{whole_gb:.2f} GB whole (peak {draw_peak:.2f} GB while "
+        f"drawing), {resident:.2f} GB resident after sharding (two "
+        f"engines, each its {shard_gb:.3f} GB shard); unsharded weights "
+        f"sha256 {digest[:16]}..., phase {phase}'s {ref['digest'][:16]}... "
+        f"({'equal' if same else 'DIFFERENT'})")
+    if not same:
+        fail(f"{tag}: the unsharded weights differ from phase {phase}'s")
+    if eng.runner.graphs or tight.runner.graphs:
+        fail(f"{tag}: steps captured as CUDA graphs at tp = {TP}")
+    p = eng.params
+    cell = p["mlstm" if cfg.family == "xlstm" else "mamba"]["cell"]
+    leaves = {k: (tuple(v.orig_shape) if hasattr(v, "orig_shape")
+                  else tuple(v.shape)) + ((f"g{v.group}",)
+                                          if hasattr(v, "group") else ())
+              for k, v in cell.items()}
+    if cfg.family == "xlstm":
+        leaves.update({f"slstm {k}": tuple(v.orig_shape) + (f"g{v.group}",)
+                       for k, v in p["slstm"]["cell"].items()
+                       if hasattr(v, "orig_shape")})
+    arena = {"/".join(path): tuple(leaf.shape)
+             for path, leaf, _ in eng.arena._leaves()}
+    state_bytes = eng.arena.state_bytes()
+    log(f"{tag}: shard {leaves}; arena {arena}, {state_bytes / 1e6:.3f} MB "
+        f"a rank against {ref['state_bytes'] / 1e6:.3f} MB at tp = 1"
+        + (f"; pools k {tuple(eng.cache.pools['attn']['k'].shape)} "
+           f"{eng.cache.pools['attn']['k'].dtype}" if eng.cache.pools
+           else ""))
+    if cfg.family == "xlstm":
+        heads = cell["wq"].orig_shape[-3]
+        ok = heads == cfg.ssm.mlstm_heads // TP and \
+            arena["mlstm/C"][-3] == heads and \
+            arena["slstm/c"][-1] == cfg.d_model
+    else:
+        heads = cell["a_log"].shape[-1]
+        ok = heads * cfg.ssm.head_dim * TP == int(cfg.ssm.expand
+                                                  * cfg.d_model) and \
+            arena["mamba/state"][-3] == heads and \
+            eng.cache.pools["attn"]["k"].shape[-2] == cfg.n_kv_heads // TP
+    if not ok:
+        fail(f"{tag}: the rank holds {heads} heads, arena {arena}")
+    per_step = step_launches(cfg, 1)
+    got_step = (per_step["cim_gemv"], per_step["swiglu_qgemv"],
+                per_step["paged_flash_decode"])
+    if got_step != want_step:
+        fail(f"{tag}: a decode step's launches {per_step}, expected "
+             f"{want_step}")
+    per_call = rec_collectives(eng)
+    out = {"draw_s": draw_s, "draw_peak_gb": draw_peak,
+           "whole_gb": whole_gb, "resident_gb": resident,
+           "shard_gb": shard_gb, "shard_leaves": leaves, "arena": arena,
+           "state_bytes": state_bytes,
+           "tp1_state_bytes": ref["state_bytes"],
+           "collectives_expected_per_call": per_call}
+    out["wave"] = tp_run(tag, "wave", eng, model, ref["wave"], 16,
+                         ref["wave_streams"], f"phase {phase}'s eager wave",
+                         device, per_call)
+    snaps = []
+    save = tight.arena.save_lane
+
+    def counted(lane):
+        snaps.append(lane)
+        return save(lane)
+    tight.arena.save_lane = counted
+    out["preempted"] = tp_run(
+        tag, f"wave in {ref['tight_pages']} pages", tight, model,
+        ref["wave"], 16, ref["wave_streams"], f"phase {phase}'s eager wave",
+        device, per_call)
+    del tight.arena.save_lane
+    preempts = sum(e["kind"] == "preempt" for e in tight.recorder.snapshot())
+    pure = model.n_paged_layers() == 0
+    log(f"{tag}: {preempts} preemptions in {ref['tight_pages']} pages, "
+        f"{len(snaps)} lane snapshots of the rank's arena slice")
+    if preempts <= 0 or pure != (len(snaps) > 0):
+        fail(f"{tag}: {preempts} preemptions, {len(snaps)} snapshots")
+    out["preempted"].update(preemptions=preempts, snapshots=len(snaps))
+    free = tight.cache.n_free_or_cached() == tight.cache.allocator.n_pages
+    if not free:
+        fail(f"{tag}: pages held after the preempted wave")
+    del tight
+    torch.cuda.empty_cache()
+    out["kernel_checks"], out["shapes"] = tp_rec_kernel_checks(eng, device,
+                                                               rank)
+    dist.barrier()
+    if rank == 0:                 # rank 1 waits: the card is rank 0's
+        out["timing"] = tp_rec_step_timing(eng, device)
+    dist.barrier()
+    return out
+
+
+def phase_tp_rec(card):
+    """Phase 18: spawn two ranks (gloo over loopback, both on cuda:0),
+    each serving xlstm-1.3b x48 and then zamba2-7b x27 at tp = 2; hold
+    them to phases 11 and 12 and to each other."""
+    ranks, phase_s = spawn_ranks(tp_rec_rank, TP_REC_REF, "tp_rec")
+    by_path, result = {}, {"phase_s": phase_s, "card": card}
+    for arch, n_layers, _, phase in TP_REC_ARCHS:
+        a, b = ranks[0][arch], ranks[1][arch]
+        for label in ("wave", "preempted"):
+            if a[label]["streams"] != b[label]["streams"]:
+                fail(f"phase 18 {arch} {label}: the ranks' streams differ")
+            if a[label]["launches"] != b[label]["launches"]:
+                fail(f"phase 18 {arch} {label}: the ranks' launches differ")
+        w, t = a["wave"], a["timing"]
+        tp1 = TP_REC_REF[arch]["eager_decode_ms"]
+
+        def gb(key, label=None):
+            return [round((r[arch][label] if label else r[arch])[key], 3)
+                    for r in ranks]
+        log(f"phase 18 {arch} x{n_layers} (tp = {TP}, two ranks on one "
+            f"card, {card}): decode step wall median "
+            f"{w['step_ms_median']:.2f} ms (rank 0; rank 1 "
+            f"{b['wave']['step_ms_median']:.2f} ms) against phase {phase}'s"
+            f" eager tp = 1 {tp1:.2f} ms; collectives "
+            f"{w['collectives_per_call']} a step, "
+            f"{w['step_collective_ms_median']:.2f} ms of a step (median), "
+            f"{100 * w['collective_share']:.1f} % of decode step wall; "
+            f"arena {a['state_bytes'] / 1e6:.3f} MB a rank (tp = 1: "
+            f"{a['tp1_state_bytes'] / 1e6:.3f} MB); peak memory a rank "
+            f"drawing {gb('draw_peak_gb')} GB, resident {gb('resident_gb')}"
+            f" GB (a shard {a['shard_gb']:.3f} GB), serving "
+            f"{gb('peak_gb', 'wave')} GB; one rank's decode step kernels "
+            f"(graph replay): "
+            + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} "
+                        f"ms)" for k, v in t.items()))
+        key = "xlstm" if arch == XLSTM_ARCH else "zamba"
+        by_path[f"{key}_tp2_decode"] = w["launches"]
+        result[arch] = {
+            "eager_tp1_decode_step_ms_median": tp1,
+            "ranks": [{k: v for k, v in r[arch].items()
+                       if k not in ("wave", "preempted")}
+                      | {lab: {k: v for k, v in r[arch][lab].items()
+                               if k != "streams"}
+                         for lab in ("wave", "preempted")} for r in ranks]}
+    log(f"phase 18 {phase_s:.1f} s")
     return by_path, result
 
 
@@ -5665,6 +6144,8 @@ def main() -> None:
         phase_tp(card)
     tp_moe_paths, tp_moe_result = phase_tp_moe(card)
     by_path.update(tp_moe_paths)
+    tp_rec_paths, tp_rec_result = phase_tp_rec(card)
+    by_path.update(tp_rec_paths)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -5708,6 +6189,7 @@ def main() -> None:
     log("other paths summary " + json.dumps(other_result))
     log("tp summary " + json.dumps(tp_result))
     log("tp moe / mla summary " + json.dumps(tp_moe_result))
+    log("tp recurrent summary " + json.dumps(tp_rec_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,14 +6,15 @@ from .axes import (MULTI_POD_RULES, SERVE_RULES, SINGLE_POD_RULES,
 from .compress import (compress_decompress_roundtrip, compress_with_feedback,
                        init_error_state)
 from .shard import (collective_counts, collective_seconds, leaf_pspec,
-                    reset_collective_counts,
-                    serve_group, shard_specs, shard_tree, tp_all_gather,
-                    tp_all_reduce, use_tp)
+                    recurrent_splits, reset_collective_counts, serve_group,
+                    shard_specs, shard_state_specs, shard_tree,
+                    tp_all_gather, tp_all_reduce, use_tp)
 
 __all__ = ["MeshRules", "MULTI_POD_RULES", "SERVE_RULES", "SINGLE_POD_RULES",
            "rules_for_mesh", "sanitize_pspec",
            "compress_decompress_roundtrip", "compress_with_feedback",
            "init_error_state",
-           "collective_counts", "collective_seconds", "leaf_pspec",
-           "reset_collective_counts", "serve_group", "shard_specs", "shard_tree", "tp_all_gather",
-           "tp_all_reduce", "use_tp"]
+           "collective_counts", "collective_seconds",
+           "leaf_pspec", "recurrent_splits", "reset_collective_counts",
+           "serve_group", "shard_specs", "shard_state_specs", "shard_tree",
+           "tp_all_gather", "tp_all_reduce", "use_tp"]

@@ -8,7 +8,13 @@
                group scales), as `qtree_shardings` decides
   shard_tree   each rank's slice of every leaf of a param tree, a
                contiguous copy (so the kernels see aligned scales)
-  shard_specs  the rank-local shapes of a ParamSpec tree (the KV pools)
+  shard_specs  the rank-local shapes of a ParamSpec tree (the KV pools,
+               the StateArena; both: `shard_state_specs`)
+  recurrent_splits  the split rule of every leaf of the recurrent cells
+               (Mamba2, mLSTM, sLSTM) and of their arena state: a leaf
+               holding several segments side by side is cut segment by
+               segment (`Split`); `shard_tree` and `shard_specs` take it
+               before `leaf_pspec`
   serve_group  the process group of a tp-way engine, or a ValueError
                naming the count and how to start the ranks
   use_tp       a thread-local context under which `tp_all_reduce` and
@@ -17,13 +23,15 @@
                no-op without `use_mesh_rules`
 
 A serve "mesh" is one axis, "model", of `tp` ranks, and rank r holds the
-r-th contiguous slice of every dim its pspec names.  The model code
-(`models/attention.py`, `ffn.py`, `model.py`) reads the local widths off
-the tensors it is given: column-parallel q/k/v and gate/up, row-parallel
-`wo` and `w_down` followed by `tp_all_reduce`, the rank's experts of
-every MoE stack (the routing global, one `tp_all_reduce` a MoE layer),
-MLA's heads over whole latent pools, a vocab-parallel table gathered
-for the logits (`kernels.ops.row_parallel`, `tp_rank_and_size`).
+r-th contiguous slice of every dim its pspec names, except where
+`recurrent_splits` names the leaf.  The model code (`models/attention.py`,
+`ffn.py`, `ssm.py`, `model.py`) reads the local widths off the tensors it
+is given: column-parallel q/k/v and gate/up, row-parallel `wo` and
+`w_down` followed by `tp_all_reduce`, the rank's experts of every MoE
+stack (the routing global, one `tp_all_reduce` a MoE layer), MLA's heads
+over whole latent pools, a vocab-parallel table gathered for the logits
+(`kernels.ops.row_parallel`, `tp_rank_and_size`), and the recurrent
+cells on the rank's heads (xlstm, zamba; `recurrent_splits`).
 
 Collectives run on the group's backend as it is: gloo for ranks on the
 CPU and for ranks that share one card (NCCL refuses two ranks on one
@@ -36,9 +44,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import time
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -110,26 +119,218 @@ def shard_leaf(leaf: Any, pspec: PSpec, rank: int, tp: int) -> Any:
                    orig_shape=shape)
 
 
+# ----------------------------------------------------------------------------
+# the recurrent cells: a split rule per leaf
+# ----------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How every rank cuts one leaf along `dim` (negative: stacked layer
+    dims come first).  The leaf is `segments` side by side, each (size,
+    split): rank r keeps the r-th of tp equal runs of a split segment and
+    all of a whole one, and its parts are concatenated in segment order
+    into one contiguous leaf.  No split segment: the leaf is whole on
+    every rank."""
+    dim: int
+    segments: Tuple[Tuple[int, bool], ...] = ()
+
+    def splits(self) -> bool:
+        return any(split for _, split in self.segments)
+
+    def pieces(self, rank: int, tp: int) -> List[Tuple[int, int]]:
+        """(start, length) along `dim` of each of rank r's parts."""
+        out, start = [], 0
+        for size, split in self.segments:
+            n = size // tp if split else size
+            out.append((start + rank * n if split else start, n))
+            start += size
+        return out
+
+
+WHOLE = Split(-1)
+
+
+def recurrent_splits(cfg, tp: int) -> Dict[Tuple[str, str], Split]:
+    """The split table of the recurrent cells of `cfg` at `tp` ranks,
+    keyed by (cell, leaf name): cell "mamba2" (zamba's `mamba` and
+    `mamba_tail` stacks), "mlstm" or "slstm" (xlstm's), the leaf a
+    parameter of the cell or a leaf of its StateArena state.  {} for a
+    family without recurrent cells.
+
+    Mamba2 (di = nh * head_dim channels, one group of ds-wide B / C):
+      in_proj [z | x | B | C | dt]  z, x of the rank's nh / tp heads, all
+                                    of B and C, dt of its heads
+      conv_w, conv_b [x | B | C]    its x channels, all of B and C
+      a_log, d_skip, dt_bias        its heads (stored sliced)
+      norm                          its channels (the gated RMSNorm takes
+                                    its mean of squares over the ranks'
+                                    channels gathered)
+      out_proj                      its rows: row-parallel
+      state (b, nh, hd, ds)         its heads
+      conv (b, d_conv - 1, di + 2 ds)  its x channels, all of B and C
+    mLSTM (di = nh * dh):
+      up_proj [x_m | z]             the columns of its heads in each
+      wq, wk, wv (nh, dh, dh)       its heads (dim 0: the experts of
+                                    `cim_gemv`'s stack layout)
+      w_o (di, di)                  its output columns (its input, x_m,
+                                    is gathered whole)
+      hnorm                         its channels (mean of squares as
+                                    Mamba2's norm)
+      down_proj                     its rows: row-parallel
+      conv_w, conv_b, w_if, b_if    whole: the gates read every head's
+                                    conv output, so the conv runs whole
+                                    on the gathered x_m
+      C (b, nh, dh, dh), n, m       its heads
+      conv (b, conv_width - 1, di)  whole
+    sLSTM (d wide, f_up = proj_factor_slstm * d):
+      w_gates, r_gates, b_gates, gnorm, c, n, h, m
+                                    whole: the cell runs on every rank
+                                    (its gates are split out of the
+                                    head-major (b, 4d) product, so each
+                                    gate reads every head)
+      ffn_up [gate | up]            its f_up / tp columns of each
+      ffn_down                      its rows: row-parallel
+
+    A cell whose heads tp does not divide (the sLSTM: whose f_up) is
+    whole on every rank, every leaf of it.  A packed leaf whose rows a
+    rule splits is whole where the rank's rows do not start and end on
+    its scale groups and packed bytes (`cut`): the model then gathers
+    its input (`kernels.ops.row_parallel`)."""
+    # imported here: the models import this module's collectives
+    from repro_torch.models.ssm import mamba2_dims, mlstm_dims, slstm_dims
+    if cfg.family not in ("xlstm", "zamba") or tp <= 1:
+        return {}
+    out: Dict[Tuple[str, str], Split] = {}
+
+    def cell(name, split, rules):
+        for leaf, (dim, segments) in rules.items():
+            out[name, leaf] = (Split(dim, tuple(segments)) if split
+                               else WHOLE)
+
+    if cfg.family == "zamba":
+        di, nh, ds = mamba2_dims(cfg)
+        heads = [(di, True)]
+        xbc = [(di, True), (ds, False), (ds, False)]
+        cell("mamba2", nh % tp == 0, {
+            "in_proj": (-1, [(di, True)] + xbc + [(nh, True)]),
+            "conv_w": (-1, xbc), "conv_b": (-1, xbc),
+            "a_log": (-1, [(nh, True)]), "d_skip": (-1, [(nh, True)]),
+            "dt_bias": (-1, [(nh, True)]),
+            "norm": (-1, heads), "out_proj": (-2, heads),
+            "state": (-3, [(nh, True)]), "conv": (-1, xbc)})
+        return out
+    di, nh, _ = mlstm_dims(cfg)
+    heads = [(di, True)]
+    cell("mlstm", nh % tp == 0, {
+        "up_proj": (-1, heads * 2), "w_o": (-1, heads),
+        "wq": (-3, [(nh, True)]), "wk": (-3, [(nh, True)]),
+        "wv": (-3, [(nh, True)]),
+        "hnorm": (-1, heads), "down_proj": (-2, heads),
+        "C": (-3, [(nh, True)]), "n": (-2, [(nh, True)]),
+        "m": (-1, [(nh, True)])})
+    for leaf in ("conv_w", "conv_b", "w_if", "b_if", "conv"):
+        out["mlstm", leaf] = WHOLE
+    d = slstm_dims(cfg)[0]
+    f_up = int(cfg.ssm.proj_factor_slstm * d)
+    cell("slstm", f_up % tp == 0, {
+        "ffn_up": (-1, [(f_up, True)] * 2),
+        "ffn_down": (-2, [(f_up, True)])})
+    for leaf in ("w_gates", "r_gates", "b_gates", "gnorm",
+                 "c", "n", "h", "m"):
+        out["slstm", leaf] = WHOLE
+    return out
+
+
+# the top-level keys of the recurrent stacks (params and arena alike)
+_CELL_OF = {"mamba": "mamba2", "mamba_tail": "mamba2", "mlstm": "mlstm",
+            "slstm": "slstm"}
+
+
+def _split_of(splits, path: Tuple[str, ...]) -> Optional[Split]:
+    """The table's rule of the leaf at `path`, or None."""
+    if not splits or not path:
+        return None
+    return splits.get((_CELL_OF.get(path[0]), path[-1]))
+
+
+def _pieces(x: torch.Tensor, dim: int, pieces) -> torch.Tensor:
+    parts = [x.narrow(dim, s, n) for s, n in pieces]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def cut(leaf: Any, split: Split, rank: int, tp: int) -> Any:
+    """Rank `rank`'s part of `leaf` under `split`: a contiguous copy, or
+    the leaf itself where it stays whole.  A QTensor cut across its
+    packed rows moves data and scales by whole bytes and groups, or
+    stays whole where a part would not start and end on them."""
+    if not split.splits():
+        return leaf
+    pieces = split.pieces(rank, tp)
+    if not isinstance(leaf, QTensor):
+        return _pieces(leaf, split.dim, pieces)
+    ndim = len(leaf.orig_shape)
+    data_p = scale_p = pieces
+    if split.dim % ndim == leaf.axis % ndim:
+        pack = 2 if leaf.bits == 4 else 1
+        unit = math.lcm(leaf.group, pack)
+        if any(s % unit or n % unit for s, n in pieces):
+            return leaf
+        data_p = [(s // pack, n // pack) for s, n in pieces]
+        scale_p = [(s // leaf.group, n // leaf.group) for s, n in pieces]
+    shape = list(leaf.orig_shape)
+    shape[split.dim] = sum(n for _, n in pieces)
+    return QTensor(data=_pieces(leaf.data, split.dim, data_p),
+                   scales=_pieces(leaf.scales, split.dim, scale_p),
+                   bits=leaf.bits, group=leaf.group, axis=leaf.axis,
+                   orig_shape=tuple(shape))
+
+
 def shard_tree(params: Any, specs: Any, rank: int, tp: int,
-               rules: MeshRules = SERVE_RULES) -> Any:
+               rules: MeshRules = SERVE_RULES,
+               splits: Optional[Dict[Tuple[str, str], Split]] = None,
+               _path: Tuple[str, ...] = ()) -> Any:
     """Rank `rank`'s slices of every leaf of `params` (nested dicts
-    mirroring the ParamSpec tree `specs`)."""
+    mirroring the ParamSpec tree `specs`): the leaves `splits`
+    (`recurrent_splits`) names by its rule, every other by its pspec."""
     if isinstance(specs, dict):
-        return {k: shard_tree(params[k], specs[k], rank, tp, rules)
+        return {k: shard_tree(params[k], specs[k], rank, tp, rules, splits,
+                              _path + (k,))
                 for k in specs}
+    split = _split_of(splits, _path)
+    if split is not None:
+        return cut(params, split, rank, tp)
     return shard_leaf(params, leaf_pspec(specs, params, tp, rules), rank,
                       tp)
 
 
-def shard_specs(specs: Any, tp: int, rules: MeshRules = SERVE_RULES) -> Any:
-    """A ParamSpec tree at one rank's shapes: every dim its pspec shards
-    divided by `tp` (the KV pools of a tp-way engine)."""
+def shard_specs(specs: Any, tp: int, rules: MeshRules = SERVE_RULES,
+                splits: Optional[Dict[Tuple[str, str], Split]] = None,
+                _path: Tuple[str, ...] = ()) -> Any:
+    """A ParamSpec tree at one rank's shapes: a leaf `splits` names at
+    its rule's width, every other dim its pspec shards divided by `tp`
+    (the KV pools and the StateArena of a tp-way engine)."""
     if isinstance(specs, dict):
-        return {k: shard_specs(v, tp, rules) for k, v in specs.items()}
+        return {k: shard_specs(v, tp, rules, splits, _path + (k,))
+                for k, v in specs.items()}
+    split = _split_of(splits, _path)
+    if split is not None:
+        shape = list(specs.shape)
+        if split.splits():
+            shape[split.dim] = sum(n for _, n in split.pieces(0, tp))
+        return dataclasses.replace(specs, shape=tuple(shape))
     pspec = leaf_pspec(specs, specs, tp, rules)
     shape = tuple(s // tp if e is not None else s
                   for s, e in zip(specs.shape, pspec))
     return dataclasses.replace(specs, shape=shape)
+
+
+def shard_state_specs(state_specs: Any, cfg, tp: int) -> Any:
+    """`DecoderLM.decode_state_specs` at one rank's shapes: the paged
+    pools by their pspecs (the rank's kv heads), the StateArena by
+    `recurrent_splits`' rules alone (its heads; never an even cut)."""
+    return {"paged": shard_specs(state_specs["paged"], tp),
+            "arena": shard_specs(state_specs["arena"], tp,
+                                 splits=recurrent_splits(cfg, tp))}
 
 
 # ----------------------------------------------------------------------------

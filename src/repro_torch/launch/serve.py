@@ -44,13 +44,14 @@ has its own KV pool, CUDA graphs, stream and driver thread.
 spawns N processes (torch.multiprocessing, start method "spawn") on a
 gloo group over loopback, each draws the same weights from `--seed` and
 keeps its slice of the heads, the FFN width, the experts and the vocab
-(`repro_torch.dist.shard`), and rank 0 prints the results.  On the card
-the ranks share the cards there are (rank r on card r mod count: two
-ranks on one card with one card), and the steps run eagerly.  The paged
-dense and MoE families (GQA or MLA attention: `--arch
-qwen3-moe-235b-a22b --layers 4 --tp 2`, `--arch deepseek-v2-lite-16b
---smoke --device cpu --tp 2`); xlstm and zamba raise, and `--tp` with
-`--gateway` is not in the port yet.
+(`repro_torch.dist.shard`; the recurrent cells and their state by
+`recurrent_splits`), and rank 0 prints the results.  On the card the
+ranks share the cards there are (rank r on card r mod count: two ranks
+on one card with one card), and the steps run eagerly.  Every family
+(`--arch qwen3-moe-235b-a22b --layers 4 --tp 2`, `--arch
+deepseek-v2-lite-16b --smoke --device cpu --tp 2`, `--arch xlstm-1.3b
+--tp 2`, `--arch zamba2-7b --layers 27 --tp 2`); `--tp` with `--gateway`
+is not in the port yet.
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float

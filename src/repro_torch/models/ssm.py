@@ -58,6 +58,25 @@ Differences of the serve steps from the JAX package:
     exact INT4 values times their f16 scales.  The forward does the
     same.
 
+Tensor parallelism (the engine's steps under `dist.shard.use_tp`): a
+rank holds the leaves `dist.shard.recurrent_splits` cuts for it, and the
+serve steps read the rank's widths off them (the forwards run whole).
+  * Mamba2 runs its nh / tp heads: its z, x and dt columns of in_proj,
+    all of B and C; the gated RMSNorm takes its mean of squares over the
+    ranks' channels gathered (one `tp_all_gather`: the bits of tp = 1's
+    mean), then `out_proj` is row-parallel (one `tp_all_reduce`);
+  * the mLSTM gathers x_m (its heads' columns of up_proj) whole: `w_o`
+    gives the rank's output columns of it, and the conv and the gates
+    run whole on every rank; q / k / v and the cell run on its heads
+    (its experts of the head-wise stacks), `hnorm` as Mamba2's norm,
+    `down_proj` row-parallel: two gathers and one all-reduce a layer;
+  * the sLSTM cell runs whole on every rank; its FFN is column-parallel
+    and `ffn_down` row-parallel (one all-reduce).
+A cell the table keeps whole runs as at tp = 1, with no collective; a
+row-parallel projection the table keeps whole takes its input gathered
+(`_project_down`).  Outside `use_tp` every leaf is whole and every
+step's arithmetic is the same as before tensor parallelism.
+
 Numerics copied from JAX: `jax.nn.softplus` is logaddexp(x, 0)
 (`softplus` here; torch's own has a threshold shortcut), `jax.nn.gelu`
 the tanh form, the mLSTM's log f = -softplus(-f) and den = max(|n.q|,
@@ -71,8 +90,10 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.dist.shard import tp_all_gather, tp_rank_and_size
 from repro_torch.kernels.ops import expert_qmatmul
 from repro_torch.kernels.ops import qmatmul as qmm
+from repro_torch.kernels.ops import row_parallel
 from repro_torch.quant.qarray import QTensor
 
 from .common import (ACTIVATIONS, BATCH, FSDP, NONE, TP, ParamSpec, rms_norm,
@@ -139,6 +160,28 @@ def _conv_prefix(conv: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return out, new
 
 
+def _norm_over(y: torch.Tensor, scale: torch.Tensor, eps: float,
+               width: int) -> torch.Tensor:
+    """`rms_norm` of y over `width` channels: y itself when it holds all
+    of them, else a rank's channels (and its slice of `scale`), whose
+    mean of squares is taken over the ranks' y gathered (the full row,
+    so the mean has tp = 1's bits)."""
+    if y.shape[-1] == width:
+        return rms_norm(y, scale, eps)
+    var = tp_all_gather(y, -1).to(F32).square().mean(dim=-1, keepdim=True)
+    return (y.to(F32) * torch.rsqrt(var + eps) * scale.to(F32)).to(y.dtype)
+
+
+def _project_down(y: torch.Tensor, w, width: int) -> torch.Tensor:
+    """y @ w of an output projection whose input is `width` wide: y and
+    w whole, or a rank's channels of y against its rows of w (summed
+    over the ranks) or against w left whole (y gathered)
+    (`row_parallel`)."""
+    if y.shape[-1] == width:
+        return qmm(y, w)
+    return row_parallel(y, w)
+
+
 def _lane_spec(shape, axes, dtype=F32) -> ParamSpec:
     """A decode-state leaf of one layer: lane axis first (`BATCH`),
     zeros; `axes` the logical axes of the dims after it."""
@@ -172,11 +215,21 @@ def mamba2_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _mamba2_local(p: Params, cfg: ModelConfig):
+    """(channels, heads, d_state) the leaves p hold: mamba2_dims', or a
+    tensor-parallel rank's nh / tp heads of head_dim channels."""
+    di, nh, ds = mamba2_dims(cfg)
+    mine = p["a_log"].shape[-1]
+    return (di, nh, ds) if mine == nh else (mine * cfg.ssm.head_dim, mine,
+                                            ds)
+
+
 def _mamba2_in(p: Params, cfg: ModelConfig, x: torch.Tensor):
     """in_proj of x (b, s, d) split: the gate z, the conv input xbc
     (x, B, C), dt = softplus(dt_raw + dt_bias) (b, s, nh) f32 and
-    A = -exp(a_log) (nh,) f32."""
-    di, nh, ds = mamba2_dims(cfg)
+    A = -exp(a_log) (nh,) f32 (a rank's heads of each under tensor
+    parallelism)."""
+    di, nh, ds = _mamba2_local(p, cfg)
     proj = qmm(x, p["in_proj"])
     dt = softplus(proj[..., 2 * di + 2 * ds:].to(F32)
                   + p["dt_bias"].to(F32))
@@ -186,9 +239,11 @@ def _mamba2_in(p: Params, cfg: ModelConfig, x: torch.Tensor):
 
 def _mamba2_out(p: Params, cfg: ModelConfig, y: torch.Tensor,
                 z: torch.Tensor) -> torch.Tensor:
-    """The gated RMSNorm and out_proj of y (b, s, di)."""
-    return qmm(rms_norm(y * swish(z), p["norm"], cfg.norm_eps),
-               p["out_proj"])
+    """The gated RMSNorm and out_proj of y (b, s, di) (a rank's channels:
+    `_norm_over`, `_project_down`)."""
+    di = mamba2_dims(cfg)[0]
+    return _project_down(_norm_over(y * swish(z), p["norm"], cfg.norm_eps,
+                                    di), p["out_proj"], di)
 
 
 def mamba2_forward(p: Params, cfg: ModelConfig,
@@ -247,10 +302,11 @@ def mamba2_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                       cache: State, valid: torch.Tensor,
                       n_new: torch.Tensor) -> torch.Tensor:
     """Masked multi-token Mamba2 step; cache {state (b, nh, hd, ds) f32,
-    conv (b, d_conv - 1, conv_dim)} is advanced in place.  Returns
+    conv (b, d_conv - 1, conv_dim)} is advanced in place (a rank's
+    heads, and its x channels of the conv: `_mamba2_local`).  Returns
     (b, s, d)."""
     b, s, _ = x.shape
-    di, nh, ds = mamba2_dims(cfg)
+    di, nh, ds = _mamba2_local(p, cfg)
     hd = cfg.ssm.head_dim
 
     z, xbc, dt, A = _mamba2_in(p, cfg, x)
@@ -329,9 +385,19 @@ def mlstm_qkvif(p: Params, cfg: ModelConfig, xc: torch.Tensor):
     """q, k, v (b, s, nh, dh) f32 and the raw input / forget gates (b,
     s, nh) f32 of every position of the conv output xc (b, s, di), as
     JAX's `_mlstm_qkvif`: the head-wise products in xc's dtype, k scaled
-    by 1/sqrt(dh) there."""
+    by 1/sqrt(dh) there.  A tensor-parallel rank holding its heads of
+    the stacks gets its heads of each: the gates of the whole xc, the
+    products of its channels."""
     di, nh, dh = mlstm_dims(cfg)
     b, s, _ = xc.shape
+    gates = (_mm(xc, p["w_if"]) + p["b_if"]).to(F32)
+    i_raw, f_raw = gates[..., :nh], gates[..., nh:]
+    mine = p["wq"].shape[-3]
+    if mine != nh:
+        lo = tp_rank_and_size()[0] * mine
+        xc = xc[..., lo * dh:(lo + mine) * dh]
+        i_raw, f_raw = i_raw[..., lo:lo + mine], f_raw[..., lo:lo + mine]
+        nh = mine
     xh = xc.reshape(b * s, nh, dh).transpose(0, 1).contiguous()
 
     def heads(w, scale=None):
@@ -340,16 +406,19 @@ def mlstm_qkvif(p: Params, cfg: ModelConfig, xc: torch.Tensor):
             out = out / scale
         return out.transpose(0, 1).reshape(b, s, nh, dh).to(F32)
     q, k, v = heads(p["wq"]), heads(p["wk"], math.sqrt(dh)), heads(p["wv"])
-    gates = (_mm(xc, p["w_if"]) + p["b_if"]).to(F32)
-    return q, k, v, gates[..., :nh], gates[..., nh:]
+    return q, k, v, i_raw, f_raw
 
 
 def _mlstm_in(p: Params, cfg: ModelConfig, x: torch.Tensor):
     """up_proj of x (b, s, d) split into the cell input x_m and the gate
-    z, and the output gate o = sigmoid(x_m @ w_o)."""
-    di = mlstm_dims(cfg)[0]
+    z, and the output gate o = sigmoid(x_m @ w_o).  A tensor-parallel
+    rank's columns of up_proj give its heads' x_m, gathered whole, and
+    its z; its columns of w_o its o."""
     up = qmm(x, p["up_proj"])
-    x_m, z = up[..., :di], up[..., di:]
+    mine = up.shape[-1] // 2
+    x_m, z = up[..., :mine], up[..., mine:]
+    if mine != mlstm_dims(cfg)[0]:
+        x_m = tp_all_gather(x_m, -1)
     return x_m, z, torch.sigmoid(qmm(x_m, p["w_o"]))
 
 
@@ -357,11 +426,12 @@ def _mlstm_out(p: Params, cfg: ModelConfig, h: torch.Tensor,
                o: torch.Tensor, z: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """The cell's h (b, s, nh, dh) f32 -> RMSNorm, output gate, gate z,
-    down_proj."""
+    down_proj (a rank's heads: `_norm_over`, `_project_down`)."""
     b, s = h.shape[:2]
+    di = mlstm_dims(cfg)[0]
     h = h.reshape(b, s, -1).to(dtype)
-    h = rms_norm(h, p["hnorm"], cfg.norm_eps) * o
-    return qmm(h * swish(z), p["down_proj"])
+    h = _norm_over(h, p["hnorm"], cfg.norm_eps, di) * o
+    return _project_down(h * swish(z), p["down_proj"], di)
 
 
 def mlstm_parallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -400,10 +470,10 @@ def mlstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache: State, valid: torch.Tensor,
                      n_new: torch.Tensor) -> torch.Tensor:
     """Masked multi-token mLSTM step; cache {C (b, nh, dh, dh), n (b, nh,
-    dh), m (b, nh) f32, conv (b, conv_width - 1, di)} is advanced in
-    place.  C is scaled by the forget gate and takes the rank-1 input in
-    place (`mul_`, `addcmul_`), then read once for h.  Returns (b, s,
-    d)."""
+    dh), m (b, nh) f32 (a rank's heads), conv (b, conv_width - 1, di)
+    (whole)} is advanced in place.  C is scaled by the forget gate and
+    takes the rank-1 input in place (`mul_`, `addcmul_`), then read once
+    for h.  Returns (b, s, d)."""
     s = x.shape[1]
     x_m, z, o = _mlstm_in(p, cfg, x)
     xc, conv = _conv_prefix(cache["conv"], x_m, p["conv_w"], p["conv_b"],
@@ -493,12 +563,14 @@ def _slstm_cell(gx_t: torch.Tensor, r: torch.Tensor, state):
 
 
 def _slstm_ffn(p: Params, cfg: ModelConfig, y: torch.Tensor) -> torch.Tensor:
-    """RMSNorm, then the gated GELU FFN of the cell's h (b, s, d)."""
+    """RMSNorm, then the gated GELU FFN of the cell's h (b, s, d) (a
+    rank's columns of each half of ffn_up, `_project_down`)."""
     y = rms_norm(y, p["gnorm"], cfg.norm_eps)
     up = qmm(y, p["ffn_up"])
     f_up = up.shape[-1] // 2
     y = ACTIVATIONS["gelu"](up[..., :f_up]) * up[..., f_up:]
-    return qmm(y, p["ffn_down"])
+    return _project_down(y, p["ffn_down"],
+                         int(cfg.ssm.proj_factor_slstm * cfg.d_model))
 
 
 def slstm_forward(p: Params, cfg: ModelConfig,

@@ -20,9 +20,9 @@ the replicas share one card and one copy of the packed weights, each
 with its own KV pool, CUDA graphs and stream.  `tp` is the number of
 tensor-parallel ranks one engine spans (`repro_torch.dist.shard`): each
 rank is a process of a torch.distributed group of `tp` ranks and holds
-its slice of the heads, the FFN width, the experts and the vocab; the
-engine serves the paged dense and MoE families (GQA or MLA attention)
-at tp > 1 and refuses the recurrent and hybrid ones.  At tp > 1 the
+its slice of the heads, the FFN width, the experts and the vocab, and
+of the recurrent cells' heads and state (xlstm, zamba); the engine
+serves every family at tp > 1.  At tp > 1 the
 steps run eagerly, not as CUDA graphs: the collectives of the gloo
 group go through the host, which a graph cannot capture.
 

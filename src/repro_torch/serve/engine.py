@@ -81,13 +81,16 @@ rank samples from the same logits with the same seeded generator and
 the ranks stay in lockstep.  A MoE rank runs its n_experts / tp experts
 of every stack on the global routing (`ffn.moe_ffn`); an MLA rank its
 n_heads / tp heads over the whole latent pools
-(`attention.mla_paged_step`).  The steps run eagerly: the gloo group's
+(`attention.mla_paged_step`).  The recurrent and hybrid families (xlstm,
+zamba) take their cells' leaves and their StateArena by the split table
+(`dist.shard.recurrent_splits`): Mamba2 and mLSTM cells on the rank's
+heads, the sLSTM cell whole with its FFN split (`models/ssm.py`); each
+rank resets, snapshots and restores its own slice of a lane, on the
+same scheduling decisions.  The steps run eagerly: the gloo group's
 collectives go through the host and cannot be captured in a CUDA graph.
-A model drafter stays whole on every rank.  The paged families only
-(dense and MoE, GQA or MLA attention); the recurrent and hybrid families
-(xlstm, zamba) raise NotImplementedError at tp > 1, and a request with
-a deadline raises ValueError (each rank's scheduler would expire it on
-its own clock).
+A model drafter stays whole on every rank.  Every family the JAX
+engine serves at tp > 1 is served; a request with a deadline raises
+ValueError (each rank's scheduler would expire it on its own clock).
 Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
 and MLA models (deepseek) are served like any dense model;
 `kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
@@ -113,8 +116,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.dist.shard import (serve_group, shard_specs, shard_tree,
-                                    use_tp)
+from repro_torch.dist.shard import (recurrent_splits, serve_group,
+                                    shard_state_specs, shard_tree, use_tp)
 from repro_torch.models.common import tree_to
 from repro_torch.obs.energy import EnergyMeter
 from repro_torch.obs.recorder import FlightRecorder
@@ -177,19 +180,6 @@ def _has_qtensor(tree: Any) -> bool:
     return isinstance(tree, QTensor)
 
 
-def _check_tp_family(model) -> None:
-    """Tensor-parallel serving covers the paged families
-    (`supports_paged`: dense and MoE decoders, GQA or MLA attention).  A
-    family with recurrent per-lane state (xlstm, zamba) raises, naming
-    the family."""
-    cfg = model.cfg
-    if not model.supports_paged():
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving (tp > 1) of family "
-            f"{cfg.family!r} is not in the PyTorch port yet; it covers "
-            f"the paged dense and MoE families (GQA or MLA attention)")
-
-
 class PagedServeEngine:
     def __init__(self, model, params: Any,
                  config: Optional[ServeConfig] = None, *,
@@ -231,13 +221,12 @@ class PagedServeEngine:
             config = dataclasses.replace(config, kv_dtype="bf16")
         if not model.cfg.embed_inputs:
             raise ValueError("engine serves token-input models")
-        # tensor parallelism: the dims first, then the group, then the
-        # family, so a misconfigured tp fails before anything is built
+        # tensor parallelism: the dims first, then the group, so a
+        # misconfigured tp fails before anything is built
         self.group = None
         if config.tp > 1:
             model.validate_tp(config.tp)
             self.group = serve_group(config.tp)
-            _check_tp_family(model)
         self.config = config
         self.device = resolve_device(device)
         max_batch, max_seq = config.max_batch, config.max_seq
@@ -260,7 +249,9 @@ class PagedServeEngine:
                                      group=config.quant_group)
         if self.group is not None:
             params = shard_tree(params, model.param_specs(),
-                                dist.get_rank(self.group), config.tp)
+                                dist.get_rank(self.group), config.tp,
+                                splits=recurrent_splits(model.cfg,
+                                                        config.tp))
         self.model = model
         self.params = params
         self.max_batch = max_batch
@@ -272,8 +263,9 @@ class PagedServeEngine:
         kv_dtype = config.resolved_kv_dtype()
         state_specs = model.decode_state_specs(max_batch, n_pages,
                                                page_size, kv_dtype)
-        if self.group is not None:      # the rank's kv heads
-            state_specs = shard_specs(state_specs, config.tp)
+        if self.group is not None:      # the rank's kv heads, its arena
+            state_specs = shard_state_specs(state_specs, model.cfg,
+                                            config.tp)
         self.cache = PagedKVCache(model, n_pages, page_size, max_seq,
                                   kv_dtype, specs=state_specs["paged"],
                                   device=self.device)

@@ -37,6 +37,8 @@ from repro.models import DecoderLM as JaxLM
 from repro.models import MLAConfig as JaxMLA
 from repro.models import ModelConfig as JaxConfig
 from repro.models import MoEConfig as JaxMoE
+from repro.models import SSMConfig as JaxSSM
+from repro.models import ZambaConfig as JaxZamba
 from repro.models.common import is_spec
 from repro.quant.qarray import QTensor as JaxQTensor
 
@@ -73,10 +75,10 @@ def _flat(tree, prefix=""):
 
 def _smoke_kw(arch_id):
     """JAX's smoke config of `arch_id` as an arch dict, its `moe` / `mla`
-    as dicts of their fields (tests/torch_tp_ranks.py)."""
+    / `ssm` / `zamba` as dicts of their fields (tests/torch_tp_ranks.py)."""
     cfg = jax_smoke(arch_id)
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    for k in ("moe", "mla"):
+    for k in ("moe", "mla", "ssm", "zamba"):
         if out[k] is not None:
             out[k] = dataclasses.asdict(out[k])
     return out
@@ -87,8 +89,9 @@ def jax_config(arch):
     kw = dict(arch, dtype="float32", remat=False)
     if isinstance(kw.get("moe"), dict):
         kw["moe"] = JaxMoE(**kw["moe"])
-    if isinstance(kw.get("mla"), dict):
-        kw["mla"] = JaxMLA(**kw["mla"])
+    for k, cls in (("mla", JaxMLA), ("ssm", JaxSSM), ("zamba", JaxZamba)):
+        if isinstance(kw.get(k), dict):
+            kw[k] = cls(**kw[k])
     return JaxConfig(**kw)
 
 

@@ -24,9 +24,10 @@ once for both packages, `test_torch_dist.packed`) and prompts.  Held:
     under random submits, aborts, forks and preemptions;
   * the `sim_*` keys of the int4 run equal JAX's tp = 2 engine's;
   * the refusals: dims tp does not divide, no group, a group of the
-    wrong size, xlstm / zamba at tp = 2, a request deadline (each rank's
-    scheduler would decide it on its own clock); MoE and MLA are admitted
-    (tests/test_torch_tp_moe_mla.py serves them);
+    wrong size, a request deadline (each rank's scheduler would decide it
+    on its own clock); MoE, MLA, xlstm and zamba are admitted
+    (tests/test_torch_tp_moe_mla.py and tests/test_torch_tp_recurrent.py
+    serve them);
   * `python -m repro_torch.launch.serve --smoke --device cpu --tp 2`
     prints `--tp 1`'s streams.
 """
@@ -128,9 +129,10 @@ def served(tmp_path_factory):
         "conservation": dict(arch=SMOKE, params=weights["fp"][1]),
         "refused": {"tp3": dict(SMOKE, name="tp3", n_heads=3, n_kv_heads=3,
                                 d_model=48, d_ff=96),
-                    "families": ["xlstm-1.3b", "zamba2-7b"],
+                    "families": [],
                     "admitted": ["qwen3-moe-235b-a22b",
-                                 "deepseek-v2-lite-16b"]},
+                                 "deepseek-v2-lite-16b", "xlstm-1.3b",
+                                 "zamba2-7b"]},
     }
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -256,10 +258,12 @@ def test_engine_refuses_a_wrong_sized_group_and_families_outside_the_slice(
     assert "deadline at tp > 1" in served["ranks"][0]["deadline"]
     assert "tp=3 needs a torch.distributed group of 3 ranks but the " \
         "torch.distributed group has 2 ranks" in got["tp3"]
-    for arch_id, family in (("xlstm-1.3b", "'xlstm'"),
-                            ("zamba2-7b", "'zamba'")):
-        assert family in got[arch_id] and "tp > 1" in got[arch_id]
-    for arch_id in ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b"):
+    # no family is outside tensor-parallel serving since the recurrent
+    # and hybrid families joined (tests/test_torch_tp_recurrent.py)
+    assert set(got) == {"tp3", "qwen3-moe-235b-a22b",
+                        "deepseek-v2-lite-16b", "xlstm-1.3b", "zamba2-7b"}
+    for arch_id in ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
+                    "xlstm-1.3b", "zamba2-7b"):
         assert got[arch_id] == "admitted, tp 2"
 
 

@@ -1,21 +1,23 @@
 """What each rank of the 2-rank gloo groups of
-tests/test_torch_tp_serving.py and tests/test_torch_tp_moe_mla.py runs
-(a module of its own, so a spawned rank imports torch, numpy and
-repro_torch, and neither JAX nor the JAX package).
+tests/test_torch_tp_serving.py, tests/test_torch_tp_moe_mla.py and
+tests/test_torch_tp_recurrent.py runs (a module of its own, so a spawned
+rank imports torch, numpy and repro_torch, and neither JAX nor the JAX
+package).
 
 `rank_main(rank, init, cases, queue)` serves every case of `cases` at
 tp = 2 on the CPU and puts (rank, results) on `queue`: each case's
 greedy streams and summary, the collectives it ran and its step calls,
 the rank's pool and weight shapes, then the page-conservation trials
-and the refusals (a deadline, a group of the wrong size, the families
-outside the slice, and the MoE / MLA families admitted).
-`moe_rank_main` does the same for the MoE and MLA cases, with every
-leaf's shape on the rank and the slots the router dropped.  A rank that
-raises puts (rank, the traceback).
+and the refusals (a deadline, a group of the wrong size, and the MoE,
+MLA, recurrent and hybrid families admitted).  `moe_rank_main` does the
+same for the MoE and MLA cases, with every leaf's shape on the rank and
+the slots the router dropped; `recurrent_rank_main` for the xlstm and
+zamba cases, with the rank's arena, its preemptions and the recurrent
+families' refusals.  A rank that raises puts (rank, the traceback).
 
-An arch is a dict of `ModelConfig` fields whose `moe` / `mla` entries
-are dicts of their configs' fields (`port_config`), so that each package
-builds its own config objects from one description.
+An arch is a dict of `ModelConfig` fields whose `moe` / `mla` / `ssm` /
+`zamba` entries are dicts of their configs' fields (`port_config`), so
+that each package builds its own config objects from one description.
 """
 import traceback
 
@@ -29,7 +31,8 @@ from repro_torch.dist import collective_counts, reset_collective_counts
 from repro_torch.models import DecoderLM, ModelConfig
 from repro_torch.models import ffn as port_ffn
 from repro_torch.models.common import init_params
-from repro_torch.models.config import MLAConfig, MoEConfig
+from repro_torch.models.config import (MLAConfig, MoEConfig, SSMConfig,
+                                       ZambaConfig)
 from repro_torch.quant.qarray import QTensor
 from repro_torch.serve import (PagedServeEngine, SamplingParams, ServeConfig,
                                ServeRequest)
@@ -37,13 +40,13 @@ from repro_torch.spec import SpecConfig
 
 
 def port_config(arch) -> ModelConfig:
-    """The port's f32 ModelConfig of an arch dict (`moe` / `mla` given
-    as dicts of their fields, or as None)."""
+    """The port's f32 ModelConfig of an arch dict (`moe` / `mla` / `ssm`
+    / `zamba` given as dicts of their fields, or as None)."""
     kw = dict(arch, dtype="float32", remat=False)
-    if isinstance(kw.get("moe"), dict):
-        kw["moe"] = MoEConfig(**kw["moe"])
-    if isinstance(kw.get("mla"), dict):
-        kw["mla"] = MLAConfig(**kw["mla"])
+    for k, cls in (("moe", MoEConfig), ("mla", MLAConfig),
+                   ("ssm", SSMConfig), ("zamba", ZambaConfig)):
+        if isinstance(kw.get(k), dict):
+            kw[k] = cls(**kw[k])
     return ModelConfig(**kw)
 
 
@@ -143,9 +146,9 @@ def conservation(arch, params, trials=2):
 
 def refusals(refused):
     """The message each refused engine raises at tp = 2 on this group:
-    tp = 3 on 2 ranks, then each family outside the slice; "admitted"
-    for each family the slice serves (an engine built at tp = 2 on
-    random smoke weights)."""
+    tp = 3 on 2 ranks, then each family `refused["families"]` names;
+    "admitted" for each family of `refused["admitted"]` (an engine built
+    at tp = 2 on random smoke weights)."""
     out = {}
     kw = dict(max_batch=2, max_seq=32, page_size=4)
     arch = refused["tp3"]
@@ -273,6 +276,74 @@ def rank_main(rank, init, cases, queue):
         c = cases["conservation"]
         res["conservation"] = conservation(c["arch"], c["params"])
         res["refusals"] = refusals(cases["refused"])
+        dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+def recurrent_refusals(case):
+    """The message of each capability a recurrent engine refuses at tp =
+    2 (speculation, the prefix cache, a fork) and of a deadline."""
+    model = DecoderLM(port_config(case["arch"]))
+    params = from_numpy_tree(case["params"])
+    kw = dict(case["serve"], tp=2)
+    out = {}
+    try:
+        PagedServeEngine(model, params, ServeConfig(**kw),
+                         spec=SpecConfig(k=4), device="cpu")
+    except ValueError as e:
+        out["spec"] = str(e)
+    try:
+        PagedServeEngine(model, params, ServeConfig(**kw, prefix_cache=True),
+                         device="cpu")
+    except ValueError as e:
+        out["prefix"] = str(e)
+    eng = PagedServeEngine(model, params, ServeConfig(**kw), device="cpu")
+    parent = ServeRequest(prompt=case["prompts"][0], max_new_tokens=2)
+    eng.submit(parent)
+    for name, req in (("fork", ServeRequest(prompt=case["prompts"][0],
+                                            fork_from=parent)),
+                      ("deadline", ServeRequest(prompt=case["prompts"][0],
+                                                deadline_s=1.0))):
+        try:
+            eng.submit(req)
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def recurrent_rank_main(rank, init, cases, queue):
+    """One rank of tests/test_torch_tp_recurrent.py's group: every xlstm
+    / zamba case at tp = 2, then the refusals."""
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=2)
+        res = {}
+        for name, case in cases["streams"].items():
+            reset_collective_counts()
+            streams, eng = serve(case["arch"], case["params"],
+                                 dict(case["serve"], tp=2),
+                                 case["prompts"], case["new"], 0)
+            events = eng.recorder.snapshot()
+            res[name] = {
+                "streams": streams,
+                "summary": eng.summary(),
+                "collectives": collective_counts(),
+                "calls": eng.prefill_calls + eng.decode_calls,
+                "params": leaf_shapes(eng.params),
+                "pools": leaf_shapes(eng.cache.pools),
+                "arena": leaf_shapes(eng.arena.state),
+                "state_bytes": eng.arena.state_bytes(),
+                "preemptions": sum(e["kind"] == "preempt" for e in events),
+                "resumed": sum(e["kind"] == "admit" and e["resumed"]
+                               for e in events),
+                "drained": eng.cache.n_free_or_cached()
+                == eng.cache.allocator.n_pages
+                and all(r is None for r in eng.lanes),
+            }
+        res["refusals"] = recurrent_refusals(cases["refused"])
         dist.destroy_process_group()
         queue.put((rank, res))
     except BaseException:
