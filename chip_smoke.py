@@ -302,7 +302,31 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      decode step wall median beside the phase's eager tp = 1, the
      collectives' share, the arena's bytes a rank, each rank's peak
      memory drawing, resident and serving.
- 19. summary: a `{"kernels": [...]}` line (flash_decode's launches from
+ 19. the gateway at tensor parallelism 2: two ranks (spawned as in
+     phase 16, both on the one card) build qwen2.5-3b from phase 3's
+     seed (the unsharded weights' sha256 must equal phase 3's) and two
+     replicas' engines, each on its own pair of groups
+     (`dist.shard.replica_groups`), INT4, INT8 KV, batch 4, pages and
+     chunks of 16.  Rank 0 serves the port's `Gateway` over a
+     `FleetRouter` of both and leads each engine's group
+     (`dist.lockstep`: a tick a step call with its clock reading and
+     its submits, cancels and drains); rank 1 follows each engine on a
+     thread of its own.  Over HTTP/SSE (`--client` processes): a
+     greedy wave of phase 3's 8 prompts, 16 new tokens each, whose
+     streams must equal phase 3's eager ones (a divergence only at a
+     near-tie, which both ranks check); a deadline wave of 14 requests
+     (one client hangs up after 4 tokens), then, once every lane is
+     taken, 2 of priority 1 with a deadline shorter than a step, which
+     both ranks must reject as `expired`; one /metrics, one /healthz;
+     the gateway's stop sends the STOP ticks and both ranks end.  Both
+     ranks' engines must agree (eids, lanes, queue, steps, ticks,
+     rejections, cancels), every page come back, the launches be
+     exactly 181 / 36 / 36 a decode step on each rank (each replica's
+     driver or follower thread), the collectives 2 L + 2 a call.
+     Logged: ticks a step call and their host ms, the decode step wall
+     median through the gateway beside phase 16's offline one, TTFT
+     p50 / p95, peak memory a rank, the phase's seconds.
+ 20. summary: a `{"kernels": [...]}` line (flash_decode's launches from
      phase 15b's contiguous decode, and its ms, plain_ms, library_ms and
      bound_ms at that path's shape; the tensor-parallel paths' launches
      under `launches_by_path`), the card line, and last
@@ -1277,7 +1301,9 @@ def phase_full_model(model, params, device, card):
     graph, eager = serve(False), serve(True)
     eng = graph["eng"]
     TP_REF.update(wave=waves[0], eager_decode_ms=eager["decode_ms"],
-                  wave_streams=[r.out_tokens for r in eager["reqs"][:4]])
+                  wave_streams=[r.out_tokens for r in eager["reqs"][:4]],
+                  wave8=waves[0] + waves[1],
+                  wave8_streams=[r.out_tokens for r in eager["reqs"][:8]])
 
     # the EdgeCIM cost model's reading of wave 2, beside what the card did
     sim = graph["sims"][1]
@@ -3976,21 +4002,35 @@ def client_main(host: str, port: int) -> None:
                       "wall_s": time.perf_counter() - t0}))
 
 
-def gateway_wave(gwt, bodies, disconnect=()):
-    """Send every body at once from a client process; returns (results,
-    the wave's wall s as the clients saw it, the gateway thread's CPU s
-    over the wave)."""
-    cpu0 = gwt.cpu_s()
-    proc = subprocess.run(
+def start_clients(gwt, bodies, disconnect=()):
+    """Start a client process sending every body at once (`--client`),
+    talked to from a thread; `client_results` waits for it."""
+    import threading
+    proc = subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--client",
-         gwt.host, str(gwt.port)],
-        input=json.dumps({"bodies": bodies,
-                          "disconnect": sorted(disconnect)}),
-        capture_output=True, text=True, timeout=600)
-    cpu = gwt.cpu_s() - cpu0
+         gwt.host, str(gwt.port)], stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    box = {}
+
+    def talk():
+        box["out"], box["err"] = proc.communicate(json.dumps(
+            {"bodies": bodies, "disconnect": sorted(disconnect)}))
+    thread = threading.Thread(target=talk, daemon=True)
+    thread.start()
+    return proc, thread, box
+
+
+def client_results(handle):
+    """(results, the wave's wall s as the clients saw it) of a client
+    process; any status but 200 fails."""
+    proc, thread, box = handle
+    thread.join(600)
+    if thread.is_alive():
+        proc.kill()
+        fail("gateway client process: no answer in 600 s")
     if proc.returncode != 0:
-        fail(f"gateway client process: {proc.stderr[-2000:]}")
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+        fail(f"gateway client process: {box['err'][-2000:]}")
+    out = json.loads(box["out"].strip().splitlines()[-1])
     results = out["results"]
     for r in results:
         r["toks"] = {int(k): v for k, v in r["toks"].items()}
@@ -3998,7 +4038,16 @@ def gateway_wave(gwt, bodies, disconnect=()):
     for i, r in enumerate(results):
         if r["status"] != 200:
             fail(f"gateway request {i}: status {r['status']}")
-    return results, out["wall_s"], cpu
+    return results, out["wall_s"]
+
+
+def gateway_wave(gwt, bodies, disconnect=()):
+    """Send every body at once from a client process; returns (results,
+    the wave's wall s as the clients saw it, the gateway thread's CPU s
+    over the wave)."""
+    cpu0 = gwt.cpu_s()
+    results, wall_s = client_results(start_clients(gwt, bodies, disconnect))
+    return results, wall_s, gwt.cpu_s() - cpu0
 
 
 def quantiles(xs, qs=(50, 95)):
@@ -6024,6 +6073,278 @@ def phase_tp_rec(card):
     return by_path, result
 
 
+# ---------------------------------------------------------------------------
+# the gateway at tp = 2: rank 0 leads two replicas' groups (dist.lockstep)
+# ---------------------------------------------------------------------------
+TPGW_DEADLINE_S = 0.05      # shorter than one tp = 2 step (phase 16)
+
+
+def tpgw_engines(model, params, device, n: int = 2):
+    """`n` replicas' engines of qwen2.5-3b at tp = 2 (INT4, INT8 KV,
+    batch 4, pages and chunks of 16), each on its own pair of groups,
+    built in the same order on both ranks."""
+    from repro_torch.dist import replica_groups
+    from repro_torch.serve import PagedServeEngine, ServeConfig
+    scfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
+                       max_seq=128, page_size=16, prefill_chunk=16, tp=TP,
+                       replicas=n)
+    out = []
+    for _ in range(n):
+        group, tick_group = replica_groups(TP)
+        out.append(PagedServeEngine(model, params, scfg, device=device,
+                                    group=group, tick_group=tick_group))
+    return out
+
+
+def tpgw_state(eng) -> dict:
+    """What both ranks' engines must agree on after the waves."""
+    events = eng.recorder.snapshot()
+    return {"next_eid": eng._next_eid,
+            "lanes": [r.eid if r is not None else None for r in eng.lanes],
+            "queue": [item[3].eid for item in eng.scheduler._heap],
+            "free_or_cached": eng.cache.n_free_or_cached(),
+            "n_pages": eng.cache.allocator.n_pages,
+            "steps": eng.telemetry.steps, "ticks": eng.lockstep.seq,
+            "prefill_calls": eng.prefill_calls,
+            "decode_calls": eng.decode_calls,
+            "rejects": [[e["eid"], e["reason"]] for e in events
+                        if e["kind"] == "reject"],
+            "cancels": [e["eid"] for e in events if e["kind"] == "cancel"]}
+
+
+def tpgw_lead(engines, ref, cfg):
+    """Rank 0 of phase 19: the gateway over both replicas; the greedy
+    wave, the deadline wave (14 requests, one client hanging up after 4
+    tokens, then 2 of priority 1 with a deadline shorter than a step
+    while every lane is taken), /metrics and /healthz.  Returns the
+    record and the replicas' driver threads."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import FleetRouter
+    n_new = 16
+    walls = []                  # (ms, decode only) of each step call
+    for eng in engines:
+        orig = eng.step
+
+        def step(eng=eng, orig=orig):
+            pre = eng.prefill_calls
+            t0 = time.perf_counter()
+            orig()
+            torch.cuda.current_stream().synchronize()
+            walls.append(((time.perf_counter() - t0) * 1e3,
+                          eng.prefill_calls == pre))
+        eng.step = step
+
+    def body(p, **kw):
+        return {"prompt": [int(t) for t in p], "max_tokens": n_new, **kw}
+    router = FleetRouter(engines, policy="rr")
+    gwt = GatewayThread(router)
+    threads = [rep.driver._thread for rep in router.replicas]
+    greedy, wall_g, _ = gateway_wave(gwt, [body(p) for p in ref["wave8"]])
+    greedy_walls = [ms for ms, dec in walls if dec]
+    prefill_walls = [ms for ms, dec in walls if not dec]
+    for i, r in enumerate(greedy):
+        if set(r["fins"].values()) != {"length"} or \
+                len(r["toks"].get(0, [])) != n_new:
+            fail(f"phase 19 greedy request {i}: {r['fins']}, "
+                 f"{len(r['toks'].get(0, []))} tokens")
+
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab, int(k)).astype(np.int32)
+               for k in rng.integers(16, 65, size=16)]
+    bg = start_clients(gwt, [body(p) for p in prompts[:14]],
+                       disconnect={13})
+    t0 = time.perf_counter()
+    while sum(rep.snapshot.get("n_running", 0.0)
+              for rep in router.replicas) < 2 * engines[0].max_batch:
+        if time.perf_counter() - t0 > 120:
+            fail("phase 19: the deadline wave never filled every lane")
+        time.sleep(0.01)
+    # behind every priority-0 request: examined only once a lane is
+    # free and those are admitted, long after their deadline
+    late, _, _ = gateway_wave(gwt, [body(p, deadline_s=TPGW_DEADLINE_S,
+                                         priority=1)
+                                    for p in prompts[14:]])
+    early, wall_d = client_results(bg)
+    if [set(r["fins"].values()) for r in late] != [{"rejected"}] * 2:
+        fail(f"phase 19: the deadline requests finished "
+             f"{[r['fins'] for r in late]}")
+    if not early[13]["disconnected"]:
+        fail("phase 19: the disconnecting client read its whole stream")
+    for i, r in enumerate(early[:13]):
+        if set(r["fins"].values()) != {"length"}:
+            fail(f"phase 19 deadline wave request {i}: {r['fins']}")
+    st_m, _, raw_m = asyncio.run(http(gwt.host, gwt.port, "GET",
+                                      "/metrics"))
+    st_h, _, _ = asyncio.run(http(gwt.host, gwt.port, "GET", "/healthz"))
+    metrics = json.loads(raw_m)
+    if st_m != 200 or metrics["fleet"]["n_replicas"] != 2 or \
+            metrics["config"]["tp"] != TP or st_h != 200:
+        fail(f"phase 19 /metrics {st_m} (replicas "
+             f"{metrics['fleet']['n_replicas']}), /healthz {st_h}")
+    gwt.stop()                  # every engine's STOP tick
+    dead = [rep.id for rep in router.replicas if rep.error is not None]
+    if dead:
+        fail(f"phase 19: replicas {dead} failed: "
+             f"{[repr(router.replicas[i].error) for i in dead]}")
+    ttft = quantiles([r["ttft_s"] * 1e3 for r in greedy])
+    return {"greedy_streams": [r["toks"][0] for r in greedy],
+            "greedy_wall_s": wall_g, "deadline_wall_s": wall_d,
+            "ttft_ms_p50_p95": ttft,
+            "step_ms_median": float(np.median(greedy_walls)),
+            "decode_steps_greedy": len(greedy_walls),
+            "prefill_step_ms_median": float(np.median(prefill_walls)),
+            "prefill_steps_greedy": len(prefill_walls),
+            "metrics_requests": metrics["engine"]["requests"]}, threads
+
+
+def tpgw_follow(engines):
+    """Rank 1 of phase 19: follow each engine on a thread of its own
+    until rank 0's STOP ticks.  Returns the threads."""
+    from repro_torch.dist import follow_all
+    threads, outcomes = follow_all(engines)
+    for t in threads:
+        t.join(900)
+    if outcomes != ["stop"] * len(engines):
+        fail(f"phase 19 rank 1 followers: {outcomes!r}")
+    return threads
+
+
+def tp_gateway_rank(rank, ref, init, out_dir):
+    """One rank of phase 19 (spawned): qwen2.5-3b from phase 3's seed, two
+    replicas at tp = 2 on groups of their own; rank 0 serves the gateway
+    and leads, rank 1 follows."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import (collective_counts, reset_collective_counts,
+                                  reset_tick_counts, tick_counts,
+                                  tick_seconds)
+    from repro_torch.kernels import reset_launch_counts, thread_launch_counts
+    device = join_rank_group(rank, init)
+    tag = f"phase 19 rank {rank}"
+    t0 = time.perf_counter()
+    model, params = build_full_model(device)
+    if weights_digest(params) != ref["digest"]:
+        fail(f"{tag}: the unsharded weights differ from phase 3's")
+    engines = tpgw_engines(model, params, device)
+    del params
+    torch.cuda.empty_cache()
+    cfg = model.cfg
+    log(f"{tag}: 2 replicas built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the counts start at 0 just before the path is driven
+    reset_launch_counts()
+    reset_collective_counts()
+    reset_tick_counts()
+    res = {"rank": rank}
+    if rank == 0:
+        lead, threads = tpgw_lead(engines, ref, cfg)
+        res.update(lead)
+    else:
+        threads = tpgw_follow(engines)
+    res["launches"] = [thread_launch_counts(t) for t in threads]
+    res["expected"] = [expected_launches(cfg, e.prefill_calls,
+                                         e.decode_calls) for e in engines]
+    res["collectives"] = collective_counts()
+    res["ticks"] = tick_counts()
+    res["tick_s"] = tick_seconds()
+    res["states"] = [tpgw_state(e) for e in engines]
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    calls = sum(e.prefill_calls + e.decode_calls for e in engines)
+    want = {"all_reduce": (2 * cfg.n_layers + 1) * calls,
+            "all_gather": calls}
+    if res["collectives"] != want:
+        fail(f"{tag}: collectives {res['collectives']} != {want}")
+    for i, (got, exp) in enumerate(zip(res["launches"], res["expected"])):
+        if got != exp:
+            fail(f"{tag} replica {i}: launches {got} != expected {exp}")
+    # rank 0's streams to both ranks: a divergence from phase 3's is
+    # checked for a near-tie by both, in lockstep on replica 0's group
+    box = [res.get("greedy_streams")]
+    dist.broadcast_object_list(box, src=0)
+    want_streams = ref["wave8_streams"]
+    base = [SimpleNamespace(prompt=p, out_tokens=w, rid=i)
+            for i, (p, w) in enumerate(zip(ref["wave8"], want_streams))]
+    got = [SimpleNamespace(prompt=p, out_tokens=s, rid=i)
+           for i, (p, s) in enumerate(zip(ref["wave8"], box[0]))]
+    res["near_ties"] = check_identity(
+        f"{tag} greedy wave vs phase 3", base, got, model,
+        engines[0].params, device, engines[0]._serve_fn, TP)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_tp_gateway(card, tp16_step_ms):
+    """Phase 19: spawn two ranks (gloo over loopback, both on cuda:0);
+    rank 0 serves the gateway over two replicas of qwen2.5-3b at tp = 2
+    and leads their groups, rank 1 follows.  Holds the streams to phase
+    3's, the ranks' engines to each other, the deadlines, the pages and
+    the launches."""
+    ranks, phase_s = spawn_ranks(tp_gateway_rank, TP_REF, "tp_gateway")
+    a, b = ranks
+    if a["states"] != b["states"]:
+        fail(f"phase 19: the ranks' engines differ: {a['states']} vs "
+             f"{b['states']}")
+    if a["ticks"] != b["ticks"]:
+        fail(f"phase 19: rank 0 sent {a['ticks']}, rank 1 received "
+             f"{b['ticks']}")
+    steps = sum(s["steps"] for s in a["states"])
+    ticks = a["ticks"]["ticks"]
+    if not steps + 2 <= ticks or a["ticks"]["broadcasts"] > 2 * ticks:
+        fail(f"phase 19: {ticks} ticks ({a['ticks']['broadcasts']} "
+             f"broadcasts) for {steps} step calls and 2 STOPs")
+    expired = {i: [eid for eid, why in s["rejects"] if why == "expired"]
+               for i, s in enumerate(a["states"])}
+    if sum(map(len, expired.values())) != 2 or \
+            sum(len(s["rejects"]) for s in a["states"]) != 2:
+        fail(f"phase 19: rejected {[s['rejects'] for s in a['states']]}, "
+             f"expected 2 expired")
+    for s in a["states"] + b["states"]:
+        if (s["free_or_cached"], s["lanes"], s["queue"]) != (
+                s["n_pages"], [None] * 4, []):
+            fail(f"phase 19: pages free or cached {s['free_or_cached']} "
+                 f"of {s['n_pages']}, lanes {s['lanes']}, queue "
+                 f"{s['queue']}")
+    if sum(len(s["cancels"]) for s in a["states"]) < 1:
+        fail("phase 19: the disconnect cancelled nothing")
+    launches = {}
+    for per in a["launches"]:
+        for k, v in per.items():
+            launches[k] = launches.get(k, 0) + v
+    decode_calls = sum(s["decode_calls"] for s in a["states"])
+    log(f"phase 19 (gateway at tp = {TP}, 2 replicas, two ranks on one "
+        f"card, {card}): {ticks} ticks for {steps} engine step calls and 2 "
+        f"STOPs ({(ticks - 2) / steps:.3f} a step call, "
+        f"{a['ticks']['broadcasts']} broadcasts), "
+        f"{1e3 * a['tick_s'] / ticks:.3f} ms host a tick on "
+        f"rank 0 ({1e3 * b['tick_s'] / ticks:.3f} on rank 1); decode step "
+        f"wall median through the gateway {a['step_ms_median']:.2f} ms "
+        f"(both replicas stepping on the card) against phase 16's offline "
+        f"tp = 2 {tp16_step_ms:.2f} ms, a step with a prefill chunk "
+        f"{a['prefill_step_ms_median']:.2f} ms; TTFT p50 / p95 "
+        f"{a['ttft_ms_p50_p95'][0]:.1f} / {a['ttft_ms_p50_p95'][1]:.1f} ms"
+        f" through the gateway; launches a rank {launches} over "
+        f"{decode_calls} decode calls (a decode step 181 / 36 / 36); "
+        f"expired eids by replica {expired} on both ranks; near-ties "
+        f"{a['near_ties']}; peak memory "
+        f"{[round(r['peak_gb'], 3) for r in ranks]} GB a rank; phase "
+        f"{phase_s:.1f} s")
+    result = {"phase_s": phase_s, "card": card,
+              "offline_tp2_step_ms_median": tp16_step_ms,
+              "ticks_per_step_call": (ticks - 2) / steps,
+              "tick_host_ms": [1e3 * r["tick_s"] / ticks for r in ranks],
+              "ranks": [{k: v for k, v in r.items()
+                         if k != "greedy_streams"} for r in ranks]}
+    return {"tp2_gateway_decode": launches}, result
+
+
 def main() -> None:
     import dataclasses
 
@@ -6146,6 +6467,9 @@ def main() -> None:
     by_path.update(tp_moe_paths)
     tp_rec_paths, tp_rec_result = phase_tp_rec(card)
     by_path.update(tp_rec_paths)
+    tp_gw_paths, tp_gw_result = phase_tp_gateway(
+        card, tp_result["ranks"][0]["wave"]["step_ms_median"])
+    by_path.update(tp_gw_paths)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -6190,6 +6514,7 @@ def main() -> None:
     log("tp summary " + json.dumps(tp_result))
     log("tp moe / mla summary " + json.dumps(tp_moe_result))
     log("tp recurrent summary " + json.dumps(tp_rec_result))
+    log("tp gateway summary " + json.dumps(tp_gw_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,17 @@ replays and the jobs all go to it, and the kernels launch on it
 replicas that share a card overlap and never wait for each other.  A
 fatal step error ends the loop: every watcher and every later job
 fails, and the engine's flight recorder is dumped for the postmortem.
+
+At tp > 1 the driver runs on rank 0, and the engine's other ranks
+replay what it does (`repro_torch.dist.lockstep.follow`).  The three
+jobs that change the engine's state, `submit`, `cancel` and
+`extract_queued`, are replicated: the engine records each as an op of
+its next tick.  The loop sends a tick with each step (the engine's
+`step()` does) and one without a step when ops were applied while the
+engine was idle, and none while it idles without them.  Every other
+`call(fn)` job (a metrics snapshot, the fleet tap) must only read: it
+runs on rank 0 alone.  On shutdown the loop sends the STOP tick, after a
+fatal step error the ABORT tick, before it marks itself dead.
 """
 from __future__ import annotations
 
@@ -43,6 +54,10 @@ class EngineDriver:
         uses it to publish an occupancy + prefix-fingerprint snapshot
         that the router reads lock-free per dispatch.  A tap exception
         never kills the serve loop."""
+        lockstep = getattr(engine, "lockstep", None)
+        if lockstep is not None and not lockstep.leader:
+            raise ValueError("an engine of rank >= 1 follows rank 0's "
+                             "ticks (dist.lockstep.follow), not a driver")
         self.engine = engine
         self._tap = tap
         self._jobs: "queue.Queue[Tuple[Callable, Future]]" = queue.Queue()
@@ -76,7 +91,9 @@ class EngineDriver:
 
     @property
     def alive(self) -> bool:
-        return self._thread.is_alive()
+        """The loop runs and no step failed (a failed loop may still be
+        sending its ABORT tick at tp > 1)."""
+        return self._thread.is_alive() and self.error is None
 
     # -- cross-thread API ----------------------------------------------
     def call(self, fn: Callable[[Any], Any]) -> Future:
@@ -120,12 +137,13 @@ class EngineDriver:
         router can resubmit them (with their original on_done watchers)
         on a healthy replica.  Runs as a job, so it serializes with
         step() like everything else.  The pulled requests' telemetry
-        traces are forgotten here — they re-enqueue (and count) where
-        they land — and any fork link is severed: engine ids are
-        per-engine, so adopting parent KV across replicas would adopt
-        an unrelated sequence's pages.  Resolves to [(req, on_done)]."""
+        traces are forgotten (`engine.drain_queued`) — they re-enqueue
+        (and count) where they land — and any fork link is severed:
+        engine ids are per-engine, so adopting parent KV across replicas
+        would adopt an unrelated sequence's pages.  Resolves to
+        [(req, on_done)]."""
         def job(engine):
-            pulled = engine.scheduler.drain_queue()
+            pulled = engine.drain_queued()
             by_id = {id(r): r for r in pulled}
             out, still = [], []
             for req, cb in self._watch:
@@ -136,7 +154,6 @@ class EngineDriver:
             self._watch = still
             watched = {id(r) for r, _ in out}
             for req in pulled:
-                engine.telemetry.forget(req.eid)
                 req.eid = -1
                 req.fork_from = None
                 req.forked_tokens = 0
@@ -195,6 +212,7 @@ class EngineDriver:
 
     def _loop(self) -> None:
         engine = self.engine
+        lockstep = getattr(engine, "lockstep", None)    # tp > 1, rank 0
         while not self._stop.is_set():
             self._drain_jobs()
             self._sweep_done()
@@ -222,9 +240,17 @@ class EngineDriver:
                 # pages this step committed) is already visible
                 self._run_tap()
             else:
+                if lockstep is not None:
+                    try:            # ops applied while idle
+                        lockstep.flush()
+                    except Exception as e:
+                        self.error = e
+                        break
                 self._run_tap()
                 self._wake.wait(self._idle_wait_s)
                 self._wake.clear()
+        if lockstep is not None:    # the other ranks stop (abort) too
+            lockstep.finish(abort=self.error is not None)
         # shutdown / fatal error: mark dead under the lock (new call()s
         # now fail fast), drain whatever was already queued, and fail
         # every request still in flight — a watcher left un-notified

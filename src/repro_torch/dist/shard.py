@@ -17,6 +17,8 @@
                before `leaf_pspec`
   serve_group  the process group of a tp-way engine, or a ValueError
                naming the count and how to start the ranks
+  replica_groups  one fleet replica's own pair of groups over those
+               ranks (its step's collectives, its ticks: `lockstep`)
   use_tp       a thread-local context under which `tp_all_reduce` and
                `tp_all_gather` run their collectives on the group;
                outside it both return their input, as `constrain` is a
@@ -336,6 +338,12 @@ def shard_state_specs(state_specs: Any, cfg, tp: int) -> Any:
 # ----------------------------------------------------------------------------
 # the process group and the collectives
 # ----------------------------------------------------------------------------
+GROUP_TIMEOUT_S = 60.0     # a step's collectives: a dead peer ends the
+#   others' wait within this (the launcher's default group has it too)
+TICK_TIMEOUT_S = 365 * 86400.0     # a driven follower waits for rank 0's
+#   next tick as long as the gateway is idle
+
+
 def serve_group(tp: int):
     """The process group a `tp`-way engine runs on: torch.distributed's
     default group, which must hold exactly `tp` ranks (the counterpart
@@ -355,6 +363,25 @@ def serve_group(tp: int):
             f"torch.distributed.init_process_group('gloo', rank=r, "
             f"world_size={tp}, init_method=...) in each")
     return dist.group.WORLD
+
+
+def replica_groups(tp: int, timeout_s: float = GROUP_TIMEOUT_S):
+    """(group, tick group) of one fleet replica's engine at tp > 1: two
+    new groups over the default group's `tp` ranks, one for its step's
+    collectives (their wait bounded by `timeout_s`) and one for its ticks
+    (`dist.lockstep`; unbounded).  Replicas share the ranks, as JAX's
+    replicas share one mesh's devices, but never a group: two driver
+    threads on one group would interleave their collectives.  Every rank
+    creates its replicas' groups in the same order."""
+    import datetime
+
+    import torch.distributed as dist
+    serve_group(tp)
+    ranks = list(range(tp))
+    return (dist.new_group(ranks, timeout=datetime.timedelta(
+                seconds=timeout_s)),
+            dist.new_group(ranks, timeout=datetime.timedelta(
+                seconds=TICK_TIMEOUT_S)))
 
 
 def _current():

@@ -28,6 +28,15 @@ Lifecycle:
              in-flight requests were already failed by the driver's
              shutdown sweep.  The gateway keeps serving on survivors —
              /healthz stays 200 while >= 1 replica is live.
+
+At tp > 1 (one engine a replica over the same ranks, rank 0 leading
+each; `repro_torch.dist.lockstep`) the replicas share their ranks >= 1,
+so one dead replica means a rank left or rank 0 aborted its group: the
+fleet is alive only while every replica is, and /healthz and
+/v1/completions answer 503 otherwise.  `drain` re-homes through the
+replicated driver jobs (`extract_queued`, `submit`), so the other ranks
+see both; `add_replica` is refused (every rank would have to build an
+engine and its groups while serving).
 """
 from __future__ import annotations
 
@@ -160,6 +169,7 @@ class FleetRouter:
         if max_pending is None:
             max_pending = serve_cfg.max_pending
         self.serve_config = serve_cfg
+        self.tp = getattr(serve_cfg, "tp", 1)
         self.max_pending = max_pending
         for e in engines[1:]:
             self._check_same_model(e, engines[0])
@@ -289,7 +299,14 @@ class FleetRouter:
         fingerprint.  Replica ids are list indices and drained replicas
         keep their slot, so the new id is always `len(replicas)` —
         `cancel`/`/metrics` lookups stay index-stable.  Returns the new
-        replica (already live; no request in flight is disturbed)."""
+        replica (already live; no request in flight is disturbed).
+        Refused at tp > 1."""
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"add_replica at tp={self.tp}: every rank would have to "
+                f"build an engine and its groups while serving; a "
+                f"tensor-parallel fleet's replicas are built at start-up "
+                f"(--replicas)")
         self._check_same_model(engine, self.replicas[0].engine)
         rep = Replica(engine, len(self.replicas), self.max_pending)
         rep.driver.start()
@@ -307,7 +324,10 @@ class FleetRouter:
     @property
     def alive(self) -> bool:
         """Any replica's driver still running (drain-ing counts: it is
-        serving its in-flight work)."""
+        serving its in-flight work); at tp > 1 every replica's, as they
+        share their ranks."""
+        if self.tp > 1:
+            return all(rep.alive for rep in self.replicas)
         return any(rep.alive for rep in self.replicas)
 
     @property

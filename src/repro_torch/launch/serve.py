@@ -26,6 +26,8 @@
       --policy prefix --port 8151          # HTTP/SSE gateway, 2 replicas
   python -m repro_torch.launch.serve --tp 2      # 2 tensor-parallel ranks
   python -m repro_torch.launch.serve --smoke --device cpu --tp 2
+  python -m repro_torch.launch.serve --gateway --tp 2 --replicas 2 \
+      --smoke --device cpu --port 8151    # the gateway on rank 0 of 2
 
 Recurrent and hybrid families (xlstm, zamba) keep per-lane state in the
 engine's StateArena: `--spec` on them is a capability error, and
@@ -40,18 +42,26 @@ until Ctrl-C, over `--replicas` engines behind a `FleetRouter`
 The replicas share one card and one copy of the packed weights; each
 has its own KV pool, CUDA graphs, stream and driver thread.
 
-`--tp N` serves one engine over N tensor-parallel ranks: the launcher
-spawns N processes (torch.multiprocessing, start method "spawn") on a
-gloo group over loopback, each draws the same weights from `--seed` and
-keeps its slice of the heads, the FFN width, the experts and the vocab
-(`repro_torch.dist.shard`; the recurrent cells and their state by
-`recurrent_splits`), and rank 0 prints the results.  On the card the
-ranks share the cards there are (rank r on card r mod count: two ranks
-on one card with one card), and the steps run eagerly.  Every family
-(`--arch qwen3-moe-235b-a22b --layers 4 --tp 2`, `--arch
-deepseek-v2-lite-16b --smoke --device cpu --tp 2`, `--arch xlstm-1.3b
---tp 2`, `--arch zamba2-7b --layers 27 --tp 2`); `--tp` with `--gateway`
-is not in the port yet.
+`--tp N` serves one engine over N tensor-parallel ranks: the launcher's
+process is rank 0 and spawns ranks 1..N-1 (torch.multiprocessing, start
+method "spawn") on a gloo group over loopback (its collectives time out
+after `GROUP_TIMEOUT_S`, so a dead rank ends the others); each draws the
+same weights from `--seed` and keeps its slice of the heads, the FFN
+width, the experts and the vocab (`repro_torch.dist.shard`; the
+recurrent cells and their state by `recurrent_splits`), and rank 0
+prints the results.  On the card the ranks share the cards there are
+(rank r on card r mod count: two ranks on one card with one card), and
+the steps run eagerly.  Every family (`--arch qwen3-moe-235b-a22b
+--layers 4 --tp 2`, `--arch deepseek-v2-lite-16b --smoke --device cpu
+--tp 2`, `--arch xlstm-1.3b --tp 2`, `--arch zamba2-7b --layers 27 --tp
+2`).  With `--gateway` (replicas x tp, as in the JAX launcher) every
+rank builds the same `--replicas` engines in the same order, each on
+its own pair of groups (`dist.shard.replica_groups`) and with its own
+copy of the rank's shard; rank 0 serves HTTP over them and leads each
+engine (`dist.lockstep`), the other ranks follow each engine on a
+thread of its own (`dist.lockstep.follow`).  Ctrl-C (SIGINT to the
+launcher) stops rank 0's gateway, which sends every engine's STOP tick,
+and the other ranks exit 0; they ignore SIGINT themselves.
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -63,6 +73,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import socket
 import sys
 import time
@@ -137,20 +148,54 @@ def build_draft(cfg, device):
                               dtype_override=torch.float32)
 
 
-def serve_gateway(args, model, eng, spec_cfg, device) -> None:
-    """Serve HTTP over `args.replicas` engines until Ctrl-C.  The
-    replicas share `eng`'s packed weights (one copy on the card); each
-    gets its own KV pool, CUDA graphs, stream and driver thread."""
+def replica_engines(args, model, params, serve_cfg, spec_cfg, device):
+    """The gateway's `args.replicas` engines.  At tp = 1 they share the
+    first one's packed weights (one copy on the card); at tp > 1 each is
+    built from the full params on its own pair of groups, in the same
+    order on every rank."""
+    from repro_torch.serve import PagedServeEngine
+    if args.tp == 1:
+        eng = PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
+                               device=device)
+        return [eng] + [PagedServeEngine(model, eng.params, eng.config,
+                                         spec=spec_cfg, device=device)
+                        for _ in range(args.replicas - 1)]
+    from repro_torch.dist import replica_groups
+    engines = []
+    for _ in range(args.replicas):
+        group, tick_group = replica_groups(args.tp)
+        engines.append(PagedServeEngine(model, params, serve_cfg,
+                                        spec=spec_cfg, device=device,
+                                        group=group, tick_group=tick_group))
+    return engines
+
+
+def follow_engines(engines) -> None:
+    """Ranks >= 1 under `--gateway`: follow each engine on a thread of
+    its own until rank 0 stops them all; a thread that fails fails the
+    rank (its process exits, so rank 0's next collective with it fails
+    at once)."""
+    from repro_torch.dist import follow_all
+    threads, outcomes = follow_all(engines)
+    while True:
+        for t in threads:
+            t.join(0.2)
+        failed = [o for o in outcomes if isinstance(o, BaseException)]
+        if failed:
+            raise failed[0]
+        if not any(t.is_alive() for t in threads):
+            return
+
+
+def serve_gateway(args, engines) -> None:
+    """Serve HTTP over the replicas' engines until Ctrl-C.  Each has its
+    own KV pool, CUDA graphs, stream and driver thread."""
     import asyncio
     import sys
 
     from repro_torch.api import Gateway
     from repro_torch.fleet import FleetRouter
-    from repro_torch.serve import PagedServeEngine
 
-    engines = [eng] + [PagedServeEngine(model, eng.params, eng.config,
-                                        spec=spec_cfg, device=device)
-                       for _ in range(args.replicas - 1)]
     router = FleetRouter(engines)
     access_log = (sys.stderr if args.access_log == "-"
                   else args.access_log)
@@ -165,8 +210,8 @@ def serve_gateway(args, model, eng, spec_cfg, device) -> None:
                  slo_policy=slo_policy)
     try:
         asyncio.run(gw.serve_forever(args.host, args.port))
-    except KeyboardInterrupt:
-        print("[api] gateway stopped")
+    except KeyboardInterrupt:      # the gateway stopped its router:
+        print("[api] gateway stopped", flush=True)   # STOP ticks at tp > 1
 
 
 def main(argv=None):
@@ -279,11 +324,6 @@ def main(argv=None):
                          "evaluates the live serving loop)")
     if args.tp < 1:
         raise SystemExit(f"--tp {args.tp}: need at least 1")
-    if args.tp > 1 and args.gateway:
-        raise NotImplementedError(
-            "--gateway with --tp > 1 is not in the PyTorch port yet: the "
-            "gateway drives one engine per replica thread, not a group of "
-            "rank processes")
     if args.tp > 1:
         spawn_ranks(args, precision)
         return None, []
@@ -297,26 +337,47 @@ def _free_port() -> int:
 
 
 def spawn_ranks(args, precision: str) -> None:
-    """Run `serve` in `args.tp` rank processes on a gloo group over
-    loopback; a rank that fails fails the launch."""
+    """Run `serve` as rank 0 in this process and as ranks 1..tp-1 in
+    spawned ones, on a gloo group over loopback; a rank that fails fails
+    the launch (rank 0's failure ends the others)."""
     import torch.multiprocessing as mp
     init = f"tcp://127.0.0.1:{_free_port()}"
-    mp.start_processes(_rank_main, args=(args, precision, init),
-                       nprocs=args.tp, join=True, start_method="spawn")
+    ctx = mp.start_processes(_follower_main, args=(args, precision, init),
+                             nprocs=args.tp - 1, join=False,
+                             start_method="spawn")
+    try:
+        _rank_main(0, args, precision, init)
+    except BaseException:
+        for p in ctx.processes:
+            p.terminate()
+        raise
+    while not ctx.join():
+        pass
+
+
+def _follower_main(i: int, args, precision: str, init: str) -> None:
+    # rank 0 stops the followers (its STOP ticks): a terminal's Ctrl-C,
+    # sent to every process of the group, is rank 0's to handle
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    sys.stdout = open(os.devnull, "w")      # rank 0 prints the results
+    _rank_main(i + 1, args, precision, init)
 
 
 def _rank_main(rank: int, args, precision: str, init: str) -> None:
+    import datetime
+
     import torch
     import torch.distributed as dist
+
+    from repro_torch.dist.shard import GROUP_TIMEOUT_S
     if args.device == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tp))
     elif torch.cuda.is_available():
         torch.cuda.set_device(rank % torch.cuda.device_count())
-    dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=args.tp)
+    dist.init_process_group(
+        "gloo", init_method=init, rank=rank, world_size=args.tp,
+        timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     try:
-        if rank:                        # rank 0 prints the results
-            sys.stdout = open(os.devnull, "w")
         serve(args, precision)
     finally:
         dist.destroy_process_group()
@@ -375,11 +436,17 @@ def serve(args, precision: str):
         else:
             spec_cfg = SpecConfig(k=args.spec_k, drafter="ngram",
                                   autok=args.spec_autok)
+    if args.gateway:
+        engines = replica_engines(args, model, params, serve_cfg, spec_cfg,
+                                  device)
+        del params
+        if args.tp > 1 and engines[0].lockstep.rank:
+            follow_engines(engines)
+        else:
+            serve_gateway(args, engines)
+        return engines[0], []
     eng = PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
                            device=device)
-    if args.gateway:
-        serve_gateway(args, model, eng, spec_cfg, device)
-        return eng, []
     sampling = SamplingParams(temperature=args.temperature,
                               top_k=args.top_k, top_p=args.top_p)
     reqs = [ServeRequest(prompt=p, max_new_tokens=args.tokens, rid=i,

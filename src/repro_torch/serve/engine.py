@@ -77,20 +77,33 @@ scheduler and the prefix trie stay host-side and the same on every
 rank; every step runs under `dist.shard.use_tp` (the all-reduces after
 `wo` and `w_down`, one after each MoE layer's experts, the
 vocab-parallel embedding, the logits gathered in rank order), so every
-rank samples from the same logits with the same seeded generator and
-the ranks stay in lockstep.  A MoE rank runs its n_experts / tp experts
-of every stack on the global routing (`ffn.moe_ffn`); an MLA rank its
-n_heads / tp heads over the whole latent pools
-(`attention.mla_paged_step`).  The recurrent and hybrid families (xlstm,
-zamba) take their cells' leaves and their StateArena by the split table
-(`dist.shard.recurrent_splits`): Mamba2 and mLSTM cells on the rank's
-heads, the sLSTM cell whole with its FFN split (`models/ssm.py`); each
-rank resets, snapshots and restores its own slice of a lane, on the
-same scheduling decisions.  The steps run eagerly: the gloo group's
-collectives go through the host and cannot be captured in a CUDA graph.
-A model drafter stays whole on every rank.  Every family the JAX
-engine serves at tp > 1 is served; a request with a deadline raises
-ValueError (each rank's scheduler would expire it on its own clock).
+rank samples from the same logits with the same seeded generator.
+Rank 0 leads the group (`dist.lockstep`): it reads the clock for every
+scheduling decision (a request's enqueue stamp, the `now` a step admits
+and expires deadlines at; `_preempt`'s reading goes to a resubmit, which
+keeps the first stamp) and applies every call that changes the engine's
+state (`submit`, `cancel`, `drain_queued`); each step call it sends one
+tick with its clock reading and those calls, and the other ranks take
+the same step at that reading, never at their own clock's.  Where every
+rank makes the same calls (`run`, the offline launcher) a follower's
+`step()` takes the tick's enqueue stamps for the requests it submitted
+itself; behind the gateway only rank 0 is called, and the others replay
+its ticks (`dist.lockstep.follow`, `replay`, `step_at`).  A MoE rank
+runs its n_experts / tp experts of every stack on the global routing
+(`ffn.moe_ffn`); an MLA rank its n_heads / tp heads over the whole
+latent pools (`attention.mla_paged_step`).  The recurrent and hybrid
+families (xlstm, zamba) take their cells' leaves and their StateArena
+by the split table (`dist.shard.recurrent_splits`): Mamba2 and mLSTM
+cells on the rank's heads, the sLSTM cell whole with its FFN split
+(`models/ssm.py`); each rank resets, snapshots and restores its own
+slice of a lane, on the same scheduling decisions.  The steps run
+eagerly: the gloo group's collectives go through the host and cannot
+be captured in a CUDA graph.  A model drafter stays whole on every
+rank.  Every family the JAX
+engine serves at tp > 1 is served, deadlines and priorities as at tp =
+1.  An engine takes torch.distributed's default group unless it is
+given its own (`group`, `tick_group`: `dist.shard.replica_groups`, one
+pair a fleet replica).  At tp = 1 there is no tick and no collective.
 Sliding-window / softcap models (gemma2, gemma3), MoE models (qwen3-moe)
 and MLA models (deepseek) are served like any dense model;
 `kv_dtype="auto"` gives them INT8 pools too, as in the JAX engine, but
@@ -116,6 +129,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.dist.lockstep import STEP, Lockstep, LockstepError
 from repro_torch.dist.shard import (recurrent_splits, serve_group,
                                     shard_state_specs, shard_tree, use_tp)
 from repro_torch.models.common import tree_to
@@ -174,6 +188,19 @@ def _config_from_legacy(max_batch, max_seq, page_size, n_pages,
         prefix_cache=None if prefix_cache is _UNSET else prefix_cache)
 
 
+def _fields(req: ServeRequest) -> Dict[str, Any]:
+    """What a follower needs to rebuild a submitted request (a tick's
+    submit op): its own fields, the fork parent as an engine id."""
+    s = req.sampling
+    return dict(prompt=np.asarray(req.prompt, np.int32),
+                max_new_tokens=req.max_new_tokens, rid=req.rid,
+                priority=req.priority, deadline_s=req.deadline_s,
+                sampling=(s.temperature, s.top_k, s.top_p), spec=req.spec,
+                logprobs=req.logprobs, trace_id=req.trace_id,
+                fork_from=(req.fork_from.eid if req.fork_from is not None
+                           else None))
+
+
 def _has_qtensor(tree: Any) -> bool:
     if isinstance(tree, dict):
         return any(_has_qtensor(v) for v in tree.values())
@@ -187,7 +214,8 @@ class PagedServeEngine:
                  n_pages=_UNSET, prefill_chunk=_UNSET, kv_dtype=_UNSET,
                  eos_id=_UNSET, seed=_UNSET, prefix_cache=_UNSET,
                  spec: Optional[Any] = None, device=None,
-                 eager: bool = False, clock=time.monotonic):
+                 eager: bool = False, clock=time.monotonic,
+                 group=None, tick_group=None):
         legacy = {k: v for k, v in [
             ("max_batch", max_batch), ("max_seq", max_seq),
             ("page_size", page_size), ("n_pages", n_pages),
@@ -224,9 +252,18 @@ class PagedServeEngine:
         # tensor parallelism: the dims first, then the group, so a
         # misconfigured tp fails before anything is built
         self.group = None
+        self.lockstep: Optional[Lockstep] = None
         if config.tp > 1:
             model.validate_tp(config.tp)
-            self.group = serve_group(config.tp)
+            self.group = group if group is not None else \
+                serve_group(config.tp)
+            if dist.get_world_size(self.group) != config.tp:
+                raise ValueError(
+                    f"tp={config.tp} needs a group of {config.tp} ranks, "
+                    f"got one of {dist.get_world_size(self.group)}")
+            # rank 0 leads: a follower's clock is rank 0's last reading
+            self.lockstep = Lockstep(self.group, clock, tick_group)
+            clock = self.lockstep.clock
         self.config = config
         self.device = resolve_device(device)
         max_batch, max_seq = config.max_batch, config.max_seq
@@ -292,6 +329,7 @@ class PagedServeEngine:
         self.tracer = get_tracer()
         self.scheduler.tracer = self.tracer
         self.recorder = FlightRecorder(label="engine", clock=clock)
+        self._followed: Dict[int, ServeRequest] = {}    # replayed, by eid
         self.energy = EnergyMeter(
             model.cfg, w_bits=config.weight_bits(),
             a_bits=8 if config.quantized() else 16, tp=config.tp)
@@ -357,15 +395,19 @@ class PagedServeEngine:
         return self.n_running > 0 or self.scheduler.n_queued > 0
 
     def submit(self, req: ServeRequest) -> None:
+        """Queue `req`.  At tp > 1 rank 0 records it for the next tick; a
+        follower that submits itself (every rank making the same calls)
+        queues it at its last tick's reading, and the next tick re-keys
+        it at rank 0's stamp before the step admits."""
         if req.fork_from is not None and not self.model.supports_paged():
             raise ValueError(capability_error(self.model,
                                               "parallel-sampling"))
-        if self.group is not None and req.deadline_s is not None:
-            # each rank would expire it on its own clock, and ranks that
-            # admit different requests no longer meet in the collectives
-            raise ValueError("a request deadline at tp > 1: each rank's "
-                             "scheduler would decide it on its own clock")
         now = self._clock()
+        self._submit(req, now)
+        if self.lockstep is not None and self.lockstep.leader:
+            self.lockstep.record(("submit", req.eid, now, _fields(req)))
+
+    def _submit(self, req: ServeRequest, now: float) -> None:
         req.eid = self._next_eid      # rid is the caller's label and may
         self._next_eid += 1           # collide; eid keys cache/telemetry
         self.telemetry.enqueue(req.eid, now)
@@ -379,6 +421,13 @@ class PagedServeEngine:
         with it).  Frees its KV pages (decref: pages shared with the
         prefix trie or a fork survive) and its lane.  False when `eid`
         is unknown or already done."""
+        if self._cancel(eid):
+            if self.lockstep is not None:
+                self.lockstep.record(("cancel", eid))
+            return True
+        return False
+
+    def _cancel(self, eid: int) -> bool:
         now = self._clock()
         queued = self.scheduler.cancel(eid)
         if queued is not None:
@@ -398,6 +447,46 @@ class PagedServeEngine:
                             where="lane", lane=lane)
                 return True
         return False
+
+    def drain_queued(self) -> List[ServeRequest]:
+        """The fleet drain: pull every queued request that has not
+        started (`Scheduler.drain_queue`) and forget its telemetry trace
+        (it re-enqueues where it lands).  Rank 0 records it for the next
+        tick."""
+        pulled = self.scheduler.drain_queue()
+        for req in pulled:
+            self.telemetry.forget(req.eid)
+        if self.lockstep is not None:
+            self.lockstep.record(("drain",))
+        return pulled
+
+    def replay(self, ops: List[tuple]) -> None:
+        """A follower applies rank 0's ops of one tick in order: each
+        submit as a request of its own (at rank 0's stamp, its fork
+        parent found by eid), each cancel and drain as rank 0 did."""
+        for op in ops:
+            if op[0] == "submit":
+                _, eid, stamp, f = op
+                if eid != self._next_eid:
+                    raise LockstepError(f"rank 0 submitted eid {eid} where "
+                                        f"this rank's next is "
+                                        f"{self._next_eid}")
+                req = ServeRequest(
+                    prompt=f["prompt"], max_new_tokens=f["max_new_tokens"],
+                    rid=f["rid"], priority=f["priority"],
+                    deadline_s=f["deadline_s"],
+                    sampling=SamplingParams(*f["sampling"]),
+                    spec=f["spec"], logprobs=f["logprobs"],
+                    trace_id=f["trace_id"],
+                    fork_from=self._followed.get(f["fork_from"]))
+                self._submit(req, stamp)
+                self._followed[eid] = req
+            elif op[0] == "cancel":
+                self._cancel(op[1])
+            else:
+                self.drain_queued()
+        self._followed = {e: r for e, r in self._followed.items()
+                          if not r.done}
 
     def run(self, requests: List[ServeRequest]) -> List[ServeRequest]:
         for r in requests:
@@ -528,15 +617,38 @@ class PagedServeEngine:
 
     # ------------------------------------------------------------------
     def step(self) -> None:
+        """One engine step.  At tp > 1 rank 0 reads its clock and sends
+        the tick; a follower receives it, takes its enqueue stamps, and
+        steps at its reading."""
+        ls = self.lockstep
+        if ls is None:
+            now = self._clock()
+        elif ls.leader:
+            now = self._clock()
+            ls.send(now, STEP)
+        else:
+            tick = ls.recv()
+            if tick.flags != STEP:
+                raise LockstepError(f"rank 0 sent flags {tick.flags} where "
+                                    f"this rank steps with it")
+            stamps = {op[1]: op[2] for op in tick.ops if op[0] == "submit"}
+            self.scheduler.restamp(stamps)
+            for eid, t in stamps.items():
+                trace = self.telemetry.traces.get(eid)
+                if trace is not None:
+                    trace.t_enqueue = t
+            now = tick.now
+        self.step_at(now)
+
+    def step_at(self, now: float) -> None:
+        """One step at clock reading `now`, on this engine's stream."""
         if self.stream is None:
-            self._step()
+            self._step(now)
             return
         with torch.cuda.stream(self.stream):     # this engine's stream
-            self._step()
+            self._step(now)
 
-    def _step(self) -> None:
-        now = self._clock()
-
+    def _step(self, now: float) -> None:
         def _reject(r: ServeRequest) -> None:
             self.telemetry.done(r.eid, now)
             self._event("reject", eid=r.eid, rid=r.trace_id,

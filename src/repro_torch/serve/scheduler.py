@@ -14,7 +14,7 @@ from __future__ import annotations
 import heapq
 import itertools
 from dataclasses import dataclass, field
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -113,6 +113,24 @@ class Scheduler:
                         if req.deadline_s is not None else float("inf"))
         heapq.heappush(self._heap, (req.priority, abs_deadline,
                                     next(self._order), req))
+
+    def restamp(self, stamps: Dict[int, float]) -> None:
+        """Give the queued requests `stamps` names (engine id -> enqueue
+        time) that time and re-key the heap on it: a tensor-parallel
+        follower's submits take rank 0's stamps from the next tick
+        (`dist.lockstep`), before anything is popped.  The entries keep
+        their arrival order."""
+        if not stamps:
+            return
+        for i, (prio, _, order, req) in enumerate(self._heap):
+            t = stamps.get(req.eid)
+            if t is not None:
+                req.t_enqueue = t
+                abs_deadline = (t + req.deadline_s
+                                if req.deadline_s is not None
+                                else float("inf"))
+                self._heap[i] = (prio, abs_deadline, order, req)
+        heapq.heapify(self._heap)
 
     @property
     def n_queued(self) -> int:

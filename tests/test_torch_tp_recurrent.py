@@ -35,7 +35,8 @@ them to bf16 in every step) and prompts.  Held:
   * `python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke
     --device cpu --tp 2` prints `--tp 1`'s streams;
   * the refusals at tp = 2: speculation, the prefix cache and a fork in
-    JAX's words, a deadline in the port's.
+    JAX's words; requests with deadlines admitted and decided as at
+    tp = 1.
 """
 import json
 import os
@@ -198,6 +199,8 @@ def served(tmp_path_factory):
                               _prompts(CASES[name][0]["vocab"]), NEW)
                for name in REFS}
         jax_refusals = _jax_refusals(XL, weights["xlstm_fp"][0])
+        tp1_refusals = torch_tp_ranks.recurrent_refusals(payload["refused"],
+                                                         tp=1)
         tp1 = {}
         for name in REFS:
             arch, kw, _ = CASES[name]
@@ -217,6 +220,7 @@ def served(tmp_path_factory):
     for r, res in ranks.items():
         assert isinstance(res, dict), f"rank {r} failed:\n{res}"
     return dict(ranks=ranks, jax=ref, tp1=tp1, jax_refusals=jax_refusals,
+                tp1_refusals=tp1_refusals,
                 launch=(launcher.returncode, out, err,
                         [r.out_tokens for r in launch_reqs]))
 
@@ -520,7 +524,10 @@ def test_refusals_at_tp2_in_jax_words(served):
     for k in ("spec", "prefix", "fork"):
         assert got[k] == served["jax_refusals"][k], k
         assert "recurrent per-lane state" in got[k]
-    assert "deadline at tp > 1" in got["deadline"]
+    # a deadline is admitted at tp = 2 and decided as at tp = 1
+    assert got["deadline"] == served["tp1_refusals"]["deadline"]
+    assert [d[:2] for d in got["deadline"]] == [(False, ""),
+                                                (True, "expired")]
 
 
 def test_launcher_tp2_on_xlstm_prints_tp1_streams(served):

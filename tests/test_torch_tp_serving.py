@@ -24,12 +24,13 @@ once for both packages, `test_torch_dist.packed`) and prompts.  Held:
     under random submits, aborts, forks and preemptions;
   * the `sim_*` keys of the int4 run equal JAX's tp = 2 engine's;
   * the refusals: dims tp does not divide, no group, a group of the
-    wrong size, a request deadline (each rank's scheduler would decide it
-    on its own clock); MoE, MLA, xlstm and zamba are admitted
+    wrong size; MoE, MLA, xlstm and zamba are admitted
     (tests/test_torch_tp_moe_mla.py and tests/test_torch_tp_recurrent.py
-    serve them);
+    serve them); requests with deadlines are admitted and decided as at
+    tp = 1, on rank 0's clock (tests/test_torch_tp_gateway.py holds them
+    to JAX's tp = 2 engine under a settable clock);
   * `python -m repro_torch.launch.serve --smoke --device cpu --tp 2`
-    prints `--tp 1`'s streams.
+    prints `--tp 1`'s streams, and `--gateway` is admitted with it.
 """
 import dataclasses
 import json
@@ -156,9 +157,12 @@ def served(tmp_path_factory):
         ref["draft_model"] = ref["fp"]      # speculation keeps the stream
         tp1 = {}
         for name, (arch, kw, prompts, new, k, dr) in cases.items():
-            streams, _ = torch_tp_ranks.serve(
+            streams, eng = torch_tp_ranks.serve(
                 arch, weights[name][1], kw, prompts, new, k, dr)
             tp1[name] = streams
+            if name == "fp":
+                tp1["deadline"] = torch_tp_ranks.deadline_decisions(
+                    eng, prompts[0])
         _, launch_reqs = port_launch.main(LAUNCH + ["--tp", "1"])
         ranks = dict(queue.get(timeout=600) for _ in procs)
         out, err = launcher.communicate(timeout=600)
@@ -255,7 +259,13 @@ def test_engine_refuses_a_wrong_sized_group_and_families_outside_the_slice(
         served):
     got = served["ranks"][0]["refusals"]
     assert got == served["ranks"][1]["refusals"]
-    assert "deadline at tp > 1" in served["ranks"][0]["deadline"]
+    # a deadline is admitted at tp = 2 and decided as at tp = 1: one
+    # served, one expired before its admission
+    deadline = served["ranks"][0]["deadline"]
+    assert deadline == served["ranks"][1]["deadline"] == \
+        served["tp1"]["deadline"]
+    assert [d[:2] for d in deadline] == [(False, ""), (True, "expired")]
+    assert len(deadline[0][2]) == 3 and deadline[1][2] == []
     assert "tp=3 needs a torch.distributed group of 3 ranks but the " \
         "torch.distributed group has 2 ranks" in got["tp3"]
     # no family is outside tensor-parallel serving since the recurrent
@@ -270,14 +280,19 @@ def test_engine_refuses_a_wrong_sized_group_and_families_outside_the_slice(
 # ----------------------------------------------------------------------------
 # launcher
 # ----------------------------------------------------------------------------
-def test_launcher_tp2_on_cpu_prints_tp1_streams(served):
+def test_launcher_tp2_on_cpu_prints_tp1_streams(served, monkeypatch):
     rc, out, err, tp1 = served["launch"]
     assert rc == 0, err
     assert "tp 2 (2 ranks over gloo, steps eager)" in out
     line = [ln for ln in out.splitlines() if ln.startswith("[serve] streams")]
     assert len(line) == 1, out                  # rank 0 prints, alone
     assert json.loads(line[0][len("[serve] streams "):]) == tp1
-    with pytest.raises(NotImplementedError, match="--gateway"):
-        port_launch.main(LAUNCH + ["--tp", "2", "--gateway"])
+    # --gateway with --tp 2 is admitted: the launcher spawns its ranks
+    # (tests/test_torch_tp_gateway.py serves through them)
+    spawned = []
+    monkeypatch.setattr(port_launch, "spawn_ranks", lambda args, precision:
+                        spawned.append((args.tp, args.gateway, precision)))
+    port_launch.main(LAUNCH + ["--tp", "2", "--gateway"])
+    assert spawned == [(2, True, "int4")]
     with pytest.raises(SystemExit, match="--tp 0"):
         port_launch.main(LAUNCH + ["--tp", "0"])

@@ -1,19 +1,22 @@
 """What each rank of the 2-rank gloo groups of
-tests/test_torch_tp_serving.py, tests/test_torch_tp_moe_mla.py and
-tests/test_torch_tp_recurrent.py runs (a module of its own, so a spawned
-rank imports torch, numpy and repro_torch, and neither JAX nor the JAX
-package).
+tests/test_torch_tp_serving.py, tests/test_torch_tp_moe_mla.py,
+tests/test_torch_tp_recurrent.py and tests/test_torch_tp_gateway.py
+runs (a module of its own, so a spawned rank imports torch, numpy and
+repro_torch, and neither JAX nor the JAX package).
 
 `rank_main(rank, init, cases, queue)` serves every case of `cases` at
 tp = 2 on the CPU and puts (rank, results) on `queue`: each case's
 greedy streams and summary, the collectives it ran and its step calls,
-the rank's pool and weight shapes, then the page-conservation trials
-and the refusals (a deadline, a group of the wrong size, and the MoE,
-MLA, recurrent and hybrid families admitted).  `moe_rank_main` does the
-same for the MoE and MLA cases, with every leaf's shape on the rank and
-the slots the router dropped; `recurrent_rank_main` for the xlstm and
-zamba cases, with the rank's arena, its preemptions and the recurrent
-families' refusals.  A rank that raises puts (rank, the traceback).
+the rank's pool and weight shapes, two requests with deadlines decided
+on rank 0's clock, then the page-conservation trials and the refusals
+(a group of the wrong size; the MoE, MLA, recurrent and hybrid families
+admitted).  `moe_rank_main` does the same for the MoE and MLA cases,
+with every leaf's shape on the rank and the slots the router dropped;
+`recurrent_rank_main` for the xlstm and zamba cases, with the rank's
+arena, its preemptions and the recurrent families' refusals;
+`gateway_rank_main` runs tests/test_torch_tp_gateway.py's cases (the
+gateway at tp = 2, rank 0 leading, rank 1 following).  A rank that
+raises puts (rank, the traceback).
 
 An arch is a dict of `ModelConfig` fields whose `moe` / `mla` / `ssm` /
 `zamba` entries are dicts of their configs' fields (`port_config`), so
@@ -268,11 +271,8 @@ def rank_main(rank, init, cases, queue):
                 == eng.cache.allocator.n_pages,
             }
             if name == "fp":
-                try:
-                    eng.submit(ServeRequest(prompt=case["prompts"][0],
-                                            deadline_s=1.0))
-                except ValueError as e:
-                    res["deadline"] = str(e)
+                res["deadline"] = deadline_decisions(eng,
+                                                     case["prompts"][0])
         c = cases["conservation"]
         res["conservation"] = conservation(c["arch"], c["params"])
         res["refusals"] = refusals(cases["refused"])
@@ -282,12 +282,26 @@ def rank_main(rank, init, cases, queue):
         queue.put((rank, traceback.format_exc()))
 
 
-def recurrent_refusals(case):
-    """The message of each capability a recurrent engine refuses at tp =
-    2 (speculation, the prefix cache, a fork) and of a deadline."""
+def deadline_decisions(eng, prompt):
+    """Two requests with deadlines on `eng`, one due long after its
+    admission and one due before it was queued, served to the end: each
+    one's (rejected, reason, tokens)."""
+    reqs = [ServeRequest(prompt=prompt.copy(), max_new_tokens=3, rid=i,
+                         deadline_s=dl) for i, dl in enumerate((60.0, -1.0))]
+    for r in reqs:
+        eng.submit(r)
+    while eng.busy:
+        eng.step()
+    return [(r.rejected, r.reject_reason, list(r.out_tokens)) for r in reqs]
+
+
+def recurrent_refusals(case, tp=2):
+    """The message of each capability a recurrent engine refuses at `tp`
+    (speculation, the prefix cache, a fork), and how it decides two
+    requests with deadlines after that (`deadline_decisions`)."""
     model = DecoderLM(port_config(case["arch"]))
     params = from_numpy_tree(case["params"])
-    kw = dict(case["serve"], tp=2)
+    kw = dict(case["serve"], tp=tp)
     out = {}
     try:
         PagedServeEngine(model, params, ServeConfig(**kw),
@@ -302,14 +316,11 @@ def recurrent_refusals(case):
     eng = PagedServeEngine(model, params, ServeConfig(**kw), device="cpu")
     parent = ServeRequest(prompt=case["prompts"][0], max_new_tokens=2)
     eng.submit(parent)
-    for name, req in (("fork", ServeRequest(prompt=case["prompts"][0],
-                                            fork_from=parent)),
-                      ("deadline", ServeRequest(prompt=case["prompts"][0],
-                                                deadline_s=1.0))):
-        try:
-            eng.submit(req)
-        except ValueError as e:
-            out[name] = str(e)
+    try:
+        eng.submit(ServeRequest(prompt=case["prompts"][0], fork_from=parent))
+    except ValueError as e:
+        out["fork"] = str(e)
+    out["deadline"] = deadline_decisions(eng, case["prompts"][0])
     return out
 
 
@@ -345,6 +356,351 @@ def recurrent_rank_main(rank, init, cases, queue):
             }
         res["refusals"] = recurrent_refusals(cases["refused"])
         dist.destroy_process_group()
+        queue.put((rank, res))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+# ----------------------------------------------------------------------------
+# tests/test_torch_tp_gateway.py: rank 0 leads, the gateway at tp = 2
+# ----------------------------------------------------------------------------
+class Clock:
+    """A settable clock: `t` plus a fixed offset."""
+
+    def __init__(self, offset=0.0):
+        self.t, self.offset = 0.0, offset
+
+    def __call__(self):
+        return self.t + self.offset
+
+
+def replica_engines(case, n, timeout_s=None, clock=None, driven=True):
+    """`n` engines of `case` at tp = 2, each on its own pair of groups;
+    `driven=False`: the ticks on the step's group, bounded as the
+    offline launcher's."""
+    from repro_torch.dist import replica_groups
+    model = DecoderLM(port_config(case["arch"]))
+    params = from_numpy_tree(case["params"])
+    kw = {} if clock is None else {"clock": clock}
+    out = []
+    for _ in range(n):
+        group, tick_group = (replica_groups(2) if timeout_s is None
+                             else replica_groups(2, timeout_s))
+        out.append(PagedServeEngine(
+            model, params, ServeConfig(**case["serve"], tp=2), device="cpu",
+            group=group, tick_group=tick_group if driven else None, **kw))
+    return out
+
+
+def engine_state(eng):
+    """What must agree across ranks: engine ids, lanes, the queue in
+    heap order, block tables, pages in use."""
+    alloc = eng.cache.allocator
+    return {"next_eid": eng._next_eid,
+            "lanes": [r.eid if r is not None else None for r in eng.lanes],
+            "queue": [item[3].eid for item in eng.scheduler._heap],
+            "tables": {str(e): list(s.pages)
+                       for e, s in sorted(eng.cache.seqs.items())},
+            "free": alloc.n_free, "n_pages": alloc.n_pages,
+            "free_or_cached": eng.cache.n_free_or_cached(),
+            "steps": eng.telemetry.steps, "ticks": eng.lockstep.seq,
+            "calls": eng.prefill_calls + eng.decode_calls}
+
+
+def after_steps(eng, fn, method="step_at"):
+    """Call `fn(eng)` after each of `eng`'s steps (rank 0's `step`, a
+    follower's `step_at`)."""
+    orig = getattr(eng, method)
+
+    def step(*args):
+        orig(*args)
+        fn(eng)
+    setattr(eng, method, step)
+
+
+def follow_threads(engines):
+    """Follow each engine on a thread (`follow_all`); returns a function
+    that joins them and gives each one's outcome ("stop" or the
+    error's text)."""
+    from repro_torch.dist import follow_all
+    threads, outcomes = follow_all(engines)
+
+    def join(timeout=120):
+        for t in threads:
+            t.join(timeout)
+        return [o if o is None or o == "stop" else
+                f"{type(o).__name__}: {o}" for o in outcomes]
+    return join
+
+
+async def sse_post(host, port, body):
+    """POST /v1/completions: (status, {index: tokens})."""
+    import asyncio
+    import json
+
+    from repro_torch.api.protocol import iter_sse
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, rest = raw.partition(b"\r\n\r\n")
+    toks = {}
+    for e in iter_sse(rest):
+        if "token" in e:
+            toks.setdefault(e["index"], []).append(e["token"])
+    return int(head.split()[1]), toks
+
+
+async def http_get(host, port, path):
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: t\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    return int(raw.split(b"\r\n", 1)[0].split()[1]), \
+        raw.partition(b"\r\n\r\n")[2]
+
+
+def gateway_streams(rank, case):
+    """The gateway at tp = 2 over two replicas: every prompt posted at
+    once (`case["n"]` samples each), then the gateway stopped.  Returns
+    the streams (rank 0), each engine's state, and the counts."""
+    import asyncio
+
+    from repro_torch.api import Gateway
+    from repro_torch.dist import reset_tick_counts, tick_counts
+    from repro_torch.fleet import FleetRouter
+    engines = replica_engines(case, 2)
+    reset_collective_counts()
+    reset_tick_counts()
+    out = {}
+    if rank == 0:
+        router = FleetRouter(engines, policy="rr")
+        gw = Gateway(router)
+
+        async def run():
+            host, port = await gw.start("127.0.0.1", 0)
+            try:
+                return await asyncio.gather(*[
+                    sse_post(host, port, {"prompt": [int(t) for t in p],
+                                          "max_tokens": case["new"],
+                                          "n": n})
+                    for p, n in zip(case["prompts"], case["n"])])
+            finally:
+                await gw.stop()
+        res = asyncio.run(run())
+        out["status"] = [s for s, _ in res]
+        out["streams"] = [[t[i] for i in sorted(t)] for _, t in res]
+        out["driver_steps"] = [rep.driver.steps for rep in router.replicas]
+        try:
+            router.add_replica(engines[0])
+        except NotImplementedError as e:
+            out["add_replica"] = str(e)
+    else:
+        out["followers"] = follow_threads(engines)()
+    out["states"] = [engine_state(e) for e in engines]
+    out["collectives"] = collective_counts()
+    out["ticks"] = tick_counts()
+    return out
+
+
+def deadline_run(rank, case, driven):
+    """`case["plan"]`'s requests ((priority, deadline, new tokens, the
+    step before which it is submitted)) at tp = 2 under a settable clock
+    the test advances by 1.0 after every step; rank 1's clock is rank
+    0's plus 1e6.  Replicated: both ranks call submit and step.  Driven:
+    rank 0's EngineDriver steps (the later submits from its thread,
+    between steps), rank 1 follows.  Returns each request's (eid,
+    rejected, truncated, reason, tokens), the preemptions, the state."""
+    import time
+
+    from repro_torch.api.driver import EngineDriver
+    clock = Clock(1e6 if rank else 0.0)
+    eng, = replica_engines(case, 1, clock=clock, driven=driven)
+    reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=n, rid=i,
+                         priority=pr, deadline_s=dl)
+            for i, (p, (pr, dl, n, _)) in enumerate(zip(case["prompts"],
+                                                        case["plan"]))]
+    last = max(at for *_, at in case["plan"])
+
+    def submit_at(k):
+        for r, (*_, at) in zip(reqs, case["plan"]):
+            if at == k:
+                eng.submit(r)
+    followed = None
+    if not driven:
+        k = 0
+        while True:
+            submit_at(k)
+            if not eng.busy and k > last:
+                break
+            if eng.busy:
+                eng.step()
+            clock.t += 1.0
+            k += 1
+    elif rank == 0:
+        steps = [0]
+
+        def advance(eng):    # on the driver thread, between steps
+            clock.t += 1.0
+            steps[0] += 1
+            submit_at(steps[0])
+        after_steps(eng, advance, "step")
+        drv = EngineDriver(eng)
+        drv.submit([r for r, (*_, at) in zip(reqs, case["plan"])
+                    if at == 0], lambda r: None)
+        drv.start()
+        t0 = time.monotonic()
+        while not all(r.done for r in reqs) and time.monotonic() - t0 < 120:
+            time.sleep(0.01)
+        drv.stop()
+    else:       # the requests this rank rebuilt, as each step left them
+        seen = {}
+        after_steps(eng, lambda e: seen.update(e._followed))
+        followed = follow_threads([eng])()
+        reqs = [seen[e] for e in sorted(seen)]
+    events = eng.recorder.snapshot()
+    return {"requests": [(r.eid, r.rejected, r.truncated, r.reject_reason,
+                          list(r.out_tokens)) for r in reqs],
+            "preemptions": sum(e["kind"] == "preempt" for e in events),
+            "state": engine_state(eng), "followers": followed}
+
+
+def mixed_run(rank, case):
+    """Two replicas at tp = 2 behind a FleetRouter: A and B decode on
+    replica 0, C-F queue behind them; C is cancelled while queued, the
+    drain of replica 0 re-homes D-F onto replica 1, A is cancelled
+    mid-decode.  Each engine's state after every step, on both ranks."""
+    import asyncio
+
+    from repro_torch.fleet import FleetRouter
+    engines = replica_engines(case, 2)
+    trail = [[] for _ in engines]
+
+    def snap(eng):
+        trail[engines.index(eng)].append(engine_state(eng))
+    out = {}
+    for eng in engines:
+        after_steps(eng, snap, "step" if rank == 0 else "step_at")
+    if rank == 0:
+        router = FleetRouter(engines, policy="rr")
+        reqs = [ServeRequest(prompt=p.copy(), max_new_tokens=n, rid=i)
+                for i, (p, n) in enumerate(zip(case["prompts"],
+                                               case["new"]))]
+        done = []
+
+        async def run():
+            loop = asyncio.get_running_loop()
+            finished = asyncio.Event()
+
+            def on_done(r):
+                done.append(r.rid)
+                if len(done) == len(reqs):
+                    loop.call_soon_threadsafe(finished.set)
+            rep0 = router.replicas[0]
+            await asyncio.wrap_future(router.dispatch(rep0, reqs[:2],
+                                                      on_done))
+            while len(reqs[0].out_tokens) < 2:
+                await asyncio.sleep(0.005)
+            await asyncio.wrap_future(router.dispatch(rep0, reqs[2:],
+                                                      on_done))
+            out["cancel_queued"] = await router.cancel([reqs[2]])
+            out["requeued"] = await router.drain(0)
+            out["cancel_running"] = await router.cancel([reqs[0]])
+            await asyncio.wait_for(finished.wait(), 120)
+        router.start()
+        try:
+            asyncio.run(run())
+        finally:
+            router.stop()
+        out["requests"] = [(r.rid, r.cancelled, list(r.out_tokens))
+                           for r in reqs]
+    else:
+        out["followers"] = follow_threads(engines)()
+    out["trail"] = trail
+    out["states"] = [engine_state(e) for e in engines]
+    return out
+
+
+def dead_follower(rank, case, timeout_s):
+    """Two replicas at tp = 2 on groups whose collectives time out after
+    `timeout_s`; rank 1's follower of replica 0 raises at its second
+    step.  Rank 0: the status of the post routed there, then seconds
+    until /healthz answers 503, and /healthz's and a new post's status."""
+    import asyncio
+    import time
+
+    from repro_torch.api import Gateway
+    from repro_torch.fleet import FleetRouter
+    engines = replica_engines(case, 2, timeout_s=timeout_s)
+    out = {}
+    if rank == 0:
+        gw = Gateway(FleetRouter(engines, policy="rr"))
+
+        async def run():
+            host, port = await gw.start("127.0.0.1", 0)
+            try:
+                body = {"prompt": [int(t) for t in case["prompts"][0]],
+                        "max_tokens": 8}
+                t0 = time.monotonic()
+                first = await sse_post(host, port, body)
+                while (await http_get(host, port, "/healthz"))[0] != 503:
+                    if time.monotonic() - t0 > timeout_s + 60:
+                        break
+                    await asyncio.sleep(0.05)
+                out["seconds_to_503"] = time.monotonic() - t0
+                out["first"] = [first[0], first[1]]
+                out["healthz"] = (await http_get(host, port, "/healthz"))[0]
+                out["post"] = (await sse_post(host, port, body))[0]
+                out["errors"] = [repr(rep.error) for rep in
+                                 gw.router.replicas]
+            finally:
+                await gw.stop()
+        asyncio.run(run())
+    else:
+        calls = [0]
+        orig = engines[0].step_at
+
+        def step_at(now):
+            calls[0] += 1
+            if calls[0] == 2:
+                raise RuntimeError("follower step failed (injected)")
+            orig(now)
+        engines[0].step_at = step_at
+        out["followers"] = follow_threads(engines)()
+    return out
+
+
+def gateway_rank_main(rank, init, payload, queue):
+    """One rank of tests/test_torch_tp_gateway.py's group: the gateway's
+    streams (fp, int4), the deadline runs (replicated, driven), the mixed
+    run, then the dead follower (last: it leaves replica 0's group
+    broken)."""
+    import datetime
+    import os
+
+    from repro_torch.dist.shard import GROUP_TIMEOUT_S
+    torch.set_num_threads(1)
+    # the dead follower's replica dumps its flight recorder there
+    os.environ["REPRO_FLIGHT_DIR"] = payload["flight_dir"]
+    try:
+        dist.init_process_group(
+            "gloo", init_method=init, rank=rank, world_size=2,
+            timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+        res = {name: gateway_streams(rank, payload[name])
+               for name in ("fp", "int4")}
+        res["deadline_replicated"] = deadline_run(rank, payload["deadline"],
+                                                  driven=False)
+        res["deadline_driven"] = deadline_run(rank, payload["deadline"],
+                                              driven=True)
+        res["mixed"] = mixed_run(rank, payload["mixed"])
+        res["dead"] = dead_follower(rank, payload["fp"],
+                                    payload["dead_timeout_s"])
         queue.put((rank, res))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
