@@ -326,7 +326,21 @@ Phases (any failure exits non-zero; nothing is retried or skipped):
      Logged: ticks a step call and their host ms, the decode step wall
      median through the gateway beside phase 16's offline one, TTFT
      p50 / p95, peak memory a rank, the phase's seconds.
- 20. summary: a `{"kernels": [...]}` line (flash_decode's launches from
+ 20. the paper's design-space search and the dry-run / roofline tools:
+     (a) `run_dse` on llama3.2-1b (alpha 1, INT4, seed 0, population 20
+     x 50 generations) twice: identical, the best cost never rising;
+     the best design, its latency and energy and the Pareto front's
+     size logged as cost-model output; (b) `launch.dryrun` over every
+     cell of `--all` on the meta device, every one ok, the roofline
+     table and each cell's peak bytes a device against the card's
+     memory logged; (c) qwen2.5-3b decode_32k (batch 128 over a bf16
+     cache of 32768), INT4, at 1 and 2 layers built on the card: the
+     bytes the arguments ask the allocator for equal the dry-run's
+     within 512 B a tensor (the bytes it gives them logged beside),
+     launches exact (5 L + 1 / L / L), logits finite; peak memory and
+     the step's device time logged beside the dry-run's peak and the
+     roofline's bound, extrapolated to 36 layers.
+ 21. summary: a `{"kernels": [...]}` line (flash_decode's launches from
      phase 15b's contiguous decode, and its ms, plain_ms, library_ms and
      bound_ms at that path's shape; the tensor-parallel paths' launches
      under `launches_by_path`), the card line, and last
@@ -336,6 +350,7 @@ Imports nothing of the JAX package.  Needs the repository's src/ next to
 this file; with no CUDA device it exits non-zero before printing any
 result.
 """
+import contextlib
 import json
 import math
 import re
@@ -6345,6 +6360,315 @@ def phase_tp_gateway(card, tp16_step_ms):
     return {"tp2_gateway_decode": launches}, result
 
 
+# ----------------------------------------------------------------------------
+# phase 20: the design-space search and the dry-run / roofline tooling
+# ----------------------------------------------------------------------------
+DSE_SLM = "llama3.2-1b"
+DRY_ARCH = "qwen2.5-3b"
+ALLOC_ROUND = 512           # the caching allocator's block rounding
+
+
+def phase_dse() -> dict:
+    """Phase 20a: the paper's GA (population 20, 50 generations) on
+    llama3.2-1b at alpha 1, INT4, seed 0, twice; both runs must be
+    identical and the best cost never rise.  Logged: the best design,
+    its latency and energy and the Pareto front's size (cost model, not
+    measured)."""
+    import dataclasses
+
+    from repro_torch.configs import PAPER_SLMS
+    from repro_torch.core import pareto_front, run_dse
+    t0 = time.perf_counter()
+    runs = [run_dse(PAPER_SLMS[DSE_SLM], alpha=1.0, w_bits=4, seed=0)
+            for _ in range(2)]
+    a, b = runs
+    if (a.best, a.best_cost, a.history, a.evaluated) != \
+            (b.best, b.best_cost, b.history, b.evaluated):
+        fail("phase 20a: two DSE runs under seed 0 differ")
+    if any(y > x for x, y in zip(a.history, a.history[1:])):
+        fail(f"phase 20a: the best cost rose: {a.history}")
+    front = pareto_front([(lat, en) for _, lat, en, _ in a.evaluated])
+    res = {"slm": DSE_SLM, "generations": len(a.history),
+           "best": dataclasses.asdict(a.best), "best_cost": a.best_cost,
+           "latency_s": a.best_report.latency_s,
+           "energy_j": a.best_report.energy_j,
+           "evaluated": len(a.evaluated), "pareto_front": len(front),
+           "s": time.perf_counter() - t0}
+    log(f"DSE (cost model, not measured) {DSE_SLM} alpha 1 INT4 seed 0, "
+        f"population 20 x {len(a.history)} generations, twice, identical: "
+        f"best {a.best}, latency {res['latency_s']:.6g} s, energy "
+        f"{res['energy_j']:.6g} J (cost-model output), Pareto front "
+        f"{len(front)} of {len(a.evaluated)} evaluated; {res['s']:.1f} s")
+    return res
+
+
+def phase_dryrun_all(total_memory: int) -> dict:
+    """Phase 20b: `launch.dryrun` over every cell (`--all`: every arch x
+    its shapes x both production meshes x bf16, and int4 for decode) on
+    the meta device; every cell must be ok.  Logged: the roofline table
+    (`roofline.report.render_markdown`), each cell's peak bytes a device
+    against this card's memory, the part's seconds."""
+    import tempfile
+    from repro_torch.launch.dryrun import all_cells, run_cell
+    from repro_torch.roofline.report import load_results, render_markdown
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    root.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="dryrun_torch_", dir=root)
+    t0 = time.perf_counter()
+    fits, cells = [], 0
+    for arch, shape, multi, q in all_cells():
+        try:
+            rec = run_cell(arch, shape, multi, q, out_dir=out, verbose=False)
+        except Exception as e:  # noqa: BLE001 - the gate
+            fail(f"phase 20b: dry-run {arch} {shape} "
+                 f"{'multi' if multi else 'single'} {q}: "
+                 f"{type(e).__name__}: {e}")
+        if rec["status"] != "ok":
+            fail(f"phase 20b: {arch} {shape} {q}: {rec['status']}")
+        cells += 1
+        peak = rec["memory_per_device"]["peak_bytes"]
+        fits.append(f"{arch} {shape} {rec['mesh']} {q} "
+                    f"{peak / 1e9:.3f} GB {'fits' if peak <= total_memory else 'DOES NOT FIT'}")
+    seconds = time.perf_counter() - t0
+    table = render_markdown(load_results(out, out + "_probe"))
+    log(f"dry-run --all on meta: {cells} cells ok in {seconds:.1f} s; "
+        f"records in {out}")
+    for line in table.splitlines():
+        log("roofline " + line)
+    log(f"peak bytes a device against this card's {total_memory / 1e9:.2f}"
+        " GB: " + "; ".join(fits))
+    return {"cells": cells, "s": seconds, "out": out,
+            "fit": sum("fits" in f for f in fits)}
+
+
+def decode_cell_on_card(cfg, device):
+    """The decode_32k cell's arguments on the card for `cfg`: INT4
+    weights drawn from phase 3's seed (0) and packed leaf by leaf (the
+    other leaves at their specs' dtypes, as the dry-run holds them), a
+    bf16 cache of 128 x 32768 drawn from the same generator (standard
+    normal, so every split of a row's keys counts in the attention),
+    tokens and pos = 32767; with the
+    bytes they asked the allocator for, the bytes it gave them (a warm
+    cache may hand out a free block up to 1 MiB larger than asked,
+    unsplit) and the tensors they are."""
+    import functools
+
+    import torch
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.launch.metarun import tensors_of
+    from repro_torch.models import DecoderLM, init_params
+    from repro_torch.models.common import map_specs
+    from repro_torch.quant.ptq import quantize_leaf
+    seq, batch, _ = SHAPES["decode_32k"]
+    model = DecoderLM(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_params(model.param_specs(), gen, device,
+                         leaf_fn=functools.partial(quantize_leaf, bits=4,
+                                                   group=128))
+    cache = map_specs(lambda s: torch.empty(
+        s.shape, dtype=s.dtype, device=device).normal_(generator=gen),
+        model.cache_specs(batch, seq, torch.bfloat16))
+    tokens = torch.randint(0, cfg.vocab, (batch, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    pos = torch.tensor(seq - 1, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    asked = torch.cuda.memory_stats()["requested_bytes.all.current"] - asked
+    held = torch.cuda.memory_allocated() - before
+    n = len(list(tensors_of((params, cache, tokens, pos))))
+    return model, (params, cache, {"tokens": tokens}, pos), asked, held, n
+
+
+@contextlib.contextmanager
+def plain_kernels(seen: list):
+    """The model's kernel calls (`kernels.ops`) routed to their plain
+    versions on the card; each flash_decode call's inputs appended to
+    `seen`."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.cim_gemv import cim_gemv_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.kernels.swiglu_gemv import swiglu_plain
+
+    def fd(q, k, v, pos, window=0, attn_cap=0.0):
+        seen.append((q, k, v, pos, window, attn_cap))
+        return flash_decode_plain(q, k, v, pos, window, attn_cap)
+    saved = ops.cim_gemv, ops.swiglu_qgemv, ops.flash_decode
+    ops.cim_gemv = lambda x, w, counts=None: cim_gemv_plain(x, w)
+    ops.swiglu_qgemv, ops.flash_decode = swiglu_plain, fd
+    try:
+        yield
+    finally:
+        ops.cim_gemv, ops.swiglu_qgemv, ops.flash_decode = saved
+
+
+def check_step_against_plain(model, args, logits, L: int) -> dict:
+    """The counted step's logits against the same step with every
+    kernel's plain version on the same inputs, and flash_decode against
+    flash_decode_plain on the (b g, S, hd) inputs that step gave it.
+    The plain attention over the first half of the keys must miss by
+    more than 10 tolerances, or the cache could not tell a merge that
+    drops splits from a right one."""
+    import torch
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain, plan)
+    from repro_torch.kernels.split_decode import sm_count
+    checks, seen = Checks(), []
+    with torch.no_grad(), plain_kernels(seen):
+        ref, _ = model.decode_step(*args)
+    checks.compare("decode_step", f"x{L} logits vs plain kernels", logits,
+                   ref)
+    q, k, v, pos, window, cap = seen[0]
+    out = flash_decode(q, k, v, pos, window, cap)
+    want = flash_decode_plain(q, k, v, pos, window, cap)
+    checks.compare("flash_decode", f"{tuple(k.shape)} pos {int(pos)} bf16",
+                   out, want)
+    half = flash_decode_plain(q, k, v, k.shape[1] // 2 - 1, window, cap)
+    miss = float((half - want).abs().max())
+    err, tol, _ = checks.worst["flash_decode"]
+    n_split, chunk = plan(q.shape[0], k.shape[1], sm_count(q.device),
+                          q.shape[1])
+    log(f"flash_decode at {tuple(k.shape)}: the plan's {n_split} "
+        f"split(s) of {chunk} keys a row; err {err:.3e}, tol {tol:.3e}; "
+        f"the first half's keys alone miss by {miss:.3e}")
+    if not miss > 10 * tol:
+        fail(f"phase 20c x{L}: half the keys miss by {miss}, not more than "
+             f"10 x tol {tol}: the cache cannot tell a wrong merge")
+    return {name: {"max_abs_err": e, "tol": t}
+            for name, (e, t, _) in checks.worst.items()} | {
+        "half_keys_miss": miss, "n_split": n_split, "chunk": chunk}
+
+
+def phase_dryrun_on_card(device, card) -> tuple:
+    """Phase 20c: qwen2.5-3b decode_32k, INT4, on the host mesh (one
+    device), at the probe's 1 and 2 layers (`probe_variants`) with f32
+    activations (the kernels' input), built on the card and stepped
+    once eagerly at pos 32767, then 5 more times timed by CUDA events.
+    Gated: the bytes the arguments ask the card's allocator for equal
+    the dry-run's argument_bytes within 512 B a tensor; the launches
+    of one step are exactly 5 L + 1 cim_gemv, L swiglu_qgemv and L
+    flash_decode; the logits are finite; at 1 layer, the logits and
+    flash_decode at (256, 32768, 128) agree with their plain versions
+    (`check_step_against_plain`).  Logged beside the dry-run:
+    the step's peak memory against peak_bytes, its device time against
+    the roofline's bound_time, both extrapolated to 36 layers
+    (`probe.extrapolate`), and the full cell's predicted bytes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.probe import extrapolate, probe_variants
+    t0 = time.perf_counter()
+    full = get_config(DRY_ARCH).replace(dtype="float32")
+    (cfg1, u1), (cfg2, u2), u_full = probe_variants(full)
+    host = make_host_mesh()
+    total = {}
+    points = []
+    for cfg, units in ((cfg1, u1), (cfg2, u2)):
+        L = cfg.n_layers
+        dry = run_cell(DRY_ARCH, "decode_32k", False, "int4", out_dir=None,
+                       verbose=False, cfg=cfg, mesh_shape=host)
+        mem = dry["memory_per_device"]
+        model, args, asked, held, n_t = decode_cell_on_card(cfg, device)
+        slack = asked - mem["argument_bytes"]
+        log(f"dry-run vs card, {DRY_ARCH} x{L} decode_32k INT4: arguments "
+            f"asked the allocator for {asked} B and hold {held} B on the "
+            f"card, {mem['argument_bytes']} B dry-run ({n_t} tensors, "
+            f"asked - dry-run {slack} B, at most {ALLOC_ROUND * n_t} B)")
+        if not 0 <= slack <= ALLOC_ROUND * n_t:
+            fail(f"phase 20c x{L}: the arguments asked for {asked} B on the "
+                 f"card, the dry-run says {mem['argument_bytes']} B")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - held
+        reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = model.decode_step(*args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = {"cim_gemv": 5 * L + 1, "swiglu_qgemv": L,
+                "paged_flash_decode": 0, "paged_flash_verify": 0,
+                "flash_decode": L}
+        if counts != want:
+            fail(f"phase 20c x{L}: launches {counts}, expected {want}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"phase 20c x{L}: non-finite logits")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        plain = check_step_against_plain(model, args, logits, L) \
+            if L == 1 else None
+        times = []
+        with torch.no_grad():
+            for _ in range(5):
+                times.append(cuda_time_ms(lambda: model.decode_step(*args),
+                                          1, warmup=0))
+        ms = float(np.median(times))
+        bound_ms = dry["bound_time"] * 1e3
+        point = {"layers": L, "units": units, "ms": ms, "ms_all": times,
+                 "bound_ms": bound_ms, "dominant": dry["dominant"],
+                 "bound_share": bound_ms / ms, "peak_bytes": peak,
+                 "dry_peak_bytes": mem["peak_bytes"],
+                 "argument_bytes": asked, "argument_bytes_held": held,
+                 "dry_argument_bytes":
+                 mem["argument_bytes"], "dry_temp_bytes": mem["temp_bytes"],
+                 "flops": dry["flops"], "hlo_bytes": dry["hlo_bytes"],
+                 "min_bytes": dry["min_bytes"], "launches": counts,
+                 "vs_plain": plain}
+        points.append(point)
+        log(f"dry-run vs card, {DRY_ARCH} x{L} decode_32k INT4 b 128 x "
+            f"32768: step {ms:.3f} ms (median of 5, CUDA events; "
+            f"{[round(t, 3) for t in times]}) against the roofline's "
+            f"bound {bound_ms:.3f} ms ({dry['dominant']}: "
+            f"{dry['min_bytes'] / 1e9:.3f} GB the step must move, "
+            f"{dry['flops'] / 1e9:.1f} GFLOP; the plain route moves "
+            f"{dry['hlo_bytes'] / 1e9:.3f} GB by op), share "
+            f"{bound_ms / ms:.3f}; "
+            f"peak {peak / 1e9:.3f} GB on the card, {mem['peak_bytes'] / 1e9:.3f}"
+            f" GB dry-run (temp {mem['temp_bytes'] / 1e9:.3f} GB); launches "
+            f"{counts}; {card}")
+        del model, args, logits
+        torch.cuda.empty_cache()
+    keys = ("ms", "bound_ms", "peak_bytes", "dry_peak_bytes")
+    ext = extrapolate({k: points[0][k] for k in keys},
+                      {k: points[1][k] for k in keys}, u1, u2, u_full)
+    full_dry = run_cell(DRY_ARCH, "decode_32k", False, "int4", out_dir=None,
+                        verbose=False, cfg=full, mesh_shape=host)
+    fmem = full_dry["memory_per_device"]
+    log(f"dry-run vs card, extrapolated to {u_full} layers: step "
+        f"{ext['ms']:.3f} ms against a bound of {ext['bound_ms']:.3f} ms; "
+        f"peak {ext['peak_bytes'] / 1e9:.3f} GB (card points), "
+        f"{ext['dry_peak_bytes'] / 1e9:.3f} GB (dry-run points); the full "
+        f"cell's dry-run: arguments {fmem['argument_bytes'] / 1e9:.3f} GB, "
+        f"peak {fmem['peak_bytes'] / 1e9:.3f} GB a device (this card holds "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB)")
+    res = {"arch": DRY_ARCH, "shape": "decode_32k", "quant": "int4",
+           "points": points, "extrapolated": ext, "units_full": u_full,
+           "full_argument_bytes": fmem["argument_bytes"],
+           "full_peak_bytes": fmem["peak_bytes"],
+           "s": time.perf_counter() - t0, "card": card}
+    return total, res
+
+
+def phase_dryrun(device, card) -> tuple:
+    """Phase 20: the DSE (a), the dry-run of every cell (b) and the
+    qwen2.5-3b decode_32k cell on the card (c)."""
+    import torch
+    t0 = time.perf_counter()
+    dse = phase_dse()
+    dry = phase_dryrun_all(torch.cuda.get_device_properties(0).total_memory)
+    counts, card_res = phase_dryrun_on_card(device, card)
+    res = {"dse": dse, "dryrun_all": dry, "on_card": card_res,
+           "s": time.perf_counter() - t0}
+    log(f"phase 20 in {res['s']:.1f} s (DSE {dse['s']:.1f}, dry-run "
+        f"{dry['s']:.1f}, on the card {card_res['s']:.1f})")
+    return counts, res
+
+
 def main() -> None:
     import dataclasses
 
@@ -6470,6 +6794,7 @@ def main() -> None:
     tp_gw_paths, tp_gw_result = phase_tp_gateway(
         card, tp_result["ranks"][0]["wave"]["step_ms_median"])
     by_path.update(tp_gw_paths)
+    by_path["dryrun_decode_32k"], dryrun_result = phase_dryrun(device, card)
 
     # each kernel's launches come from the path it serves
     main_path = {"cim_gemv": "decode", "swiglu_qgemv": "decode",
@@ -6515,6 +6840,7 @@ def main() -> None:
     log("tp moe / mla summary " + json.dumps(tp_moe_result))
     log("tp recurrent summary " + json.dumps(tp_rec_result))
     log("tp gateway summary " + json.dumps(tp_gw_result))
+    log("dry-run / DSE summary " + json.dumps(dryrun_result))
     log("paged_flash_decode window timing " + json.dumps(window_timing))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

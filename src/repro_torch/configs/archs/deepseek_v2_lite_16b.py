@@ -31,4 +31,4 @@ def smoke() -> ModelConfig:
         tie_embeddings=False)
 
 
-register("deepseek-v2-lite-16b", full, smoke)
+register("deepseek-v2-lite-16b", full, smoke, long_ok=False)

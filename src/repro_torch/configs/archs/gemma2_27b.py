@@ -23,4 +23,4 @@ def smoke() -> ModelConfig:
         rms_scale_plus_one=True, embed_scale=True, tie_embeddings=True)
 
 
-register("gemma2-27b", full, smoke)
+register("gemma2-27b", full, smoke, long_ok=True)

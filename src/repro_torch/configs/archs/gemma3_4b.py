@@ -25,4 +25,4 @@ def smoke() -> ModelConfig:
         tie_embeddings=True)
 
 
-register("gemma3-4b", full, smoke)
+register("gemma3-4b", full, smoke, long_ok=True)

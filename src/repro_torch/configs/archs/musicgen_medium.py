@@ -24,4 +24,4 @@ def smoke() -> ModelConfig:
         embed_inputs=False, tie_embeddings=False)
 
 
-register("musicgen-medium", full, smoke)
+register("musicgen-medium", full, smoke, long_ok=False)

@@ -18,4 +18,4 @@ def smoke() -> ModelConfig:
         tie_embeddings=False)
 
 
-register("phi3-medium-14b", full, smoke)
+register("phi3-medium-14b", full, smoke, long_ok=False)

@@ -21,4 +21,4 @@ def smoke() -> ModelConfig:
         embed_inputs=False, tie_embeddings=False)
 
 
-register("pixtral-12b", full, smoke)
+register("pixtral-12b", full, smoke, long_ok=False)

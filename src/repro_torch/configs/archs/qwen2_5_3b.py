@@ -18,4 +18,4 @@ def smoke() -> ModelConfig:
         qkv_bias=True, tie_embeddings=True)
 
 
-register("qwen2.5-3b", full, smoke)
+register("qwen2.5-3b", full, smoke, long_ok=False)

@@ -28,4 +28,4 @@ def smoke() -> ModelConfig:
         tie_embeddings=False)
 
 
-register("qwen3-moe-235b-a22b", full, smoke)
+register("qwen3-moe-235b-a22b", full, smoke, long_ok=False)

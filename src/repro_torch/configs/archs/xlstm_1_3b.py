@@ -24,4 +24,4 @@ def smoke() -> ModelConfig:
         tie_embeddings=False)
 
 
-register("xlstm-1.3b", full, smoke)
+register("xlstm-1.3b", full, smoke, long_ok=True)

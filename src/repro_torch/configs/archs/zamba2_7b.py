@@ -26,4 +26,4 @@ def smoke() -> ModelConfig:
         tie_embeddings=False)
 
 
-register("zamba2-7b", full, smoke)
+register("zamba2-7b", full, smoke, long_ok=True)

@@ -22,7 +22,10 @@
   use_tp       a thread-local context under which `tp_all_reduce` and
                `tp_all_gather` run their collectives on the group;
                outside it both return their input, as `constrain` is a
-               no-op without `use_mesh_rules`
+               no-op without `use_mesh_rules`; on a `CountingGroup` they
+               only count (the dry-run)
+  mesh_leaf_pspec, shard_shape  a leaf's pspec and a device's block on
+               any `{axis: size}` mesh (the dry-run's production meshes)
 
 A serve "mesh" is one axis, "model", of `tp` ranks, and rank r holds the
 r-th contiguous slice of every dim its pspec names, except where
@@ -81,20 +84,35 @@ def leaf_pspec(spec, leaf: Any, tp: int,
     where `tp` divides orig_shape, the packed data and the group scales
     alike (the JAX package's `qtree_shardings`): sanitizing them apart
     could split the data while replicating its scales."""
-    mesh = serve_mesh_shape(tp)
+    return mesh_leaf_pspec(spec, leaf, serve_mesh_shape(tp), rules)
+
+
+def mesh_leaf_pspec(spec, leaf: Any, mesh_shape: Mapping[str, int],
+                    rules: MeshRules) -> PSpec:
+    """`leaf_pspec` on any mesh given as `{axis: size}` (the dry-run's
+    production meshes): JAX's `tree_shardings` for a tensor,
+    `qtree_shardings` for a QTensor."""
     entries = rules.pspec(spec.axes)
     if not isinstance(leaf, QTensor):
-        return sanitize_pspec(entries, tuple(leaf.shape), mesh)
+        return sanitize_pspec(entries, tuple(leaf.shape), mesh_shape)
     shapes = (tuple(leaf.orig_shape), tuple(leaf.data.shape),
               tuple(leaf.scales.shape))
     entries = tuple(entries) + (None,) * len(leaf.orig_shape)
     out = []
     for i, entry in enumerate(entries[:len(leaf.orig_shape)]):
-        n = axis_size(mesh, entry)
+        n = axis_size(mesh_shape, entry)
         if entry is not None and any(s[i] % n for s in shapes):
             entry = None
         out.append(entry)
     return tuple(out)
+
+
+def shard_shape(shape: Tuple[int, ...], pspec: PSpec,
+                mesh_shape: Mapping[str, int]) -> Tuple[int, ...]:
+    """A device's block of an array of `shape` under `pspec` (JAX's
+    `NamedSharding.shard_shape`)."""
+    pspec = tuple(pspec) + (None,) * (len(shape) - len(pspec))
+    return tuple(d // axis_size(mesh_shape, e) for d, e in zip(shape, pspec))
 
 
 def _slice(x: torch.Tensor, pspec: PSpec, rank: int, tp: int
@@ -384,6 +402,23 @@ def replica_groups(tp: int, timeout_s: float = GROUP_TIMEOUT_S):
                 seconds=TICK_TIMEOUT_S)))
 
 
+class CountingGroup:
+    """A stand-in for a `size`-rank group seen from `rank`: under
+    `use_tp` its collectives move nothing (an all-reduce returns x, an
+    all-gather x repeated) and are counted here, by kind with their
+    result bytes (the dry-run's collectives, `launch/dryrun.py`)."""
+
+    def __init__(self, size: int, rank: int = 0):
+        self.size, self.rank = size, rank
+        self.counts: Dict[str, int] = {}
+        self.bytes: Dict[str, float] = {}
+
+    def record(self, kind: str, result: torch.Tensor) -> None:
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + \
+            result.numel() * result.element_size()
+
+
 def _current():
     return getattr(_ctx, "group", None)
 
@@ -405,6 +440,8 @@ def tp_rank_and_size() -> Tuple[int, int]:
     group = _current()
     if group is None:
         return 0, 1
+    if isinstance(group, CountingGroup):
+        return group.rank, group.size
     import torch.distributed as dist
     return dist.get_rank(group), dist.get_world_size(group)
 
@@ -442,6 +479,9 @@ def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
     group = _current()
     if group is None:
         return x
+    if isinstance(group, CountingGroup):
+        group.record("all-reduce", x)
+        return x
     import torch.distributed as dist
     t0 = time.perf_counter()
     x = x.contiguous()
@@ -456,6 +496,10 @@ def tp_all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     group = _current()
     if group is None:
         return x
+    if isinstance(group, CountingGroup):
+        out = torch.cat([x] * group.size, dim=dim)
+        group.record("all-gather", out)
+        return out
     import torch.distributed as dist
     t0 = time.perf_counter()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]

@@ -315,6 +315,22 @@ def vec_bytes(w: QTensor, row_bytes: int) -> int:
     return 1
 
 
+def _meta_plain(x: torch.Tensor, w: QTensor) -> torch.Tensor:
+    """The plain version on the meta device (the dry-run): a stack's
+    experts in one contraction, the products and bytes of
+    `ref_qmatmul_fused`'s loop without its E calls a layer (a
+    full-width MoE decode cell would dispatch 1.5M ops)."""
+    if w.data.ndim != 3:
+        return cim_gemv_plain(x, w)
+    E, K, N = w.orig_shape
+    g = w.group
+    xg = x.to(torch.float32).reshape(E, -1, K // g, g)
+    qg = int_weight(w).reshape(E, K // g, g, N).to(torch.float32)
+    partial = torch.einsum("ecag,eagn->ecan", xg, qg)
+    out = torch.einsum("ecan,ean->ecn", partial, w.scales.to(torch.float32))
+    return out.reshape(*x.shape[:-1], N)
+
+
 def cim_gemv(x: torch.Tensor, w: QTensor,
              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (M, K) f32; w: a 2D packed QTensor in either layout.
@@ -330,6 +346,8 @@ def cim_gemv(x: torch.Tensor, w: QTensor,
     if all(t.device.type == "cpu" for t in tensors) \
             and w.device.type == "cpu":
         return cim_gemv_plain(x, w)
+    if all(t.device.type == "meta" for t in tensors + [w.data, w.scales]):
+        return _meta_plain(x, w)        # shapes only: the dry-run
     if counts is not None:
         return _stack(x, w, counts)
     if x.device.type != "cuda" or w.device != x.device \

@@ -71,7 +71,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or a 0-d int32 tensor, keys k_pos <= pos visible.  Returns (bg, qpk,
     hd) f32."""
     tensors = [q, k, v] + ([pos] if isinstance(pos, torch.Tensor) else [])
-    if all(t.device.type == "cpu" for t in tensors):
+    if all(t.device.type == "cpu" for t in tensors) or \
+            all(t.device.type == "meta" for t in tensors):
+        # meta: shapes only, the dry-run
         return flash_decode_plain(q, k, v, pos, window, attn_cap)
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in tensors):

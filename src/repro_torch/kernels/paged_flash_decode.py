@@ -68,15 +68,16 @@ def _lib(name: str, n_ptrs: int, n_ints: int):
 def _check(name: str, ndim: int, q: torch.Tensor, k_pages: torch.Tensor,
            v_pages: torch.Tensor, tables: torch.Tensor,
            lengths: torch.Tensor, k_scales, v_scales) -> bool:
-    """Validate a CUDA call: True when it runs on the CPU plain version
-    instead (every tensor on the CPU); raises on what the kernel does not
-    take.  q is (b, [s,] g, qpk, hd) f32, `ndim` dimensions."""
+    """Validate a CUDA call: True when it runs the plain version instead
+    (every tensor on the CPU, or every one on `meta`); raises on what the
+    kernel does not take.  q is (b, [s,] g, qpk, hd) f32, `ndim` dimensions."""
     tensors = [q, k_pages, v_pages, tables, lengths]
     quant = k_scales is not None
     if quant:
         tensors += [k_scales, v_scales]
-    if all(t.device.type == "cpu" for t in tensors):
-        return True
+    if all(t.device.type == "cpu" for t in tensors) or \
+            all(t.device.type == "meta" for t in tensors):
+        return True                 # meta: shapes only, the dry-run
     if q.device.type != "cuda" or any(t.device != q.device
                                       for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one CUDA device, "

@@ -159,8 +159,8 @@ def swiglu_qgemv(x: torch.Tensor, w_gate: QTensor, w_up: QTensor
         raise TypeError("swiglu_qgemv takes QTensor weights")
     devs = {w_gate.data.device, w_gate.scales.device, w_up.data.device,
             w_up.scales.device}
-    if x.device.type == "cpu" and devs == {x.device}:
-        return swiglu_plain(x, w_gate, w_up)
+    if x.device.type in ("cpu", "meta") and devs == {x.device}:
+        return swiglu_plain(x, w_gate, w_up)    # meta: the dry-run
     if x.device.type != "cuda" or devs != {x.device}:
         raise ValueError(f"swiglu_qgemv: x on {x.device}, weights on {devs}")
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():

@@ -195,6 +195,26 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+SCANS: list = []    # stand-ins for `scan`, innermost last
+
+
+def scan(step: Callable, carry: Tuple[torch.Tensor, ...],
+         xs: Tuple[torch.Tensor, ...], consts: Tuple[torch.Tensor, ...] = ()
+         ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor]:
+    """JAX's `lax.scan` over dim 1 of `xs`: `carry, y = step(carry,
+    *[x[:, t] for x in xs], *consts)` for each t in order; returns the
+    last carry and the y's stacked on dim 1.  A stand-in pushed on
+    `SCANS` runs instead (the dry-run's counter, `launch/metarun.py`,
+    runs one step for all)."""
+    if SCANS:
+        return SCANS[-1](step, carry, xs, consts)
+    ys = []
+    for t in range(xs[0].shape[1]):
+        carry, y = step(carry, *[x[:, t] for x in xs], *consts)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
+
+
 class _TakeRows(torch.autograd.Function):
     """table[idx] whose backward sums each row's gradients in a fixed
     order: the indices sorted (stably), one segment sum per distinct

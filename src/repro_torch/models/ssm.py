@@ -97,7 +97,7 @@ from repro_torch.kernels.ops import row_parallel
 from repro_torch.quant.qarray import QTensor
 
 from .common import (ACTIVATIONS, BATCH, FSDP, NONE, TP, ParamSpec, rms_norm,
-                     swish)
+                     scan, swish)
 from .config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -271,10 +271,10 @@ def mamba2_forward(p: Params, cfg: ModelConfig,
     cs = torch.cumsum(dt * A, dim=2)                         # (b, c, l, h)
     causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
     state = x.new_zeros((b, nh, hd, ds), dtype=F32)
-    ys = []
-    for c in range(nc):
-        xs_i, B_i, C_i, dt_i, cs_i = xs[:, c], B[:, c], C[:, c], dt[:, c], \
-            cs[:, c]
+
+    def chunk(carry, xs_i, B_i, C_i, dt_i, cs_i):
+        """(the state at this chunk's end, its y)"""
+        (state,) = carry
         cb = torch.einsum("bln,bmn->blm", C_i.to(F32), B_i.to(F32))
         # exp of the masked segment sums only: exp(+large) above the
         # diagonal would give 0 * inf in the backward
@@ -290,8 +290,10 @@ def mamba2_forward(p: Params, cfg: ModelConfig,
         contrib = torch.einsum("blh,blhp,bln->bhpn",
                                (dec_end * dt_i).to(xs.dtype), xs_i, B_i)
         state = state * torch.exp(tot)[:, :, None, None] + contrib.to(F32)
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(b, s, nh, hd)
+        return (state,), y_intra + y_inter
+
+    _, y = scan(chunk, (state,), (xs, B, C, dt, cs))
+    y = y.reshape(b, s, nh, hd)
     y = y + xs.reshape(b, s, nh, hd) * p["d_skip"].to(x.dtype)[None, None,
                                                                :, None]
     out = _mamba2_out(p, cfg, y.reshape(b, s, di), z)
@@ -577,17 +579,19 @@ def slstm_forward(p: Params, cfg: ModelConfig,
                   x: torch.Tensor) -> torch.Tensor:
     """The sLSTM block's cell over the full sequence from the zero state
     (m = -1e30): the recurrence over time, x (b, s, d) -> (b, s, d)."""
-    b, s, d = x.shape
+    b, _, d = x.shape
     nh = slstm_dims(cfg)[1]
     gx = _slstm_gx(p, x)
     r = p["r_gates"].to(F32)
     zero = x.new_zeros((b, d), dtype=F32)
     state = (zero, zero, zero, x.new_full((b, nh), -1e30, dtype=F32))
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(gx[:, t], r, state)
-        hs.append(state[2])
-    return _slstm_ffn(p, cfg, torch.stack(hs, dim=1).to(x.dtype))
+
+    def step(state, gx_t, r):
+        state = _slstm_cell(gx_t, r, state)
+        return state, state[2]
+
+    _, hs = scan(step, state, (gx,), (r,))
+    return _slstm_ffn(p, cfg, hs.to(x.dtype))
 
 
 def slstm_serve_step(p: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -4,15 +4,18 @@ Counterpart of `repro.quant.ptq`: the same eligible leaf names, the same
 group choice (`_pick_group`) and the same axis rule (the embedding table
 groups along d, axis 1, so row lookups and the tied logits head read
 packed rows), so both packages pack a model identically.
+`quantize_structs` is the allocation-free image of `quantize_params` on
+the meta device (the dry-run packs a 235B model without a byte).
 """
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Any
 
 import torch
 
-from .qarray import quantize
+from .qarray import QTensor, quantize
 
 # parameter names eligible for quantization (leaf key in the tree)
 QUANT_KEYS = {
@@ -68,3 +71,35 @@ def quantize_params(params: Any, bits: int = 4, group: int = 128,
         return quantize_leaf(name, tree, bits, group, shard_hint)
     return walk(params, "")
 
+
+def quantize_structs(spec_tree: Any, bits: int = 4, group: int = 128,
+                     shard_hint: int = 16) -> Any:
+    """ParamSpec tree -> `quantize_params` of meta tensors at the specs'
+    shapes and dtypes: eligible weights become QTensors of meta data
+    and scales, every other leaf stays a meta tensor."""
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return torch.empty(tuple(tree.shape), dtype=tree.dtype,
+                           device="meta")
+    return quantize_params(meta(spec_tree), bits, group, shard_hint)
+
+
+def quantized_fraction(qparams: Any) -> float:
+    """Fraction of parameter *elements* now stored quantized (JAX's
+    measure: a QTensor counts its orig_shape, a tensor its shape)."""
+    qn = tn = 0
+
+    def walk(tree):
+        nonlocal qn, tn
+        if isinstance(tree, dict):
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, QTensor):
+            n = math.prod(tree.orig_shape)
+            qn += n
+            tn += n
+        elif isinstance(tree, torch.Tensor):
+            tn += tree.numel()
+    walk(qparams)
+    return qn / max(tn, 1)
