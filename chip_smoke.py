@@ -6097,18 +6097,30 @@ TPGW_DEADLINE_S = 0.05      # shorter than one tp = 2 step (phase 16)
 def tpgw_engines(model, params, device, n: int = 2):
     """`n` replicas' engines of qwen2.5-3b at tp = 2 (INT4, INT8 KV,
     batch 4, pages and chunks of 16), each on its own pair of groups,
-    built in the same order on both ranks."""
-    from repro_torch.dist import replica_groups
-    from repro_torch.serve import PagedServeEngine, ServeConfig
+    built in the same order on both ranks, the first from the full
+    weights and every other over its shard
+    (`launch.serve.replica_engine`); and the function that builds one
+    more over that shard."""
+    import functools
+
+    from repro_torch.launch.serve import replica_engine
+    from repro_torch.serve import ServeConfig
     scfg = ServeConfig(precision="int4", kv_dtype="auto", max_batch=4,
                        max_seq=128, page_size=16, prefill_chunk=16, tp=TP,
                        replicas=n)
-    out = []
-    for _ in range(n):
-        group, tick_group = replica_groups(TP)
-        out.append(PagedServeEngine(model, params, scfg, device=device,
-                                    group=group, tick_group=tick_group))
-    return out
+    out = [replica_engine(model, params, scfg, None, device)]
+    build = functools.partial(replica_engine, model, out[0].params,
+                              out[0].config, None, device)
+    return out + [build() for _ in range(n - 1)], build
+
+
+def leaf_tensors(tree) -> list:
+    """Every tensor of a param tree, a QTensor's data and scales apart,
+    in key order."""
+    from repro_torch.quant.qarray import QTensor
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaf_tensors(tree[k])]
+    return [tree.data, tree.scales] if isinstance(tree, QTensor) else [tree]
 
 
 def tpgw_state(eng) -> dict:
@@ -6127,24 +6139,29 @@ def tpgw_state(eng) -> dict:
             "cancels": [e["eid"] for e in events if e["kind"] == "cancel"]}
 
 
-def tpgw_lead(engines, ref, cfg):
-    """Rank 0 of phase 19: the gateway over both replicas; the greedy
-    wave, the deadline wave (14 requests, one client hanging up after 4
-    tokens, then 2 of priority 1 with a deadline shorter than a step
-    while every lane is taken), /metrics and /healthz.  Returns the
+def tpgw_lead(engines, ref, cfg, channel, build):
+    """Rank 0 of phase 19: the gateway over both replicas (least-loaded);
+    the greedy wave; the deadline wave (phase 3's 8 prompts and 6 more,
+    one client hanging up after 4 tokens, then 2 of priority 1 with a
+    deadline shorter than a step while every lane is taken); with every
+    lane still taken, a third replica added (`add_tp_replica`) and 4 of
+    phase 3's prompts posted to it; /metrics and /healthz.  Returns the
     record and the replicas' driver threads."""
     import asyncio
 
     import numpy as np
     import torch
 
+    from repro_torch.dist import FleetChannel
     from repro_torch.fleet import FleetRouter
+    from repro_torch.launch.serve import add_tp_replica
     n_new = 16
     walls = []                  # (ms, decode only) of each step call
-    for eng in engines:
+
+    def timed(eng):
         orig = eng.step
 
-        def step(eng=eng, orig=orig):
+        def step():
             pre = eng.prefill_calls
             t0 = time.perf_counter()
             orig()
@@ -6152,12 +6169,14 @@ def tpgw_lead(engines, ref, cfg):
             walls.append(((time.perf_counter() - t0) * 1e3,
                           eng.prefill_calls == pre))
         eng.step = step
+        return eng
+    for eng in engines:
+        timed(eng)
 
     def body(p, **kw):
         return {"prompt": [int(t) for t in p], "max_tokens": n_new, **kw}
-    router = FleetRouter(engines, policy="rr")
+    router = FleetRouter(engines, policy="least-loaded")
     gwt = GatewayThread(router)
-    threads = [rep.driver._thread for rep in router.replicas]
     greedy, wall_g, _ = gateway_wave(gwt, [body(p) for p in ref["wave8"]])
     greedy_walls = [ms for ms, dec in walls if dec]
     prefill_walls = [ms for ms, dec in walls if not dec]
@@ -6170,8 +6189,8 @@ def tpgw_lead(engines, ref, cfg):
     rng = np.random.default_rng(19)
     prompts = [rng.integers(0, cfg.vocab, int(k)).astype(np.int32)
                for k in rng.integers(16, 65, size=16)]
-    bg = start_clients(gwt, [body(p) for p in prompts[:14]],
-                       disconnect={13})
+    wave = list(ref["wave8"]) + prompts[8:14]
+    bg = start_clients(gwt, [body(p) for p in wave], disconnect={13})
     t0 = time.perf_counter()
     while sum(rep.snapshot.get("n_running", 0.0)
               for rep in router.replicas) < 2 * engines[0].max_batch:
@@ -6180,58 +6199,101 @@ def tpgw_lead(engines, ref, cfg):
         time.sleep(0.01)
     # behind every priority-0 request: examined only once a lane is
     # free and those are admitted, long after their deadline
-    late, _, _ = gateway_wave(gwt, [body(p, deadline_s=TPGW_DEADLINE_S,
-                                         priority=1)
-                                    for p in prompts[14:]])
+    sent = router.counters["dispatched"]
+    late_h = start_clients(gwt, [body(p, deadline_s=TPGW_DEADLINE_S,
+                                      priority=1) for p in prompts[14:]])
+    while router.counters["dispatched"] < sent + 2:
+        if time.perf_counter() - t0 > 120:
+            fail("phase 19: the deadline requests were never routed")
+        time.sleep(0.005)
+    lanes = [rep.snapshot.get("n_running", 0.0) for rep in router.replicas]
+    peak2 = torch.cuda.max_memory_allocated() / 1e9
+    t_add = time.perf_counter()
+    rep = add_tp_replica(router, channel, lambda: timed(build()))
+    add_s = time.perf_counter() - t_add
+    if (rep.id, rep.live, len(router.replicas)) != (2, True, 3):
+        fail(f"phase 19: the added replica is {rep.id}, live {rep.live}, "
+             f"of {len(router.replicas)}")
+    fresh, wall_f, _ = gateway_wave(gwt, [body(p) for p in ref["wave8"][:4]])
+    late, _ = client_results(late_h)
     early, wall_d = client_results(bg)
     if [set(r["fins"].values()) for r in late] != [{"rejected"}] * 2:
         fail(f"phase 19: the deadline requests finished "
              f"{[r['fins'] for r in late]}")
     if not early[13]["disconnected"]:
         fail("phase 19: the disconnecting client read its whole stream")
-    for i, r in enumerate(early[:13]):
-        if set(r["fins"].values()) != {"length"}:
-            fail(f"phase 19 deadline wave request {i}: {r['fins']}")
+    for i, r in enumerate(early[:13] + fresh):
+        if set(r["fins"].values()) != {"length"} or \
+                len(r["toks"].get(0, [])) != n_new:
+            fail(f"phase 19 deadline wave / added replica request {i}: "
+                 f"{r['fins']}")
+    dispatches = [r.dispatches for r in router.replicas]
+    if dispatches[2] < 1:
+        fail(f"phase 19: the added replica took no request: {dispatches}")
     st_m, _, raw_m = asyncio.run(http(gwt.host, gwt.port, "GET",
                                       "/metrics"))
     st_h, _, _ = asyncio.run(http(gwt.host, gwt.port, "GET", "/healthz"))
     metrics = json.loads(raw_m)
-    if st_m != 200 or metrics["fleet"]["n_replicas"] != 2 or \
+    if st_m != 200 or metrics["fleet"]["n_replicas"] != 3 or \
             metrics["config"]["tp"] != TP or st_h != 200:
         fail(f"phase 19 /metrics {st_m} (replicas "
              f"{metrics['fleet']['n_replicas']}), /healthz {st_h}")
     gwt.stop()                  # every engine's STOP tick
-    dead = [rep.id for rep in router.replicas if rep.error is not None]
+    channel.send(FleetChannel.STOP, len(router.replicas))
+    dead = [r.id for r in router.replicas if r.error is not None]
     if dead:
         fail(f"phase 19: replicas {dead} failed: "
              f"{[repr(router.replicas[i].error) for i in dead]}")
+    if router.counters["adds"] != 1 or \
+            [r.pending for r in router.replicas] != [0, 0, 0]:
+        fail(f"phase 19: counters {router.counters}, pending "
+             f"{[r.pending for r in router.replicas]}")
     ttft = quantiles([r["ttft_s"] * 1e3 for r in greedy])
     return {"greedy_streams": [r["toks"][0] for r in greedy],
+            "inflight_streams": [r["toks"][0] for r in early[:8]],
+            "fresh_streams": [r["toks"][0] for r in fresh],
             "greedy_wall_s": wall_g, "deadline_wall_s": wall_d,
+            "fresh_wall_s": wall_f, "lanes_at_add": lanes,
+            "dispatches": dispatches, "add_s": add_s,
+            "peak_gb_2": peak2,
             "ttft_ms_p50_p95": ttft,
             "step_ms_median": float(np.median(greedy_walls)),
             "decode_steps_greedy": len(greedy_walls),
             "prefill_step_ms_median": float(np.median(prefill_walls)),
             "prefill_steps_greedy": len(prefill_walls),
-            "metrics_requests": metrics["engine"]["requests"]}, threads
+            "metrics_requests": metrics["engine"]["requests"]}, \
+        [r.engine for r in router.replicas], \
+        [r.driver._thread for r in router.replicas]
 
 
-def tpgw_follow(engines):
-    """Rank 1 of phase 19: follow each engine on a thread of its own
-    until rank 0's STOP ticks.  Returns the threads."""
-    from repro_torch.dist import follow_all
-    threads, outcomes = follow_all(engines)
-    for t in threads:
-        t.join(900)
-    if outcomes != ["stop"] * len(engines):
-        fail(f"phase 19 rank 1 followers: {outcomes!r}")
-    return threads
+def tpgw_follow(engines, channel, build):
+    """Rank 1 of phase 19: follow each engine on a thread of its own and
+    build the replica rank 0 adds (`follow_engines`) until rank 0's STOP
+    ticks and the fleet's STOP.  Returns the record, the engines and the
+    threads."""
+    import torch
+
+    from repro_torch.launch.serve import follow_engines
+    rec = {}
+
+    def build_one():
+        rec["peak_gb_2"] = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        eng = build()
+        rec["add_s"] = time.perf_counter() - t0
+        return eng
+    try:
+        engines, threads = follow_engines(engines, channel, build_one)
+    except Exception as e:
+        fail(f"phase 19 rank 1 followers: {e!r}")
+    return rec, engines, threads
 
 
 def tp_gateway_rank(rank, ref, init, out_dir):
     """One rank of phase 19 (spawned): qwen2.5-3b from phase 3's seed, two
-    replicas at tp = 2 on groups of their own; rank 0 serves the gateway
-    and leads, rank 1 follows."""
+    replicas at tp = 2 on groups of their own over one shard a rank, a
+    third added under load; rank 0 serves the gateway and leads, rank 1
+    follows."""
     from types import SimpleNamespace
 
     import torch
@@ -6246,12 +6308,19 @@ def tp_gateway_rank(rank, ref, init, out_dir):
     model, params = build_full_model(device)
     if weights_digest(params) != ref["digest"]:
         fail(f"{tag}: the unsharded weights differ from phase 3's")
-    engines = tpgw_engines(model, params, device)
+    engines, build = tpgw_engines(model, params, device)
     del params
     torch.cuda.empty_cache()
+    from repro_torch.dist import FleetChannel, fleet_group
+    channel = FleetChannel(fleet_group(TP))
     cfg = model.cfg
-    log(f"{tag}: 2 replicas built in {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    shared = all(a.data_ptr() == b.data_ptr() for a, b in zip(
+        leaf_tensors(engines[0].params), leaf_tensors(engines[1].params)))
+    if not shared:
+        fail(f"{tag}: replica 1 does not hold replica 0's shard")
+    log(f"{tag}: 2 replicas built in {time.perf_counter() - t0:.1f} s "
+        f"over one shard, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the counts start at 0 just before the path is driven
@@ -6260,10 +6329,17 @@ def tp_gateway_rank(rank, ref, init, out_dir):
     reset_tick_counts()
     res = {"rank": rank}
     if rank == 0:
-        lead, threads = tpgw_lead(engines, ref, cfg)
-        res.update(lead)
+        lead, engines, threads = tpgw_lead(engines, ref, cfg, channel,
+                                           build)
     else:
-        threads = tpgw_follow(engines)
+        lead, engines, threads = tpgw_follow(engines, channel, build)
+    res.update(lead)
+    if len(engines) != 3 or not all(
+            a.data_ptr() == b.data_ptr() for a, b in zip(
+                leaf_tensors(engines[0].params),
+                leaf_tensors(engines[2].params))):
+        fail(f"{tag}: {len(engines)} replicas, the added one not over "
+             f"replica 0's shard")
     res["launches"] = [thread_launch_counts(t) for t in threads]
     res["expected"] = [expected_launches(cfg, e.prefill_calls,
                                          e.decode_calls) for e in engines]
@@ -6271,7 +6347,7 @@ def tp_gateway_rank(rank, ref, init, out_dir):
     res["ticks"] = tick_counts()
     res["tick_s"] = tick_seconds()
     res["states"] = [tpgw_state(e) for e in engines]
-    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["peak_gb_3"] = torch.cuda.max_memory_allocated() / 1e9
     calls = sum(e.prefill_calls + e.decode_calls for e in engines)
     want = {"all_reduce": (2 * cfg.n_layers + 1) * calls,
             "all_gather": calls}
@@ -6282,16 +6358,20 @@ def tp_gateway_rank(rank, ref, init, out_dir):
             fail(f"{tag} replica {i}: launches {got} != expected {exp}")
     # rank 0's streams to both ranks: a divergence from phase 3's is
     # checked for a near-tie by both, in lockstep on replica 0's group
-    box = [res.get("greedy_streams")]
+    box = [[res.get(k) for k in ("greedy_streams", "inflight_streams",
+                                 "fresh_streams")]]
     dist.broadcast_object_list(box, src=0)
-    want_streams = ref["wave8_streams"]
-    base = [SimpleNamespace(prompt=p, out_tokens=w, rid=i)
-            for i, (p, w) in enumerate(zip(ref["wave8"], want_streams))]
-    got = [SimpleNamespace(prompt=p, out_tokens=s, rid=i)
-           for i, (p, s) in enumerate(zip(ref["wave8"], box[0]))]
-    res["near_ties"] = check_identity(
-        f"{tag} greedy wave vs phase 3", base, got, model,
-        engines[0].params, device, engines[0]._serve_fn, TP)
+    res["near_ties"] = 0
+    for label, streams in zip(("greedy wave", "in flight at the add",
+                               "on the added replica"), box[0]):
+        pairs = list(zip(ref["wave8"], ref["wave8_streams"], streams))
+        base = [SimpleNamespace(prompt=p, out_tokens=w, rid=i)
+                for i, (p, w, _) in enumerate(pairs)]
+        got = [SimpleNamespace(prompt=p, out_tokens=s, rid=i)
+               for i, (p, _, s) in enumerate(pairs)]
+        res["near_ties"] += check_identity(
+            f"{tag} {label} vs phase 3", base, got, model,
+            engines[0].params, device, engines[0]._serve_fn, TP)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
 
@@ -6299,9 +6379,10 @@ def tp_gateway_rank(rank, ref, init, out_dir):
 def phase_tp_gateway(card, tp16_step_ms):
     """Phase 19: spawn two ranks (gloo over loopback, both on cuda:0);
     rank 0 serves the gateway over two replicas of qwen2.5-3b at tp = 2
-    and leads their groups, rank 1 follows.  Holds the streams to phase
-    3's, the ranks' engines to each other, the deadlines, the pages and
-    the launches."""
+    (one shard a rank) and leads their groups, rank 1 follows; a third
+    replica joins under load.  Holds the streams to phase 3's, the
+    ranks' engines to each other, the deadlines, the pages and the
+    launches."""
     ranks, phase_s = spawn_ranks(tp_gateway_rank, TP_REF, "tp_gateway")
     a, b = ranks
     if a["states"] != b["states"]:
@@ -6310,11 +6391,12 @@ def phase_tp_gateway(card, tp16_step_ms):
     if a["ticks"] != b["ticks"]:
         fail(f"phase 19: rank 0 sent {a['ticks']}, rank 1 received "
              f"{b['ticks']}")
+    n_rep = len(a["states"])
     steps = sum(s["steps"] for s in a["states"])
     ticks = a["ticks"]["ticks"]
-    if not steps + 2 <= ticks or a["ticks"]["broadcasts"] > 2 * ticks:
+    if not steps + n_rep <= ticks or a["ticks"]["broadcasts"] > 2 * ticks:
         fail(f"phase 19: {ticks} ticks ({a['ticks']['broadcasts']} "
-             f"broadcasts) for {steps} step calls and 2 STOPs")
+             f"broadcasts) for {steps} step calls and {n_rep} STOPs")
     expired = {i: [eid for eid, why in s["rejects"] if why == "expired"]
                for i, s in enumerate(a["states"])}
     if sum(map(len, expired.values())) != 2 or \
@@ -6334,9 +6416,9 @@ def phase_tp_gateway(card, tp16_step_ms):
         for k, v in per.items():
             launches[k] = launches.get(k, 0) + v
     decode_calls = sum(s["decode_calls"] for s in a["states"])
-    log(f"phase 19 (gateway at tp = {TP}, 2 replicas, two ranks on one "
-        f"card, {card}): {ticks} ticks for {steps} engine step calls and 2 "
-        f"STOPs ({(ticks - 2) / steps:.3f} a step call, "
+    log(f"phase 19 (gateway at tp = {TP}, {n_rep} replicas, two ranks on "
+        f"one card, {card}): {ticks} ticks for {steps} engine step calls "
+        f"and {n_rep} STOPs ({(ticks - n_rep) / steps:.3f} a step call, "
         f"{a['ticks']['broadcasts']} broadcasts), "
         f"{1e3 * a['tick_s'] / ticks:.3f} ms host a tick on "
         f"rank 0 ({1e3 * b['tick_s'] / ticks:.3f} on rank 1); decode step "
@@ -6348,15 +6430,20 @@ def phase_tp_gateway(card, tp16_step_ms):
         f" through the gateway; launches a rank {launches} over "
         f"{decode_calls} decode calls (a decode step 181 / 36 / 36); "
         f"expired eids by replica {expired} on both ranks; near-ties "
-        f"{a['near_ties']}; peak memory "
-        f"{[round(r['peak_gb'], 3) for r in ranks]} GB a rank; phase "
-        f"{phase_s:.1f} s")
+        f"{a['near_ties']}; phase {phase_s:.1f} s")
+    log(f"phase 19 replica added under load ({card}): lanes running at "
+        f"the add {a['lanes_at_add']}, add {a['add_s']:.3f} s on rank 0 "
+        f"and {b['add_s']:.3f} s on rank 1, requests a replica "
+        f"{a['dispatches']}; peak memory a rank with 2 replicas "
+        f"{[round(r['peak_gb_2'], 3) for r in ranks]} GB (1.838 GB before "
+        f"the replicas shared a shard), with 3 "
+        f"{[round(r['peak_gb_3'], 3) for r in ranks]} GB")
     result = {"phase_s": phase_s, "card": card,
               "offline_tp2_step_ms_median": tp16_step_ms,
-              "ticks_per_step_call": (ticks - 2) / steps,
+              "ticks_per_step_call": (ticks - n_rep) / steps,
               "tick_host_ms": [1e3 * r["tick_s"] / ticks for r in ranks],
               "ranks": [{k: v for k, v in r.items()
-                         if k != "greedy_streams"} for r in ranks]}
+                         if not k.endswith("_streams")} for r in ranks]}
     return {"tp2_gateway_decode": launches}, result
 
 

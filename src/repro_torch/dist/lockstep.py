@@ -40,6 +40,12 @@ the pickled ops: at most two a step call.  Ticks are counted here
 broadcast for as long as rank 0 is idle, so a gateway gives each engine
 a tick group with no timeout to speak of beside the bounded one of its
 step's collectives (`shard.replica_groups`).
+
+A fleet of such engines (a gateway's replicas at tp > 1) has one more
+channel, `FleetChannel`, on a group of its own (`shard.fleet_group`):
+rank 0 tells the other ranks when a replica joins (ADD: every rank
+makes the new engine's groups, in the same order, so the followers are
+told before rank 0 makes them) and when the fleet stopped (STOP).
 """
 from __future__ import annotations
 
@@ -241,11 +247,12 @@ def follow(engine) -> None:
                 engine.step_at(tick.now)
 
 
-def follow_all(engines) -> Tuple[List[threading.Thread], List[Any]]:
+def follow_all(engines, first: int = 0
+               ) -> Tuple[List[threading.Thread], List[Any]]:
     """`follow` each engine on a daemon thread of its own (a rank >= 1
-    of a gateway's replicas).  Returns (the threads, their outcomes):
-    outcome i is None while thread i runs, then "stop" or the exception
-    it ended with."""
+    of a gateway's replicas; thread i named for replica `first` + i).
+    Returns (the threads, their outcomes): outcome i is None while
+    thread i runs, then "stop" or the exception it ended with."""
     outcomes: List[Any] = [None] * len(engines)
 
     def run(i, eng):
@@ -255,8 +262,59 @@ def follow_all(engines) -> Tuple[List[threading.Thread], List[Any]]:
         except Exception as e:      # the thread's end: its caller reads it
             outcomes[i] = e
     threads = [threading.Thread(target=run, args=(i, e), daemon=True,
-                                name=f"follower-{i}")
+                                name=f"follower-{first + i}")
                for i, e in enumerate(engines)]
     for t in threads:
         t.start()
     return threads, outcomes
+
+
+class FleetChannel:
+    """Rank 0's messages to the other ranks of a tensor-parallel fleet
+    about the fleet itself, on `group` (`shard.fleet_group`): (ADD, n)
+    -- the n-th replica joins, so make its groups and build its engine
+    now, where rank 0 does (`launch.serve.add_tp_replica`) -- and
+    (STOP, n): the fleet of n replicas stopped serving.  A message is
+    one broadcast of two int64; it is not a tick (`tick_counts` leaves
+    it out)."""
+
+    ADD, STOP = 1, 2
+
+    def __init__(self, group):
+        import torch.distributed as dist
+        self.group = group
+        self.leader = dist.get_rank(group) == 0
+        self._src = dist.get_global_rank(group, 0)
+        self.closed = False
+
+    def send(self, op: int, n: int) -> None:
+        """Rank 0: one message.  STOP waits `FINISH_WAIT_S` at most for
+        the followers to take it and drops a broken group's error (the
+        peers may be gone already), as `Lockstep.finish` does."""
+        import datetime
+
+        import torch.distributed as dist
+        assert self.leader and not self.closed
+        head = torch.tensor([op, n], dtype=torch.int64)
+        if op != self.STOP:
+            dist.broadcast(head, src=self._src, group=self.group)
+            return
+        self.closed = True
+        try:
+            dist.broadcast(head, src=self._src, group=self.group,
+                           async_op=True).wait(
+                timeout=datetime.timedelta(seconds=FINISH_WAIT_S))
+        except RuntimeError:
+            pass
+
+    def recv(self) -> Tuple[int, int]:
+        """A follower: rank 0's next message, (op, n)."""
+        import torch.distributed as dist
+        assert not self.leader
+        head = torch.empty(2, dtype=torch.int64)
+        dist.broadcast(head, src=self._src, group=self.group)
+        op, n = (int(v) for v in head.tolist())
+        if op not in (self.ADD, self.STOP):
+            raise LockstepError(f"fleet message {op} is neither ADD nor "
+                                f"STOP")
+        return op, n

@@ -8,6 +8,8 @@
                group scales), as `qtree_shardings` decides
   shard_tree   each rank's slice of every leaf of a param tree, a
                contiguous copy (so the kernels see aligned scales)
+  rank_params  `shard_tree` of a full tree; a tree that is the rank's
+               already as it is (the replicas of a fleet share it)
   shard_specs  the rank-local shapes of a ParamSpec tree (the KV pools,
                the StateArena; both: `shard_state_specs`)
   recurrent_splits  the split rule of every leaf of the recurrent cells
@@ -19,6 +21,8 @@
                naming the count and how to start the ranks
   replica_groups  one fleet replica's own pair of groups over those
                ranks (its step's collectives, its ticks: `lockstep`)
+  fleet_group  the group of the fleet's own channel
+               (`lockstep.FleetChannel`: a replica added, the stop)
   use_tp       a thread-local context under which `tp_all_reduce` and
                `tp_all_gather` run their collectives on the group;
                outside it both return their input, as `constrain` is a
@@ -323,6 +327,81 @@ def shard_tree(params: Any, specs: Any, rank: int, tp: int,
                       tp)
 
 
+def _full_like(leaf: Any, spec) -> Any:
+    """A meta leaf of `spec`'s full shape, packed as `leaf` is (a
+    QTensor's data and scales shrunk along its axis by the bytes it
+    packs and by its group)."""
+    shape = tuple(spec.shape)
+    if not isinstance(leaf, QTensor):
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+    ax = leaf.axis % len(shape)
+
+    def along(div):
+        return tuple(s // div if i == ax else s for i, s in enumerate(shape))
+    return QTensor(data=torch.empty(along(2 if leaf.bits == 4 else 1),
+                                    dtype=leaf.data.dtype, device="meta"),
+                   scales=torch.empty(along(leaf.group),
+                                      dtype=leaf.scales.dtype, device="meta"),
+                   bits=leaf.bits, group=leaf.group, axis=leaf.axis,
+                   orig_shape=shape)
+
+
+def _shapes(leaf: Any) -> Tuple:
+    if isinstance(leaf, QTensor):
+        return (tuple(leaf.orig_shape), tuple(leaf.data.shape),
+                tuple(leaf.scales.shape))
+    return tuple(leaf.shape)
+
+
+def _leaves(tree: Any, specs: Any, _path: Tuple[str, ...] = ()):
+    if isinstance(specs, dict):
+        for k in specs:
+            yield from _leaves(tree[k], specs[k], _path + (k,))
+    else:
+        yield _path, tree
+
+
+def _map(tree: Any, specs: Any, fn) -> Any:
+    if isinstance(specs, dict):
+        return {k: _map(tree[k], specs[k], fn) for k in specs}
+    return fn(tree, specs)
+
+
+def rank_params(params: Any, specs: Any, rank: int, tp: int,
+                rules: MeshRules = SERVE_RULES,
+                splits: Optional[Dict[Tuple[str, str], Split]] = None
+                ) -> Any:
+    """Rank `rank`'s params from a full tree (`shard_tree`: a copy) or
+    from a tree that is the rank's already, which comes back as it is,
+    not a leaf copied: a fleet's replicas on one rank share one shard,
+    as JAX's replicas share one mesh's arrays.  Decided for the whole
+    tree, each leaf's shapes (a QTensor's orig_shape, data and scales)
+    held to the full spec's and to what `shard_tree` makes of a full
+    leaf packed as it is (so a packed leaf the rank keeps whole, or a
+    segment `splits` keeps whole, counts as the rank's); a leaf the
+    ranks hold whole looks the same either way and decides nothing.  A
+    tree that is neither raises ValueError."""
+    full = _map(params, specs, _full_like)
+    want = shard_tree(full, specs, rank, tp, rules, splits)
+    not_full, not_rank = [], []
+    for (path, leaf), (_, whole), (_, mine) in zip(
+            _leaves(params, specs), _leaves(full, specs),
+            _leaves(want, specs)):
+        if _shapes(leaf) != _shapes(whole):
+            not_full.append((path, _shapes(leaf), _shapes(whole)))
+        if _shapes(leaf) != _shapes(mine):
+            not_rank.append((path, _shapes(leaf), _shapes(mine)))
+    if not not_rank:
+        return params
+    if not not_full:
+        return shard_tree(params, specs, rank, tp, rules, splits)
+    (fp, fgot, fwant), (rp, rgot, rwant) = not_full[0], not_rank[0]
+    raise ValueError(
+        f"params at tp={tp} are neither the full tree nor rank {rank}'s "
+        f"shard: {'/'.join(fp)} has shapes {fgot}, not the full {fwant}, "
+        f"and {'/'.join(rp)} has {rgot}, not the rank's {rwant}")
+
+
 def shard_specs(specs: Any, tp: int, rules: MeshRules = SERVE_RULES,
                 splits: Optional[Dict[Tuple[str, str], Split]] = None,
                 _path: Tuple[str, ...] = ()) -> Any:
@@ -400,6 +479,20 @@ def replica_groups(tp: int, timeout_s: float = GROUP_TIMEOUT_S):
                 seconds=timeout_s)),
             dist.new_group(ranks, timeout=datetime.timedelta(
                 seconds=TICK_TIMEOUT_S)))
+
+
+def fleet_group(tp: int):
+    """The group of a tensor-parallel fleet's channel
+    (`lockstep.FleetChannel`), over the default group's `tp` ranks, made
+    once with the replicas' groups; its wait is unbounded, as a tick
+    group's (a follower waits for rank 0's next message while the
+    gateway serves)."""
+    import datetime
+
+    import torch.distributed as dist
+    serve_group(tp)
+    return dist.new_group(list(range(tp)), timeout=datetime.timedelta(
+        seconds=TICK_TIMEOUT_S))
 
 
 class CountingGroup:

@@ -35,8 +35,12 @@ so one dead replica means a rank left or rank 0 aborted its group: the
 fleet is alive only while every replica is, and /healthz and
 /v1/completions answer 503 otherwise.  `drain` re-homes through the
 replicated driver jobs (`extract_queued`, `submit`), so the other ranks
-see both; `add_replica` is refused (every rank would have to build an
-engine and its groups while serving).
+see both.  `add_replica` takes rank 0's engine of a replica every rank
+built while the fleet serves, on a pair of groups of its own, over the
+rank's one shard (`repro_torch.launch.serve.add_tp_replica` tells the
+other ranks first, on the fleet's channel): its ticks start at 0, the
+other ranks follow it on a thread of their own, and from then on the
+fleet is alive only while it is too.
 """
 from __future__ import annotations
 
@@ -299,15 +303,19 @@ class FleetRouter:
         fingerprint.  Replica ids are list indices and drained replicas
         keep their slot, so the new id is always `len(replicas)` —
         `cancel`/`/metrics` lookups stay index-stable.  Returns the new
-        replica (already live; no request in flight is disturbed).
-        Refused at tp > 1."""
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"add_replica at tp={self.tp}: every rank would have to "
-                f"build an engine and its groups while serving; a "
-                f"tensor-parallel fleet's replicas are built at start-up "
-                f"(--replicas)")
+        replica (already live; no request in flight is disturbed).  At
+        tp > 1 `engine` is rank 0's, led on groups no other replica uses
+        (`launch.serve.add_tp_replica` has every rank build it)."""
         self._check_same_model(engine, self.replicas[0].engine)
+        if self.tp > 1:
+            ls = engine.lockstep
+            if ls is None or not ls.leader or any(
+                    rep.engine.lockstep.tick_group is ls.tick_group
+                    for rep in self.replicas):
+                raise ValueError(
+                    f"add_replica at tp={self.tp} takes rank 0's engine "
+                    f"on a pair of groups of its own (every rank builds "
+                    f"it: launch.serve.add_tp_replica)")
         rep = Replica(engine, len(self.replicas), self.max_pending)
         rep.driver.start()
         self.replicas.append(rep)
@@ -324,8 +332,8 @@ class FleetRouter:
     @property
     def alive(self) -> bool:
         """Any replica's driver still running (drain-ing counts: it is
-        serving its in-flight work); at tp > 1 every replica's, as they
-        share their ranks."""
+        serving its in-flight work); at tp > 1 every replica's, an added
+        one's from the moment it joins, as they share their ranks."""
         if self.tp > 1:
             return all(rep.alive for rep in self.replicas)
         return any(rep.alive for rep in self.replicas)

@@ -56,12 +56,17 @@ the steps run eagerly.  Every family (`--arch qwen3-moe-235b-a22b
 --tp 2`, `--arch xlstm-1.3b --tp 2`, `--arch zamba2-7b --layers 27 --tp
 2`).  With `--gateway` (replicas x tp, as in the JAX launcher) every
 rank builds the same `--replicas` engines in the same order, each on
-its own pair of groups (`dist.shard.replica_groups`) and with its own
-copy of the rank's shard; rank 0 serves HTTP over them and leads each
-engine (`dist.lockstep`), the other ranks follow each engine on a
-thread of its own (`dist.lockstep.follow`).  Ctrl-C (SIGINT to the
-launcher) stops rank 0's gateway, which sends every engine's STOP tick,
-and the other ranks exit 0; they ignore SIGINT themselves.
+its own pair of groups (`dist.shard.replica_groups`), the first from
+the full weights and every other over the first one's shard (one copy
+of the rank's shard a rank, as at tp = 1 one copy on the card); rank 0
+serves HTTP over them and leads each engine (`dist.lockstep`), the
+other ranks follow each engine on a thread of its own
+(`dist.lockstep.follow`) and wait for rank 0's fleet messages
+(`dist.lockstep.FleetChannel`): a program that drives rank 0 grows the
+fleet while it serves with `add_tp_replica`, and every rank builds the
+new replica over the same shard.  Ctrl-C (SIGINT to the launcher) stops
+rank 0's gateway, which sends every engine's STOP tick and the fleet's
+STOP, and the other ranks exit 0; they ignore SIGINT themselves.
 
 Weights are random, drawn from `--seed` on the serving device and
 quantized leaf by leaf (so a full-width model never holds all its float
@@ -71,6 +76,7 @@ card it stops instead of falling back to the CPU.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import signal
@@ -149,47 +155,102 @@ def build_draft(cfg, device):
 
 
 def replica_engines(args, model, params, serve_cfg, spec_cfg, device):
-    """The gateway's `args.replicas` engines.  At tp = 1 they share the
-    first one's packed weights (one copy on the card); at tp > 1 each is
-    built from the full params on its own pair of groups, in the same
-    order on every rank."""
+    """The gateway's `args.replicas` engines: the first from `params`,
+    every other over the first one's packed weights (its `params`), so
+    a card holds one copy at tp = 1 and a rank one shard at tp > 1
+    (`replica_engine`)."""
+    eng = replica_engine(model, params, serve_cfg, spec_cfg, device)
+    return [eng] + [replica_engine(model, eng.params, eng.config, spec_cfg,
+                                   device)
+                    for _ in range(args.replicas - 1)]
+
+
+def replica_engine(model, params, serve_cfg, spec_cfg, device):
+    """One replica's engine; at tp > 1 on a new pair of groups
+    (`replica_groups`: every rank makes them, in the same order)."""
     from repro_torch.serve import PagedServeEngine
-    if args.tp == 1:
-        eng = PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
-                               device=device)
-        return [eng] + [PagedServeEngine(model, eng.params, eng.config,
-                                         spec=spec_cfg, device=device)
-                        for _ in range(args.replicas - 1)]
-    from repro_torch.dist import replica_groups
-    engines = []
-    for _ in range(args.replicas):
-        group, tick_group = replica_groups(args.tp)
-        engines.append(PagedServeEngine(model, params, serve_cfg,
-                                        spec=spec_cfg, device=device,
-                                        group=group, tick_group=tick_group))
-    return engines
+    groups = {}
+    if serve_cfg.tp > 1:
+        from repro_torch.dist import replica_groups
+        groups = dict(zip(("group", "tick_group"),
+                          replica_groups(serve_cfg.tp)))
+    return PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
+                            device=device, **groups)
 
 
-def follow_engines(engines) -> None:
+def add_tp_replica(router, channel, build):
+    """Rank 0 of a tensor-parallel fleet grows it by one replica while
+    it serves (JAX's `FleetRouter.add_replica` at any tp): the fleet
+    channel's ADD first, since every rank makes the new groups and the
+    other ranks wait for rank 0's messages, then `build()` (the engine
+    on its new groups, over the rank's shard, as the other ranks build
+    theirs: `follow_engines`) into the router.  Returns the replica."""
+    from repro_torch.dist import FleetChannel
+    channel.send(FleetChannel.ADD, len(router.replicas) + 1)
+    return router.add_replica(build())
+
+
+def follow_engines(engines, channel, build):
     """Ranks >= 1 under `--gateway`: follow each engine on a thread of
-    its own until rank 0 stops them all; a thread that fails fails the
-    rank (its process exits, so rank 0's next collective with it fails
-    at once)."""
-    from repro_torch.dist import follow_all
-    threads, outcomes = follow_all(engines)
+    its own (`follow_all`) and take rank 0's fleet messages
+    (`FleetChannel`) on another: at ADD build the next replica
+    (`build()`, as rank 0 does in `add_tp_replica`) and follow it too;
+    return (the engines, their threads) once the fleet's STOP came and
+    every engine's STOP tick.  A thread that fails, a build that fails
+    or a message out of step fails the rank (raises: its process exits,
+    so rank 0's next collective with it fails at once)."""
+    import queue
+    import threading
+
+    from repro_torch.dist import FleetChannel, LockstepError, follow_all
+    engines = list(engines)
+    runs = [follow_all(engines)]        # (threads, outcomes) a start
+    inbox: "queue.Queue" = queue.Queue()
+
+    def listen():
+        try:
+            while True:
+                msg = channel.recv()
+                inbox.put(msg)
+                if msg[0] == FleetChannel.STOP:
+                    return
+        except Exception as e:      # the rank's end: its main thread
+            inbox.put(e)            # raises it
+    threading.Thread(target=listen, daemon=True,
+                     name="fleet-channel").start()
+    stopped = False
     while True:
-        for t in threads:
-            t.join(0.2)
-        failed = [o for o in outcomes if isinstance(o, BaseException)]
+        try:
+            msg = inbox.get(timeout=0.2)
+        except queue.Empty:
+            msg = None
+        if isinstance(msg, BaseException):
+            raise msg
+        if msg is not None:
+            op, n = msg
+            if n != len(engines) + (op == FleetChannel.ADD):
+                raise LockstepError(
+                    f"rank 0's fleet message {msg} where this rank has "
+                    f"{len(engines)} replicas")
+            if op == FleetChannel.STOP:
+                stopped = True
+            else:
+                engines.append(build())
+                runs.append(follow_all(engines[-1:],
+                                       first=len(engines) - 1))
+        threads = [t for ts, _ in runs for t in ts]
+        failed = [o for _, os in runs for o in os
+                  if isinstance(o, BaseException)]
         if failed:
             raise failed[0]
-        if not any(t.is_alive() for t in threads):
-            return
+        if stopped and not any(t.is_alive() for t in threads):
+            return engines, threads
 
 
-def serve_gateway(args, engines) -> None:
+def serve_gateway(args, engines, channel=None) -> None:
     """Serve HTTP over the replicas' engines until Ctrl-C.  Each has its
-    own KV pool, CUDA graphs, stream and driver thread."""
+    own KV pool, CUDA graphs, stream and driver thread; at tp > 1 the
+    fleet's STOP goes on `channel` once the gateway stopped."""
     import asyncio
     import sys
 
@@ -212,6 +273,10 @@ def serve_gateway(args, engines) -> None:
         asyncio.run(gw.serve_forever(args.host, args.port))
     except KeyboardInterrupt:      # the gateway stopped its router:
         print("[api] gateway stopped", flush=True)   # STOP ticks at tp > 1
+    finally:
+        if channel is not None:
+            from repro_torch.dist import FleetChannel
+            channel.send(FleetChannel.STOP, len(router.replicas))
 
 
 def main(argv=None):
@@ -440,10 +505,17 @@ def serve(args, precision: str):
         engines = replica_engines(args, model, params, serve_cfg, spec_cfg,
                                   device)
         del params
-        if args.tp > 1 and engines[0].lockstep.rank:
-            follow_engines(engines)
-        else:
+        if args.tp == 1:
             serve_gateway(args, engines)
+            return engines[0], []
+        from repro_torch.dist import FleetChannel, fleet_group
+        channel = FleetChannel(fleet_group(args.tp))
+        if channel.leader:
+            serve_gateway(args, engines, channel)
+        else:
+            follow_engines(engines, channel, functools.partial(
+                replica_engine, model, engines[0].params,
+                engines[0].config, spec_cfg, device))
         return engines[0], []
     eng = PagedServeEngine(model, params, serve_cfg, spec=spec_cfg,
                            device=device)

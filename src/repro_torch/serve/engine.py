@@ -71,7 +71,9 @@ Tensor parallelism (`ServeConfig.tp > 1`), the counterpart of the JAX
 engine's `_shard_runtime_state`: the engine runs in each of `tp` ranks
 of a torch.distributed group (`dist.shard.serve_group`), takes the full
 params and keeps its rank's slice of every leaf (`dist.shard.shard_tree`
-by the specs' logical axes), and allocates its pools at n_kv_heads / tp
+by the specs' logical axes) or params that are the rank's slices
+already (another replica's `params`, kept with no copy:
+`dist.shard.rank_params`), and allocates its pools at n_kv_heads / tp
 heads (MLA's latent pools whole).  Block tables, refcounts, the
 scheduler and the prefix trie stay host-side and the same on every
 rank; every step runs under `dist.shard.use_tp` (the all-reduces after
@@ -130,8 +132,8 @@ import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.dist.lockstep import STEP, Lockstep, LockstepError
-from repro_torch.dist.shard import (recurrent_splits, serve_group,
-                                    shard_state_specs, shard_tree, use_tp)
+from repro_torch.dist.shard import (rank_params, recurrent_splits,
+                                    serve_group, shard_state_specs, use_tp)
 from repro_torch.models.common import tree_to
 from repro_torch.obs.energy import EnergyMeter
 from repro_torch.obs.recorder import FlightRecorder
@@ -284,11 +286,11 @@ class PagedServeEngine:
             # the precision field is authoritative: quantize float params
             params = quantize_params(params, bits=config.weight_bits(),
                                      group=config.quant_group)
-        if self.group is not None:
-            params = shard_tree(params, model.param_specs(),
-                                dist.get_rank(self.group), config.tp,
-                                splits=recurrent_splits(model.cfg,
-                                                        config.tp))
+        if self.group is not None:      # full: sharded; the rank's: kept
+            params = rank_params(params, model.param_specs(),
+                                 dist.get_rank(self.group), config.tp,
+                                 splits=recurrent_splits(model.cfg,
+                                                         config.tp))
         self.model = model
         self.params = params
         self.max_batch = max_batch

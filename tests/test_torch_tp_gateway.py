@@ -10,10 +10,19 @@ The dense smoke config, its weights drawn with numpy from a seed (the
 int4 case's packed once for both packages, `test_torch_dist.packed`).
 Held:
 
-  * greedy SSE streams through the port's gateway at tp = 2 over two
-    replicas (each on its own groups), n = 1 and n = 2 forks, in fp and
-    int4, equal to JAX's tp = 2 engine's and to the port's tp = 1
-    gateway's; both ranks end with the same engine ids, lanes and pages;
+  * greedy SSE streams through the port's gateway at tp = 2 over the
+    launcher's two replicas (`launch.serve.replica_engines`, each on its
+    own groups), n = 1 and n = 2 forks, in fp and int4, equal to JAX's
+    tp = 2 engine's and to the port's tp = 1 gateway's; both ranks end
+    with the same engine ids, lanes and pages;
+  * a third replica added at tp = 2 while every lane is taken
+    (`launch.serve.add_tp_replica`, JAX's add-under-load test at tp =
+    2): its id, least-loaded routing to it, the prompts posted again
+    answered with JAX's streams, nothing lost, every admission slot and
+    page back, both ranks agreeing on all three replicas;
+  * one shard a rank: every leaf of every replica is replica 0's tensor
+    (data_ptr) at the rank's shapes; `rank_params` keeps such a tree,
+    shards a full one and refuses any other (no spawn, every family);
   * ticks: one a step call on each engine and one STOP each, the
     followers receiving what rank 0 sent, at most two broadcasts a tick;
     the step's collectives still 2 L + 2 a call on both ranks;
@@ -26,23 +35,27 @@ Held:
   * the ranks' states agree after every step of a mixed run (a cancel
     while queued, a drain re-homing queued requests onto the other
     replica, a cancel mid-decode), and every page comes back;
-  * a follower whose step raises turns /healthz and /v1/completions to
-    503 on rank 0 within the group's timeout; `add_replica` is refused;
+  * a follower whose step raises, or whose build of an added replica
+    raises, turns /healthz and /v1/completions to 503 on rank 0 within
+    the group's timeout;
   * the launcher: two posts answered with JAX's tp = 2 streams,
     /metrics showing two replicas, SIGINT ending every rank with
     `[api] gateway stopped`.
 """
 import asyncio
+import functools
 import json
 import os
 import signal
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import torch.multiprocessing as mp
 
 from repro.configs import get_smoke_config as jax_smoke
@@ -57,8 +70,10 @@ import repro_torch.launch.serve as port_launch
 from repro_torch.api import Gateway
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_numpy_tree
+from repro_torch.dist import rank_params, recurrent_splits, shard_tree
 from repro_torch.fleet import FleetRouter
-from repro_torch.models import DecoderLM
+from repro_torch.models import DecoderLM, init_params
+from repro_torch.quant.ptq import quantize_leaf
 from repro_torch.quant.qarray import QTensor
 from repro_torch.serve import PagedServeEngine, ServeConfig
 
@@ -68,6 +83,7 @@ from test_torch_model import SMOKE
 
 GEOM = dict(max_batch=2, max_seq=48, page_size=4, prefill_chunk=8)
 N_SAMPLES = [1, 2, 1, 2, 1]
+PROMPT_LENGTHS = (3, 9, 17, 6, 12)
 NEW = 9
 # the deadline runs: (priority, deadline_s, new tokens, the step before
 # which it is submitted); a pool of 9 pages preempts request 0, which
@@ -214,7 +230,7 @@ def served(tmp_path_factory):
     host = host_weights(SMOKE)
     fp = (jax.tree_util.tree_map(jnp.asarray, host), host)
     int4 = packed(host, 16)
-    prompts = _prompts(1, (3, 9, 17, 6, 12))
+    prompts = _prompts(1, PROMPT_LENGTHS)
     dl_prompts = _prompts(3, (3, 9, 6, 7, 6, 4, 8, 5))
     mixed_prompts = _prompts(5, (5, 7, 4, 6, 3, 8))
     cases = {"fp": dict(GEOM), "int4": dict(GEOM, precision="int4",
@@ -267,7 +283,8 @@ def served(tmp_path_factory):
     for r, res in ranks.items():
         assert isinstance(res, dict), f"rank {r} failed:\n{res}"
     return dict(ranks=ranks, jax=ref, tp1=tp1, deadlines=deadlines,
-                mixed_ref=mixed_ref, launch=launch, launch_ref=launch_ref)
+                mixed_ref=mixed_ref, launch=launch, launch_ref=launch_ref,
+                weights={name: w[1] for name, w in weights.items()})
 
 
 # ----------------------------------------------------------------------------
@@ -276,7 +293,7 @@ def served(tmp_path_factory):
 @pytest.mark.parametrize("name", ["fp", "int4"])
 def test_gateway_tp2_streams_equal_jax_tp2_and_port_tp1(served, name):
     r0, r1 = served["ranks"][0][name], served["ranks"][1][name]
-    assert r0["status"] == [200] * len(N_SAMPLES)
+    assert r0["status"] == [200] * (len(N_SAMPLES) + len(PROMPT_LENGTHS))
     assert r0["streams"] == served["jax"][name]
     assert r0["streams"] == served["tp1"][name]
     assert [len(s) for s in r0["streams"]] == N_SAMPLES
@@ -285,8 +302,9 @@ def test_gateway_tp2_streams_equal_jax_tp2_and_port_tp1(served, name):
     for st in r0["states"]:
         assert st["lanes"] == [None, None] and st["queue"] == []
         assert st["free_or_cached"] == st["n_pages"]
-    assert sum(st["next_eid"] for st in r0["states"]) == sum(N_SAMPLES)
-    assert r1["followers"] == ["stop", "stop"]
+    assert sum(st["next_eid"] for st in r0["states"]) == \
+        sum(N_SAMPLES) + len(PROMPT_LENGTHS)
+    assert r1["followed"] == 3
 
 
 @pytest.mark.parametrize("name", ["fp", "int4"])
@@ -299,7 +317,8 @@ def test_ticks_one_a_step_call_and_collectives_unchanged(served, name):
     steps = r0["driver_steps"]
     assert [st["steps"] for st in r0["states"]] == steps
     assert [st["ticks"] for st in r0["states"]] == [s + 1 for s in steps]
-    assert r0["ticks"]["ticks"] == r1["ticks"]["ticks"] == sum(steps) + 2
+    assert r0["ticks"]["ticks"] == r1["ticks"]["ticks"] == \
+        sum(steps) + len(steps)
     assert r0["ticks"] == r1["ticks"]
     assert r0["ticks"]["ticks"] < r0["ticks"]["broadcasts"] \
         <= 2 * r0["ticks"]["ticks"]
@@ -309,10 +328,123 @@ def test_ticks_one_a_step_call_and_collectives_unchanged(served, name):
                                       "all_gather": calls}
 
 
-def test_add_replica_is_refused_at_tp2(served):
-    msg = served["ranks"][0]["fp"]["add_replica"]
-    assert msg.startswith("add_replica at tp=2: every rank would have to "
-                          "build an engine and its groups while serving")
+# ----------------------------------------------------------------------------
+# a replica added under load; one shard a rank
+# ----------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["fp", "int4"])
+def test_add_replica_at_tp2_under_load_loses_nothing(served, name):
+    """JAX's `test_fleet_add_replica_under_load_zero_loss` at tp = 2:
+    the replica joins while every lane of the other two is taken (both
+    parked between steps until every post is routed), takes id 2, is
+    live at once and is least-loaded's pick; every request, those in
+    flight and those posted again, answers with JAX's tp = 2 stream."""
+    r0 = served["ranks"][0][name]
+    want = served["jax"][name]
+    assert r0["lanes_at_add"] == [GEOM["max_batch"]] * 2
+    assert r0["added"] == [2, True, True]
+    assert r0["routed_to"] == 2
+    assert r0["dispatches"][2] >= 1, "the added replica must absorb load"
+    assert sum(r0["dispatches"]) == len(N_SAMPLES) + len(PROMPT_LENGTHS)
+    assert r0["counters"]["adds"] == 1
+    assert r0["counters"]["requeue_failed"] == 0
+    assert r0["pending"] == [0, 0, 0], "admission ledger must return to 0"
+    assert r0["streams"] == want
+    assert r0["streams_again"] == [g[0] for g in want]
+    assert r0["add_again"].startswith(
+        "add_replica at tp=2 takes rank 0's engine on a pair of groups of "
+        "its own")
+
+
+@pytest.mark.parametrize("name", ["fp", "int4"])
+def test_ranks_agree_on_every_replica_after_an_add(served, name):
+    """Both ranks' states agree on all three replicas; the added one
+    stepped, its ticks one a step call and its STOP; every page back."""
+    r0, r1 = served["ranks"][0][name], served["ranks"][1][name]
+    assert len(r0["states"]) == len(r1["states"]) == 3
+    assert r0["states"] == r1["states"], "the ranks left lockstep"
+    added = r0["states"][2]
+    assert added["steps"] == r0["driver_steps"][2] >= 1
+    assert added["ticks"] == added["steps"] + 1
+    assert added["next_eid"] == r0["dispatches"][2]
+    for st in r0["states"]:
+        assert st["free_or_cached"] == st["n_pages"]
+    L = SMOKE["n_layers"]
+    for res in (r0, r1):
+        calls = sum(st["calls"] for st in res["states"])
+        assert res["collectives"]["all_reduce"] == (2 * L + 1) * calls
+
+
+@pytest.mark.parametrize("name", ["fp", "int4"])
+def test_replicas_share_the_rank_shard(served, name):
+    """Every leaf of every replica, the added one too, is replica 0's
+    tensor on each rank (its data_ptr), at the rank's shapes: those of
+    `shard_tree` of the full weights."""
+    model = DecoderLM(torch_tp_ranks.port_config(SMOKE))
+    params = from_numpy_tree(served["weights"][name])
+    for rank in (0, 1):
+        storage = served["ranks"][rank][name]["storage"]
+        assert len(storage) == 3
+        for other in storage[1:]:
+            assert other == storage[0]
+        eng = SimpleNamespace(params=shard_tree(params, model.param_specs(),
+                                                rank, 2))
+        want = torch_tp_ranks.leaf_storage(eng)
+        assert [(p, [s for _, s in ts]) for p, ts in storage[0]] == \
+            [(p, [s for _, s in ts]) for p, ts in want]
+        assert any(s != f for (_, ts), (_, fs) in zip(
+            storage[0], torch_tp_ranks.leaf_storage(
+                SimpleNamespace(params=params)))
+            for (_, s), (_, f) in zip(ts, fs)), "no leaf is sharded"
+
+
+RANK_PARAMS_ARCHS = ["qwen2.5-3b", "qwen3-moe-235b-a22b",
+                     "deepseek-v2-lite-16b", "xlstm-1.3b", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("precision", ["fp", "int4"])
+@pytest.mark.parametrize("arch", RANK_PARAMS_ARCHS)
+def test_rank_params_keeps_a_shard_and_refuses_a_mixed_tree(arch,
+                                                            precision):
+    """`rank_params` at tp = 2 on every family's smoke config (the GQA,
+    MoE / MLA and recurrent split tables): a full tree comes back as
+    `shard_tree`'s copy; that copy comes back as the very tree; a tree
+    with one leaf full and the rest the rank's, or with a leaf of
+    neither shape, raises."""
+    import warnings
+    cfg = get_smoke_config(arch).replace(dtype="float32", remat=False)
+    model = DecoderLM(cfg)
+    specs = model.param_specs()
+    leaf_fn = None if precision == "fp" else functools.partial(
+        quantize_leaf, bits=4, group=16)
+    with warnings.catch_warnings():     # xlstm's K = 85 leaf stays float
+        warnings.simplefilter("ignore", UserWarning)
+        full = init_params(specs, torch.Generator().manual_seed(0), "cpu",
+                           dtype_override=torch.float32, leaf_fn=leaf_fn)
+    splits = recurrent_splits(cfg, 2)
+    for rank in (0, 1):
+        mine = rank_params(full, specs, rank, 2, splits=splits)
+        want = shard_tree(full, specs, rank, 2, splits=splits)
+        assert len(_tensors(mine)) == len(_tensors(want))
+        assert all(p == q and torch.equal(a, b) for (p, a), (q, b) in
+                   zip(_tensors(mine), _tensors(want)))
+        assert rank_params(mine, specs, rank, 2, splits=splits) is mine
+        mixed = dict(mine, embed=full["embed"])
+        with pytest.raises(ValueError, match="neither the full tree nor"):
+            rank_params(mixed, specs, rank, 2, splits=splits)
+        odd = dict(full, embed=full["embed"][:-1])
+        with pytest.raises(ValueError, match="neither the full tree nor"):
+            rank_params(odd, specs, rank, 2, splits=splits)
+
+
+def _tensors(tree, path=""):
+    """(path, tensor) of every tensor of `tree`, a QTensor's data and
+    scales apart, in path order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensors(tree[k],
+                                                           f"{path}/{k}")]
+    if isinstance(tree, QTensor):
+        return [(path + ":data", tree.data), (path + ":scales", tree.scales)]
+    return [(path, tree)]
 
 
 # ----------------------------------------------------------------------------
@@ -371,6 +503,19 @@ def test_a_dead_follower_turns_the_gateway_to_503(served):
     assert r0["healthz"] == 503 and r0["post"] == 503
     assert r0["seconds_to_503"] < DEAD_TIMEOUT_S + 30
     assert "RuntimeError" in r0["errors"][0] and r0["errors"][1] == "None"
+
+
+def test_a_follower_that_fails_to_build_an_added_replica_ends_its_rank(
+        served):
+    """Rank 1's build of an added replica raises once its groups are
+    made: `follow_engines` raises, the rank ends (its groups destroyed,
+    as the launcher's), and rank 0's gateway answers 503."""
+    r0 = served["ranks"][0]["failed_build"]
+    r1 = served["ranks"][1]["failed_build"]
+    assert r1["error"] == "RuntimeError: replica build failed (injected)"
+    assert r0["added"] == 2
+    assert r0["healthz"] == 503 and r0["post"] == 503
+    assert r0["seconds_to_503"] < DEAD_TIMEOUT_S + 30
 
 
 # ----------------------------------------------------------------------------

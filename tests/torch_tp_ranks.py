@@ -375,9 +375,9 @@ class Clock:
 
 
 def replica_engines(case, n, timeout_s=None, clock=None, driven=True):
-    """`n` engines of `case` at tp = 2, each on its own pair of groups;
-    `driven=False`: the ticks on the step's group, bounded as the
-    offline launcher's."""
+    """`n` engines of `case` at tp = 2, each on its own pair of groups,
+    every one after the first over the first one's shard; `driven=False`:
+    the ticks on the step's group, bounded as the offline launcher's."""
     from repro_torch.dist import replica_groups
     model = DecoderLM(port_config(case["arch"]))
     params = from_numpy_tree(case["params"])
@@ -387,8 +387,25 @@ def replica_engines(case, n, timeout_s=None, clock=None, driven=True):
         group, tick_group = (replica_groups(2) if timeout_s is None
                              else replica_groups(2, timeout_s))
         out.append(PagedServeEngine(
-            model, params, ServeConfig(**case["serve"], tp=2), device="cpu",
+            model, out[0].params if out else params,
+            ServeConfig(**case["serve"], tp=2), device="cpu",
             group=group, tick_group=tick_group if driven else None, **kw))
+    return out
+
+
+def leaf_storage(eng):
+    """(path, [(data_ptr, shape)] of the leaf's tensors) of every leaf of
+    `eng`'s params: a QTensor's data and scales, a float leaf itself."""
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + "/" + k)
+        else:
+            ts = [t.data, t.scales] if isinstance(t, QTensor) else [t]
+            out.append((path, [(x.data_ptr(), list(x.shape)) for x in ts]))
+    walk(eng.params, "")
     return out
 
 
@@ -467,43 +484,100 @@ async def http_get(host, port, path):
 
 
 def gateway_streams(rank, case):
-    """The gateway at tp = 2 over two replicas: every prompt posted at
-    once (`case["n"]` samples each), then the gateway stopped.  Returns
-    the streams (rank 0), each engine's state, and the counts."""
+    """The gateway at tp = 2 over the launcher's two replicas
+    (`launch.serve.replica_engines`, one shard a rank), least-loaded:
+    every prompt posted at once (`case["n"]` samples each); once every
+    lane is taken, both replicas parked between steps while a third
+    joins (`add_tp_replica`; rank 1 builds it in `follow_engines`) and
+    every prompt is posted again (one sample each); then the replicas
+    let go and the gateway stopped.  Returns the streams (rank 0), each
+    engine's state and leaf storage, and the counts."""
     import asyncio
+    import functools
+    import threading
+    from types import SimpleNamespace
 
+    import repro_torch.launch.serve as launch
     from repro_torch.api import Gateway
-    from repro_torch.dist import reset_tick_counts, tick_counts
+    from repro_torch.dist import (FleetChannel, fleet_group,
+                                  reset_tick_counts, tick_counts)
     from repro_torch.fleet import FleetRouter
-    engines = replica_engines(case, 2)
+    model = DecoderLM(port_config(case["arch"]))
+    engines = launch.replica_engines(
+        SimpleNamespace(tp=2, replicas=2), model,
+        from_numpy_tree(case["params"]), ServeConfig(**case["serve"], tp=2),
+        None, "cpu")
+    channel = FleetChannel(fleet_group(2))
+    build = functools.partial(launch.replica_engine, model,
+                              engines[0].params, engines[0].config, None,
+                              "cpu")
     reset_collective_counts()
     reset_tick_counts()
     out = {}
     if rank == 0:
-        router = FleetRouter(engines, policy="rr")
+        router = FleetRouter(engines, policy="least-loaded")
         gw = Gateway(router)
 
+        def post(host, port, p, n):
+            return sse_post(host, port, {"prompt": [int(t) for t in p],
+                                         "max_tokens": case["new"], "n": n})
+
         async def run():
+            loop = asyncio.get_running_loop()
             host, port = await gw.start("127.0.0.1", 0)
             try:
-                return await asyncio.gather(*[
-                    sse_post(host, port, {"prompt": [int(t) for t in p],
-                                          "max_tokens": case["new"],
-                                          "n": n})
-                    for p, n in zip(case["prompts"], case["n"])])
+                first = [asyncio.ensure_future(post(host, port, p, n))
+                         for p, n in zip(case["prompts"], case["n"])]
+                full = (engines[0].max_batch, engines[0].max_batch)
+                while True:
+                    lanes = tuple([await asyncio.wrap_future(
+                        rep.driver.call(lambda e: e.n_running))
+                        for rep in router.replicas])
+                    if lanes == full or all(f.done() for f in first):
+                        break
+                    await asyncio.sleep(0.002)
+                out["lanes_at_add"] = list(lanes)
+                gate = threading.Event()
+                parked = [rep.driver.call(lambda e: gate.wait(60))
+                          for rep in router.replicas]
+                try:
+                    rep = await loop.run_in_executor(
+                        None, launch.add_tp_replica, router, channel, build)
+                    out["added"] = [rep.id, rep.live, rep.driver.alive]
+                    out["routed_to"] = router.route(case["prompts"][0],
+                                                    1).id
+                    again = [asyncio.ensure_future(post(host, port, p, 1))
+                             for p in case["prompts"]]
+                    while router.counters["dispatched"] < len(first) \
+                            + len(again):
+                        await asyncio.sleep(0.002)
+                finally:
+                    gate.set()
+                for f in parked:
+                    await asyncio.wrap_future(f)
+                return (await asyncio.gather(*first),
+                        await asyncio.gather(*again))
             finally:
                 await gw.stop()
-        res = asyncio.run(run())
-        out["status"] = [s for s, _ in res]
+                channel.send(FleetChannel.STOP, len(router.replicas))
+        res, res_again = asyncio.run(run())
+        out["status"] = [s for s, _ in res + res_again]
         out["streams"] = [[t[i] for i in sorted(t)] for _, t in res]
+        out["streams_again"] = [t.get(0) for _, t in res_again]
         out["driver_steps"] = [rep.driver.steps for rep in router.replicas]
+        out["dispatches"] = [rep.dispatches for rep in router.replicas]
+        out["pending"] = [rep.pending for rep in router.replicas]
+        out["counters"] = dict(router.counters)
         try:
             router.add_replica(engines[0])
-        except NotImplementedError as e:
-            out["add_replica"] = str(e)
-    else:
-        out["followers"] = follow_threads(engines)()
+        except ValueError as e:
+            out["add_again"] = str(e)
+        engines = [rep.engine for rep in router.replicas]
+    else:       # returns once every engine's STOP came, or raises
+        engines, _ = launch.follow_engines(engines, channel, build)
+        out["followed"] = len(engines)
     out["states"] = [engine_state(e) for e in engines]
+    out["storage"] = [leaf_storage(e) for e in engines]
     out["collectives"] = collective_counts()
     out["ticks"] = tick_counts()
     return out
@@ -676,11 +750,70 @@ def dead_follower(rank, case, timeout_s):
     return out
 
 
+def failed_build(rank, case, timeout_s):
+    """Two replicas at tp = 2 (their collectives timing out after
+    `timeout_s`); rank 0 adds a third while it serves, and rank 1's
+    build of it raises once its groups are made, so `follow_engines`
+    raises there and the rank ends as the launcher's does (its process
+    group destroyed).  Rank 0: the added id, seconds until /healthz
+    answers 503 (posting until it does), /healthz's and a new post's
+    status.  Last: it ends rank 1's groups."""
+    import asyncio
+    import functools
+    import time
+
+    import repro_torch.launch.serve as launch
+    from repro_torch.api import Gateway
+    from repro_torch.dist import FleetChannel, fleet_group, replica_groups
+    from repro_torch.fleet import FleetRouter
+    engines = replica_engines(case, 2, timeout_s=timeout_s)
+    channel = FleetChannel(fleet_group(2))
+    out = {}
+    if rank == 0:
+        router = FleetRouter(engines, policy="least-loaded")
+        gw = Gateway(router)
+        build = functools.partial(launch.replica_engine, engines[0].model,
+                                  engines[0].params, engines[0].config,
+                                  None, "cpu")
+
+        async def run():
+            host, port = await gw.start("127.0.0.1", 0)
+            try:
+                rep = await asyncio.get_running_loop().run_in_executor(
+                    None, launch.add_tp_replica, router, channel, build)
+                out["added"] = rep.id
+                body = {"prompt": [int(t) for t in case["prompts"][0]],
+                        "max_tokens": 8}
+                t0 = time.monotonic()
+                while (await http_get(host, port, "/healthz"))[0] != 503:
+                    if time.monotonic() - t0 > timeout_s + 60:
+                        break
+                    await sse_post(host, port, body)
+                out["seconds_to_503"] = time.monotonic() - t0
+                out["healthz"] = (await http_get(host, port, "/healthz"))[0]
+                out["post"] = (await sse_post(host, port, body))[0]
+            finally:
+                await gw.stop()
+                channel.send(FleetChannel.STOP, len(router.replicas))
+        asyncio.run(run())
+    else:
+        def build():
+            replica_groups(2)           # where rank 0 makes them
+            raise RuntimeError("replica build failed (injected)")
+        try:
+            launch.follow_engines(engines, channel, build)
+        except RuntimeError as e:
+            out["error"] = f"{type(e).__name__}: {e}"
+        finally:               # the launcher's rank ends here
+            dist.destroy_process_group()
+    return out
+
+
 def gateway_rank_main(rank, init, payload, queue):
     """One rank of tests/test_torch_tp_gateway.py's group: the gateway's
     streams (fp, int4), the deadline runs (replicated, driven), the mixed
-    run, then the dead follower (last: it leaves replica 0's group
-    broken)."""
+    run, then the dead follower (it leaves replica 0's group broken) and
+    the failed build (last: it ends rank 1's groups)."""
     import datetime
     import os
 
@@ -701,6 +834,8 @@ def gateway_rank_main(rank, init, payload, queue):
         res["mixed"] = mixed_run(rank, payload["mixed"])
         res["dead"] = dead_follower(rank, payload["fp"],
                                     payload["dead_timeout_s"])
+        res["failed_build"] = failed_build(rank, payload["fp"],
+                                           payload["dead_timeout_s"])
         queue.put((rank, res))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
