@@ -137,6 +137,12 @@ class Tracer:
         return next(self._rid_counter)
 
     # -- recording (hot path) -------------------------------------------
+    def now(self) -> float:
+        """A reading of the tracer's clock: the stamp for a span the
+        caller times itself (`complete`), so that its spans and the
+        tracer's own lie on one clock."""
+        return self._clock()
+
     def _ring(self) -> _Ring:
         ring = getattr(self._tls, "ring", None)
         if ring is None:

@@ -50,7 +50,12 @@ charges every served token its EdgeCIM cost (the `sim_*` keys of
 starts before its model call and ends when the sampled tokens (or the
 verify logits) reach the host.  A replayed CUDA graph runs
 asynchronously until that copy, so unlike the JAX engine's spans, which
-cover the jitted dispatch, the port's include the device's work.
+cover the jitted dispatch, the port's include the device's work.  The
+port splits each model call further, into spans of category "step"
+that the JAX engine does not record (`graphs.CallMarks`):
+`step_inputs`, `step_replay` and `step_sample`, each with the device's
+time between CUDA events at the same marks.  All spans are stamped by
+the tracer's clock (`Tracer.now`).
 
 Prefix caching, forks (parallel sampling) and speculative decoding act
 on attention KV pages alone: a model with recurrent state layers cannot
@@ -142,7 +147,7 @@ from repro_torch.quant.ptq import quantize_params
 from repro_torch.quant.qarray import QTensor, dequant_counters
 
 from .config import ServeConfig
-from .graphs import StepRunner
+from .graphs import CallMarks, StepRunner
 from .paged_cache import PagedKVCache
 from .prefix import PrefixIndex
 from .sampling import SamplingParams, processed_probs, sample_tokens
@@ -342,6 +347,7 @@ class PagedServeEngine:
         self.generator.manual_seed(config.seed)
         self.runner = StepRunner(self.device,
                                  eager=eager or self.group is not None)
+        self._traced: Optional[CallMarks] = None    # a traced call's marks
         # the model's steps; at tp > 1 each runs its collectives on the
         # group (one wrapper per step, so the runner keys it stably)
         self._serve_fn = self._on_group(model.serve_step)
@@ -514,7 +520,26 @@ class PagedServeEngine:
         place.  The logits are the step's static output: every use of
         them ends before the next call of the same step."""
         return self.runner(step_fn or self._serve_fn, self.params,
-                           self.state, tokens, tables, lengths, n_new)
+                           self.state, tokens, tables, lengths, n_new,
+                           self._traced)
+
+    def _open_call(self, t0: float, phase: str, samples: bool, fn,
+                   shape) -> None:
+        """Open a traced model call's marks at `t0` (`graphs.CallMarks`:
+        the call of `fn` on tokens of `shape`)."""
+        self._traced = self.runner.marks(fn, shape)
+        self._traced.open(self.tracer, t0, phase, samples)
+
+    def _close_call(self, t_end: float) -> None:
+        """After the call's own sync, at `t_end`: its step spans."""
+        self._traced.close(t_end)
+        self._traced = None
+
+    def _drop_call(self) -> None:
+        """A call that raised: close its open range, record no spans."""
+        if self._traced is not None:
+            self._traced.abort()
+            self._traced = None
 
     def _tables(self) -> np.ndarray:
         tab = np.zeros((self.max_batch, self.cache.max_pages), np.int32)
@@ -541,8 +566,10 @@ class PagedServeEngine:
                 temp[i] = req.sampling.temperature
                 topk[i] = req.sampling.top_k
                 topp[i] = req.sampling.top_p
-        return sample_tokens(self.generator, rows, temp, topk,
-                             topp).cpu().numpy()
+        toks = sample_tokens(self.generator, rows, temp, topk, topp)
+        if self._traced is not None:
+            self._traced.end_sample()
+        return toks.cpu().numpy()
 
     def _emit(self, req: ServeRequest, token: int, now: float,
               decode: bool = True, row=None) -> None:
@@ -737,17 +764,29 @@ class PagedServeEngine:
             finishing |= q == req.prefill_remaining
         if not pre:
             return 0.0
-        t0 = time.monotonic()       # the tracer's clock: spans line up
-        logits = self._dispatch(tokens, self._tables(), self._lengths(),
-                                n_new)
-        self.prefill_calls += 1
-        if finishing:       # only sample when some lane ends its prompt
-            idx = torch.from_numpy(np.maximum(n_new - 1, 0).astype(np.int64))
-            last = logits[torch.arange(self.max_batch), idx.to(logits.device)]
-            nxt = self._sample_rows(last)
-        elif self.stream is not None:     # this engine's work only
-            self.stream.synchronize()
-        dt = time.monotonic() - t0
+        t0 = self.tracer.now()
+        if self.tracer.enabled:
+            self._open_call(t0, "prefill", finishing, self._serve_fn,
+                            tokens.shape)
+        try:
+            logits = self._dispatch(tokens, self._tables(), self._lengths(),
+                                    n_new)
+            self.prefill_calls += 1
+            if finishing:   # only sample when some lane ends its prompt
+                idx = torch.from_numpy(
+                    np.maximum(n_new - 1, 0).astype(np.int64))
+                last = logits[torch.arange(self.max_batch),
+                              idx.to(logits.device)]
+                nxt = self._sample_rows(last)
+            elif self.stream is not None:     # this engine's work only
+                self.stream.synchronize()
+        except BaseException:
+            self._drop_call()
+            raise
+        t1 = self.tracer.now()
+        if self._traced is not None:
+            self._close_call(t1)
+        dt = t1 - t0
         now = self._clock()
         chunk_rids = [self.lanes[i].trace_id for i in pre]
         chunk_tokens = 0
@@ -798,12 +837,21 @@ class PagedServeEngine:
         for i in ready:
             tokens[i, 0] = self.lanes[i].out_tokens[-1]
             n_new[i] = 1
-        t0 = time.monotonic()
-        lens = self._lengths()
-        logits = self._dispatch(tokens, self._tables(), lens, n_new)
-        self.decode_calls += 1
-        nxt = self._sample_rows(logits[:, 0, :])
-        dt = time.monotonic() - t0
+        t0 = self.tracer.now()
+        if self.tracer.enabled:
+            self._open_call(t0, "decode", True, self._serve_fn, tokens.shape)
+        try:
+            lens = self._lengths()
+            logits = self._dispatch(tokens, self._tables(), lens, n_new)
+            self.decode_calls += 1
+            nxt = self._sample_rows(logits[:, 0, :])
+        except BaseException:
+            self._drop_call()
+            raise
+        t1 = self.tracer.now()
+        if self._traced is not None:
+            self._close_call(t1)
+        dt = t1 - t0
         now = self._clock()
         rids = [self.lanes[i].trace_id for i in ready]
         self.energy.charge_decode(len(ready), float(lens[ready].mean()))
@@ -852,9 +900,9 @@ class PagedServeEngine:
                                 np.int32)])
                 smp[i] = req.sampling
         # drafting counts toward the decode time speculation spends
-        t0 = time.monotonic()
+        t0 = self.tracer.now()
         prop = spec.drafter.propose(histories, k_draft, smp)
-        draft_s = time.monotonic() - t0
+        draft_s = self.tracer.now() - t0
 
         tokens = np.zeros((self.max_batch, k + 1), np.int32)
         n_new = np.zeros(self.max_batch, np.int32)
@@ -886,17 +934,34 @@ class PagedServeEngine:
         # nothing drafted anywhere: the (b, k + 1) window would spend
         # (k + 1)x the decode compute on a plain step, so take (b, 1)
         plain = all(nd == 0 for _, nd in ready)
-        t1 = time.monotonic()
-        if plain:
-            logits = self._dispatch(tokens[:, :1], self._tables(), lengths,
-                                    n_new)
-            self.decode_calls += 1
-        else:
-            logits = self._dispatch(tokens, self._tables(), lengths, n_new,
-                                    step_fn=spec.verify_fn)
-            self.verify_calls += 1
-        logits_np = logits.float().cpu().numpy()
-        dt = time.monotonic() - t0
+        t1 = self.tracer.now()
+        if self.tracer.enabled:     # sampled: the logits' cast and copy
+            if plain:
+                self._open_call(t1, "decode", True, self._serve_fn,
+                                (self.max_batch, 1))
+            else:
+                self._open_call(t1, "verify", True, spec.verify_fn,
+                                tokens.shape)
+        try:
+            if plain:
+                logits = self._dispatch(tokens[:, :1], self._tables(),
+                                        lengths, n_new)
+                self.decode_calls += 1
+            else:
+                logits = self._dispatch(tokens, self._tables(), lengths,
+                                        n_new, step_fn=spec.verify_fn)
+                self.verify_calls += 1
+            rows = logits.float()
+            if self._traced is not None:
+                self._traced.end_sample()
+            logits_np = rows.cpu().numpy()
+        except BaseException:
+            self._drop_call()
+            raise
+        t2 = self.tracer.now()
+        if self._traced is not None:
+            self._close_call(t2)
+        dt = t2 - t0
         now = self._clock()
         drafted = accepted = n_emitted = 0
         lanes_idx = [i for i, _ in ready]
@@ -923,7 +988,7 @@ class PagedServeEngine:
             self._maybe_finish(i, now)
         self.telemetry.spec(drafted, accepted)
         spec.observe(drafted, accepted)
-        verify_s = time.monotonic() - t1
+        verify_s = self.tracer.now() - t1
         self.energy.charge_decode(
             n_emitted, float(lengths[lanes_idx].mean()))
         self.recorder.record("spec_verify", lanes=len(ready),

@@ -49,6 +49,9 @@ replayed after:
     raises.  The card runs the steps eagerly only when the caller asks
     (`eager=True`).  On the CPU the steps run eagerly through the same
     static buffers.
+  * A traced call carries its `CallMarks` (`marks(fn, shape)`): the
+    runner marks the replay's start and end on them, after the input
+    copies and around `graph.replay()` (on the CPU, the eager step).
 """
 from __future__ import annotations
 
@@ -97,6 +100,107 @@ class _Step:
         return logits
 
 
+PHASES = ("step_inputs", "step_replay", "step_sample")
+
+
+class CallMarks:
+    """The phases of one traced model call, on the device's clock.
+
+    Four marks split the call: E0 at its opening, E1 once its inputs are
+    built and copied in, E2 once the host's replay call returns (on the
+    CPU, the eager step), E3 once the sampling kernels are launched,
+    before the tokens' copy to the host (only where the call samples).
+    Each mark is a reading of the tracer's clock and, on the card, a
+    timing event on the current stream: one set of four a (step, shape),
+    allocated at its first traced call.  The events are read in `close`,
+    after the sync the call makes anyway (the tokens' `.cpu()` or the
+    stream's `synchronize`), so a traced call adds none.  On the CPU,
+    where the step runs eagerly and synchronously, the host clock's
+    readings at the same marks stand in for the device's.
+
+    `close` records one span a phase, category "step", inside the
+    call's own span: `step_inputs` (E0 -> E1), `step_replay` (E1 ->
+    E2) and, where the call samples, `step_sample` (from E2 until the
+    tokens are on the host; on the device E2 -> E3), each with the
+    call's `phase` and its `device_ms`.  While a phase lasts, a profiler
+    range of its name is open (`_RecordFunctionFast`: function scope, so
+    a torch profiler shows it on the host's track beside the kernels it
+    launched and adds no device-side annotation to the kernels' own
+    timeline)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.events = ([torch.cuda.Event(enable_timing=True)
+                        for _ in range(4)]
+                       if device.type == "cuda" else None)
+        self.host = [0.0] * 4
+        self.tracer = None
+        self.phase = ""
+        self.samples = False
+        self._stream = None
+        self._range = None
+
+    def open(self, tracer, t0: float, phase: str, samples: bool) -> None:
+        """E0, at the call's opening `t0` (a reading of `tracer.now()`)."""
+        self.tracer, self.phase, self.samples = tracer, phase, samples
+        self.host[0] = t0
+        if self.events is not None:
+            self._stream = torch.cuda.current_stream(self.device)
+            self.events[0].record(self._stream)
+        self._enter("step_inputs")
+
+    def begin_replay(self) -> None:
+        """E1: the inputs are in place; the replay follows."""
+        self._exit()
+        if self.events is not None:
+            self.events[1].record(self._stream)
+        self._enter("step_replay")
+        self.host[1] = self.tracer.now()
+
+    def end_replay(self) -> None:
+        """E2: the host's replay call returned."""
+        self.host[2] = self.tracer.now()
+        self._exit()
+        if self.events is not None:
+            self.events[2].record(self._stream)
+        if self.samples:
+            self._enter("step_sample")
+
+    def end_sample(self) -> None:
+        """E3: the sampling kernels are launched; the copy follows."""
+        if self.events is not None:
+            self.events[3].record(self._stream)
+        self.host[3] = self.tracer.now()
+
+    def close(self, t_end: float) -> None:
+        """After the call's sync, at `t_end`: one span a phase."""
+        self._exit()
+        h, n = self.host, 3 if self.samples else 2
+        if self.events is None:
+            ms = [1e3 * (h[i + 1] - h[i]) for i in range(n)]
+        else:
+            ev = self.events
+            ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+        ends = (h[1], h[2], t_end)
+        for i in range(n):
+            self.tracer.complete(PHASES[i], h[i], ends[i] - h[i], cat="step",
+                                 phase=self.phase, device_ms=ms[i])
+
+    def abort(self) -> None:
+        """The call raised before `close`: its open range ends, and no
+        span is recorded."""
+        self._exit()
+
+    def _enter(self, name: str) -> None:
+        self._range = torch._C._profiler._RecordFunctionFast(name)
+        self._range.__enter__()
+
+    def _exit(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+
+
 def _name(fn: Callable) -> str:
     owner = getattr(getattr(fn, "__self__", None), "cfg", None)
     name = getattr(fn, "__name__", repr(fn))
@@ -108,6 +212,7 @@ class StepRunner:
         self.device = torch.device(device)
         self.graphs = self.device.type == "cuda" and not eager
         self._steps: Dict[tuple, _Step] = {}
+        self._marks: Dict[tuple, CallMarks] = {}
         self._stream = self._pool = None
         if self.graphs:
             self._stream = torch.cuda.Stream(self.device)
@@ -115,9 +220,10 @@ class StepRunner:
 
     def __call__(self, fn: Callable, params: Any, pools: Any,
                  tokens: np.ndarray, tables: np.ndarray,
-                 lengths: np.ndarray, n_new: np.ndarray) -> torch.Tensor:
+                 lengths: np.ndarray, n_new: np.ndarray,
+                 marks: Optional[CallMarks] = None) -> torch.Tensor:
         """Logits of `fn` on these inputs; the pools are updated in
-        place."""
+        place.  `marks`, a traced call's, are marked around the step."""
         host = (tokens, tables, lengths, n_new)
         key = (fn, tokens.shape)
         st = self._steps.get(key)
@@ -134,14 +240,29 @@ class StepRunner:
                 raise ValueError(f"{_name(fn)}: input {a.shape} for a "
                                  f"buffer of {tuple(buf.shape)}")
             buf.copy_(torch.from_numpy(a))
+        if marks is not None:
+            marks.begin_replay()
         if not self.graphs:
-            return st.run()
-        if st.graph is None:
-            return self._capture(st)
-        st.graph.replay()
-        st.replays += 1
-        add_launches(st.launches)
-        return st.logits
+            logits = st.run()
+        elif st.graph is None:
+            logits = self._capture(st)
+        else:
+            st.graph.replay()
+            st.replays += 1
+            add_launches(st.launches)
+            logits = st.logits
+        if marks is not None:
+            marks.end_replay()
+        return logits
+
+    def marks(self, fn: Callable, shape) -> CallMarks:
+        """The marks of (fn, shape)'s traced calls, allocated at the
+        first."""
+        key = (fn, tuple(shape))
+        m = self._marks.get(key)
+        if m is None:
+            m = self._marks[key] = CallMarks(self.device)
+        return m
 
     def _capture(self, st: _Step) -> torch.Tensor:
         with _capture_lock(self.device):

@@ -614,6 +614,82 @@ def test_captured_decode_step_replays_bitwise_equal(device):
                       "flash_decode": 0}
 
 
+def test_traced_calls_add_no_sync_and_time_each_phase(device, monkeypatch):
+    """A small model served on the card with the tracer off (after a
+    first run that builds the kernels), then on: the same `synchronize`
+    calls (device, stream, event) in both runs, so
+    the step spans' timing events are read after the syncs the calls
+    make anyway; four timing events a traced (step, shape) and none with
+    the tracer off; every phase's `device_ms` at least 0, the replay's
+    above 0, and a decode call's three phases within its span (to the
+    events' resolution, about half a microsecond)."""
+    import numpy as np
+
+    from repro_torch.models import DecoderLM, ModelConfig, init_params
+    from repro_torch.obs import get_tracer
+    from repro_torch.serve import PagedServeEngine, ServeConfig, ServeRequest
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=688, vocab=512,
+                      head_dim=64, qkv_bias=True, dtype="float32")
+    model = DecoderLM(cfg)
+    params = init_params(model.param_specs(),
+                         torch.Generator(device=device).manual_seed(0),
+                         device, torch.float32)
+    syncs, made = [], []
+    for owner, name in ((torch.cuda, "synchronize"),
+                        (torch.cuda.Stream, "synchronize"),
+                        (torch.cuda.Event, "synchronize")):
+        real = getattr(owner, name)
+        monkeypatch.setattr(owner, name, (
+            lambda real, tag: lambda *a, **kw:
+            syncs.append(tag) or real(*a, **kw))(real, f"{owner}.{name}"))
+
+    class Event(torch.cuda.Event):
+        def __new__(cls, *args, **kw):
+            made.append(kw)
+            return super().__new__(cls, *args, **kw)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    tr = get_tracer()
+    runs = []
+    for on in (False, False, True):     # the first builds the kernels
+        eng = PagedServeEngine(model, params, ServeConfig(
+            precision="int4", max_batch=2, max_seq=64, page_size=16,
+            prefill_chunk=16), device=device)
+        reqs = [ServeRequest(prompt=(np.arange(n) * 7 % 512).astype(
+            np.int32), max_new_tokens=12) for n in (20, 9)]
+        del syncs[:], made[:]
+        tr.clear()
+        if on:
+            tr.enable()
+        try:
+            eng.run(reqs)
+            events = tr.events()
+        finally:
+            tr.disable()
+            tr.clear()
+        runs.append((list(syncs), list(made), events, eng,
+                     [r.out_tokens for r in reqs]))
+    (sync_off, made_off, ev_off, _, out_off), \
+        (sync_on, made_on, ev_on, eng, out_on) = runs[1:]
+    assert out_on == out_off
+    assert sync_on == sync_off
+    assert made_off == [] and ev_off == []
+    assert made_on == [{"enable_timing": True}] * (4 * 2)   # two shapes
+    steps = [e for e in ev_on if e["cat"] == "step"]
+    assert all(e["args"]["device_ms"] >= 0.0 for e in steps)
+    assert all(e["args"]["device_ms"] > 0.0 for e in steps
+               if e["name"] == "step_replay")
+    calls = [e for e in ev_on if e["name"] == "decode_step"]
+    assert len(calls) == eng.decode_calls > 0
+    for call in calls:
+        end = call["t_s"] + call["dur_s"]
+        kids = [e for e in steps if call["t_s"] <= e["t_s"] <= end]
+        assert [k["name"] for k in kids] == ["step_inputs", "step_replay",
+                                             "step_sample"]
+        assert sum(k["args"]["device_ms"] for k in kids) <= \
+            1e3 * call["dur_s"] + 1e-3
+
+
 # ----------------------------------------------------------------------------
 # the shapes of the sliding-window / softcap families and phi3
 # ----------------------------------------------------------------------------

@@ -6,7 +6,14 @@ same arithmetic on the same token and length stream), the same
 flight-recorder events and the same tracer spans and instants, timings
 aside.  Also the launcher's `--trace` against the JAX launcher's, and
 its cost-model line.
+
+The port also splits each model call into spans of category "step"
+(`step_inputs`, `step_replay`, `step_sample`: `serve/graphs.py`
+`CallMarks`), which the JAX engine has no counterpart of: the parity
+helpers `_trace` and `_counts` compare every other event, and the step
+spans have tests of their own below.
 """
+import collections
 import contextlib
 import io
 import math
@@ -14,6 +21,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import repro.launch.serve as jax_launch
 from repro.obs import get_tracer as jax_get_tracer
@@ -57,22 +65,34 @@ def _prompts(vocab, spec):
     return [np.tile(motif, 4)[:n] for n in (7, 13, 18, 9)]
 
 
-def _serve_both(precision, kv, spec, **geom_kw):
-    jm, jp, tm, tp = _pair(SMOKE, precision)
-    geom = dict(precision=precision, kv_dtype=kv, max_batch=2, max_seq=48,
+def _geom(precision, kv, **geom_kw):
+    return dict(precision=precision, kv_dtype=kv, max_batch=2, max_seq=48,
                 page_size=4, prefill_chunk=8, **geom_kw)
-    prompts = _prompts(SMOKE["vocab"], spec)
+
+
+def _port_engine(precision, kv, spec, **geom_kw):
+    """The port's engine and requests of `_serve_both`, not yet run."""
+    tm, tp = _pair(SMOKE, precision)[2:]
+    treqs = [ServeRequest(prompt=p.copy(), max_new_tokens=9, rid=i)
+             for i, p in enumerate(_prompts(SMOKE["vocab"], spec))]
+    teng = PagedServeEngine(tm, tp, ServeConfig(**_geom(precision, kv,
+                                                        **geom_kw)),
+                            device="cpu",
+                            spec=SpecConfig(drafter="ngram", k=4) if spec
+                            else None)
+    return teng, treqs
+
+
+def _serve_both(precision, kv, spec, **geom_kw):
+    jm, jp = _pair(SMOKE, precision)[:2]
     jreqs = [JaxRequest(prompt=p.copy(), max_new_tokens=9, rid=i)
-             for i, p in enumerate(prompts)]
-    jeng = JaxEngine(jm, jp, JaxServeConfig(**geom),
+             for i, p in enumerate(_prompts(SMOKE["vocab"], spec))]
+    jeng = JaxEngine(jm, jp, JaxServeConfig(**_geom(precision, kv,
+                                                    **geom_kw)),
                      spec=JaxSpecConfig(drafter="ngram", k=4) if spec
                      else None)
     jeng.run(jreqs)
-    treqs = [ServeRequest(prompt=p.copy(), max_new_tokens=9, rid=i)
-             for i, p in enumerate(prompts)]
-    teng = PagedServeEngine(tm, tp, ServeConfig(**geom), device="cpu",
-                            spec=SpecConfig(drafter="ngram", k=4) if spec
-                            else None)
+    teng, treqs = _port_engine(precision, kv, spec, **geom_kw)
     teng.run(treqs)
     return (jeng, jreqs), (teng, treqs)
 
@@ -83,8 +103,10 @@ def _events(recorder):
 
 
 def _trace(tracer):
+    """The tracer's events, timings aside, but the port-only step
+    spans."""
     return [(e["ph"], e["name"], e["cat"], e["args"])
-            for e in tracer.events()]
+            for e in tracer.events() if e["cat"] != "step"]
 
 
 def _check_same(jax_side, port_side, spec):
@@ -145,6 +167,173 @@ def test_engine_obs_matches_jax_under_preemption(tracers):
     _check_same(jax_side, port_side, False)
     assert "preempt" in [e["kind"] for e in port_side[0].recorder.snapshot()]
     assert _trace(tracers[0]) == _trace(tracers[1])
+
+
+# ----------------------------------------------------------------------------
+# the port's step spans (category "step")
+# ----------------------------------------------------------------------------
+CALLS = ("prefill_chunk", "decode_step", "spec_verify")
+SLACK = 1e-9        # seconds: one rounding of a clock reading's sum
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "ngram"])
+def test_step_spans_split_every_model_call(tracers, spec):
+    """Each model call's span holds exactly one `step_inputs`, one
+    `step_replay` and, where the call samples, one `step_sample` span,
+    in that order, one after another, inside it, of the call's phase.
+    On the CPU a phase's `device_ms` is the host clock's between the
+    same marks.  Counted by phase, the replays are the engine's calls."""
+    port_tr = tracers[0]
+    eng, reqs = _port_engine("int4", "int8", spec)
+    sampled = []
+    sample_rows = eng._sample_rows
+    eng._sample_rows = lambda *a: sampled.append(1) or sample_rows(*a)
+    eng.run(reqs)
+    evs = port_tr.events()
+    steps = [e for e in evs if e["cat"] == "step"]
+    calls = [e for e in evs if e["name"] in CALLS]
+    assert steps and all(e["ph"] == "X" for e in steps)
+    assert all(e["cat"] == "engine" for e in calls)
+    replays = collections.Counter()
+    sampled_prefills = n_kids = 0
+    for call in calls:
+        end = call["t_s"] + call["dur_s"]
+        kids = [e for e in steps if call["t_s"] <= e["t_s"] <= end]
+        n_kids += len(kids)
+        phase = kids[0]["args"]["phase"]
+        want = {"prefill_chunk": ("prefill",), "decode_step": ("decode",),
+                "spec_verify": ("decode", "verify")}[call["name"]]
+        assert phase in want
+        samples = phase != "prefill" or len(kids) == 3
+        assert [k["name"] for k in kids] == (
+            ["step_inputs", "step_replay"]
+            + (["step_sample"] if samples else []))
+        assert kids[0]["t_s"] == call["t_s"]
+        for a, b in zip(kids, kids[1:]):
+            assert a["t_s"] + a["dur_s"] <= b["t_s"] + SLACK
+        assert kids[-1]["t_s"] + kids[-1]["dur_s"] <= end + SLACK
+        for k in kids:
+            assert set(k["args"]) == {"phase", "device_ms"}
+            assert k["args"]["phase"] == phase
+            assert k["args"]["device_ms"] >= 0.0
+            if k["name"] == "step_sample":
+                assert k["args"]["device_ms"] <= 1e3 * k["dur_s"] + 1e-6
+            else:
+                assert k["args"]["device_ms"] == pytest.approx(
+                    1e3 * k["dur_s"], rel=1e-6, abs=1e-6)
+        replays[phase] += 1
+        sampled_prefills += phase == "prefill" and samples
+    assert n_kids == len(steps)
+    assert replays == collections.Counter(
+        {"prefill": eng.prefill_calls, "decode": eng.decode_calls,
+         "verify": eng.verify_calls}) and replays["prefill"] > 0
+    # a prefill call samples where a lane ends its prompt; a plain
+    # engine's decode calls sample too, a speculative one's take the
+    # verify logits instead
+    assert 0 < sampled_prefills == len(sampled) - (
+        0 if spec else eng.decode_calls)
+    if spec:
+        assert eng.verify_calls > 0
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_tracing_off_adds_no_events_and_no_ranges(monkeypatch, on):
+    """With the tracer off a served run creates no `torch.cuda.Event`
+    and enters no profiler range (neither the function-scope range the
+    marks use nor `record_function`), and records nothing; with it on
+    (the control) every step span's range is entered and left, and on
+    the CPU still no CUDA event is made.  Streams are equal."""
+    made, log = [], []
+
+    class Range:
+        def __init__(self, name, *args, **kw):
+            self.name = name
+
+        def __enter__(self):
+            log.append(("enter", self.name))
+            return self
+
+        def __exit__(self, *exc):
+            log.append(("exit", self.name))
+
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda *a, **kw: made.append(kw))
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", Range)
+    monkeypatch.setattr(torch.profiler, "record_function", Range)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", Range)
+    tr = get_tracer()
+    tr.clear()
+    if on:
+        tr.enable()
+    try:
+        eng, reqs = _port_engine("int4", "int8", False)
+        eng.run(reqs)
+        events = tr.events()
+    finally:
+        tr.disable()
+        tr.clear()
+    assert made == []
+    if not on:
+        assert log == [] and events == []
+        return
+    # one range a step span, entered and left in the spans' order
+    steps = [e["name"] for e in events if e["cat"] == "step"]
+    assert log == [(k, n) for n in steps for k in ("enter", "exit")]
+    assert steps.count("step_replay") == eng.prefill_calls + \
+        eng.decode_calls
+    ref, ref_reqs = _port_engine("int4", "int8", False)
+    ref.run(ref_reqs)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in ref_reqs]
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_traced_call_that_raises_closes_its_range(monkeypatch, phase):
+    """A traced model call whose dispatch raises (a runner's shape
+    error, a failed capture) leaves its step range, opened at the
+    call's start, closed, its marks dropped and no step span behind;
+    the error reaches the caller."""
+    log = []
+
+    class Range:
+        def __init__(self, name, *args, **kw):
+            self.name = name
+
+        def __enter__(self):
+            log.append(("enter", self.name))
+            return self
+
+        def __exit__(self, *exc):
+            log.append(("exit", self.name))
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", Range)
+    tr = get_tracer()
+    tr.clear()
+    tr.enable()
+    try:
+        eng, reqs = _port_engine("int4", "int8", False)
+        dispatch = eng._dispatch
+        width = 1 if phase == "decode" else eng.config.prefill_chunk
+
+        def failing(tokens, *a, **kw):
+            if tokens.shape[1] == width:
+                raise ValueError("no such step")
+            return dispatch(tokens, *a, **kw)
+
+        eng._dispatch = failing
+        with pytest.raises(ValueError, match="no such step"):
+            eng.run(reqs)
+        events = tr.events()
+    finally:
+        tr.disable()
+        tr.clear()
+    assert eng._traced is None
+    assert log and log[-2:] == [("enter", "step_inputs"),
+                                ("exit", "step_inputs")]
+    assert log[0::2] == [("enter", n) for _, n in log[0::2]]
+    assert log[1::2] == [("exit", n) for _, n in log[0::2]]
+    replays = [e for e in events if e["name"] == "step_replay"]
+    assert len(replays) == eng.prefill_calls + eng.decode_calls
+    assert all(e["args"]["phase"] == "prefill" for e in replays)
 
 
 class _Spy:
@@ -220,9 +409,11 @@ def _run_port_launcher(argv):
 
 
 def _counts(tracer):
+    """Events by name, but the port-only step spans."""
     names = {}
     for e in tracer.events():
-        names[e["name"]] = names.get(e["name"], 0) + 1
+        if e["cat"] != "step":
+            names[e["name"]] = names.get(e["name"], 0) + 1
     return names
 
 
@@ -239,7 +430,7 @@ def test_launcher_trace_matches_jax(monkeypatch):
         assert got["prefill_chunk"] == eng.prefill_calls
         assert got["decode_step"] == eng.decode_calls
         assert got["submit"] == got["admit"] == got["finish"] == 2
-        assert f"trace: {sum(got.values())} events" in out
+        assert f"trace: {len(port_tr.events())} events" in out
         assert "EdgeCIM cost model (simulated, not measured)" in out
     finally:
         for tr in (port_tr, jax_tr):

@@ -290,10 +290,10 @@ def test_engine_tables_never_name_the_dump_page():
 
     class Recording(StepRunner):
         def __call__(self, fn, params, pools, tokens, tables, lengths,
-                     n_new):
+                     n_new, marks=None):
             seen.append((pools["attn"]["k"].shape[1], int(tables.max())))
             return super().__call__(fn, params, pools, tokens, tables,
-                                    lengths, n_new)
+                                    lengths, n_new, marks)
 
     eng = PagedServeEngine(model, params, ServeConfig(
         precision="int4", max_batch=2, max_seq=32, page_size=4,
